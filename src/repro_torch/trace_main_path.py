@@ -1,0 +1,107 @@
+"""Where the main path's device time goes: the full-width configuration
+of :mod:`repro_torch.mainpath`, run once untraced (warm-up: cuDNN's
+algorithm choice, the kernels' build), then two windows under
+``torch.profiler``: 10 plain train steps, and one streaming
+homogenization round.
+
+    PYTHONPATH=src python -m repro_torch.trace_main_path [--top 12]
+
+For each window it prints the wall time, the time the device spent in
+kernels (the union of kernel intervals), the device's idle share
+(1 − kernel time / wall time), kernel time by family, and the kernels
+with the most device time. Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.core import driver
+from repro_torch.mainpath import full_width_sim
+
+FAMILIES = (("cuDNN layout transposes", ("genericTranspose", "nchwToNhwc",
+                                         "nhwcToNchw")),
+            ("convolutions", ("conv", "xmma", "wgrad", "dgrad", "sgemm",
+                              "scaleTensor", "cudnn")),
+            ("idkd kernels", ("idkd::",)),
+            ("GEMMs", ("gemm", "gemv")),
+            ("elementwise + reductions", ("at::native",)))
+
+
+def _family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def _window(label: str, fn, top: int, per: int = 1):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, None
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in kernels):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    print(f"{label}: {wall_us / 1e3 / per:.2f} ms wall per call, "
+          f"{busy / 1e3 / per:.2f} ms in kernels, device idle share "
+          f"{1 - busy / wall_us:.3f}, {len(kernels) / per:.0f} kernels "
+          f"per call")
+    fams, names = defaultdict(float), defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        d = k.time_range.end - k.time_range.start
+        fams[_family(k.name)] += d
+        names[k.name][0] += d
+        names[k.name][1] += 1
+    total = sum(fams.values())
+    for fam, d in sorted(fams.items(), key=lambda x: -x[1]):
+        print(f"  {fam:28s} {d / 1e3 / per:8.2f} ms  {d / total:6.1%}")
+    for name, (d, n) in sorted(names.items(), key=lambda x: -x[1][0])[:top]:
+        print(f"    {d / 1e3 / per:8.3f} ms {n / per:7.1f}x  {name[:80]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sim = full_width_sim("cuda")
+    params = sim.run().params                  # warm-up
+    cfg = sim.tcfg
+    sample = driver.make_classification_sampler(
+        driver.pad_partitions(sim.parts, sim.device), sim.train_x,
+        sim.train_y, sim.mcfg.num_classes, cfg.batch_size)
+    gen = torch.Generator(device=sim.device).manual_seed(0)
+    state = {"p": params, "o": sim.algo.init(params)}
+
+    def steps(n):
+        for t in range(n):
+            state["p"], state["o"], _ = sim.steps["plain"](
+                state["p"], state["o"], sample(gen, t), sim.lr_fn(t))
+
+    steps(3)
+    _window("plain train step (16 nodes x batch 32)", lambda: steps(10),
+            args.top, per=10)
+    sim.homogenize(state["p"], cfg.idkd)
+    _window("homogenization round (streaming, head_select)",
+            lambda: sim.homogenize(state["p"], cfg.idkd), args.top)
+
+
+if __name__ == "__main__":
+    main()
