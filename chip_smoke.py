@@ -22,7 +22,24 @@ Phases (any failed check raises and the script exits non-zero):
    clears a floor);
 4. the one-shot ``fused`` round (``msp_select``) on the final params,
    held against the streaming round;
-5. the quickstart twin, held to an accuracy floor.
+5. the quickstart twin, held to an accuracy floor;
+LM-1. the LM kernels against their plain versions on the card at
+   Hymba-1.5B's shapes: ``flash_attention`` (global and windowed, f32
+   and bf16, timed beside ``scaled_dot_product_attention``),
+   ``ssd_scan`` (and at Mamba-2-780M's state size N = 128) and
+   ``head_select`` at Hymba's head (D = 1600, C = 32,001, bf16, 65,536
+   rows);
+LM-2. the LM homogenization round at full width (``repro_torch.lmpath``:
+   Hymba-1.5B on 4 ring nodes, 64 public and 16 private sequences of
+   2048 tokens per node): wall time, each kernel's launches and device
+   time, kept fraction, thresholds, finite and well-formed labels; the
+   kernels against their plain versions on activations captured from
+   the round's first microbatch (a global and a windowed attention
+   layer, an SSD layer); and the same round at a reduced Hymba on the
+   card against the CPU's plain path (thresholds, masks and labels);
+LM-3. the one-shot round (``msp_select`` on (n, P, S, V) logits) on the
+   first 8 public sequences, held against the streaming round, and
+   ``msp_select`` against its plain version on that round's logits.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -49,6 +66,24 @@ QUICKSTART_FLOOR = 0.75      # on the CPU the port reaches 0.854 and the
                              # reference 0.904 (see PERF.md)
 MAIN_ACC_FLOOR = 0.3         # the full-width main path's final consensus
                              # accuracy (chance is 0.1; see PERF.md)
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's own
+                             # kernel tolerances: a few f32 ulp of the
+                             # output, one bf16 ulp where it rounds to bf16
+SSD_VS_F32 = 4.0             # ssd_scan's max error against the plain
+                             # version in float64 may be at most this many
+                             # times that of the plain version in float32,
+                             # plus SSD_ATOL: its decays exp(cum_t - cum_u)
+                             # difference two cumulative sums of up to 256
+                             # log-decays (|cum| ~ 1e4 at A = 50), so any
+                             # f32 summation order carries |cum|·eps
+                             # relative error; the kernel must be no less
+                             # exact than the plain f32 computation
+SSD_ATOL = 1e-5
+LM_CHECK_ATOL, LM_CHECK_RTOL = 1e-6, 1e-4   # reduced head pass, card vs
+                             # CPU: conf and label values after 3 f32 layers
+MASK_BAND = 1e-5             # one-shot (bf16 logits) vs streaming (f32
+                             # logits) D_ID masks may differ only for
+                             # sequences this close to the threshold
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
                                                       # bf16 tensor cores
@@ -317,12 +352,503 @@ def phase_quickstart(torch):
           f"quickstart accuracy {r.final_acc} below {QUICKSTART_FLOOR}")
 
 
+# ------------------------------------------------------------- LM phases
+def _flash_work(B, S, H, KVH, D, window, elem):
+    """(bytes, flops) of one causal (windowed) attention call: q, k, v
+    read and o written once; 4·D flops per visible (q, k) pair and head."""
+    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(S))
+    return ((2 * B * S * H * D + 2 * B * S * KVH * D) * elem,
+            4.0 * D * H * B * pairs)
+
+
+def _ssd_work(B, S, H, P, G, N):
+    """(bytes, flops) of one scan: xdt, dta, b, c read and y written once;
+    the function's least work is the recurrence, per position and head a
+    rank-1 update of the (P, N) state and its readout by c, 2·N·P flops
+    each (the decays scale the state once per chunk). The chunked dual
+    form's intra-chunk products are the kernel's choice, not counted."""
+    flops = B * S * H * 4 * N * P
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N)
+    return nbytes, float(flops)
+
+
+def _sdpa(torch, q, k, v, window):
+    """The library yardstick: one scaled_dot_product_attention call on
+    (B, H, S, D) copies of the same inputs (made outside the timing)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    S = q.shape[1]
+    mask = None
+    if window:
+        pos = torch.arange(S, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=not window,
+            enable_gqa=True).transpose(1, 2)
+    return call
+
+
+def _check_flash(torch, q, k, v, window, what):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    out = flash_attention(q, k, v, window=window)
+    ref = flash_attention_plain(q, k, v, window=window)
+    dname = str(q.dtype).split(".")[-1]
+    err = float((out.float() - ref.float()).abs().max())
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    check(err <= FLASH_ATOL[dname], f"{what}: max error {err:.3g} > "
+                                    f"{FLASH_ATOL[dname]}")
+    return err
+
+
+def _check_ssd(torch, xdt, dta, b, c, chunk, what):
+    """The kernel against the plain version (f32, the reported error) and
+    both against the plain version in float64 (the check)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    y = ssd_scan(xdt, dta, b, c, chunk=chunk)
+    ref = ssd_scan_plain(xdt, dta, b, c, chunk=chunk)
+    exact = ssd_scan_plain(*(t.double() for t in (xdt, dta, b, c)),
+                           chunk=chunk)
+    err = float((y - ref).abs().max())
+    e_kernel = float((y.double() - exact).abs().max())
+    e_plain = float((ref.double() - exact).abs().max())
+    del exact
+    check(bool(torch.isfinite(y).all()), f"{what}: non-finite output")
+    check(e_kernel <= SSD_VS_F32 * e_plain + SSD_ATOL,
+          f"{what}: max error against float64 {e_kernel:.3g}, the plain "
+          f"f32 version's {e_plain:.3g} (kernel vs plain {err:.3g}; max "
+          f"|y| {float(ref.abs().max()):.3g})")
+    print(f"  {what}: max error against the float64 plain version: kernel "
+          f"{e_kernel:.3g}, plain f32 {e_plain:.3g}")
+    return err
+
+
+def phase_lm_kernels(torch):
+    """LM-1: each LM kernel against its plain version at Hymba's shapes."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.head_select import head_select, head_select_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.configs import get_config
+    from repro_torch.lmpath import CONFIG
+    from repro_torch.models.ssm import ssm_dims
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+    cfg = CONFIG
+    S = 2048 + cfg.num_prefix_tokens                 # meta tokens prepended
+    B = 8                                            # one microbatch
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rows = {"flash_attention": [], "ssd_scan": [], "head_select": []}
+    for window in (0, cfg.sliding_window):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+            tag = f"flash_attention S={S} B={B} window={window} {dname}"
+            err = _check_flash(torch, q, k, v, window, tag)
+            nbytes, flops = _flash_work(B, S, H, KVH, D, window,
+                                        q.element_size())
+            bnd, by = bound_ms(nbytes, flops, dname)
+            ms = timed(lambda: flash_attention(q, k, v, window=window), 5,
+                       torch)
+            pms = timed(lambda: flash_attention_plain(q, k, v, window=window),
+                        2, torch)
+            lib = _sdpa(torch, q, k, v, window)
+            try:
+                lib_err = float((lib().float() - flash_attention_plain(
+                    q, k, v, window=window).float()).abs().max())
+                lms = timed(lib, 5, torch)
+            except RuntimeError as exc:      # no SDPA backend takes it
+                print(f"{tag}: scaled_dot_product_attention refused: {exc}")
+                lib_err = lms = None
+            rows["flash_attention"].append(dict(
+                window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
+                bound_ms=bnd, bound_by=by, library_ms=lms))
+            print(f"{tag}: max_abs_err {err:.3g} (tol {FLASH_ATOL[dname]}); "
+                  f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved), plain "
+                  f"{pms:.3f} ms, sdpa {lms} ms (its max diff from the "
+                  f"plain version {lib_err})")
+            del q, k, v
+    # Hymba's mixer, and Mamba-2-780M's (state size 128) at 2048 tokens
+    for label, mcfg, Ss in (("hymba", cfg, S),
+                            ("mamba2-780m", get_config("mamba2-780m"), 2048)):
+        Bs, Hs, P = B, ssm_dims(mcfg)[1], mcfg.ssm.head_dim
+        G, N, chunk = mcfg.ssm.ngroups, mcfg.ssm.state_size, mcfg.ssm.chunk_size
+        x = torch.randn((Bs, Ss, Hs, P), generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((Bs, Ss, Hs), generator=gen, device=dev))
+        a_log = torch.log(torch.arange(1, Hs + 1, device=dev,
+                                       dtype=torch.float32))
+        dta = (dt * -torch.exp(a_log)).contiguous()
+        xdt = (x * dt[..., None]).contiguous()
+        b = torch.randn((Bs, Ss, G, N), generator=gen, device=dev)
+        c = torch.randn((Bs, Ss, G, N), generator=gen, device=dev)
+        tag = f"ssd_scan {label} B={Bs} S={Ss} H={Hs} P={P} N={N}"
+        err = _check_ssd(torch, xdt, dta, b, c, chunk, tag)
+        nbytes, flops = _ssd_work(Bs, Ss, Hs, P, G, N)
+        bnd, by = bound_ms(nbytes, flops, "float32")
+        ms = timed(lambda: ssd_scan(xdt, dta, b, c, chunk=chunk), 5, torch)
+        pms = timed(lambda: ssd_scan_plain(xdt, dta, b, c, chunk=chunk), 2,
+                    torch)
+        rows["ssd_scan"].append(dict(shape=label, err=err, ms=ms,
+                                     plain_ms=pms, bound_ms=bnd, bound_by=by))
+        print(f"{tag}: max_abs_err {err:.3g} (vs float64: within "
+              f"{SSD_VS_F32}x the plain f32 error); {ms:.3f} ms, bound "
+              f"{bnd:.3f} ms ({by}, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s achieved), plain {pms:.3f} ms")
+        del x, dt, dta, xdt, b, c
+    # head_select at Hymba's head: 4 nodes x 8 sequences x 2048 tokens
+    L, N, Dm, C = 4, 8 * 2048, cfg.d_model, cfg.vocab_size
+    h = torch.randn((L, N, Dm), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((L, Dm, C), generator=gen, device=dev) / Dm ** 0.5
+         ).to(torch.bfloat16)
+    kw = dict(temperature=10.0, k=8, detector="msp")
+    out = head_select(h, w, None, **kw)
+    err = 0.0
+    for i in range(L):              # the plain version one node at a time:
+        ref = head_select_plain(h[i:i + 1], w[i:i + 1], None, **kw)
+        logits = torch.matmul(h[i:i + 1].float(), w[i:i + 1].float())
+        e, ties = _compare(torch, [t[i:i + 1] for t in out], ref, logits,
+                           f"head_select hymba node {i}")
+        err = max(err, e)
+        del ref, logits
+    nbytes = (L * N * Dm + L * Dm * C) * 2 + L * N * (4 + 8 * 8)
+    bnd, by = bound_ms(nbytes, 2.0 * L * N * Dm * C, "bfloat16")
+    ms = timed(lambda: head_select(h, w, None, **kw), 2, torch)
+    pms = sum(timed(lambda: head_select_plain(h[i:i + 1], w[i:i + 1], None,
+                                              **kw), 1, torch)
+              for i in range(L))
+    rows["head_select"].append(dict(shape="hymba", err=err, ms=ms,
+                                    plain_ms=pms, bound_ms=bnd, bound_by=by))
+    print(f"head_select hymba L={L} rows={L * N} D={Dm} C={C} bf16 msp k=8: "
+          f"max_abs_err {err:.3g}; {ms:.2f} ms, bound {bnd:.3f} ms ({by}), "
+          f"plain {pms:.2f} ms (4 node calls)")
+    del h, w, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _KernelClock:
+    """Wraps a kernel entry point where a module calls it: CUDA events
+    around each call (device time, read after the run) and, for the
+    calls listed in ``keep``, copies of the arguments."""
+
+    def __init__(self, torch, module, attr, keep=()):
+        self.torch, self.module, self.attr = torch, module, attr
+        self.fn = getattr(module, attr)
+        self.keep, self.kept, self.events, self.calls = keep, {}, [], 0
+        setattr(module, attr, self)
+
+    def __call__(self, *args, **kw):
+        if self.calls in self.keep:
+            self.kept[self.calls] = (
+                [a.clone() if hasattr(a, "clone") else a for a in args],
+                dict(kw))
+        self.calls += 1
+        s = self.torch.cuda.Event(enable_timing=True)
+        e = self.torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.fn(*args, **kw)
+        e.record()
+        self.events.append((s, e))
+        return out
+
+    def ms(self):
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+    def restore(self):
+        setattr(self.module, self.attr, self.fn)
+
+
+def _check_round(torch, out, vocab, what):
+    """Finite, well-formed round outputs: every kept (node, sequence)
+    carries, per token, labels that sum to 1; the others are empty."""
+    labels, weights, id_mask, thr = out
+    n, P = weights.shape
+    check(labels.values.shape[:2] == (n, P), f"{what}: labels "
+                                             f"{tuple(labels.values.shape)}")
+    for name, t in (("values", labels.values), ("weights", weights),
+                    ("thresholds", thr)):
+        check(bool(torch.isfinite(t).all()), f"{what}: non-finite {name}")
+    mass = labels.values.sum(-1)                       # (n, P, S)
+    want = weights[..., None].expand_as(mass)
+    gap = float((mass - want).abs().max())
+    check(gap <= 1e-4, f"{what}: label mass differs from the weights by "
+                       f"{gap:.3g}")
+    idx = labels.indices
+    check(bool(((idx >= 0) & (idx < vocab)).all()),
+          f"{what}: label indices outside the vocabulary")
+    return float(id_mask.float().mean())
+
+
+def phase_lm_round(torch):
+    """LM-2: the full-width Hymba-1.5B round, then the captured layers and
+    a reduced round on the card against the CPU."""
+    import repro_torch.core.labeling as lab
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    t0 = time.perf_counter()
+    lm = lmpath.setup(device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v[0].numel() for v in lm.params.values())
+    print(f"LM round setup: {time.perf_counter() - t0:.1f} s; "
+          f"{lm.model.cfg.name}, {n_params / 1e9:.3f} B params per node x "
+          f"{lm.params['embed'].shape[0]} nodes, public "
+          f"{lm.public.shape}, private {lm.private.shape}, windows "
+          f"{lm.model.layer_windows()}")
+    # flash calls 0 and 1 are node 0's layers 0 (global) and 1 (windowed)
+    # on the first public microbatch; ssd call 0 is its layer 0
+    clocks = {"flash_attention": _KernelClock(torch, attn_mod,
+                                              "flash_attention", (0, 1)),
+              "ssd_scan": _KernelClock(torch, ssm_mod, "ssd_scan", (0,)),
+              "head_select": _KernelClock(torch, lab, "head_select")}
+    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+                "head_select": head_select}
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = lm.run()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    for c in clocks.values():
+        c.restore()
+    dev_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vocab = lm.model.cfg.vocab_size
+    kept = _check_round(torch, out, vocab, "LM round")
+    thr = out[3]
+    per_kernel = {k: c.ms() for k, c in clocks.items()}
+    print(f"LM round: {wall:.2f} s wall, {dev_ms:.1f} ms between events, "
+          f"peak memory {peak:.1f} GiB; launches {launches}; kernel device "
+          f"ms " + ", ".join(f"{k} {v:.1f}" for k, v in per_kernel.items())
+          + f" (rest {dev_ms - sum(per_kernel.values()):.1f}); kept "
+          f"{kept:.4f}, per node "
+          f"{[round(float(x), 4) for x in out[2].float().mean(1)]}, "
+          f"thresholds {[round(float(x), 7) for x in thr]}, labels "
+          f"{tuple(out[0].values.shape)}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched in the LM round")
+
+    # the kernels on the round's own activations
+    for i, what in ((0, "global layer 0"), (1, "windowed layer 1")):
+        (q, k, v), kw = clocks["flash_attention"].kept[i]
+        check((kw["window"] == 0) == (i == 0), f"captured flash call {i} "
+                                               f"has window {kw['window']}")
+        err = _check_flash(torch, q, k, v, kw["window"],
+                           f"flash_attention on captured {what}")
+        print(f"flash_attention on the round's {what} (q "
+              f"{tuple(q.shape)} {q.dtype}, window {kw['window']}): "
+              f"max_abs_err {err:.3g}")
+    (xdt, dta, b, c), kw = clocks["ssd_scan"].kept[0]
+    err = _check_ssd(torch, xdt, dta, b, c, kw["chunk"],
+                     "ssd_scan on captured layer 0")
+    print(f"ssd_scan on the round's layer 0 (xdt {tuple(xdt.shape)}, max "
+          f"|xdt| {float(xdt.abs().max()):.3g}): max_abs_err {err:.3g}")
+    del clocks, out
+    torch.cuda.empty_cache()
+
+    # a reduced Hymba on the card against the CPU's plain path: the head
+    # pass (all three kernels) on public and private tokens, then the
+    # whole round. 256 private sequences give every node its 16
+    # calibration sequences, so the ROC thresholds move with the scores
+    # (at 1e-6 of noise on every score, by < 1e-6 on the CPU) and do not
+    # jump between the plateaus of a 2-sequence curve
+    cfg = lmpath.CONFIG.reduced().replace(num_layers=3, num_kv_heads=2)
+    small = lmpath.setup(cfg, seq_len=120, n_private=256, n_public=12,
+                         icfg=dataclasses.replace(lm.icfg,
+                                                  stream_microbatch=5),
+                         device="cpu")
+    n = small.private.shape[0]
+    batches = [torch.as_tensor(small.public[None].repeat(n, 0)),
+               torch.as_tensor(small.private)]
+    cpu = [lab._head_pass(small.model, small.params, x.long(), small.icfg, 8)
+           for x in batches]
+    cpu_round = small.run()
+    small.params = {k: v.cuda() for k, v in small.params.items()}
+    gpu = [lab._head_pass(small.model, small.params, x.cuda().long(),
+                          small.icfg, 8) for x in batches]
+    gpu_round = small.run()
+    err = 0.0
+    for (c, v, i), (cr, vr, ir), what in zip(gpu, cpu, ("public",
+                                                        "private")):
+        for a, b in ((c, cr), (v, vr)):
+            d = (a.cpu() - b).abs()
+            check(bool((d <= LM_CHECK_ATOL + LM_CHECK_RTOL * b.abs()).all()),
+                  f"reduced head pass on {what} tokens, card vs CPU: max "
+                  f"error {float(d.max()):.3g}")
+            err = max(err, float(d.max()))
+        swap = i.cpu() != ir
+        check(bool((~swap | ((v.cpu() - vr).abs() <= 1e-6)).all()),
+              f"reduced head pass on {what} tokens: label indices differ "
+              f"outside near-ties")
+    check(small.private.shape[1] == 16, f"reduced round calibrates on "
+                                        f"{small.private.shape[1]} sequences")
+    labels, weights, mask, thr = (t.cpu() if torch.is_tensor(t) else t
+                                  for t in gpu_round)
+    dthr = float((thr - cpu_round[3]).abs().max())
+    check(dthr <= THRESH_ATOL, f"reduced round, card vs CPU: thresholds "
+                               f"differ by {dthr:.3g} > {THRESH_ATOL}")
+    check(bool((mask == cpu_round[2]).all()), "reduced round, card vs CPU: "
+                                              "D_ID masks differ")
+    check(bool((weights == cpu_round[1]).all()), "reduced round, card vs "
+                                                 "CPU: weights differ")
+    v, vr = labels.values.cpu(), cpu_round[0].values
+    dlab = float((v - vr).abs().max())
+    check(bool(((v - vr).abs() <= LM_CHECK_ATOL + LM_CHECK_RTOL
+                * vr.abs()).all()),
+          f"reduced round, card vs CPU: merged labels differ by {dlab:.3g}")
+    swap = labels.indices.cpu() != cpu_round[0].indices
+    check(bool((~swap | ((v - vr).abs() <= 1e-6)).all()),
+          "reduced round, card vs CPU: label indices differ outside "
+          "near-ties")
+    print(f"reduced Hymba (3 layers, kv 2, S 120 + 8 meta > window "
+          f"{cfg.sliding_window}, 16 calibration sequences per node), card "
+          f"vs CPU plain path: head pass conf and labels within {err:.3g} "
+          f"(tol {LM_CHECK_ATOL} + {LM_CHECK_RTOL}|ref|); whole round: "
+          f"thresholds within {dthr:.3g} (tol {THRESH_ATOL}), D_ID masks "
+          f"and weights equal, merged labels within {dlab:.3g}, kept "
+          f"{float(mask.float().mean()):.4f}")
+    lm.stats = dict(wall_s=wall, device_ms=dev_ms, kernel_ms=per_kernel,
+                    peak_gib=peak, kept=kept)
+    return lm, launches
+
+
+def _check_msp_rows(torch, x, kw, what, rows=8192):
+    """msp_select against its plain version on the (R, V) logit rows ``x``,
+    ``rows`` at a time (the plain version's f32 softmax of all of them
+    would not fit beside the nodes), then both timed on all of ``x``."""
+    from repro_torch.kernels.msp_select import msp_select, msp_select_plain
+    err, ties = 0.0, 0
+    for r0 in range(0, x.shape[0], rows):
+        xc = x[r0:r0 + rows]
+        e, t = _compare(torch, msp_select(xc, **kw),
+                        msp_select_plain(xc, **kw), xc.float(),
+                        f"{what} rows {r0}..")
+        err, ties = max(err, e), ties + t
+    n_rows, C = x.shape
+    nbytes = n_rows * C * x.element_size() + n_rows * (4 + 8 * kw["k"])
+    bnd, by = bound_ms(nbytes, 4.0 * n_rows * C, "float32")
+    ms = timed(lambda: msp_select(x, **kw), 2, torch)
+    pms = sum(timed(lambda: msp_select_plain(x[r0:r0 + rows], **kw), 1,
+                    torch) for r0 in range(0, n_rows, rows))
+    print(f"{what} rows={n_rows} V={C} {x.dtype}: max_abs_err {err:.3g} "
+          f"(tol {ATOL}+{RTOL}|ref|), idx near-ties {ties}; {ms:.2f} ms, "
+          f"bound {bnd:.3f} ms ({by}), plain {pms:.2f} ms "
+          f"({-(-n_rows // rows)} calls)")
+    return dict(shape="hymba_oneshot", err=err, ties=ties, ms=ms,
+                plain_ms=pms, bound_ms=bnd, bound_by=by)
+
+
+def phase_lm_oneshot(torch, lm):
+    """LM-3: the one-shot fused round on the first 8 public sequences
+    against the streaming round on the same 8, and msp_select against its
+    plain version on the round's own (n·P·S, V) logits."""
+    import repro_torch.core.labeling as lab
+    from repro_torch.core.labeling import detector_scores
+    from repro_torch.kernels.msp_select import msp_select
+    pub = lm.public[:8]
+    stream = lm.run(public=pub)
+    fused_cfg = dataclasses.replace(lm.icfg, stream_labels=False,
+                                    label_backend="fused")
+    clock = _KernelClock(torch, lab, "msp_select", (0,))
+    msp_select.launches = 0
+    t0 = time.perf_counter()
+    try:
+        fused = lm.run(icfg=fused_cfg, public=pub)
+    finally:
+        clock.restore()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = msp_select.launches
+    check(launches > 0, "msp_select was not launched in the one-shot round")
+    (x,), kw = clock.kept[0]
+    del clock
+    row = _check_msp_rows(torch, x, kw, "msp_select on the one-shot round's "
+                                        "logits")
+    del x
+    torch.cuda.empty_cache()
+    _check_round(torch, fused, lm.model.cfg.vocab_size, "one-shot LM round")
+    dthr = float((stream[3] - fused[3]).abs().max())
+    check(dthr <= THRESH_ATOL, f"one-shot vs streaming thresholds differ by "
+                               f"{dthr:.3g} > {THRESH_ATOL}")
+    # the streaming round's sequence scores: f32 logits of the features
+    n = lm.params["embed"].shape[0]
+    toks = torch.as_tensor(pub, device="cuda")[None].expand((n,) + pub.shape)
+    h, _ = lm.model.forward_features(lm.params, {"tokens": toks})
+    w = lm.model.head_params(lm.params)[0].float()
+    logits = torch.bmm(h.float().reshape(n, -1, h.shape[-1]), w)
+    conf = detector_scores(logits.reshape(h.shape[:-1] + (-1,)),
+                           lm.icfg.detector)
+    del h, w, logits
+    differ = stream[2] != fused[2]
+    near = (conf - stream[3][:, None]).abs() <= MASK_BAND
+    check(bool((~differ | near).all()), "one-shot vs streaming D_ID masks "
+                                        "differ away from the threshold")
+    print(f"one-shot LM round (8 public sequences): {dt * 1e3:.1f} ms wall, "
+          f"msp_select launches {launches}, thresholds max diff {dthr:.3g} "
+          f"(tol {THRESH_ATOL}), mask differences {int(differ.sum())} (all "
+          f"within {MASK_BAND} of the threshold), kept "
+          f"{float(fused[2].float().mean()):.4f} vs streaming "
+          f"{float(stream[2].float().mean()):.4f}")
+    return launches, row
+
+
+def kernel_line(kres, lm_rows, launches, lm_launches):
+    """The ``kernels`` JSON line: one entry per kernel, timed at the
+    shape of the path where it does the most work (Hymba's round, and its
+    one-shot branch for msp_select); ``max_abs_err`` is the largest over
+    every shape checked; ``launches`` sums the paths that ran it,
+    ``launches_by_path`` splits them."""
+    src = "src/repro_torch/csrc/{}.cu"
+    ref = "src/repro/kernels/{}/kernel.py:{}"
+    flash = next(r for r in lm_rows["flash_attention"]
+                 if r["window"] and r["dtype"] == "bfloat16")
+    picks = {"head_select": (lm_rows["head_select"][0], 131),
+             "msp_select": (lm_rows["msp_select"][0], 67),
+             "flash_attention": (flash, 69),
+             "ssd_scan": (lm_rows["ssd_scan"][0], 60)}
+    errs = {"head_select": kres["head_select"] + lm_rows["head_select"],
+            "msp_select": kres["msp_select"] + lm_rows["msp_select"]}
+    line = []
+    for name, (row, at) in picks.items():
+        by_path = {"resnet_path": launches.get(name, 0),
+                   "lm_path": lm_launches.get(name, 0)}
+        line.append({"name": name, "route": "cuda",
+                     "source": src.format(name),
+                     "replaces": ref.format(name, at),
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": max(r["err"] for r in
+                                        errs.get(name, lm_rows.get(name))),
+                     "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row.get("library_ms")})
+    return line
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -339,24 +865,19 @@ def main() -> int:
     sim, result, launches = phase_main_path(torch, ops)
     launches["msp_select"] = phase_fused_round(torch, sim, result, ops)
     phase_quickstart(torch)
+    del sim, result
+    torch.cuda.empty_cache()
 
-    sources = {"head_select": ("src/repro_torch/csrc/head_select.cu",
-                               "src/repro/kernels/head_select/kernel.py:131"),
-               "msp_select": ("src/repro_torch/csrc/msp_select.cu",
-                              "src/repro/kernels/msp_select/kernel.py:67")}
-    line = []
-    for name, rows in kres.items():
-        main = next(r for r in rows if r["shape"] == "main"
-                    and r["dtype"] == "float32" and r["detector"] == "msp")
-        line.append({"name": name, "route": "cuda",
-                     "source": sources[name][0],
-                     "replaces": sources[name][1],
-                     "launches": launches[name],
-                     "max_abs_err": max(r["err"] for r in rows),
-                     "ms": main["ms"], "plain_ms": main["plain_ms"],
-                     "bound_ms": main["bound_ms"],
-                     "bound_by": main["bound_by"], "library_ms": None})
-    print(json.dumps({"kernels": line}))
+    lm_rows = phase_lm_kernels(torch)
+    lm, lm_launches = phase_lm_round(torch)
+    lm_launches["msp_select"], msp_row = phase_lm_oneshot(torch, lm)
+    lm_rows["msp_select"] = [msp_row]
+    del lm
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernel_line(kres, lm_rows, launches,
+                                             lm_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

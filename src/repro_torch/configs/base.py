@@ -3,8 +3,10 @@ the JAX package's ``configs/base.py`` so a run description means the same
 thing on either side.
 
 * :class:`ModelConfig` — one composable description of every supported
-  architecture family plus the paper's ResNet20-EvoNorm classifier (the
-  only family this package runs so far; see ROADMAP.md).
+  architecture family plus the paper's ResNet20-EvoNorm classifier; this
+  package runs the ResNet and the decoder stacks without MoE, MLA or
+  multiple codebooks (see ROADMAP.md). ``reduced()`` derives the CPU
+  test variant of a full config, as the reference's does.
 * :class:`IDKDConfig` — the paper's Algorithm 1 hyper-parameters.
 * :class:`TrainConfig` — one decentralized training run.
 
@@ -130,8 +132,60 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """CPU test variant: ≤2 layers, d_model ≤ 256, ≤4 experts."""
+        heads = min(self.num_heads, 4)
+        moe = self.moe
+        if moe.enabled:
+            moe = dataclasses.replace(
+                moe,
+                num_experts=min(moe.num_experts, 4),
+                num_experts_per_tok=min(moe.num_experts_per_tok, 2),
+                moe_d_ff=min(moe.moe_d_ff, 128),
+                num_shared_experts=min(moe.num_shared_experts, 1),
+                dense_residual_ff=min(moe.dense_residual_ff, 128),
+                first_k_dense=min(moe.first_k_dense, 1))
+        mla = self.mla
+        if mla.enabled:
+            mla = dataclasses.replace(
+                mla, q_lora_rank=min(mla.q_lora_rank, 64),
+                kv_lora_rank=min(mla.kv_lora_rank, 32),
+                qk_nope_head_dim=min(mla.qk_nope_head_dim, 32),
+                qk_rope_head_dim=min(mla.qk_rope_head_dim, 16),
+                v_head_dim=min(mla.v_head_dim, 32))
+        ssm = self.ssm
+        if ssm.enabled:
+            ssm = dataclasses.replace(
+                ssm, state_size=min(ssm.state_size, 16),
+                head_dim=min(ssm.head_dim, 16), chunk_size=32)
+        return self.replace(
+            num_layers=min(self.num_layers, 2),
+            d_model=min(self.d_model, 256),
+            num_heads=heads,
+            num_kv_heads=max(1, min(self.num_kv_heads, heads)),
+            head_dim=min(self.resolved_head_dim, 64),
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+            num_prefix_tokens=min(self.num_prefix_tokens, 8),
+            cross_attn_len=min(self.cross_attn_len, 8),
+            mtp_depth=min(self.mtp_depth, 1),
+            moe=moe, mla=mla, ssm=ssm,
+            cnn_stages=tuple(min(b, 1) for b in self.cnn_stages),
+            cnn_width=min(self.cnn_width, 8),
+            image_size=min(self.image_size, 8),
+            attn_chunk=64,
+            dtype="float32",
+            remat=False,
+        )
 
 
 @dataclass(frozen=True)

@@ -61,6 +61,21 @@ HomogenizedResult = Union[HomogenizedSet, SparseHomogenizedSet]
 
 
 
+def _sequence_score(conf) -> torch.Tensor:
+    """(n, P) sample confidences pass through; (n, P, S) token
+    confidences reduce to a sequence's score, their mean over S."""
+    return conf.mean(-1) if conf.dim() == 3 else conf
+
+
+def detector_scores(logits, detector: str) -> torch.Tensor:
+    """Per-sample detector confidence. (n, P, C) -> (n, P); LM logit
+    stacks (n, P, S, V) reduce to sequence scores (``_sequence_score``).
+    One node at a time, so the f32 softmax of an LM stack never exists
+    for all nodes at once."""
+    return _sequence_score(
+        torch.stack([ood.confidence(x, detector) for x in logits]))
+
+
 def calibrate(conf_val, conf_cal) -> torch.Tensor:
     """Per-node ROC thresholds (line 6): val = ID class, cal = OoD."""
     return ood.calibrate_threshold(conf_val, conf_cal)
@@ -81,31 +96,35 @@ def exchange_dense(topology: Topology, id_mask, labels
     nbr, valid = _neighbors(topology, labels.device)
     lf = labels.float()
     m = id_mask.float()
+    extra = (1,) * (lf.dim() - m.dim())                     # C, or S and V
     num = torch.zeros_like(lf)
     cnt = torch.zeros_like(m)
     for d in range(nbr.shape[1]):
         j = nbr[:, d]
         w = m[j] * valid[:, d, None]
-        num = num + w[..., None] * lf[j]
+        num = num + w.reshape(w.shape + extra) * lf[j]
         cnt = cnt + w
-    avg = num / torch.clamp(cnt, min=1.0)[..., None]
+    avg = num / torch.clamp(cnt, min=1.0).reshape(cnt.shape + extra)
     return avg, (cnt > 0).float()
 
 
 def exchange_sparse(topology: Topology, id_mask, sparse: distill.SparseLabels
                     ) -> Tuple[distill.SparseLabels, torch.Tensor]:
     """Lines 9–14 on top-k payloads without densifying: output width
-    (max_degree + 1) · k, zero-valued padding slots."""
+    (max_degree + 1) · k, zero-valued padding slots. Payloads are (n, P,
+    k) or, for token labels, (n, P, S, k)."""
     nbr, valid = _neighbors(topology, id_mask.device)
     m = id_mask.float()
     w = m[nbr] * valid[:, :, None]                          # (n, D, P)
     cnt = w.sum(dim=1)                                      # (n, P)
     share = w / torch.clamp(cnt, min=1.0)[:, None, :]
-    vals = sparse.values[nbr] * share[..., None]            # (n, D, P, k)
+    vals = sparse.values[nbr]                               # (n, D, P[, S], k)
     idx = sparse.indices[nbr]
-    n, D, P, k = vals.shape
-    vals = vals.permute(0, 2, 1, 3).reshape(n, P, D * k)
-    idx = idx.permute(0, 2, 1, 3).reshape(n, P, D * k)
+    extra = vals.dim() - share.dim()                        # k and the S axis
+    vals = vals * share.reshape(share.shape + (1,) * extra)
+    # merge the contributor axis into k: (n, P[, S], D·k)
+    vals = vals.movedim(1, -2).flatten(-2)
+    idx = idx.movedim(1, -2).flatten(-2)
     return (distill.SparseLabels(vals.float(), idx.to(torch.int32)),
             (cnt > 0).float())
 
@@ -119,7 +138,7 @@ def _fused_pass(logits, cfg: IDKDConfig, k: int
     conf, vals, idx = msp_select(logits.reshape(-1, C).contiguous(),
                                  temperature=cfg.temperature, k=k,
                                  detector=cfg.detector)
-    return (conf.reshape(lead),
+    return (_sequence_score(conf.reshape(lead)),
             distill.SparseLabels(vals.reshape(lead + (k,)),
                                  idx.reshape(lead + (k,))))
 
@@ -127,13 +146,18 @@ def _fused_pass(logits, cfg: IDKDConfig, k: int
 def _head_pass(model, params, x, cfg: IDKDConfig, k: int):
     """Every node's fused head-select pass on one microbatch: ``x`` is
     (L, mb, ...) and the head matrices of all L nodes go through one
-    ``head_select`` launch. Returns conf (L, mb), vals/idx (L, mb, k)."""
+    ``head_select`` launch. Token features (L, mb, S, D) go in as
+    (L, mb·S, D) rows. Returns conf (L, mb) — for tokens the mean over S
+    of the token confidences — and vals/idx (L, mb[, S], k)."""
     feats, _ = model.forward_features(params, {model.input_key: x})
     w, b = model.head_params(params)
-    return head_select(feats.contiguous(), w.contiguous(),
-                       None if b is None else b.contiguous(),
-                       temperature=cfg.temperature, k=k,
-                       detector=cfg.detector)
+    lead = feats.shape[:-1]                                 # (L, mb[, S])
+    conf, vals, idx = head_select(
+        feats.reshape(lead[0], -1, feats.shape[-1]).contiguous(),
+        w.contiguous(), None if b is None else b.contiguous(),
+        temperature=cfg.temperature, k=k, detector=cfg.detector)
+    return (_sequence_score(conf.reshape(lead)), vals.reshape(lead + (k,)),
+            idx.reshape(lead + (k,)))
 
 
 def _chunk_public(public_x, microbatch: int):
@@ -199,7 +223,9 @@ def label_round(public_logits, val_logits, cal_logits, topology: Topology,
     """One homogenization round on node-stacked logits.
 
     public_logits (n, P, C), val_logits (n, V, C), cal_logits (n, K, C)
-    or None for D_C = D_P (the paper's default). ``filter_ood=False`` is
+    or None for D_C = D_P (the paper's default); LM stacks (n, P, S, V)
+    score a sequence by the mean of its token confidences and label
+    every token. ``filter_ood=False`` is
     the ``kd_mode="vanilla"`` baseline (every sample kept, thresholds
     0); ``active`` is the (n,) churn mask (a down node neither gives
     nor receives labels). Returns :class:`HomogenizedSet` (dense) or
@@ -213,13 +239,13 @@ def label_round(public_logits, val_logits, cal_logits, topology: Topology,
     if backend == "fused":
         conf_pub, sparse = _fused_pass(public_logits, cfg, k)
     else:
-        conf_pub = ood.confidence(public_logits, cfg.detector)
+        conf_pub = detector_scores(public_logits, cfg.detector)
 
     def scores():
         conf_cal = (conf_pub
                     if cal_logits is None or cal_logits is public_logits
-                    else ood.confidence(cal_logits, cfg.detector))
-        return ood.confidence(val_logits, cfg.detector), conf_cal
+                    else detector_scores(cal_logits, cfg.detector))
+        return detector_scores(val_logits, cfg.detector), conf_cal
 
     thresholds, id_mask, act = _select(conf_pub, scores, filter_ood, active)
 

@@ -1,0 +1,235 @@
+// flash_attention for Hopper (sm_90a): causal grouped-query attention with
+// an online softmax, a per-layer sliding window and a ragged tail.
+//
+// Replaces the Pallas TPU kernel flash_attention_pallas / _flash_kernel in
+// src/repro/kernels/flash_attention/kernel.py, and computes what the
+// model's chunked_attention (src/repro/models/attention.py) computes on
+// the decoder path, which the Pallas kernel alone does not: per q row qp
+// the keys kp with kp <= qp and, when window > 0, qp - window < kp; keys
+// and rows past S are masked. q (B, S, H, D), k/v (B, S, KVH, D), float32
+// or bfloat16; head h reads kv head h / (H / KVH) without a copy; math in
+// f32 with q scaled by 1/sqrt(D) first; output in q's dtype.
+//
+// Design. The TPU kernel carries (m, l, acc) in VMEM scratch across a
+// sequential key grid axis. Here one block owns one (b, h, 64-row q tile)
+// and walks the key tiles from the first that the window reaches to the
+// diagonal inside the block; tiles that are masked for every row of the
+// block are never visited (the Pallas kernel's pl.when). Q, K and V tiles
+// sit in shared memory as f32; four threads share a q row: each computes
+// the scores of 16 of the tile's 64 keys and owns a quarter of the output
+// dims, so (m, l) and acc live in registers. Masked scores are -1e30, not
+// -inf, as in the reference: a row whose first visited tile is all masked
+// accumulates weight-1 garbage that the first unmasked tile multiplies by
+// exp(-1e30 - m) = 0, exactly as in chunked_attention; every row reaches
+// its diagonal, so every row ends with a real maximum.
+//
+// Bound on the H100. At Hymba's shape (S = 2176, H = 25, D = 64) the work
+// is 4*S*S*D/2 flops per head for causal rows: it is bound by operations
+// (tensor cores in bf16). This first kernel runs on the f32 FMA units and
+// reads shared memory at about one float4 per four FMAs, so it sits far
+// below that bound; wgmma tiles are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "select_common.cuh"
+
+namespace idkd {
+
+constexpr int FA_ROWS = 64;      // q rows per block
+constexpr int FA_KEYS = 64;      // keys per tile
+constexpr int FA_THREADS = 256;  // four threads per q row
+constexpr int FA_LP = FA_KEYS + 4;
+
+template <int D>
+constexpr size_t fa_smem_bytes() {
+  return sizeof(float) * (3 * FA_ROWS * (D + 4) + FA_ROWS * FA_LP);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int S,
+                       int H, int KVH, int window, float scale) {
+  constexpr int LD = D + 4;       // tile row stride in floats (16-byte rows,
+                                  // conflict-free float4 reads)
+  constexpr int CH = D / 16;      // float4 output chunks per thread
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + FA_ROWS * LD;
+  float* Vs = Ks + FA_KEYS * LD;
+  float* Ps = Vs + FA_KEYS * LD;
+
+  const int q0 = blockIdx.x * FA_ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;         // q row in the tile
+  const int j = tid & 3;          // keys 4*i + j, output chunks j + 4*i
+  const int qp = q0 + r;
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KVH * D;
+  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * D;
+  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+
+  for (int e = tid; e < FA_ROWS * D; e += FA_THREADS) {
+    const int rr = e / D, d = e % D, s = q0 + rr;
+    Qs[rr * LD + d] = s < S ? to_f(qb[(size_t)s * q_stride + d]) * scale
+                            : 0.0f;
+  }
+
+  // key tiles [t_begin, t_end]: from the first key that the window lets
+  // the tile's first row see, to the tile's last row's diagonal
+  const int q_last = min(q0 + FA_ROWS, S) - 1;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_first / FA_KEYS;
+  const int t_end = q_last / FA_KEYS;
+
+  float m_run = NEG, l_run = 0.0f;
+  float acc[4 * CH];
+#pragma unroll
+  for (int i = 0; i < 4 * CH; ++i) acc[i] = 0.0f;
+
+  for (int t = t_begin; t <= t_end; ++t) {
+    const int k0 = t * FA_KEYS;
+    __syncthreads();  // the previous tile's K/V reads are done
+    for (int e = tid; e < FA_KEYS * D; e += FA_THREADS) {
+      const int kk = e / D, d = e % D, s = k0 + kk;
+      const bool in = s < S;
+      Ks[kk * LD + d] = in ? to_f(kb[(size_t)s * kv_stride + d]) : 0.0f;
+      Vs[kk * LD + d] = in ? to_f(vb[(size_t)s * kv_stride + d]) : 0.0f;
+    }
+    __syncthreads();
+
+    float sc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = 0.0f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * LD + 4 * d4]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(&Ks[(4 * i + j) * LD + 4 * d4]);
+        sc[i] = fmaf(qv.x, kv.x, sc[i]);
+        sc[i] = fmaf(qv.y, kv.y, sc[i]);
+        sc[i] = fmaf(qv.z, kv.z, sc[i]);
+        sc[i] = fmaf(qv.w, kv.w, sc[i]);
+      }
+    }
+
+    float tmax = NEG;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int kp = k0 + 4 * i + j;
+      const bool ok = kp <= qp && kp < S && (window <= 0 || qp - kp < window);
+      sc[i] = ok ? sc[i] : NEG;
+      tmax = fmaxf(tmax, sc[i]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m_run, tmax);
+    const float alpha = expf(m_run - m_new);
+    float psum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float p = expf(sc[i] - m_new);
+      Ps[r * FA_LP + 4 * i + j] = p;
+      psum += p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l_run = l_run * alpha + psum;
+    m_run = m_new;
+#pragma unroll
+    for (int i = 0; i < 4 * CH; ++i) acc[i] *= alpha;
+    __syncwarp();  // the row's four threads share their P entries
+
+#pragma unroll 4
+    for (int kk = 0; kk < FA_KEYS; ++kk) {
+      const float p = Ps[r * FA_LP + kk];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(&Vs[kk * LD + 4 * (j + 4 * c)]);
+        acc[4 * c + 0] = fmaf(p, vv.x, acc[4 * c + 0]);
+        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+      }
+    }
+  }
+
+  if (qp < S) {
+    const float inv = 1.0f / fmaxf(l_run, 1e-30f);
+    T* ob = o + ((size_t)b * S + qp) * q_stride + (size_t)h * D;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int d = 4 * (j + 4 * c);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) ob[d + x] = from_f<T>(acc[4 * c + x] * inv);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int KVH, int window,
+                      cudaStream_t stream) {
+  const size_t smem = fa_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
+  const float scale = 1.0f / sqrtf((float)D);
+  flash_attention_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, KVH, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
+                        void* o, int B, int S, int H, int KVH, int window,
+                        cudaStream_t s) {
+  switch (D) {
+    case 32: return fa_launch<T, 32>(q, k, v, o, B, S, H, KVH, window, s);
+    case 64: return fa_launch<T, 64>(q, k, v, o, B, S, H, KVH, window, s);
+    case 128: return fa_launch<T, 128>(q, k, v, o, B, S, H, KVH, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace idkd
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, S, H,
+// D), k/v (B, S, KVH, D), contiguous; D in {32, 64, 128}; H % KVH == 0;
+// window 0 = full causal. Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_launch(int dtype, const void* q,
+                                      const void* k, const void* v, void* o,
+                                      int B, int S, int H, int KVH, int D,
+                                      int window, void* stream) {
+  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)idkd::fa_dispatch<float>(D, q, k, v, o, B, S, H, KVH, window,
+                                         s);
+  if (dtype == 1)
+    return (int)idkd::fa_dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, H, KVH,
+                                                 window, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -7,11 +7,13 @@ train on the same data.
 * :func:`make_classification_data` — class-conditional images (per-class
   mean pattern over a shared feature dictionary, plus noise);
 * :func:`make_public_data` — the unlabeled public set D_P: ``aligned``
-  (half from the class generators, half OoD), ``shifted`` or ``noise``.
+  (half from the class generators, half OoD), ``shifted`` or ``noise``;
+* :func:`make_lm_data` — a topic-conditional unigram token corpus.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 
@@ -89,3 +91,23 @@ def make_public_data(data: ClassificationData, n_public: int = 2048,
     x = np.concatenate([x_id, x_ood]).astype(np.float32)
     rng.shuffle(x)
     return x
+
+
+def make_lm_data(vocab: int, seq_len: int, n_seqs: int, num_topics: int = 10,
+                 seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Topic-conditional unigram LM corpus: (tokens (N, S) int32, topic
+    (N,) int64). Each topic draws 80% of its tokens from its own vocab
+    slice, so a Dirichlet partition by topic is non-IID in tokens."""
+    rng = np.random.default_rng(seed)
+    topics = rng.integers(0, num_topics, size=n_seqs)
+    slice_size = max(vocab // num_topics, 1)
+    tokens = np.empty((n_seqs, seq_len), np.int32)
+    for i, t in enumerate(topics):
+        lo = (t * slice_size) % vocab
+        in_slice = rng.random(seq_len) < 0.8
+        tok = np.where(
+            in_slice,
+            lo + rng.integers(0, slice_size, size=seq_len),
+            rng.integers(0, vocab, size=seq_len))
+        tokens[i] = tok % vocab
+    return tokens, topics.astype(np.int64)

@@ -1,0 +1,100 @@
+"""The LM slice's path at full width, as ``chip_smoke.py`` drives it: one
+homogenization round (``launch.train.idkd_label_round``) of Hymba-1.5B
+nodes on a ring.
+
+* Model: Hymba-1.5B as configured (32 layers, d_model 1600, 25 heads /
+  5 KV heads × 64, d_ff 5504, SSM 50 heads × 64 with state 16 and chunk
+  256, vocabulary 32,001, bf16, 128 meta tokens, sliding window 1024
+  with global layers 0, 16 and 31): about 1.64 B parameters per node.
+* Nodes: 4 on a ring, node i initialised by the port's ``init`` from
+  seed i, so the exchange merges payloads that differ. The nodes are
+  untrained: the round's D_ID fraction says nothing of IDKD's quality.
+* Data: ``make_lm_data`` at seq_len 2048 — 512 private sequences
+  partitioned over the nodes at Dirichlet α = 0.1, 64 public sequences —
+  as the reference's ``run_training`` makes it; each node calibrates on
+  its first m = min(16, smallest partition) private sequences.
+* Round: top-8 sparse labels, 8 public sequences per streaming
+  microbatch, T = 10, MSP detector.
+
+``setup`` takes the same arguments at any size, so the CPU tests drive
+this module with a reduced config.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import IDKDConfig, ModelConfig
+from repro_torch.core.topology import Topology
+from repro_torch.data.dirichlet import dirichlet_partition
+from repro_torch.data.synthetic import make_lm_data
+from repro_torch.launch.train import idkd_label_round, private_sequences
+from repro_torch.models.transformer import DecoderModel
+from repro_torch.runtime import resolve_device
+
+CONFIG = get_config("hymba-1.5b")
+NUM_NODES = 4
+SEQ_LEN = 2048
+N_PRIVATE = 512
+N_PUBLIC = 64
+ALPHA = 0.1
+DATA_SEED = 4            # TrainConfig's default seed, as run_training uses
+ROUND = IDKDConfig(label_topk=8, stream_microbatch=8, label_backend="sparse",
+                   temperature=10.0, detector="msp")
+
+
+@dataclass
+class LMRound:
+    model: DecoderModel
+    params: Dict[str, torch.Tensor]     # node-stacked
+    public: np.ndarray                  # (P, S) tokens
+    private: np.ndarray                 # (n, m, S) tokens
+    topology: Topology
+    icfg: IDKDConfig
+
+    def run(self, icfg: IDKDConfig | None = None, public=None):
+        """One round; ``icfg`` / ``public`` override the configured ones."""
+        icfg = icfg or self.icfg
+        return idkd_label_round(
+            self.model, self.params,
+            self.public if public is None else public, self.private, icfg,
+            self.topology, backend=icfg.label_backend)
+
+
+@torch.no_grad()
+def node_params(model: DecoderModel, seeds: Sequence[int], device):
+    """Node-stacked params, node i drawn from ``seeds[i]``; each node is
+    copied into the stack as it is made, so the peak is one node over."""
+    stacked = None
+    for i, seed in enumerate(seeds):
+        p = model.init(seed, device)
+        if stacked is None:
+            stacked = {k: torch.empty((len(seeds),) + v.shape, dtype=v.dtype,
+                                      device=v.device) for k, v in p.items()}
+        for k, v in p.items():
+            stacked[k][i].copy_(v)
+        del p
+    return stacked
+
+
+def setup(cfg: ModelConfig = CONFIG, *, num_nodes: int = NUM_NODES,
+          seq_len: int = SEQ_LEN, n_private: int = N_PRIVATE,
+          n_public: int = N_PUBLIC, icfg: IDKDConfig = ROUND,
+          device="cuda") -> LMRound:
+    device = resolve_device(device)
+    model = DecoderModel(cfg)
+    tokens, topics = make_lm_data(cfg.vocab_size, seq_len + 1, n_private,
+                                  seed=DATA_SEED)
+    parts = dirichlet_partition(topics, num_nodes, ALPHA,
+                                np.random.default_rng(DATA_SEED))
+    public, _ = make_lm_data(cfg.vocab_size, seq_len, n_public,
+                             num_topics=10, seed=DATA_SEED + 99)
+    return LMRound(model=model,
+                   params=node_params(model, range(num_nodes), device),
+                   public=public,
+                   private=private_sequences(tokens, parts, seq_len),
+                   topology=Topology.make("ring", num_nodes), icfg=icfg)

@@ -68,9 +68,9 @@ class ResNetModel:
 
     def __init__(self, cfg: ModelConfig):
         if cfg.arch_type != "cnn":
-            raise NotImplementedError(
-                f"arch_type {cfg.arch_type!r}: only the ResNet (cnn) family "
-                "is ported so far; the LM path is ROADMAP.md queue 1 item 10")
+            raise ValueError(
+                f"arch_type {cfg.arch_type!r}: ResNetModel is the cnn "
+                "family; decoders are models.model.build_model's")
         self.cfg = cfg
 
     def blocks(self):

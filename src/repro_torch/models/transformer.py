@@ -1,0 +1,201 @@
+"""The decoder stack of ``src/repro/models/transformer.py``, node-stacked.
+
+Parameters are a flat dict of tensors keyed by the reference's pytree
+paths joined with ``/`` (``"embed"``, ``"head"``, ``"meta_tokens"``,
+``"layers_0/attn/wq"``, ``"layers_0/ssm/w_in"``, ``"ln_f/scale"``, ...);
+layer leaves carry the reference's leading layer axis. :meth:`init`
+makes one node's params; node-stacked params (a leading node axis on
+every leaf, as the port's ResNet has) are what :meth:`forward_features`,
+:meth:`logits`, :meth:`forward` and :meth:`head_params` take, with
+tokens (L, B, S). The trunk loops over nodes and layers in Python: the
+kernels launch through ctypes, which ``torch.func.vmap`` cannot batch.
+
+Ported: dense and hybrid stacks — attention, SSM and Hymba's parallel
+attention ∥ SSM heads with branch norms, per-layer sliding windows,
+meta tokens. MoE, MLA, multiple codebooks, VLM patches, cross-attention,
+multi-token prediction (ROADMAP.md item 10c) and decode (item 10b)
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.convert import _flatten
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       embed_init, init_mlp, init_norm,
+                                       normal_init)
+from repro_torch.runtime import resolve_device
+
+Params = Dict[str, torch.Tensor]
+LAYERS = "layers_0/"
+
+
+def sub(params: Params, prefix: str) -> Params:
+    """The leaves under ``prefix``, keyed by the rest of their path."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def _rms(x, scale, eps: float):
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
+    dev = gen.device
+    p = {"ln1": init_norm(cfg, cfg.d_model, dtype, dev)}
+    if not cfg.is_attention_free:
+        p["attn"] = attn.init_attention(gen, cfg, dtype)
+    if cfg.ssm.enabled:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype)
+        if cfg.hybrid_parallel:
+            p["attn_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                               device=dev)
+            p["ssm_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                              device=dev)
+    if cfg.d_ff:
+        p["ln2"] = init_norm(cfg, cfg.d_model, dtype, dev)
+        p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
+    return dict(_flatten(p))
+
+
+def _mix_forward(p: Params, h, cfg: ModelConfig, window: int):
+    """Token-mixing sub-block (attention / SSM / hybrid-parallel)."""
+    if cfg.hybrid_parallel:
+        a = attn.attention_forward(sub(p, "attn/"), h, cfg,
+                                   layer_window=window)
+        s = ssm_mod.ssm_forward(sub(p, "ssm/"), h, cfg)
+        return 0.5 * (_rms(a, p["attn_branch_norm"], cfg.norm_eps)
+                      + _rms(s, p["ssm_branch_norm"], cfg.norm_eps))
+    if cfg.ssm.enabled:
+        return ssm_mod.ssm_forward(sub(p, "ssm/"), h, cfg)
+    return attn.attention_forward(sub(p, "attn/"), h, cfg,
+                                  layer_window=window)
+
+
+def _layer_forward(p: Params, x, cfg: ModelConfig, window: int):
+    h = apply_norm(sub(p, "ln1/"), x, cfg)
+    x = x + _mix_forward(p, h, cfg, window)
+    if "ln2/scale" in p:
+        h = apply_norm(sub(p, "ln2/"), x, cfg)
+        x = x + apply_mlp(sub(p, "mlp/"), h, cfg)
+    return x
+
+
+class DecoderModel:
+    """init / forward_features / head_params / logits / forward."""
+
+    input_key = "tokens"
+
+    def __init__(self, cfg: ModelConfig):
+        missing = [name for name, on in (
+            ("MoE", cfg.moe.enabled), ("MLA", cfg.mla.enabled),
+            ("multiple codebooks", cfg.num_codebooks > 1),
+            ("VLM patches", cfg.arch_type == "vlm"),
+            ("cross-attention", cfg.cross_attention),
+            ("multi-token prediction", cfg.mtp_depth > 0)) if on]
+        if missing:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(missing)} not ported (ROADMAP.md "
+                "item 10c)")
+        self.cfg = cfg
+
+    def layer_windows(self) -> List[int]:
+        """Per-layer sliding window (0 = global): Hymba's pattern keeps
+        every ``global_attn_every``-th layer and the last one global."""
+        cfg = self.cfg
+        L = cfg.num_layers
+        if not cfg.sliding_window:
+            return [0] * L
+        return [0 if cfg.global_attn_every and (
+            i % cfg.global_attn_every == 0 or i == L - 1)
+            else cfg.sliding_window for i in range(L)]
+
+    # -- init -----------------------------------------------------------
+    @torch.no_grad()
+    def init(self, seed: int, device="cuda") -> Params:
+        """One node's params, drawn on ``device`` from ``seed`` (a
+        ``torch.Generator``: not the reference's threefry numbers, the
+        same distributions and dtypes)."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        p: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                         dtype)}
+        if not cfg.tie_embeddings:
+            p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+        if cfg.num_prefix_tokens and cfg.arch_type == "hybrid":
+            p["meta_tokens"] = normal_init(
+                gen, (cfg.num_prefix_tokens, cfg.d_model), 0.02, dtype)
+        layers = [_init_layer(gen, cfg, dtype) for _ in range(cfg.num_layers)]
+        for k in layers[0]:
+            p[LAYERS + k] = torch.stack([lp[k] for lp in layers])
+        del layers
+        p.update({f"ln_f/{k}": v for k, v in
+                  init_norm(cfg, cfg.d_model, dtype, gen.device).items()})
+        return p
+
+    # -- one node -------------------------------------------------------
+    def _hidden_one(self, p: Params, tokens):
+        """One node's post-stack, post-final-norm hidden states (B, S, d)
+        with the meta tokens stripped."""
+        cfg = self.cfg
+        h = p["embed"][tokens]
+        n_prefix = 0
+        if cfg.arch_type == "hybrid" and cfg.num_prefix_tokens:
+            meta = p["meta_tokens"][None].expand(
+                (h.shape[0],) + p["meta_tokens"].shape)
+            h = torch.cat([meta, h], dim=1)
+            n_prefix = cfg.num_prefix_tokens
+        layers = sub(p, LAYERS)
+        for li, window in enumerate(self.layer_windows()):
+            h = _layer_forward({k: v[li] for k, v in layers.items()}, h, cfg,
+                               window)
+        h = apply_norm(sub(p, "ln_f/"), h, cfg)
+        return h[:, n_prefix:] if n_prefix else h
+
+    # -- node-stacked ---------------------------------------------------
+    def forward_features(self, params: Params, batch):
+        """Pre-head activations (L, B, S, d) of every node on its tokens
+        (L, B, S); returns (h, aux) with aux 0 (no MoE)."""
+        tokens = torch.as_tensor(batch[self.input_key])
+        dev = next(iter(params.values())).device
+        tokens = tokens.to(device=dev, dtype=torch.long)
+        L = tokens.shape[0]
+        h = torch.stack([self._hidden_one({k: v[i] for k, v in
+                                           params.items()}, tokens[i])
+                         for i in range(L)])
+        return h, torch.zeros((), device=dev)
+
+    def head_params(self, params: Params):
+        """(unembedding (L, d, V), bias None) — the matrix head_select
+        tiles over the vocabulary."""
+        if self.cfg.tie_embeddings:
+            return params["embed"].transpose(-1, -2), None
+        return params["head"], None
+
+    def logits(self, params: Params, h):
+        """h (L, ..., d) -> logits (L, ..., V)."""
+        w = self.head_params(params)[0]
+        lead = h.shape[1:-1]
+        out = torch.bmm(h.reshape(h.shape[0], -1, h.shape[-1]), w)
+        return out.reshape((h.shape[0],) + lead + (w.shape[-1],))
+
+    def forward(self, params: Params, batch):
+        """(logits (L, B, S, V), aux)."""
+        h, aux = self.forward_features(params, batch)
+        return self.logits(params, h), aux
+
+    def init_decode_state(self, batch: int, context: int):
+        raise NotImplementedError("decode (KV cache, SSM state) is not "
+                                  "ported (ROADMAP.md item 10b)")
+
+    def decode_step(self, params: Params, tokens, states, memory=None):
+        raise NotImplementedError("decode (KV cache, SSM state) is not "
+                                  "ported (ROADMAP.md item 10b)")

@@ -1,10 +1,13 @@
-"""Where the main path's device time goes: the full-width configuration
-of :mod:`repro_torch.mainpath`, run once untraced (warm-up: cuDNN's
-algorithm choice, the kernels' build), then two windows under
-``torch.profiler``: 10 plain train steps, and one streaming
-homogenization round.
+"""Where the main paths' device time goes. ``--path resnet`` (default):
+the full-width configuration of :mod:`repro_torch.mainpath`, run once
+untraced (warm-up: cuDNN's algorithm choice, the kernels' build), then
+two windows under ``torch.profiler``: 10 plain train steps, and one
+streaming homogenization round. ``--path lm``: the full-width Hymba-1.5B
+round of :mod:`repro_torch.lmpath`, one streaming public microbatch (the
+4 nodes' forward over 8 sequences and the ``head_select`` pass, 1/9 of
+the round's work) after one untraced warm-up microbatch.
 
-    PYTHONPATH=src python -m repro_torch.trace_main_path [--top 12]
+    PYTHONPATH=src python -m repro_torch.trace_main_path [--path lm] [--top 12]
 
 For each window it prints the wall time, the time the device spent in
 kernels (the union of kernel intervals), the device's idle share
@@ -33,14 +36,21 @@ FAMILIES = (("cuDNN layout transposes", ("genericTranspose", "nchwToNhwc",
             ("elementwise + reductions", ("at::native",)))
 
 
-def _family(name: str) -> str:
-    for fam, keys in FAMILIES:
+LM_FAMILIES = (("flash_attention", ("flash_attention_kernel",)),
+               ("ssd_scan", ("ssd_scan_kernel",)),
+               ("head_select", ("head_select_kernel",)),
+               ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),
+               ("elementwise + reductions", ("at::native",)))
+
+
+def _family(name: str, families) -> str:
+    for fam, keys in families:
         if any(k in name for k in keys):
             return fam
     return "other"
 
 
-def _window(label: str, fn, top: int, per: int = 1):
+def _window(label: str, fn, top: int, per: int = 1, families=FAMILIES):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -65,7 +75,7 @@ def _window(label: str, fn, top: int, per: int = 1):
     fams, names = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for k in kernels:
         d = k.time_range.end - k.time_range.start
-        fams[_family(k.name)] += d
+        fams[_family(k.name, families)] += d
         names[k.name][0] += d
         names[k.name][1] += 1
     total = sum(fams.values())
@@ -75,12 +85,36 @@ def _window(label: str, fn, top: int, per: int = 1):
         print(f"    {d / 1e3 / per:8.3f} ms {n / per:7.1f}x  {name[:80]}")
 
 
+def trace_lm(top: int):
+    from repro_torch import lmpath
+    from repro_torch.core.labeling import _head_pass
+    lm = lmpath.setup(device="cuda")
+    n = lm.private.shape[0]
+    x = torch.as_tensor(lm.public[:lm.icfg.stream_microbatch],
+                        device="cuda")[None].expand(
+        (n, lm.icfg.stream_microbatch, lm.public.shape[1]))
+
+    def microbatch():
+        with torch.no_grad():
+            _head_pass(lm.model, lm.params, x, lm.icfg, lm.icfg.label_topk)
+
+    microbatch()                               # warm-up
+    _window(f"LM round, one public microbatch ({n} nodes x "
+            f"{lm.icfg.stream_microbatch} sequences of "
+            f"{lm.public.shape[1]} tokens)", microbatch, top,
+            families=LM_FAMILIES)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("resnet", "lm"), default="resnet")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.path == "lm":
+        trace_lm(args.top)
+        return
     sim = full_width_sim("cuda")
     params = sim.run().params                  # warm-up
     cfg = sim.tcfg

@@ -92,6 +92,16 @@ def t(x, dtype=None):
     return torch.as_tensor(np.array(x), dtype=dtype)
 
 
+def hymba_small(side):
+    """The reduced Hymba ("jax" or "torch" side) with what the stock
+    ``reduced()`` drops: three layers, so layer 1 is windowed (layers 0
+    and L-1 are global), and 2 KV heads for 4 query heads (GQA)."""
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config as t_get_config
+    get = j_get_config if side == "jax" else t_get_config
+    return get("hymba-1.5b").reduced().replace(num_layers=3, num_kv_heads=2)
+
+
 # ------------------------------------------------------- numpy-only copies
 @pytest.mark.parametrize("cls", ["ModelConfig", "IDKDConfig", "TrainConfig",
                                  "MoEConfig", "MLAConfig", "SSMConfig"])
