@@ -13,8 +13,10 @@ Phases (any failed check raises and the script exits non-zero):
 2. kernels: ``head_select`` and ``msp_select`` against their plain
    PyTorch versions on the card — msp and energy detectors, float32 and
    bfloat16 inputs, at the IDKD main-path shapes (k = 8 and k = 1) and at
-   an LM head shape (Qwen3-1.7B's head: D = 2048, C = 151,936) — with
-   their times beside the card's bound;
+   an LM head shape (Qwen3-1.7B's head: D = 2048, C = 151,936, which the
+   tensor-core ``head_select`` splits over column slices) — with their
+   times beside the card's bound; in bf16, ``head_select``'s SIMT and
+   tensor-core kernels timed in turns;
 3. main path: ResNet-20 at full width on 16 ring nodes with QG-DSGDm-N,
    120 plain steps, one streaming IDKD round on the sparse backend
    (``head_select``), 120 KD steps; the consensus model must learn (its
@@ -28,15 +30,19 @@ LM-1. the LM kernels against their plain versions on the card at
    and bf16, timed beside ``scaled_dot_product_attention``),
    ``ssd_scan`` (and at Mamba-2-780M's state size N = 128) and
    ``head_select`` at Hymba's head (D = 1600, C = 32,001, bf16, 65,536
-   rows);
+   rows); in bf16, each kernel's SIMT and tensor-core variants timed in
+   turns, with achieved TFLOP/s and share of the bound;
 LM-2. the LM homogenization round at full width (``repro_torch.lmpath``:
    Hymba-1.5B on 4 ring nodes, 64 public and 16 private sequences of
-   2048 tokens per node): wall time, each kernel's launches and device
-   time, kept fraction, thresholds, finite and well-formed labels; the
-   kernels against their plain versions on activations captured from
-   the round's first microbatch (a global and a windowed attention
-   layer, an SSD layer); and the same round at a reduced Hymba on the
-   card against the CPU's plain path (thresholds, masks and labels);
+   2048 tokens per node): wall time, each kernel's launches (every
+   ``flash_attention`` and ``head_select`` launch must go through the
+   tensor-core variant) and device time, kept fraction, thresholds,
+   finite and well-formed labels; the kernels against their plain
+   versions on activations captured from the round's first microbatch (a
+   global and a windowed attention layer, an SSD layer, the head pass's
+   features, beside ``torch.matmul``'s time for the product alone); and
+   the same round at a reduced Hymba on the card against the CPU's plain
+   path (thresholds, masks and labels);
 LM-3. the one-shot round (``msp_select`` on (n, P, S, V) logits) on the
    first 8 public sequences, held against the streaming round, and
    ``msp_select`` against its plain version on that round's logits.
@@ -118,6 +124,25 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _sms(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def in_turns(simt, tc, reps: int, torch):
+    """Device ms of two variants of one kernel, timed simt, tc, tc, simt
+    on the same inputs; each the mean of its two turns."""
+    a1, b1 = timed(simt, reps, torch), timed(tc, reps, torch)
+    b2, a2 = timed(tc, reps, torch), timed(simt, reps, torch)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def variants_line(what, simt_ms, tc_ms, flops, bnd):
+    return (f"{what}: simt {simt_ms:.4f} ms ({flops / simt_ms / 1e9:.1f} "
+            f"TFLOP/s, {bnd / simt_ms:.2%} of the bound), tc {tc_ms:.4f} ms "
+            f"({flops / tc_ms / 1e9:.1f} TFLOP/s, {bnd / tc_ms:.2%} of the "
+            f"bound), in turns; tc {simt_ms / tc_ms:.1f}x faster")
+
+
 # ------------------------------------------------------------------ phases
 def phase_device(torch, build):
     check(torch.cuda.device_count() >= 1, "no CUDA device")
@@ -141,7 +166,8 @@ def phase_device(torch, build):
         log = build.lib_path(name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("registers", "spill", "arning",
+                                           "Performance")):
                     print(f"  {name}: {line.strip()}")
 
 
@@ -166,6 +192,7 @@ def _compare(torch, out, ref, logits, what):
 
 
 def phase_kernels(torch, ops):
+    from repro_torch.kernels.head_select import ops as head_ops
     head_select, head_plain, msp_select, msp_plain = ops
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -206,6 +233,15 @@ def phase_kernels(torch, ops):
                     shape=label, dtype=dname, detector=det, k=k, err=err,
                     ties=ties, ms=ms, plain_ms=pms, bound_ms=bnd,
                     bound_by=by))
+                if dname == "bfloat16" and det == "msp":
+                    sms, tms = in_turns(
+                        lambda: head_ops._launch("simt", h, w, b, **kw),
+                        lambda: head_ops._launch("tc", h, w, b, **kw),
+                        max(1, reps // 2), torch)
+                    split = head_ops._column_splits(L, N, C, D, _sms(torch))
+                    print(variants_line(
+                        f"head_select {tag} variants (column split "
+                        f"{split[1]})", sms, tms, 2.0 * L * N * D * C, bnd))
                 print(f"head_select {tag}: max_abs_err {err:.3g} "
                       f"(tol {ATOL}+{RTOL}|ref|), idx near-ties {ties}; "
                       f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
@@ -258,6 +294,7 @@ def phase_main_path(torch, ops):
     sim.homogenize = wrap(homogenize, "round")
 
     head_select.launches = 0
+    head_select.launches_by_variant = {"tc": 0, "simt": 0}
     msp_select.launches = 0
     t0 = time.perf_counter()
     result = sim.run()
@@ -265,6 +302,7 @@ def phase_main_path(torch, ops):
     wall = time.perf_counter() - t0
     launches = {"head_select": head_select.launches,
                 "msp_select": msp_select.launches}
+    variants = {"head_select": dict(head_select.launches_by_variant)}
 
     times = {}
     for tag, s, e in events:
@@ -278,7 +316,7 @@ def phase_main_path(torch, ops):
     print(f"main path: {wall:.1f} s wall, acc {result.acc_history}, "
           f"losses {[round(x, 4) for x in result.loss_history]}, "
           f"id_fraction {result.id_fraction:.4f}, skew {pre:.4f} -> "
-          f"{post:.4f}, launches {launches}")
+          f"{post:.4f}, launches {launches}, by variant {variants}")
     check(all(map(_finite, result.loss_history)), "non-finite eval loss")
     check(launches["head_select"] > 0,
           "head_select was not launched on the main path")
@@ -300,7 +338,7 @@ def phase_main_path(torch, ops):
           f"(last eval before the round) -> {nll[-1]:.4f}, final accuracy "
           f"{result.final_acc:.4f} (floor {MAIN_ACC_FLOOR})")
     sim.homogenize = homogenize
-    return sim, result, launches
+    return sim, result, launches, variants
 
 
 def _finite(x):
@@ -427,10 +465,13 @@ def _check_ssd(torch, xdt, dta, b, c, chunk, what):
 
 
 def phase_lm_kernels(torch):
-    """LM-1: each LM kernel against its plain version at Hymba's shapes."""
+    """LM-1: each LM kernel against its plain version at Hymba's shapes;
+    in bf16 the SIMT and tensor-core variants timed in turns."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.head_select import head_select, head_select_plain
+    from repro_torch.kernels.head_select import ops as head_ops
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.configs import get_config
     from repro_torch.lmpath import CONFIG
@@ -468,11 +509,18 @@ def phase_lm_kernels(torch):
             rows["flash_attention"].append(dict(
                 window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
                 bound_ms=bnd, bound_by=by, library_ms=lms))
-            print(f"{tag}: max_abs_err {err:.3g} (tol {FLASH_ATOL[dname]}); "
+            print(f"{tag}: variant {flash_ops._variant(q.dtype, D)}, "
+                  f"max_abs_err {err:.3g} (tol {FLASH_ATOL[dname]}); "
                   f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s achieved), plain "
                   f"{pms:.3f} ms, sdpa {lms} ms (its max diff from the "
                   f"plain version {lib_err})")
+            if dname == "bfloat16":
+                sms, tms = in_turns(
+                    lambda: flash_ops._launch("simt", q, k, v, window),
+                    lambda: flash_ops._launch("tc", q, k, v, window), 5,
+                    torch)
+                print(variants_line(f"{tag} variants", sms, tms, flops, bnd))
             del q, k, v
     # Hymba's mixer, and Mamba-2-780M's (state size 128) at 2048 tokens
     for label, mcfg, Ss in (("hymba", cfg, S),
@@ -523,11 +571,18 @@ def phase_lm_kernels(torch):
     pms = sum(timed(lambda: head_select_plain(h[i:i + 1], w[i:i + 1], None,
                                               **kw), 1, torch)
               for i in range(L))
+    tag = f"head_select hymba L={L} rows={L * N} D={Dm} C={C} bf16 msp k=8"
+    split = head_ops._column_splits(L, N, C, Dm, _sms(torch))
+    print(f"{tag}: variant {head_ops._variant(h.dtype)}, column split "
+          f"{split[1]}, max_abs_err {err:.3g}; {ms:.2f} ms, bound "
+          f"{bnd:.3f} ms ({by}), plain {pms:.2f} ms (4 node calls)")
+    sms, tms = in_turns(
+        lambda: head_ops._launch("simt", h, w, None, **kw),
+        lambda: head_ops._launch("tc", h, w, None, **kw), 1, torch)
     rows["head_select"].append(dict(shape="hymba", err=err, ms=ms,
                                     plain_ms=pms, bound_ms=bnd, bound_by=by))
-    print(f"head_select hymba L={L} rows={L * N} D={Dm} C={C} bf16 msp k=8: "
-          f"max_abs_err {err:.3g}; {ms:.2f} ms, bound {bnd:.3f} ms ({by}), "
-          f"plain {pms:.2f} ms (4 node calls)")
+    print(variants_line(f"{tag} variants", sms, tms, 2.0 * L * N * Dm * C,
+                        bnd))
     del h, w, out
     torch.cuda.empty_cache()
     return rows
@@ -594,7 +649,7 @@ def phase_lm_round(torch):
     import repro_torch.models.ssm as ssm_mod
     from repro_torch import lmpath
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.head_select import head_select
+    from repro_torch.kernels.head_select import head_select, head_select_plain
     from repro_torch.kernels.ssd_scan import ssd_scan
     t0 = time.perf_counter()
     lm = lmpath.setup(device="cuda")
@@ -606,16 +661,19 @@ def phase_lm_round(torch):
           f"{lm.public.shape}, private {lm.private.shape}, windows "
           f"{lm.model.layer_windows()}")
     # flash calls 0 and 1 are node 0's layers 0 (global) and 1 (windowed)
-    # on the first public microbatch; ssd call 0 is its layer 0
+    # on the first public microbatch; ssd call 0 is its layer 0;
+    # head_select call 0 is the first public microbatch's head pass
     clocks = {"flash_attention": _KernelClock(torch, attn_mod,
                                               "flash_attention", (0, 1)),
               "ssd_scan": _KernelClock(torch, ssm_mod, "ssd_scan", (0,)),
-              "head_select": _KernelClock(torch, lab, "head_select")}
+              "head_select": _KernelClock(torch, lab, "head_select", (0,))}
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
                 "head_select": head_select}
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
         f.launches = 0
+    for f in (flash_attention, head_select):
+        f.launches_by_variant = {"tc": 0, "simt": 0}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -625,6 +683,8 @@ def phase_lm_round(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
+    variants = {k: dict(counters[k].launches_by_variant)
+                for k in ("flash_attention", "head_select")}
     for c in clocks.values():
         c.restore()
     dev_ms = start.elapsed_time(end)
@@ -636,13 +696,18 @@ def phase_lm_round(torch):
     print(f"LM round: {wall:.2f} s wall, {dev_ms:.1f} ms between events, "
           f"peak memory {peak:.1f} GiB; launches {launches}; kernel device "
           f"ms " + ", ".join(f"{k} {v:.1f}" for k, v in per_kernel.items())
-          + f" (rest {dev_ms - sum(per_kernel.values()):.1f}); kept "
+          + f" (rest {dev_ms - sum(per_kernel.values()):.1f}); by variant "
+          f"{variants}; kept "
           f"{kept:.4f}, per node "
           f"{[round(float(x), 4) for x in out[2].float().mean(1)]}, "
           f"thresholds {[round(float(x), 7) for x in thr]}, labels "
           f"{tuple(out[0].values.shape)}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched in the LM round")
+    for name, by in variants.items():
+        check(by == {"tc": launches[name], "simt": 0},
+              f"{name}: {by} of {launches[name]} launches of the LM round "
+              f"went through each variant; all must be tc")
 
     # the kernels on the round's own activations
     for i, what in ((0, "global layer 0"), (1, "windowed layer 1")):
@@ -659,7 +724,29 @@ def phase_lm_round(torch):
                      "ssd_scan on captured layer 0")
     print(f"ssd_scan on the round's layer 0 (xdt {tuple(xdt.shape)}, max "
           f"|xdt| {float(xdt.abs().max()):.3g}): max_abs_err {err:.3g}")
+    (feats, w, b), kw = clocks["head_select"].kept[0]
     del clocks, out
+    torch.cuda.empty_cache()
+    check(b is None and feats.dtype == torch.bfloat16,
+          f"captured head pass: bias {b is not None}, {feats.dtype}")
+    out = head_select(feats, w, None, **kw)
+    err, ties = 0.0, 0
+    for i in range(feats.shape[0]):        # the plain version node by node
+        ref = head_select_plain(feats[i:i + 1], w[i:i + 1], None, **kw)
+        logits = torch.matmul(feats[i:i + 1].float(), w[i:i + 1].float())
+        e, t = _compare(torch, [o[i:i + 1] for o in out], ref, logits,
+                        f"head_select on the round's head pass, node {i}")
+        err, ties = max(err, e), ties + t
+        del ref, logits
+    mm = timed(lambda: torch.matmul(feats, w), 2, torch)
+    Lh, Nh, Dh = feats.shape
+    print(f"head_select on the round's first public head pass (features "
+          f"{tuple(feats.shape)} bf16, head {tuple(w.shape)}, {kw}): "
+          f"max_abs_err {err:.3g} (tol {ATOL}+{RTOL}|ref|), idx near-ties "
+          f"{ties}; torch.matmul of the product alone (bf16 out, no "
+          f"softmax or top-k): {mm:.3f} ms "
+          f"({2.0 * Lh * Nh * Dh * w.shape[-1] / mm / 1e9:.1f} TFLOP/s)")
+    del feats, w, out
     torch.cuda.empty_cache()
 
     # a reduced Hymba on the card against the CPU's plain path: the head
@@ -725,7 +812,7 @@ def phase_lm_round(torch):
           f"{float(mask.float().mean()):.4f}")
     lm.stats = dict(wall_s=wall, device_ms=dev_ms, kernel_ms=per_kernel,
                     peak_gib=peak, kept=kept)
-    return lm, launches
+    return lm, launches, variants
 
 
 def _check_msp_rows(torch, x, kw, what, rows=8192):
@@ -808,14 +895,18 @@ def phase_lm_oneshot(torch, lm):
     return launches, row
 
 
-def kernel_line(kres, lm_rows, launches, lm_launches):
+def kernel_line(kres, lm_rows, launches, lm_launches, variants):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
-    one-shot branch for msp_select); ``max_abs_err`` is the largest over
-    every shape checked; ``launches`` sums the paths that ran it,
-    ``launches_by_path`` splits them."""
+    one-shot branch for msp_select; for the two kernels with a
+    tensor-core variant, that variant's bf16 time, the SIMT time being on
+    an earlier line); ``max_abs_err`` is the largest over every shape
+    checked; ``launches`` sums the paths that ran it, ``launches_by_path``
+    splits them and ``launches_by_variant`` splits them by kernel
+    (``source`` is the tensor-core variant's file where there is one)."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
+    tc = {"head_select", "flash_attention"}
     flash = next(r for r in lm_rows["flash_attention"]
                  if r["window"] and r["dtype"] == "bfloat16")
     picks = {"head_select": (lm_rows["head_select"][0], 131),
@@ -828,11 +919,18 @@ def kernel_line(kres, lm_rows, launches, lm_launches):
     for name, (row, at) in picks.items():
         by_path = {"resnet_path": launches.get(name, 0),
                    "lm_path": lm_launches.get(name, 0)}
+        by_variant = {"tc": 0, "simt": 0} if name in tc else {
+            "simt": sum(by_path.values())}
+        for path in variants.values():
+            for v, n in path.get(name, {}).items():
+                by_variant[v] += n
         line.append({"name": name, "route": "cuda",
-                     "source": src.format(name),
+                     "source": src.format(name + ("_tc" if name in tc
+                                                  else "")),
                      "replaces": ref.format(name, at),
                      "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
+                     "launches_by_variant": by_variant,
                      "max_abs_err": max(r["err"] for r in
                                         errs.get(name, lm_rows.get(name))),
                      "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -862,22 +960,23 @@ def main() -> int:
     ops = (head_select, head_select_plain, msp_select, msp_select_plain)
     phase_device(torch, build)
     kres = phase_kernels(torch, ops)
-    sim, result, launches = phase_main_path(torch, ops)
+    sim, result, launches, variants = phase_main_path(torch, ops)
     launches["msp_select"] = phase_fused_round(torch, sim, result, ops)
     phase_quickstart(torch)
     del sim, result
     torch.cuda.empty_cache()
 
     lm_rows = phase_lm_kernels(torch)
-    lm, lm_launches = phase_lm_round(torch)
+    lm, lm_launches, lm_variants = phase_lm_round(torch)
     lm_launches["msp_select"], msp_row = phase_lm_oneshot(torch, lm)
     lm_rows["msp_select"] = [msp_row]
     del lm
     torch.cuda.empty_cache()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernel_line(kres, lm_rows, launches,
-                                             lm_launches)}))
+    print(json.dumps({"kernels": kernel_line(
+        kres, lm_rows, launches, lm_launches,
+        {"resnet_path": variants, "lm_path": lm_variants})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -147,14 +147,16 @@ def _head_pass(model, params, x, cfg: IDKDConfig, k: int):
     """Every node's fused head-select pass on one microbatch: ``x`` is
     (L, mb, ...) and the head matrices of all L nodes go through one
     ``head_select`` launch. Token features (L, mb, S, D) go in as
-    (L, mb·S, D) rows. Returns conf (L, mb) — for tokens the mean over S
-    of the token confidences — and vals/idx (L, mb[, S], k)."""
+    (L, mb·S, D) rows; the head goes in as ``head_params`` gives it
+    (``head_select`` owns its layout). Returns conf (L, mb) — for tokens
+    the mean over S of the token confidences — and vals/idx (L, mb[, S],
+    k)."""
     feats, _ = model.forward_features(params, {model.input_key: x})
     w, b = model.head_params(params)
     lead = feats.shape[:-1]                                 # (L, mb[, S])
     conf, vals, idx = head_select(
         feats.reshape(lead[0], -1, feats.shape[-1]).contiguous(),
-        w.contiguous(), None if b is None else b.contiguous(),
+        w, None if b is None else b.contiguous(),
         temperature=cfg.temperature, k=k, detector=cfg.detector)
     return (_sequence_score(conf.reshape(lead)), vals.reshape(lead + (k,)),
             idx.reshape(lead + (k,)))

@@ -23,11 +23,17 @@
 // exp(-1e30 - m) = 0, exactly as in chunked_attention; every row reaches
 // its diagonal, so every row ends with a real maximum.
 //
-// Bound on the H100. At Hymba's shape (S = 2176, H = 25, D = 64) the work
-// is 4*S*S*D/2 flops per head for causal rows: it is bound by operations
-// (tensor cores in bf16). This first kernel runs on the f32 FMA units and
-// reads shared memory at about one float4 per four FMAs, so it sits far
-// below that bound; wgmma tiles are later work.
+// Variants. This SIMT kernel serves float32 and bf16 at head_dim 32;
+// bf16 at head_dim 64 and 128 runs flash_attention_tc.cu on the tensor
+// cores. f32 stays here on purpose: its tolerance (2e-5) rules out TF32
+// tiles, this kernel already beats scaled_dot_product_attention in f32
+// at Hymba's shape (8.6 vs 20.3 ms, PERF.md), and the full-width paths
+// run f32 only in tests and the reduced checks.
+//
+// Bound on the H100. At Hymba's shape (S = 2176, H = 25, D = 64) the
+// work is 4*S*S*D/2 flops per head for causal rows: bound by operations
+// (1.8 ms at the f32 FMA rate). This kernel reads shared memory at about
+// one float4 per four FMAs and reaches ~14 TFLOP/s, a fifth of that rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

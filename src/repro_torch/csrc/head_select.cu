@@ -19,16 +19,20 @@
 // After each tile one thread per row folds the tile into its (m, z) and
 // its register top-k, and finalizes the row after the last tile.
 //
-// Bound on the H100. At the LM head shape (N=512, D=2048, C=151936) the
-// product is 2*N*D*C = 319 GFLOP against 1.2 GB of f32 weights: the
-// work is bound by operations. This first kernel runs the product on
-// the f32 FMA units, not the tensor cores, so it sits far below the
-// bf16 tensor-core bound; the wgmma + TMA version is later work. There
-// the grid is also too small: 512 rows are 8 blocks on 132 SMs (splitting
-// C over blocks and merging their (m, z, top-k) is the fix, left for the
-// LM slice, which runs this kernel at vocabulary width). At the IDKD
-// main-path shape (L=16, N=256, D=64, C=10) the grid is 64 blocks and
-// the kernel is a few microseconds of launch overhead.
+// Variants. This SIMT kernel serves float32 (and bf16 only when called
+// as the "simt" variant, to time it); bf16 runs head_select_tc.cu on the
+// tensor cores, with the column split this kernel lacks. f32 stays here
+// on purpose: the ResNet main path (L=16, N=256, D=64, C=10: 64 blocks,
+// a few microseconds of launch) and the f32 card-vs-CPU checks (1e-6)
+// run it, and TF32 tiles would not hold those tolerances.
+//
+// Bound on the H100. At an LM head the product is bound by operations:
+// 2*N*D*C (Qwen3-1.7B's head, N=512, D=2048, C=151936: 319 GFLOP, 4.8 ms
+// at the f32 FMA rate). This kernel reaches ~12.5 TFLOP/s where it has
+// blocks enough (Hymba's head, 65,536 rows: 538 ms in bf16), a fifth of
+// the FMA rate; at 512 rows it runs 8 blocks on 132 SMs (525 ms, PERF.md).
+// head_select_tc.cu is the design for those shapes. At the main-path
+// shape it is launch-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,5 +1,5 @@
 // Shared device helpers of the head_select and msp_select kernels:
-// input conversion, the running top-k insert, and the per-row finalizer.
+// input conversion, the running top-k inserts, and the per-row finalizer.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +48,37 @@ __device__ __forceinline__ float topk_insert(float (&tv)[KMAX],
     }
   }
   return thr;
+}
+
+// Insert (v, c) into the list tv/ti of length k ordered by (value desc,
+// index asc), whatever order the candidates come in: the merge of top-k
+// lists built over interleaved or separate column sets. (v, c) enters
+// iff it precedes the k-th entry (thr_v, thr_i), which the call updates.
+__device__ __forceinline__ void topk_insert_ordered(float (&tv)[KMAX],
+                                                    int (&ti)[KMAX], int k,
+                                                    float v, int c,
+                                                    float& thr_v,
+                                                    int& thr_i) {
+  if (!(v > thr_v || (v == thr_v && c < thr_i))) return;
+  bool shifting = false;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) {
+      if (shifting || v > tv[j] || (v == tv[j] && c < ti[j])) {
+        const float ov = tv[j];
+        const int oc = ti[j];
+        tv[j] = v;
+        ti[j] = c;
+        v = ov;
+        c = oc;
+        shifting = true;
+      }
+      if (j == k - 1) {
+        thr_v = tv[j];
+        thr_i = ti[j];
+      }
+    }
+  }
 }
 
 // Detector confidence at T=1 from the online-softmax stats (MSP 1/z or

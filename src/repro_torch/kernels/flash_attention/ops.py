@@ -8,12 +8,16 @@ h // (H // KVH); key kp is visible to row qp iff kp <= qp and, for
 ``window`` > 0, qp - window < kp. f32 math, q scaled by 1/sqrt(D) first,
 output in q's dtype.
 
-The CUDA kernel (``csrc/flash_attention.cu``, whose header note gives the
-design and what bounds it on the H100) never forms the (S, S) scores.
-:func:`flash_attention` runs it on CUDA tensors and
+Two CUDA kernels compute it, neither forming the (S, S) scores; their
+header notes give each design and what bounds it on the H100:
+``csrc/flash_attention_tc.cu`` (``tc``: bf16 at head_dim 64 or 128, on
+the tensor cores) and ``csrc/flash_attention.cu`` (``simt``: f32, and
+bf16 at head_dim 32). :func:`_variant` picks one from dtype and head_dim
+alone; :func:`flash_attention` runs it on CUDA tensors and counts the
+launch in ``launches`` and ``launches_by_variant``, and
 :func:`flash_attention_plain` — the reference's chunked online softmax in
-plain PyTorch — on CPU tensors only; a CUDA call that the kernel cannot
-take raises.
+plain PyTorch — runs on CPU tensors only; a CUDA call that no kernel
+takes raises.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,18 +67,59 @@ def flash_attention_plain(q, k, v, *, window: int = 0, chunk: int = 512):
     return out.reshape(B, S, H, -1).to(q.dtype)
 
 
-def _fn():
-    fn = build.load("flash_attention").flash_attention_launch
+def _variant(dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim): ``"tc"`` (tensor cores)
+    for bf16 at head_dim 64 or 128, ``"simt"`` for f32 and for bf16 at
+    head_dim 32; anything else raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def _fn(variant: str):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if variant == "tc":
+        fn = build.load("flash_attention_tc").flash_attention_tc_launch
+        args = [p, p, p, p, i, i, i, i, i, i, p]
+    else:
+        fn = build.load("flash_attention").flash_attention_launch
+        args = [i, p, p, p, p, i, i, i, i, i, i, p]
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = args
         fn.restype = i
     return fn
 
 
+def _launch(variant: str, q, k, v, window: int):
+    """Run one kernel on checked CUDA tensors and count the launch."""
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (B, S, H, k.shape[2], D, int(window), stream)
+    with torch.cuda.device(q.device):
+        if variant == "tc":
+            rc = _fn("tc")(*ptrs, *shape)
+        else:
+            rc = _fn("simt")(_DTYPES[q.dtype], *ptrs, *shape)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention {variant} kernel launch "
+                           f"failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
+    return out
+
+
 def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
     """Causal GQA attention with a per-layer ``window`` (0 = full).
-    ``chunk`` is the plain version's key block; the kernel tiles by 64."""
+    ``chunk`` is the plain version's key block; the kernels tile keys by
+    64 (``simt``) or 128 (``tc``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window, chunk=chunk)
     if q.device.type != "cuda":
@@ -86,27 +132,19 @@ def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
                          f"takes self-attention with k, v (B, S, KVH, D)")
     if KVH < 1 or H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} kv heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    variant = _variant(q.dtype, D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              f"on {q.device}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _fn()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), B, S, H, KVH, D,
-                   int(window), torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    flash_attention.launches += 1
-    return out
+        if variant == "tc" and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"16-byte boundary (TMA)")
+    return _launch(variant, q, k, v, window)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = {"tc": 0, "simt": 0}

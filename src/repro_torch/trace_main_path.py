@@ -36,9 +36,11 @@ FAMILIES = (("cuDNN layout transposes", ("genericTranspose", "nchwToNhwc",
             ("elementwise + reductions", ("at::native",)))
 
 
-LM_FAMILIES = (("flash_attention", ("flash_attention_kernel",)),
+LM_FAMILIES = (("flash_attention", ("flash_attention_kernel",
+                                     "flash_attention_tc_kernel")),
                ("ssd_scan", ("ssd_scan_kernel",)),
-               ("head_select", ("head_select_kernel",)),
+               ("head_select", ("head_select_kernel", "head_select_tc_kernel",
+                                "head_select_merge_kernel")),
                ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),
                ("elementwise + reductions", ("at::native",)))
 

@@ -95,3 +95,119 @@ def test_cuda_ssd_scan_matches_plain(B, S, H, P, G, N, chunk):
     e_plain = (ssd_scan_plain(xdt, dta, b, c, chunk=chunk).double()
                - exact).abs().max()
     assert (y.double() - exact).abs().max() <= 4 * e_plain + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KVH", [(5, 5), (5, 1)])
+@pytest.mark.parametrize("window", [0, 20, 100, 1024])
+@pytest.mark.parametrize("S", [75, 128, 2176])
+def test_cuda_flash_attention_tc_matches_plain(S, window, H, KVH, D):
+    """On the card: bf16 at head_dim 64 and 128 goes through the
+    tensor-core kernel (``launches_by_variant``) and matches the plain f32
+    version within one bf16 ulp of the output (2e-2) — ragged S, windows
+    smaller than a tile and not a multiple of it, GQA groups of 1 and 5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B = 2 if S < 2176 else 1
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, S, KVH, D), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, S, KVH, D), generator=g, device="cuda").bfloat16()
+    n0 = dict(flash_attention.launches_by_variant)
+    out = flash_attention(q, k, v, window=window)
+    assert flash_attention.launches_by_variant == {
+        "tc": n0["tc"] + 1, "simt": n0["simt"]}
+    assert out.dtype == torch.bfloat16
+    ref = flash_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+def _head_inputs(g, L, N, D, C, bias):
+    h = torch.randn((L, N, D), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((L, D, C), generator=g, device="cuda")
+         / D ** 0.5).bfloat16()
+    b = torch.randn((L, C), generator=g, device="cuda") if bias else None
+    return h, w, b
+
+
+def _check_head_tc(h, w, b, ks=(1, 8, 16)):
+    from repro_torch.kernels.head_select import (head_select,
+                                                 head_select_plain)
+    logits = torch.matmul(h.float(), w.float())
+    if b is not None:
+        logits = logits + b[:, None, :]
+    for det in ("msp", "energy"):
+        for k in (k for k in ks if k <= w.shape[-1]):
+            kw = dict(temperature=10.0, k=k, detector=det)
+            n0 = dict(head_select.launches_by_variant)
+            out = head_select(h, w, b, **kw)
+            assert head_select.launches_by_variant == {
+                "tc": n0["tc"] + 1, "simt": n0["simt"]}
+            ref = head_select_plain(h, w, b, **kw)
+            for a, r in zip(out[:2], ref[:2]):
+                torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
+            diff = out[2] != ref[2]
+            if diff.any():   # near-ties the summation order may flip
+                li = torch.gather(logits, -1, out[2].long())[diff]
+                lr = torch.gather(logits, -1, ref[2].long())[diff]
+                assert float((li - lr).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("L,N,D,C", [(1, 200, 48, 10), (4, 333, 48, 300),
+                                     (1, 130, 1600, 32001),
+                                     (4, 8500, 48, 300)])
+def test_cuda_head_select_tc_matches_plain(L, N, D, C, bias):
+    """On the card: bf16 goes through the tensor-core kernel and matches
+    the plain version — ragged N and C, D = 48 zero-padded in depth,
+    Hymba's D and vocabulary, k 1/8/16, both detectors, with and without
+    bias (k up to C); (1, 130, 1600, 32001) splits C over 126 blocks and
+    (4, 8500, 48, 300) does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    _check_head_tc(*_head_inputs(g, L, N, D, C, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [1, 3, 7])
+def test_cuda_head_select_tc_forced_split_and_ties(monkeypatch, nsplit):
+    """On the card: a column split forced at 1, 3 and 7 slices over logits
+    with exact duplicates (small-integer hidden and head: every product
+    and sum is exact in any order, so tied logits are bit-equal in the
+    kernel and the plain version) — the indices must equal the plain
+    version's, ties to the lowest index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.head_select import (head_select,
+                                                 head_select_plain, ops)
+    C = 7 * 256 - 50
+
+    def forced(L, N, C_, D, sms):
+        col_tiles = -(-C_ // ops.TC_COLS)
+        slice_w = -(-col_tiles // nsplit) * ops.TC_COLS
+        return slice_w, -(-C_ // slice_w)
+    monkeypatch.setattr(ops, "_column_splits", forced)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randint(-2, 3, (2, 150, 40), generator=g,
+                      device="cuda").bfloat16()
+    w = torch.randint(-1, 2, (2, 40, C), generator=g,
+                      device="cuda").bfloat16()
+    b = torch.randint(-1, 2, (2, C), generator=g, device="cuda").float()
+    w[:, :, C - 300:] = w[:, :, :300]     # duplicated columns, across slices
+    b[:, C - 300:] = b[:, :300]
+    assert forced(2, 150, C, 40, 132)[1] == nsplit
+    for det in ("msp", "energy"):
+        for k in (1, 8, 16):
+            kw = dict(temperature=10.0, k=k, detector=det)
+            n0 = head_select.launches_by_variant["tc"]
+            out = head_select(h, w, b, **kw)
+            assert head_select.launches_by_variant["tc"] == n0 + 1
+            ref = head_select_plain(h, w, b, **kw)
+            for a, r in zip(out[:2], ref[:2]):
+                torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
+            assert torch.equal(out[2], ref[2])
