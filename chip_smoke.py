@@ -28,7 +28,8 @@ Phases (any failed check raises and the script exits non-zero):
 LM-1. the LM kernels against their plain versions on the card at
    Hymba-1.5B's shapes: ``flash_attention`` (global and windowed, f32
    and bf16, timed beside ``scaled_dot_product_attention``),
-   ``ssd_scan`` (and at Mamba-2-780M's state size N = 128) and
+   ``ssd_scan`` (three passes on the tensor cores, 3xTF32, held to the
+   plain version in float64; and at Mamba-2-780M's state size N = 128) and
    ``head_select`` at Hymba's head (D = 1600, C = 32,001, bf16, 65,536
    rows); in bf16, each kernel's SIMT and tensor-core variants timed in
    turns, with achieved TFLOP/s and share of the bound;
@@ -36,7 +37,8 @@ LM-2. the LM homogenization round at full width (``repro_torch.lmpath``:
    Hymba-1.5B on 4 ring nodes, 64 public and 16 private sequences of
    2048 tokens per node): wall time, each kernel's launches (every
    ``flash_attention`` and ``head_select`` launch must go through the
-   tensor-core variant) and device time, kept fraction, thresholds,
+   tensor-core variant, every ``ssd_scan`` call must launch its kernels)
+   and device time, kept fraction, thresholds,
    finite and well-formed labels; the kernels against their plain
    versions on activations captured from the round's first microbatch (a
    global and a windowed attention layer, an SSD layer, the head pass's
@@ -547,8 +549,10 @@ def phase_lm_kernels(torch):
                                      plain_ms=pms, bound_ms=bnd, bound_by=by))
         print(f"{tag}: max_abs_err {err:.3g} (vs float64: within "
               f"{SSD_VS_F32}x the plain f32 error); {ms:.3f} ms, bound "
-              f"{bnd:.3f} ms ({by}, "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved), plain {pms:.3f} ms")
+              f"{bnd:.3f} ms ({by}; {bnd / ms:.2%} of the bound, "
+              f"{flops / ms / 1e9:.2f} TFLOP/s of the recurrence's flops, "
+              f"{nbytes / ms / 1e6:.0f} GB/s of the function's bytes), "
+              f"plain {pms:.3f} ms")
         del x, dt, dta, xdt, b, c
     # head_select at Hymba's head: 4 nodes x 8 sequences x 2048 tokens
     L, N, Dm, C = 4, 8 * 2048, cfg.d_model, cfg.vocab_size
@@ -704,6 +708,13 @@ def phase_lm_round(torch):
           f"{tuple(out[0].values.shape)}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched in the LM round")
+    ssd_calls = clocks["ssd_scan"].calls
+    check(launches["ssd_scan"] == ssd_calls,
+          f"ssd_scan: {launches['ssd_scan']} kernel launches for "
+          f"{ssd_calls} calls in the LM round; every call must launch")
+    print(f"ssd_scan: all {ssd_calls} calls of the round launched the "
+          f"three-pass tensor-core kernels, {per_kernel['ssd_scan']:.1f} "
+          f"device ms ({per_kernel['ssd_scan'] / ssd_calls:.3f} ms a call)")
     for name, by in variants.items():
         check(by == {"tc": launches[name], "simt": 0},
               f"{name}: {by} of {launches[name]} launches of the LM round "
@@ -903,7 +914,9 @@ def kernel_line(kres, lm_rows, launches, lm_launches, variants):
     an earlier line); ``max_abs_err`` is the largest over every shape
     checked; ``launches`` sums the paths that ran it, ``launches_by_path``
     splits them and ``launches_by_variant`` splits them by kernel
-    (``source`` is the tensor-core variant's file where there is one)."""
+    (``source`` is the tensor-core variant's file where there is one;
+    ``ssd_scan`` has one kernel, on the tensor cores, and ``msp_select``
+    one, on the SIMT units)."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
     tc = {"head_select", "flash_attention"}
@@ -920,7 +933,7 @@ def kernel_line(kres, lm_rows, launches, lm_launches, variants):
         by_path = {"resnet_path": launches.get(name, 0),
                    "lm_path": lm_launches.get(name, 0)}
         by_variant = {"tc": 0, "simt": 0} if name in tc else {
-            "simt": sum(by_path.values())}
+            ("tc" if name == "ssd_scan" else "simt"): sum(by_path.values())}
         for path in variants.values():
             for v, n in path.get(name, {}).items():
                 by_variant[v] += n

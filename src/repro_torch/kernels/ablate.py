@@ -1,0 +1,202 @@
+"""What a kernel's time goes to, on the card: copies of a CUDA source with
+one part cut out, timed against the source as it is.
+
+Each variant is ``csrc/<kernel>.cu`` with one edit, built with the same
+flags under ``build/ablate/`` and launched through the same C entry point
+on the same inputs, all variants in turns (two rounds; the faster round
+is kept). A variant's outputs are wrong by design: it measures, it does
+not compute the kernel's function. ``ssd_scan`` also gets its three
+passes' device times from the profiler.
+
+    python -m repro_torch.kernels.ablate          # on a machine with an H100
+
+It prints the card's name and power limit first. It imports nothing the
+kernels' wrappers do not; the variants are never used by the port.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.kernels import build
+
+OUT = build.BUILD_DIR.parent / "ablate"
+
+# (variant, [(text in the source, its replacement), ...])
+ABLATIONS = {
+    "msp_select": [
+        ("as committed", []),
+        ("no top-k", [("  if (vm > thr && vm > thr_w) {",
+                       "  if (false) {")]),
+        ("no warp bar (per-thread threshold only)",
+         [("      thr_w = fmaxf(thr_w, warp_bar(tv[0], k));", "      ;")]),
+    ],
+    "ssd_scan": [
+        ("as committed", []),
+        ("1xTF32 products", [("  mma_tf32(d, a.lo, b.hi);\n"
+                              "  mma_tf32(d, a.hi, b.lo);\n", "")]),
+        ("no intra-tile products",
+         [("for (int ks = 0; ks <= 2 * tt + 1; ++ks) {",
+           "for (int ks = 0; ks < 0; ++ks) {")]),
+        ("no inter-tile products", [("    if (ci > 0) {", "    if (ci < 0) {")]),
+        ("no pass-3 products",
+         [("for (int ks = 0; ks <= 2 * tt + 1; ++ks) {",
+           "for (int ks = 0; ks < 0; ++ks) {"),
+          ("    if (ci > 0) {", "    if (ci < 0) {")]),
+    ],
+}
+
+
+def _sources(kernel: str):
+    src = (build.CSRC / f"{kernel}.cu").read_text()
+    out = []
+    for i, (name, edits) in enumerate(ABLATIONS[kernel]):
+        s = src
+        for old, new in edits:
+            if old not in s:
+                raise RuntimeError(f"{kernel} ablation {name!r}: {old!r} is "
+                                   f"not in csrc/{kernel}.cu")
+            s = s.replace(old, new)
+        out.append((name, OUT / f"{kernel}_{i}.cu", s))
+    return out
+
+
+def _build(kernel: str):
+    """{variant: the C entry point}, all variants compiled in parallel."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, path, s in _sources(kernel):
+        path.write_text(s)
+        lib = path.with_suffix(".so")
+        cmd = [build._nvcc(), *build.FLAGS, "-I", str(build.CSRC), "-o",
+               str(lib), str(path)]
+        procs.append((name, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    fns = {}
+    for name, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{kernel} ablation {name!r} failed to "
+                               f"build:\n{log}")
+        fns[name] = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
+    return fns
+
+
+def _in_turns(calls, reps: int):
+    """{variant: device ms per call}, the faster of two rounds."""
+    best = {}
+    for _ in range(2):
+        for name, call in calls.items():
+            rc = call()
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                call()
+            b.record()
+            torch.cuda.synchronize()
+            ms = a.elapsed_time(b) / reps
+            best[name] = min(best.get(name, ms), ms)
+    return best
+
+
+def ablate_msp(gen):
+    fns = _build("msp_select")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in fns.values():
+        fn.argtypes = [i, p, i, i, i, ctypes.c_float, i, p, p, p, p]
+        fn.restype = i
+    stream = torch.cuda.current_stream().cuda_stream
+    for N, C, dtype in ((65536, 32001, torch.bfloat16),
+                        (512, 151936, torch.bfloat16),
+                        (512, 151936, torch.float32),
+                        (32768, 10, torch.float32)):
+        x = (torch.randn((N, C), generator=gen, device="cuda") * 4).to(dtype)
+        conf = torch.empty(N, device="cuda")
+        vals = torch.empty((N, 8), device="cuda")
+        idx = torch.empty((N, 8), device="cuda", dtype=torch.int32)
+        code = 0 if dtype == torch.float32 else 1
+        calls = {name: (lambda fn=fn: fn(
+            code, x.data_ptr(), N, C, 8, 10.0, 0, conf.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), stream))
+            for name, fn in fns.items()}
+        gb = N * C * x.element_size() / 1e9
+        res = _in_turns(calls, 5)
+        print(f"msp_select {N} x {C} {str(dtype)[6:]}, k 8: " + "; ".join(
+            f"{n} {ms:.3f} ms ({gb / ms * 1e3:.0f} GB/s)"
+            for n, ms in res.items()),
+            flush=True)
+        del x
+
+
+def ablate_ssd(gen):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import ops
+    fns = _build("ssd_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in fns.values():
+        fn.argtypes = [p] * 7 + [i] * 6 + [p]
+        fn.restype = i
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, (B, S, H, P, G, N) in (("hymba", (8, 2176, 50, 64, 1, 16)),
+                                      ("mamba2-780m",
+                                       (8, 2048, 48, 64, 1, 128))):
+        xdt = torch.randn((B, S, H, P), generator=gen, device="cuda")
+        dta = -3 * torch.rand((B, S, H), generator=gen, device="cuda")
+        b = torch.randn((B, S, G, N), generator=gen, device="cuda")
+        c = torch.randn((B, S, G, N), generator=gen, device="cuda")
+        nt = -(-S // ops.TILE) - 1
+        y = torch.empty_like(xdt)
+        st = torch.empty((B, nt, H, P, N), device="cuda")
+        ce = torch.empty((B, nt, H), device="cuda")
+        calls = {name: (lambda fn=fn: fn(
+            xdt.data_ptr(), dta.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), st.data_ptr(), ce.data_ptr(), B, S, H, P, G, N,
+            stream)) for name, fn in fns.items()}
+        res = _in_turns(calls, 10)
+        print(f"ssd_scan {label} (B {B}, S {S}, H {H}, P {P}, G {G}, N {N}): "
+              + "; ".join(f"{n} {ms:.4f} ms" for n, ms in res.items()),
+              flush=True)
+        full = calls["as committed"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                full()
+            torch.cuda.synchronize()
+        passes = {}
+        for e in prof.key_averages():
+            for kname in ("ssd_chunk_states", "ssd_state_passing",
+                          "ssd_chunk_scan"):
+                if kname in e.key:
+                    us = getattr(e, "self_device_time_total", None)
+                    if us is None:
+                        us = e.self_cuda_time_total
+                    passes[kname] = passes.get(kname, 0.0) + us / 10 / 1e3
+        print(f"ssd_scan {label} passes (profiler, ms per call): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in passes.items()), flush=True)
+        del xdt, dta, b, c, y, st, ce
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ablate: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip() or smi.stderr.strip())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ablate_msp(gen)
+    ablate_ssd(gen)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

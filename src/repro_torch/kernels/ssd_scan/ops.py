@@ -7,13 +7,19 @@ model's ``ssd_chunked`` from its prologue's outputs: ``xdt`` (B, S, H, P)
 (B, S, G, N) shared by the H // G heads of a group. f32 throughout; the
 sequence is cut in ``chunk``-long pieces, the last one ragged.
 
-The CUDA kernel (``csrc/ssd_scan.cu``, whose header note gives the
-design and what bounds it on the H100) walks the chunks of one (b, h)
-in one block with the (P, N) state in shared memory. :func:`ssd_scan`
-runs it on CUDA tensors and :func:`ssd_scan_plain` — the reference's
-chunked dual form in plain PyTorch — on CPU tensors only; a CUDA call
-that the kernel cannot take raises. Neither takes an initial state or
-returns the final one (decode is not ported).
+The CUDA kernels (``csrc/ssd_scan.cu``, whose header note gives the
+design and what bounds it on the H100) tile the sequence by their own
+:data:`TILE` positions, whatever ``chunk`` is (y does not depend on it in
+exact arithmetic), and run three passes: the tiles' states, parallel over
+(b, tile, head tile); the state passing, sequential over tiles; and each
+tile's output, parallel again, with C·Bᵀ formed once per group and the
+products on the tensor cores in 3xTF32. :func:`ssd_scan` issues them on
+CUDA tensors (one launch counted per call) and :func:`ssd_scan_plain` —
+the reference's chunked dual form in plain PyTorch — runs on CPU tensors
+only; a CUDA call that the kernels cannot take raises.
+:func:`ssd_scan_passes_plain` states the kernels' three passes in plain
+PyTorch. None takes an initial state or returns the final one (decode is
+not ported).
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
-MAX_STATE = 8192       # P · N entries a block's threads hold
+MAX_STATE = 8192       # P · N entries of a head's state
+TILE = 64              # the kernels' own tile of positions
 
 
 def ssd_scan_plain(xdt, dta, b, c, *, chunk: int):
@@ -74,17 +81,94 @@ def ssd_scan_plain(xdt, dta, b, c, *, chunk: int):
     return (y_intra + y_inter).reshape(B, nc * chunk, H, P)[:, :S]
 
 
+def _tiles(t, tile: int):
+    """(B, S, ...) -> (B, nc, tile, ...), zero-padded to nc·tile."""
+    B, S = t.shape[:2]
+    nc = -(-S // tile)
+    pad = nc * tile - S
+    if pad:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.reshape((B, nc, tile) + t.shape[2:])
+
+
+def ssd_chunk_states_plain(xdt, dta, b, *, tile: int):
+    """Pass 1 of the kernel's decomposition: per tile of ``tile``
+    positions, its state S = Σ_u exp(cum_end − cum_u) xdt_u ⊗ b_u
+    (B, nc, H, P, N) and its total log-decay cum_end (B, nc, H)."""
+    B, S, H, P = xdt.shape
+    G = b.shape[2]
+    xc = _tiles(xdt, tile)                                   # (B,nc,Q,H,P)
+    xc = xc.reshape(xc.shape[:3] + (G, H // G, P))
+    cum = torch.cumsum(_tiles(dta, tile), dim=2)             # (B,nc,Q,H)
+    cum_end = cum[:, :, -1]
+    w = torch.exp(cum_end[:, :, None] - cum)
+    w = w.reshape(w.shape[:3] + (G, H // G))
+    states = torch.einsum("bnugr,bnugrp,bnugN->bngrpN", w, xc,
+                          _tiles(b, tile))
+    return states.reshape(B, -1, H, P, b.shape[-1]), cum_end
+
+
+def ssd_state_passing_plain(states, cum_end):
+    """Pass 2: the state entering each tile, sequential over tiles:
+    state_in[0] = 0, state_in[c] = exp(cum_end[c−1]) state_in[c−1] +
+    S[c−1]."""
+    state_in = torch.empty_like(states)
+    run = torch.zeros_like(states[:, 0])
+    for n in range(states.shape[1]):
+        state_in[:, n] = run
+        run = run * torch.exp(cum_end[:, n])[..., None, None] + states[:, n]
+    return state_in
+
+
+def ssd_chunk_scan_plain(xdt, dta, b, c, state_in, *, tile: int):
+    """Pass 3: per tile, CB = C·Bᵀ once per group, then per head
+    y = (CB ∘ L_h)·xdt_h + (exp(cum_t) ∘ C)·state_inᵀ, with
+    L_h[t, u] = exp(cum_t − cum_u) for u ≤ t and 0 above."""
+    B, S, H, P = xdt.shape
+    G = b.shape[2]
+    R = H // G
+    xc = _tiles(xdt, tile)
+    xc = xc.reshape(xc.shape[:3] + (G, R, P))                # (B,nc,Q,G,R,P)
+    cum = torch.cumsum(_tiles(dta, tile), dim=2)
+    cum = cum.reshape(cum.shape[:3] + (G, R))                # (B,nc,Q,G,R)
+    bc, cc = _tiles(b, tile), _tiles(c, tile)                # (B,nc,Q,G,N)
+    cb = torch.einsum("bntgN,bnugN->bngtu", cc, bc)          # once per group
+    seg = cum[:, :, :, None] - cum[:, :, None, :]            # (B,nc,t,u,G,R)
+    tri = torch.tril(torch.ones((tile, tile), dtype=torch.bool,
+                                device=xdt.device))[:, :, None, None]
+    decay = torch.exp(torch.where(tri, seg, torch.tensor(
+        -1e30, dtype=seg.dtype, device=xdt.device)))
+    y = torch.einsum("bngtu,bntugr,bnugrp->bntgrp", cb, decay, xc)
+    st = state_in.reshape(state_in.shape[:2] + (G, R) + state_in.shape[3:])
+    y = y + torch.einsum("bntgr,bntgN,bngrpN->bntgrp", torch.exp(cum), cc,
+                         st)
+    return y.reshape(B, -1, H, P)[:, :S]
+
+
+def ssd_scan_passes_plain(xdt, dta, b, c, *, tile: int = TILE):
+    """The CUDA kernel's three passes in plain PyTorch, at its internal
+    tile length: equal to :func:`ssd_scan_plain` at any ``chunk`` in exact
+    arithmetic."""
+    states, cum_end = ssd_chunk_states_plain(xdt, dta, b, tile=tile)
+    return ssd_chunk_scan_plain(xdt, dta, b, c,
+                                ssd_state_passing_plain(states, cum_end),
+                                tile=tile)
+
+
 def _fn():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
 
 def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
-    """y (B, S, H, P) f32 of the chunked SSD scan; see the module note."""
+    """y (B, S, H, P) f32 of the chunked SSD scan; see the module note.
+    On CUDA tensors ``chunk`` is checked but the kernels tile by their
+    own :data:`TILE`; one call issues the three passes (one kernel when
+    S <= TILE) and counts one launch."""
     if initial_state is not None:
         raise NotImplementedError(
             "ssd_scan: an initial state (decode, chunked prefill) is not "
@@ -116,11 +200,19 @@ def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
         if t.device != xdt.device or not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous on "
                              f"{xdt.device}")
+        if name != "dta" and t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan kernel takes 16-byte aligned "
+                             f"{name}")
+    nt = -(-S // TILE) - 1
+    dev = xdt.device
     y = torch.empty_like(xdt)
-    with torch.cuda.device(xdt.device):
+    states = torch.empty((B, nt, H, P, N), device=dev)
+    cum_end = torch.empty((B, nt, H), device=dev)
+    with torch.cuda.device(dev):
         rc = _fn()(xdt.data_ptr(), dta.data_ptr(), b.data_ptr(),
-                   c.data_ptr(), y.data_ptr(), B, S, H, P, G, N, int(chunk),
-                   torch.cuda.current_stream(xdt.device).cuda_stream)
+                   c.data_ptr(), y.data_ptr(), states.data_ptr(),
+                   cum_end.data_ptr(), B, S, H, P, G, N,
+                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1

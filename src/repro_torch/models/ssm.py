@@ -99,9 +99,11 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int, initial_state=None):
     """Chunked SSD scan. x (B, S, H, P), dt (B, S, H) post-softplus,
     a_log (H,), b/c (B, S, G, N) -> y (B, S, H, P) f32. The reference's
     prologue (``A = −exp(a_log)``, ``dta = dt·A``, ``xdt = x·dt``) runs
-    here in plain torch; the scan is the ``ssd_scan`` kernel. The
-    reference also returns the final state; decode needs it and is not
-    ported, so only y is returned."""
+    here in plain torch; the scan is ``ssd_scan``: on the card its three
+    kernels (tile states and tile outputs in parallel over tiles and
+    heads, the state passing sequential over tiles), on the CPU its
+    plain version at ``chunk``. The reference also returns the final
+    state; decode needs it and is not ported, so only y is returned."""
     a = -torch.exp(a_log)
     dta = dt * a
     xdt = x * dt[..., None]

@@ -38,7 +38,8 @@ FAMILIES = (("cuDNN layout transposes", ("genericTranspose", "nchwToNhwc",
 
 LM_FAMILIES = (("flash_attention", ("flash_attention_kernel",
                                      "flash_attention_tc_kernel")),
-               ("ssd_scan", ("ssd_scan_kernel",)),
+               ("ssd_scan", ("ssd_chunk_states", "ssd_state_passing",
+                             "ssd_chunk_scan")),
                ("head_select", ("head_select_kernel", "head_select_tc_kernel",
                                 "head_select_merge_kernel")),
                ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),

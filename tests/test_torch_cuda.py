@@ -67,15 +67,26 @@ def test_cuda_flash_attention_matches_plain(dtype, S, H, KVH, D, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [(2, 100, 4, 16, 2, 8, 32),
-                                               (1, 77, 4, 32, 4, 16, 64),
-                                               (1, 300, 2, 64, 1, 128, 256)])
-def test_cuda_ssd_scan_matches_plain(B, S, H, P, G, N, chunk):
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,steep", [
+    (2, 100, 4, 16, 2, 8, 32, 1.0),
+    (1, 77, 4, 32, 4, 16, 64, 1.0),
+    (1, 300, 2, 64, 1, 128, 256, 1.0),
+    (1, 2176, 50, 64, 1, 16, 256, 1.0),     # Hymba-1.5B's layout
+    (1, 2048, 48, 64, 1, 128, 256, 1.0),    # Mamba-2-780M's layout
+    (1, 130, 4, 64, 2, 8, 64, 1.0),         # N 8
+    (1, 70, 4, 32, 2, 12, 64, 1.0),         # N % 8 == 4
+    (1, 150, 2, 16, 1, 512, 128, 1.0),      # the largest state, P·N 8192
+    (1, 40, 4, 16, 2, 8, 1, 1.0),           # chunk 1
+    (1, 64, 3, 16, 3, 8, 64, 1.0),          # a single tile
+    (2, 200, 4, 64, 1, 16, 64, 50.0)])      # steep: exp underflows to 0
+def test_cuda_ssd_scan_matches_plain(B, S, H, P, G, N, chunk, steep):
     """On the card: ssd_scan against its plain version — grouped B/C,
-    ragged chunks, Hymba's and Mamba-2's state sizes. Against the plain
-    version in float64, the kernel's max error is within 4x that of the
-    plain version in float32 (plus 1e-5): the decays difference two
-    cumulative log-decay sums, whose f32 rounding either order shares."""
+    ragged chunks, Hymba's and Mamba-2's layouts, state sizes 8 to 512,
+    chunk 1, and decays steep enough that most exponentials underflow.
+    Against the plain version in float64, the kernel's max error is
+    within 4x that of the plain version in float32 (plus 1e-5): the
+    decays difference two cumulative log-decay sums, whose f32 rounding
+    either order shares."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -83,18 +94,80 @@ def test_cuda_ssd_scan_matches_plain(B, S, H, P, G, N, chunk):
     x = torch.randn((B, S, H, P), generator=g, device="cuda")
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=g, device="cuda"))
-    a = -torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+    a = -steep * torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
     xdt, dta = (x * dt[..., None]).contiguous(), (dt * a).contiguous()
     b = torch.randn((B, S, G, N), generator=g, device="cuda")
     c = torch.randn((B, S, G, N), generator=g, device="cuda")
     n0 = ssd_scan.launches
     y = ssd_scan(xdt, dta, b, c, chunk=chunk)
     assert ssd_scan.launches == n0 + 1
+    assert bool(torch.isfinite(y).all())
     exact = ssd_scan_plain(*(t.double() for t in (xdt, dta, b, c)),
                            chunk=chunk)
     e_plain = (ssd_scan_plain(xdt, dta, b, c, chunk=chunk).double()
                - exact).abs().max()
     assert (y.double() - exact).abs().max() <= 4 * e_plain + 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_raises_on_what_it_cannot_take():
+    """No fallback on the card: head dims, state sizes, dtypes and
+    layouts the kernels do not take raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def call(P=16, N=8, chunk=16, dtype=torch.float32, G=1):
+        z = torch.zeros((1, 32, 2, P), device="cuda", dtype=dtype)
+        bc = torch.zeros((1, 32, G, N), device="cuda", dtype=dtype)
+        return ssd_scan(z, z[..., 0].contiguous(), bc, bc, chunk=chunk)
+    for kw in (dict(P=48), dict(N=6), dict(P=64, N=256), dict(chunk=257),
+               dict(chunk=0), dict(dtype=torch.float64), dict(G=3)):
+        with pytest.raises((ValueError, TypeError)):
+            call(**kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,C,offset", [(40, 32001, 0), (40, 32001, 1),
+                                        (4100, 32001, 3), (300, 1000, 0),
+                                        (70, 7, 1), (5000, 15, 0)])
+def test_cuda_msp_select_rows_of_every_alignment(dtype, N, C, offset):
+    """On the card: msp_select on rows that start at every alignment mod
+    16 bytes (odd C, views that start ``offset`` elements in), a few rows
+    per block (C >= 2048 with fewer than 4096 rows) and one warp per row,
+    narrow rows shorter than a vector, k 1/8/16, both detectors — and
+    small-integer logits with duplicated columns, whose ties must resolve
+    to the plain version's indices exactly (``torch.equal``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dt = getattr(torch, dtype)
+    x = (torch.randn((N + 1, C), generator=g, device="cuda") * 4).to(dt)
+    ints = torch.randint(-3, 4, (N + 1, C), generator=g,
+                         device="cuda").to(dt)
+    half = C // 2
+    ints[:, C - half:] = ints[:, :half]       # duplicated columns
+    for logits, exact in ((x, False), (ints, True)):
+        rows = logits.reshape(-1)[offset:offset + N * C].view(N, C)
+        for det in ("msp", "energy"):
+            for k in (k for k in (1, 8, 16) if k <= C):
+                kw = dict(temperature=10.0, k=k, detector=det)
+                n0 = msp_select.launches
+                out = msp_select(rows, **kw)
+                assert msp_select.launches == n0 + 1
+                ref = msp_select_plain(rows, **kw)
+                for a, r in zip(out[:2], ref[:2]):
+                    torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
+                if exact:
+                    assert torch.equal(out[2], ref[2])
+                else:
+                    diff = out[2] != ref[2]
+                    if diff.any():   # near-ties the summation may flip
+                        lf = rows.float()
+                        li = torch.gather(lf, -1, out[2].long())[diff]
+                        lr = torch.gather(lf, -1, ref[2].long())[diff]
+                        assert float((li - lr).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
