@@ -45,9 +45,23 @@ LM-2. the LM homogenization round at full width (``repro_torch.lmpath``:
    features, beside ``torch.matmul``'s time for the product alone); and
    the same round at a reduced Hymba on the card against the CPU's plain
    path (thresholds, masks and labels);
+   LM-1 also holds the two backward kernels to their plain versions at
+   Hymba's training shapes (2 sequences of 2048 + 128 meta tokens):
+   ``flash_attention``'s (global and windowed, f32 and bf16, beside the
+   backward of ``scaled_dot_product_attention``) and ``ssd_scan``'s (in
+   float64, and at Mamba-2-780M's N = 128);
 LM-3. the one-shot round (``msp_select`` on (n, P, S, V) logits) on the
    first 8 public sequences, held against the streaming round, and
-   ``msp_select`` against its plain version on that round's logits.
+   ``msp_select`` against its plain version on that round's logits;
+LM-4. decentralized training with IDKD at full width
+   (``repro_torch.lmpath.train``: Hymba-1.5B on 4 ring nodes, 2 plain
+   QG-DSGDm-N steps, the round, 2 sparse-KD steps): step and round wall
+   times, peak memory, the loss history, each kernel's forward and
+   backward launches per step; every loss finite, every parameter leaf
+   of every node given a finite non-zero gradient, the backward kernels
+   launched nodes x layers times a plain step (twice that a KD step), and
+   a reduced Hymba trained the same 4 steps on the card and on the CPU
+   to the same params.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -56,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -92,6 +107,22 @@ LM_CHECK_ATOL, LM_CHECK_RTOL = 1e-6, 1e-4   # reduced head pass, card vs
 MASK_BAND = 1e-5             # one-shot (bf16 logits) vs streaming (f32
                              # logits) D_ID masks may differ only for
                              # sequences this close to the threshold
+FLASH_BWD_RTOL = 1e-4        # flash backward: each gradient's error
+                             # against the plain version, of its max
+                             # |value| (sums of up to S products reordered,
+                             # in f32 either way); in bf16, plus two bf16
+                             # ulps of the element's own |value| (each side
+                             # rounds its f32 sum to bf16)
+LSE_RTOL = 1e-5              # the training forward's row log-sum-exp
+                             # against the plain masked logsumexp, of
+                             # max(1, max |lse|)
+SSD_BWD_ATOL = 1e-5          # ssd_scan's backward: the float64 rule above,
+                             # its additive term relative to each
+                             # gradient's max |value| (ddta sums over S)
+TRAIN_PARAM_ATOL = 1e-5      # reduced Hymba (f32) trained 4 steps on the
+TRAIN_LOSS_RTOL = 1e-5       # card and on the CPU: consensus params and
+                             # the loss history (see phase_lm_train)
+TRAIN_PEAK_GIB = 72.0        # LM-4's peak device memory budget
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
                                                       # bf16 tensor cores
@@ -466,6 +497,223 @@ def _check_ssd(torch, xdt, dta, b, c, chunk, what):
     return err
 
 
+def _flash_bwd_work(B, S, H, KVH, D, window, elem):
+    """(bytes, flops) of one attention backward: q, k, v, o, dO and the
+    f32 lse read, dq, dk, dv written once; five products of the causal
+    (windowed) score matrix's size (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q),
+    2.5 times the forward's two."""
+    _, flops = _flash_work(B, S, H, KVH, D, window, elem)
+    return ((4 * B * S * H * D + 4 * B * S * KVH * D) * elem + 4 * B * H * S,
+            2.5 * flops)
+
+
+def _ssd_bwd_work(B, S, H, P, G, N):
+    """(bytes, flops) of one SSD backward: xdt, dy, dta, b, c read and
+    dxdt, ddta, db, dc written once (three (B, S, H, P) tensors, two
+    (B, S, H), four (B, S, G, N)); per position and head the forward
+    and reverse state updates and the dc, dxdt and db readouts, 2·N·P
+    flops each (ddta's two terms, 4·N·P more in the kernel, are not
+    counted: dy·y − xdt·dxdt would give it in O(P))."""
+    nbytes = 4 * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * G * N)
+    return nbytes, float(B * S * H * 10 * N * P)
+
+
+def _flash_saved(torch, q, k, v, window, what):
+    """o and lse as the training forward writes them (FlashAttentionFn's
+    saved tensors; in bf16 the tc kernel's instantiation that stores the
+    log-sum-exp), each held to its plain version: o to
+    flash_attention_plain by FLASH_ATOL, lse to the masked logsumexp of
+    the scaled f32 scores by LSE_RTOL."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    out = flash_attention(q.clone().requires_grad_(True), k, v,
+                          window=window)
+    check(out.grad_fn is not None, "flash_attention with grad returned no "
+                                   "grad_fn")
+    _, _, _, o, lse = (t.detach() for t in out.grad_fn.saved_tensors)
+    dname = str(q.dtype).split(".")[-1]
+    e_o = float((o.float() - flash_attention_plain(
+        q, k, v, window=window).float()).abs().max())
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    allow = pos[None, :] <= pos[:, None]
+    if window:
+        allow &= pos[:, None] - pos[None, :] < window
+    lse_ref = torch.empty_like(lse)
+    for h in range(H):                     # one head's (B, S, S) at a time
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
+                         k[:, :, h // G].float()) / math.sqrt(D)
+        lse_ref[:, h] = torch.logsumexp(s.masked_fill(~allow, -1e30), -1)
+    e_lse = float((lse - lse_ref).abs().max())
+    tol_lse = LSE_RTOL * max(1.0, float(lse_ref.abs().max()))
+    check(bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()),
+          f"{what}: the training forward wrote non-finite o or lse")
+    check(e_o <= FLASH_ATOL[dname], f"{what}: the training forward's o, max "
+                                    f"error {e_o:.3g} > {FLASH_ATOL[dname]}")
+    check(e_lse <= tol_lse, f"{what}: the training forward's lse, max error "
+                            f"{e_lse:.3g} > {tol_lse:.3g}")
+    print(f"  {what}: training forward o max error {e_o:.3g} (tol "
+          f"{FLASH_ATOL[dname]}), lse {e_lse:.3g} (tol {tol_lse:.3g})")
+    return o, lse
+
+
+def _flash_bwd_excess(torch, a, r, dname):
+    """Max over elements of |a − r| over its tolerance (FLASH_BWD_RTOL),
+    which must not pass 1: FLASH_BWD_RTOL · max |r|, plus in bf16 two
+    ulps of bf16 at the element's own |r|."""
+    rf = r.float()
+    tol = FLASH_BWD_RTOL * rf.abs().max()
+    if dname == "bfloat16":
+        _, e = torch.frexp(rf.abs())           # |r| = m · 2^e, m in [0.5, 1)
+        ulp = torch.ldexp(torch.ones_like(rf), e - 8)
+        tol = tol + torch.where(rf == 0, 0.0, 2.0 * ulp)
+    return float(((a.float() - rf).abs() / tol).max())
+
+
+def _sdpa_bwd(torch, q, k, v, do, window):
+    """The library yardstick of the backward: autograd of one
+    scaled_dot_product_attention call (enable_gqa, the same masks) on
+    (B, H, S, D) copies, its forward run once outside the timing."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    S = q.shape[1]
+    mask = None
+    if window:
+        pos = torch.arange(S, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=not window,
+                                         enable_gqa=True)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return call
+
+
+def phase_lm_backward(torch, rows):
+    """LM-1's backward checks, at Hymba-1.5B's training shapes (2
+    sequences of 2048 tokens + 128 meta tokens per node): the attention
+    backward kernel against flash_attention_bwd_plain (global and
+    windowed, f32 and bf16; scaled_dot_product_attention's backward as
+    the library figure), and the SSD backward kernel against
+    ssd_scan_bwd_plain in float64, at Hymba's and Mamba-2-780M's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
+    from repro_torch.lmpath import CONFIG, TRAIN
+    from repro_torch.models.ssm import ssm_dims
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = "cuda"
+    cfg = CONFIG
+    B, S = TRAIN.batch_size, 2048 + cfg.num_prefix_tokens
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rows["flash_attention_bwd"], rows["ssd_scan_bwd"] = [], []
+    for window in (0, cfg.sliding_window):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, do = (torch.randn((B, S, H, D), generator=gen,
+                                 device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, S, KVH, D), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            tag = (f"flash_attention backward S={S} B={B} window={window} "
+                   f"{dname}")
+            o, lse = _flash_saved(torch, q, k, v, window, tag)
+            got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+            ref = flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            window=window)
+            err = 0.0
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                      f"{tag}: {name} non-finite or {a.dtype}")
+                e = float((a.float() - r.float()).abs().max())
+                scale = float(r.float().abs().max())
+                excess = _flash_bwd_excess(torch, a, r, dname)
+                check(excess <= 1.0, f"{tag}: {name} error over its "
+                                     f"element-wise tolerance by {excess:.3g}x"
+                                     f" (max error {e:.3g}, max |{name}| "
+                                     f"{scale:.3g})")
+                print(f"  {tag}: {name} max error {e:.3g} (max |{name}| "
+                      f"{scale:.3g}; worst element at {excess:.3g} of its "
+                      f"tolerance)")
+                err = max(err, e)
+            del got, ref
+            nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
+                                            q.element_size())
+            bnd, by = bound_ms(nbytes, flops, dname)
+            ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   window=window), 3, torch)
+            pms = timed(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, window=window), 1, torch)
+            try:
+                lms = timed(_sdpa_bwd(torch, q, k, v, do, window), 3, torch)
+            except RuntimeError as exc:      # no SDPA backend takes it
+                print(f"{tag}: scaled_dot_product_attention backward "
+                      f"refused: {exc}")
+                lms = None
+            rows["flash_attention_bwd"].append(dict(
+                window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
+                bound_ms=bnd, bound_by=by, library_ms=lms))
+            print(f"{tag}: max_abs_err {err:.3g}; {ms:.3f} ms, "
+                  f"bound {bnd:.3f} ms ({by}, {flops / ms / 1e9:.1f} TFLOP/s "
+                  f"achieved, {bnd / ms:.2%} of the bound), plain "
+                  f"{pms:.3f} ms, sdpa backward {lms} ms")
+            del q, k, v, do, o, lse
+    for label, mcfg, Ss in (("hymba", cfg, S),
+                            ("mamba2-780m", get_config("mamba2-780m"), 2048)):
+        Hs, P = ssm_dims(mcfg)[1], mcfg.ssm.head_dim
+        G, N = mcfg.ssm.ngroups, mcfg.ssm.state_size
+        x = torch.randn((B, Ss, Hs, P), generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, Ss, Hs), generator=gen, device=dev))
+        a_log = torch.log(torch.arange(1, Hs + 1, device=dev,
+                                       dtype=torch.float32))
+        dta = (dt * -torch.exp(a_log)).contiguous()
+        xdt = (x * dt[..., None]).contiguous()
+        b, c = (torch.randn((B, Ss, G, N), generator=gen, device=dev)
+                for _ in range(2))
+        dy = torch.randn((B, Ss, Hs, P), generator=gen, device=dev)
+        ins = (xdt, dta, b, c, dy)
+        tag = f"ssd_scan backward {label} B={B} S={Ss} H={Hs} P={P} N={N}"
+        got = ssd_scan_bwd(*ins)
+        t0 = time.perf_counter()
+        plain = ssd_scan_bwd_plain(*ins)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        exact = ssd_scan_bwd_plain(*(t.double() for t in ins))
+        err = 0.0
+        for name, a, p_, e_ in zip(("dxdt", "ddta", "db", "dc"), got, plain,
+                                   exact):
+            check(bool(torch.isfinite(a).all()), f"{tag}: non-finite {name}")
+            e_k = float((a.double() - e_).abs().max())
+            e_p = float((p_.double() - e_).abs().max())
+            scale = float(e_.abs().max())
+            check(e_k <= SSD_VS_F32 * e_p + SSD_BWD_ATOL * scale,
+                  f"{tag}: {name} max error against float64 {e_k:.3g}, the "
+                  f"plain f32 version's {e_p:.3g} (max |{name}| "
+                  f"{scale:.3g})")
+            print(f"  {tag}: {name} max error against the float64 plain "
+                  f"version: kernel {e_k:.3g}, plain f32 {e_p:.3g}")
+            err = max(err, float((a - p_).abs().max()))
+        del got, plain, exact
+        nbytes, flops = _ssd_bwd_work(B, Ss, Hs, P, G, N)
+        bnd, by = bound_ms(nbytes, flops, "float32")
+        ms = timed(lambda: ssd_scan_bwd(*ins), 3, torch)
+        rows["ssd_scan_bwd"].append(dict(shape=label, err=err, ms=ms,
+                                         plain_ms=pms, bound_ms=bnd,
+                                         bound_by=by))
+        print(f"{tag}: max_abs_err {err:.3g} against the plain f32 version; "
+              f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}; {bnd / ms:.2%} of the "
+              f"bound), plain {pms:.1f} ms (one call, a Python loop over "
+              f"positions)")
+        del x, dt, dta, xdt, b, c, dy, ins
+    torch.cuda.empty_cache()
+
+
 def phase_lm_kernels(torch):
     """LM-1: each LM kernel against its plain version at Hymba's shapes;
     in bf16 the SIMT and tensor-core variants timed in turns."""
@@ -589,6 +837,7 @@ def phase_lm_kernels(torch):
                         bnd))
     del h, w, out
     torch.cuda.empty_cache()
+    phase_lm_backward(torch, rows)
     return rows
 
 
@@ -906,41 +1155,254 @@ def phase_lm_oneshot(torch, lm):
     return launches, row
 
 
-def kernel_line(kres, lm_rows, launches, lm_launches, variants):
+class _Patch:
+    """Set module attributes for the length of a ``with`` block."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.old = [(m, a, getattr(m, a)) for m, a, _ in self.triples]
+        for m, a, v in self.triples:
+            setattr(m, a, v)
+
+    def __exit__(self, *exc):
+        for m, a, v in self.old:
+            setattr(m, a, v)
+
+
+def _same_draws(torch, seed):
+    """Patches under which a training run on the card and one on the CPU
+    take the same steps: weights made on the CPU and moved, and every
+    index draw (private rows, public sub-batches) from one CPU generator
+    seeded here (a CUDA and a CPU torch.Generator give different numbers
+    from one seed)."""
+    import repro_torch.core.driver as drv
+    from repro_torch.models.transformer import DecoderModel
+    gen = torch.Generator().manual_seed(seed)
+    sample, draw, init = drv.sample_partition, drv.draw_public, \
+        DecoderModel.init
+
+    def sample_partition(parts, _gen, batch_size):
+        cpu = drv.PaddedParts(parts.idx.cpu(), parts.size.cpu())
+        return sample(cpu, gen, batch_size).to(parts.idx.device)
+
+    def draw_public(_gen, n, pub_batch, n_public, device):
+        return draw(gen, n, pub_batch, n_public, "cpu").to(device)
+
+    def init_on_cpu(self, seed, device="cuda"):
+        return {k: v.to(device) for k, v in init(self, seed, "cpu").items()}
+
+    return _Patch((drv, "sample_partition", sample_partition),
+                  (drv, "draw_public", draw_public),
+                  (DecoderModel, "init", init_on_cpu))
+
+
+def phase_lm_train(torch):
+    """LM-4: decentralized training with IDKD at full width
+    (``repro_torch.lmpath.train``: Hymba-1.5B on 4 ring nodes, 2 plain
+    QG-DSGDm-N steps, the homogenization round, 2 sparse-KD steps): each
+    step's and the round's wall time, peak memory, the loss history and
+    each kernel's forward and backward launches per step. Fails unless
+    every loss is finite, every parameter leaf of every node gets a
+    finite gradient that is non-zero somewhere at every step, and the
+    backward kernels launch nodes x layers times per plain step and twice
+    that per KD step (the KD adapter's second forward). Then a reduced
+    Hymba (f32) trains the same 4 steps on the card and on the CPU, and
+    the two end within TRAIN_PARAM_ATOL (params) and TRAIN_LOSS_RTOL
+    (losses)."""
+    import repro_torch.core.driver as drv
+    import repro_torch.launch.train as train_mod
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    counters = {"flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd,
+                "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
+                "head_select": head_select}
+    steps, rounds, bad = [], [], []
+    make_step, make_algorithm = drv.make_step, train_mod.make_algorithm
+    label_round = train_mod.idkd_label_round
+
+    def timed_make_step(*a, **kw):
+        real = make_step(*a, **kw)
+
+        def step(params, opt_state, batch, lr):
+            torch.cuda.synchronize()
+            before = {k: f.launches for k, f in counters.items()}
+            t0 = time.perf_counter()
+            out = real(params, opt_state, batch, lr)
+            torch.cuda.synchronize()
+            steps.append(dict(
+                kind="kd" if "pub_tokens" in batch else "plain",
+                s=time.perf_counter() - t0, loss=float(out[2]),
+                launches={k: f.launches - before[k]
+                          for k, f in counters.items()}))
+            return out
+        step.init_opt = real.init_opt
+        return step
+
+    def checked_algorithm(*a, **kw):
+        algo = make_algorithm(*a, **kw)
+        real = algo.step
+
+        def step(params, grads, state, lr, mix):
+            for k, g in grads.items():
+                norm = torch.linalg.vector_norm(
+                    g.reshape(g.shape[0], -1), dim=1, dtype=torch.float32)
+                ok = torch.isfinite(norm) & (norm > 0)
+                if not bool(ok.all()):
+                    bad.append((len(steps), k, norm.tolist()))
+            return real(params, grads, state, lr, mix)
+        return dataclasses.replace(algo, step=step)
+
+    def timed_round(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = label_round(*a, **kw)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+        return out
+
+    cfg = lmpath.CONFIG
+    for f in counters.values():
+        f.launches = 0
+    for f in (flash_attention, head_select):
+        f.launches_by_variant = {"tc": 0, "simt": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Patch((drv, "make_step", timed_make_step),
+                (train_mod, "make_algorithm", checked_algorithm),
+                (train_mod, "idkd_label_round", timed_round)):
+        out = lmpath.train(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    variants = {k: dict(counters[k].launches_by_variant)
+                for k in ("flash_attention", "head_select")}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = out["loss_history"]
+    del out
+    torch.cuda.empty_cache()
+    n, L = lmpath.TRAIN.num_nodes, cfg.num_layers
+    print(f"LM training (Hymba-1.5B, {n} ring nodes, {L} layers, batch "
+          f"{lmpath.TRAIN.batch_size} x 2048 tokens, lr "
+          f"{lmpath.TRAIN.lr}): {wall:.1f} s wall with set-up, peak memory "
+          f"{peak:.1f} GiB; round {rounds} s; losses {hist}")
+    for i, st in enumerate(steps):
+        print(f"  step {i} ({st['kind']}): {st['s']:.2f} s, loss "
+              f"{st['loss']:.4f}, launches {st['launches']}")
+    check(len(rounds) == 1, f"{len(rounds)} label rounds ran, not 1")
+    kinds = [st["kind"] for st in steps]
+    check(kinds == ["plain", "plain", "kd", "kd"], f"steps ran as {kinds}")
+    check(len(hist) == 4 and all(math.isfinite(x) for x in hist),
+          f"loss history {hist}")
+    check(not bad, f"parameter leaves without a finite, non-zero gradient "
+                   f"(step, leaf, per-node norms): {bad[:5]}")
+    for st in steps:
+        want = n * L * (2 if st["kind"] == "kd" else 1)
+        for name in ("flash_attention_bwd", "ssd_scan_bwd"):
+            check(st["launches"][name] == want,
+                  f"{st['kind']} step: {st['launches'][name]} {name} "
+                  f"launches, the schedule implies {n} nodes x {L} layers"
+                  f"{' x 2 (the KD forward)' if st['kind'] == 'kd' else ''}"
+                  f" = {want}")
+        for name in ("flash_attention", "ssd_scan"):
+            check(st["launches"][name] == 2 * want,
+                  f"{st['kind']} step: {st['launches'][name]} {name} "
+                  f"launches; with per-layer recompute, {2 * want}")
+    check(launches["head_select"] > 0, "head_select was not launched in "
+                                       "the training run's round")
+    for name, by in variants.items():
+        check(by == {"tc": launches[name], "simt": 0},
+              f"{name}: {by} of {launches[name]} launches of the training "
+              f"run went through each variant; all must be tc")
+    check(peak <= TRAIN_PEAK_GIB, f"peak memory {peak:.1f} GiB > "
+                                  f"{TRAIN_PEAK_GIB} GiB")
+    print(f"every leaf of every node got a finite, non-zero gradient at "
+          f"every step; backward launches per step = nodes x layers (x 2 "
+          f"in KD steps): {[st['launches']['flash_attention_bwd'] for st in steps]}")
+
+    # a reduced Hymba, f32, on the card and on the CPU: the same steps
+    small = lmpath.CONFIG.reduced().replace(num_layers=3, num_kv_heads=2,
+                                            remat=True)
+    tcfg = dataclasses.replace(lmpath.TRAIN, idkd=dataclasses.replace(
+        lmpath.TRAIN.idkd, stream_microbatch=5))
+    kw = dict(seq_len=120, n_private=256, n_public=12)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        with _same_draws(torch, 7):
+            runs[device] = lmpath.train(small, tcfg, device=device, **kw)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    dp = max(float((gpu["params"][k].cpu() - v).abs().max())
+             for k, v in cpu["params"].items())
+    dl = max(abs(a - b) / abs(b) for a, b in zip(gpu["loss_history"],
+                                                 cpu["loss_history"]))
+    check(gpu["ledger"]["label_bytes"] == cpu["ledger"]["label_bytes"],
+          f"reduced training: label bytes {gpu['ledger']['label_bytes']} on "
+          f"the card, {cpu['ledger']['label_bytes']} on the CPU")
+    check(dl <= TRAIN_LOSS_RTOL, f"reduced training, card vs CPU: losses "
+                                 f"{gpu['loss_history']} vs "
+                                 f"{cpu['loss_history']}")
+    check(dp <= TRAIN_PARAM_ATOL, f"reduced training, card vs CPU: params "
+                                  f"differ by {dp:.3g}")
+    print(f"reduced Hymba (3 layers, kv 2, f32, S 120 + 8 meta > window "
+          f"{small.sliding_window}, per-layer recompute), 4 steps on the card "
+          f"and on the CPU with the same draws: consensus params within "
+          f"{dp:.3g} (tol {TRAIN_PARAM_ATOL}), losses within {dl:.3g} "
+          f"relative (tol {TRAIN_LOSS_RTOL}), label bytes equal")
+    return dict(launches=launches, variants=variants, steps=steps,
+                rounds=rounds, peak_gib=peak, hist=hist)
+
+
+def kernel_line(kres, lm_rows, paths, variants):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
-    one-shot branch for msp_select; for the two kernels with a
-    tensor-core variant, that variant's bf16 time, the SIMT time being on
-    an earlier line); ``max_abs_err`` is the largest over every shape
-    checked; ``launches`` sums the paths that ran it, ``launches_by_path``
+    one-shot branch for msp_select; Hymba's training step for the two
+    backward kernels; for the two kernels with a tensor-core variant,
+    that variant's bf16 time, the SIMT time being on an earlier line);
+    ``max_abs_err`` is the largest over every shape checked; ``launches``
+    sums the paths that ran it (``paths``: {path: {kernel: launches}},
+    each counted from 0 over that path's run), ``launches_by_path``
     splits them and ``launches_by_variant`` splits them by kernel
     (``source`` is the tensor-core variant's file where there is one;
     ``ssd_scan`` has one kernel, on the tensor cores, and ``msp_select``
-    one, on the SIMT units)."""
+    and the backward kernels one each, on the SIMT units). The backward
+    kernels replace no Pallas kernel of their own (the JAX package
+    differentiates its jnp forms): ``replaces`` names the Pallas kernel
+    whose backward they are."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
     tc = {"head_select", "flash_attention"}
     flash = next(r for r in lm_rows["flash_attention"]
                  if r["window"] and r["dtype"] == "bfloat16")
-    picks = {"head_select": (lm_rows["head_select"][0], 131),
-             "msp_select": (lm_rows["msp_select"][0], 67),
-             "flash_attention": (flash, 69),
-             "ssd_scan": (lm_rows["ssd_scan"][0], 60)}
+    flash_bwd = next(r for r in lm_rows["flash_attention_bwd"]
+                     if r["window"] and r["dtype"] == "bfloat16")
+    picks = {"head_select": (lm_rows["head_select"][0], "head_select", 131),
+             "msp_select": (lm_rows["msp_select"][0], "msp_select", 67),
+             "flash_attention": (flash, "flash_attention", 69),
+             "ssd_scan": (lm_rows["ssd_scan"][0], "ssd_scan", 60),
+             "flash_attention_bwd": (flash_bwd, "flash_attention", 69),
+             "ssd_scan_bwd": (lm_rows["ssd_scan_bwd"][0], "ssd_scan", 60)}
     errs = {"head_select": kres["head_select"] + lm_rows["head_select"],
             "msp_select": kres["msp_select"] + lm_rows["msp_select"]}
     line = []
-    for name, (row, at) in picks.items():
-        by_path = {"resnet_path": launches.get(name, 0),
-                   "lm_path": lm_launches.get(name, 0)}
+    for name, (row, pallas, at) in picks.items():
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in paths.items()}
         by_variant = {"tc": 0, "simt": 0} if name in tc else {
             ("tc" if name == "ssd_scan" else "simt"): sum(by_path.values())}
-        for path in variants.values():
-            for v, n in path.get(name, {}).items():
-                by_variant[v] += n
+        if name in tc:
+            for path in variants.values():
+                for v, n in path.get(name, {}).items():
+                    by_variant[v] += n
         line.append({"name": name, "route": "cuda",
                      "source": src.format(name + ("_tc" if name in tc
                                                   else "")),
-                     "replaces": ref.format(name, at),
+                     "replaces": ref.format(pallas, at),
                      "launches": sum(by_path.values()),
                      "launches_by_path": by_path,
                      "launches_by_variant": by_variant,
@@ -985,11 +1447,14 @@ def main() -> int:
     lm_rows["msp_select"] = [msp_row]
     del lm
     torch.cuda.empty_cache()
+    train = phase_lm_train(torch)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_line(
-        kres, lm_rows, launches, lm_launches,
-        {"resnet_path": variants, "lm_path": lm_variants})}))
+        kres, lm_rows, {"resnet_path": launches, "lm_path": lm_launches,
+                        "lm_train_path": train["launches"]},
+        {"resnet_path": variants, "lm_path": lm_variants,
+         "lm_train_path": train["variants"]})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

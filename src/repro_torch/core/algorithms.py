@@ -4,7 +4,8 @@ Params, grads and optimizer state are flat dicts of node-stacked tensors
 (leading axis = node). Ported: ``dsgd``, ``dsgdm`` and ``qg-dsgdm-n``
 (the paper's base optimizer); the other names of the reference's
 registry raise until they are ported (ROADMAP.md queue 1 item 6).
-Updates run under ``torch.no_grad`` and return new tensors.
+Updates run under ``torch.no_grad``; ``dsgd``/``dsgdm`` return new
+tensors, ``qg-dsgdm-n`` writes over the params and momentum passed in.
 """
 from __future__ import annotations
 
@@ -16,8 +17,23 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
+CHUNK = 1 << 26   # elements of a leaf whose f32 temporaries live at once
+
+
 def tree_zeros_like(x: Params) -> Params:
     return {k: torch.zeros_like(v) for k, v in x.items()}
+
+
+def leaf_slices(x: torch.Tensor):
+    """Index tuples cutting a node-stacked leaf along its second axis
+    (never the node axis, which the gossip mix reads) into pieces of at
+    most :data:`CHUNK` elements: an update's f32 temporaries then hold
+    one piece, not a whole stacked leaf (4 GB at Hymba-1.5B's largest)."""
+    if x.dim() < 2 or x.numel() <= CHUNK:
+        return [(slice(None),)]
+    per = max(1, CHUNK // (x.numel() // x.shape[1]))
+    return [(slice(None), slice(a, a + per))
+            for a in range(0, x.shape[1], per)]
 
 
 @dataclass
@@ -62,7 +78,13 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
     ``normalize`` the local gradient (weight decay folded in) is scaled
     by one over its L2 norm over the whole node-stacked tree. Per leaf:
     half-step x − η(βm + ĝ), gossip mix, then the displacement EMA — the
-    reference's fused per-leaf op sequence.
+    reference's fused per-leaf op sequence — taken over
+    :func:`leaf_slices`, so bf16 leaves keep f32 temporaries of one slice.
+    The mixer's per-leaf protocol (``mix.mix_leaf``, which every
+    ``core.mixing`` mixer has) does the gossip. Each slice is written
+    over the old params and momentum — a slice reads only itself, gossip
+    included — so no second copy of either is made and the returned
+    dicts hold the tensors passed in.
     """
     def init(params):
         return {"m": tree_zeros_like(params)}
@@ -73,38 +95,42 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
         if normalize:
             total = 0.0
             for k in sorted(grads):            # the reference's leaf order
-                gf = grads[k].float()
-                if wd:
-                    gf = gf + wd * params[k].float()
-                total = total + torch.sum(gf ** 2)
+                for sl in leaf_slices(grads[k]):
+                    gf = grads[k][sl].float()
+                    if wd:
+                        gf = gf + wd * params[k][sl].float()
+                    total = total + torch.sum(gf ** 2)
             scale = 1.0 / (torch.sqrt(total) + eps)
         else:
             scale = 1.0
         inv_lr = 1.0 / lr
-        mix_leaf = getattr(mix, "mix_leaf", None)
-        new_p, new_m = {}, {}
-        for k, p in params.items():
-            g, m = grads[k], state["m"][k]
+
+        def half_step(p, g, m):
             gf = g.float()
             if wd:
                 gf = gf + wd * p.float()
-            gf = scale * gf
-            upd = momentum * m.float() + gf
-            half = (p.float() - lr * upd).to(p.dtype)
-            new_p[k] = mix_leaf(half) if mix_leaf is not None else half
-        if mix_leaf is None:
-            new_p = mix(new_p)
+            upd = momentum * m.float() + scale * gf
+            return (p.float() - lr * upd).to(p.dtype)
+
+        def ema(m, p, y):
+            d = (p.float() - y.float()) * inv_lr
+            return (momentum * m.float() + (1 - momentum) * d).to(m.dtype)
+
+        # per leaf and per slice: half-step, gossip mix, displacement EMA
         for k, p in params.items():
-            m = state["m"][k]
-            d = (p.float() - new_p[k].float()) * inv_lr
-            new_m[k] = (momentum * m.float() + (1 - momentum) * d).to(m.dtype)
-        return new_p, {"m": new_m}
+            g, m = grads[k], state["m"][k]
+            for sl in leaf_slices(p):
+                y = mix.mix_leaf(half_step(p[sl], g[sl], m[sl]))
+                m[sl] = ema(m[sl], p[sl], y)
+                p[sl] = y
+        return params, state
 
     return Algorithm("qg-dsgdm-n", init, step)
 
 
 def make_algorithm(name: str, *, topology=None, momentum: float = 0.9,
                    weight_decay: float = 1e-4) -> Algorithm:
+    """The registry."""
     name = name.lower()
     if name == "dsgd":
         return make_dsgd(0.0, weight_decay)

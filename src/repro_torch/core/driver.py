@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import IDKDConfig
 from repro_torch.core import distill
 from repro_torch.runtime import resolve_device
 
@@ -81,23 +82,56 @@ def sparse_kd_adapter(temperature: float, kd_weight: float = 1.0):
     return adapter
 
 
+def lm_adapter(model) -> NodeLoss:
+    """Next-token LM loss: the whole batch goes to ``model.loss``."""
+    def node_loss(params, batch):
+        loss, _ = model.loss(params, batch)
+        return loss
+    return node_loss
+
+
+def lm_sparse_kd_adapter(idkd_cfg: IDKDConfig):
+    """LM next-token loss + sparse KD on the public sub-batch: the
+    T²-scaled ``distill.sparse_kd_loss`` against the neighbours' averaged
+    top-k labels, averaged over tokens, weighted by ``pub_w`` and scaled
+    by ``kd_weight``."""
+    def adapter(model) -> NodeLoss:
+        def node_loss(params, batch):
+            base, _ = model.loss(params, batch)
+            logits, _ = model.forward(params, {"tokens": batch["pub_tokens"]})
+            kd = distill.sparse_kd_loss(
+                logits, distill.SparseLabels(batch["pub_vals"],
+                                             batch["pub_idx"]),
+                idkd_cfg.temperature)                       # (L, Bp, S)
+            w = batch["pub_w"]
+            kd = (kd.mean(-1) * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+            return base + idkd_cfg.kd_weight * kd
+        return node_loss
+    return adapter
+
+
 # ----------------------------------------------------------- step factory
 def make_step(model, algo, mixer, loss_adapter) -> Callable:
     """``step(params, opt_state, batch, lr) -> (params, opt_state, loss)``
     on node-stacked params; ``loss`` is the mean node loss."""
     node_loss = loss_adapter(model)
 
-    def step(params, opt_state, batch, lr):
+    def grad_fn(params, batch):
         keys = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in keys]
         losses = node_loss(dict(zip(keys, leaves)), batch)
         grads = torch.autograd.grad(losses.sum(), leaves)
+        return dict(zip(keys, grads)), losses.detach()
+
+    def step(params, opt_state, batch, lr):
+        grads, losses = grad_fn(params, batch)
         new_params, opt_state = algo.step(
-            {k: p.detach() for k, p in zip(keys, leaves)},
-            dict(zip(keys, grads)), opt_state, lr, mixer)
-        return new_params, opt_state, losses.detach().mean()
+            {k: p.detach() for k, p in params.items()}, grads, opt_state,
+            lr, mixer)
+        return new_params, opt_state, losses.mean()
 
     step.init_opt = algo.init
+    step.grads = grad_fn           # (grads, node losses) alone, for traces
     return step
 
 
@@ -219,6 +253,62 @@ def make_homogenized_sampler(priv_parts: PaddedParts, train_x, train_y,
             lab_priv = F.one_hot(train_y[priv], num_classes).float()
             batch["labels"] = torch.where(is_pub[..., None],
                                           ctx["labels"][nidx, pub], lab_priv)
+        return batch
+
+    return sample
+
+
+def make_lm_sampler(parts: PaddedParts, tokens, batch_size: int):
+    """LM batches: (n, B, S) token / next-token pairs from each node's
+    partition of ``tokens`` (n_seqs, S + 1), drawn on the device."""
+    _require_nonempty(parts, "private")
+    tokens = torch.as_tensor(tokens, device=parts.idx.device).long()
+
+    def sample(gen, step) -> Batch:
+        seq = tokens[sample_partition(parts, gen, batch_size)]  # (n,B,S+1)
+        return {"tokens": seq[..., :-1], "labels": seq[..., 1:]}
+
+    return sample
+
+
+def lm_kd_ctx(pub_vals, pub_idx, pub_w) -> Dict:
+    """Round-varying LM-KD sampler state: the sparse label payload
+    (n, P, S, k) and the weights (n, P) each homogenization round
+    refreshes, passed through the runner."""
+    return {"pub_vals": torch.as_tensor(pub_vals),
+            "pub_idx": torch.as_tensor(pub_idx),
+            "pub_w": torch.as_tensor(pub_w).float()}
+
+
+def draw_public(gen: torch.Generator, n: int, pub_batch: int,
+                n_public: int, device) -> torch.Tensor:
+    """(n, pub_batch) public sequence indices, uniform with replacement."""
+    return torch.randint(0, n_public, (n, pub_batch), generator=gen,
+                         device=device)
+
+
+def make_lm_kd_sampler(parts: PaddedParts, tokens, batch_size: int,
+                       public_tokens, pub_vals, pub_idx, pub_w,
+                       pub_batch: int):
+    """LM batches plus a per-node public sub-batch with its sparse
+    payload: ``sample(gen, step, ctx=None)``, where ``ctx``
+    (:func:`lm_kd_ctx`) overrides the factory's payload after later
+    rounds."""
+    base = make_lm_sampler(parts, tokens, batch_size)
+    dev = parts.idx.device
+    public_tokens = torch.as_tensor(public_tokens, device=dev).long()
+    default_ctx = lm_kd_ctx(pub_vals, pub_idx, pub_w)
+    n = default_ctx["pub_w"].shape[0]
+    nidx = torch.arange(n, device=dev)[:, None]
+
+    def sample(gen, step, ctx=None) -> Batch:
+        c = default_ctx if ctx is None else ctx
+        batch = base(gen, step)
+        pb = draw_public(gen, n, pub_batch, len(public_tokens), dev)
+        batch["pub_tokens"] = public_tokens[pb]
+        batch["pub_vals"] = c["pub_vals"][nidx, pb]
+        batch["pub_idx"] = c["pub_idx"][nidx, pb]
+        batch["pub_w"] = c["pub_w"][nidx, pb]
         return batch
 
     return sample

@@ -61,11 +61,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// LSE: write each row's log-sum-exp to lse (the training forward's); a
+// template parameter, so the round's kernel is compiled without the store
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int KVH, int window, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int KVH,
+                       int window, float scale) {
   constexpr int LD = D + 4;       // tile row stride in floats (16-byte rows,
                                   // conflict-free float4 reads)
   constexpr int CH = D / 16;      // float4 output chunks per thread
@@ -187,34 +190,43 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int x = 0; x < 4; ++x) ob[d + x] = from_f<T>(acc[4 * c + x] * inv);
     }
+    // the row's log-sum-exp of its scaled scores, for the backward pass
+    if constexpr (LSE) {
+      if (j == 0) lse[((size_t)b * H + h) * S + qp] = m_run + logf(l_run);
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KVH, int window,
+                      float* lse, int B, int S, int H, int KVH, int window,
                       cudaStream_t stream) {
   const size_t smem = fa_smem_bytes<D>();
+  auto kernel = lse != nullptr ? flash_attention_kernel<T, D, true>
+                               : flash_attention_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
   const float scale = 1.0f / sqrtf((float)D);
-  flash_attention_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
+  kernel<<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KVH, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KVH, window,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
-                        void* o, int B, int S, int H, int KVH, int window,
-                        cudaStream_t s) {
+                        void* o, float* lse, int B, int S, int H, int KVH,
+                        int window, cudaStream_t s) {
   switch (D) {
-    case 32: return fa_launch<T, 32>(q, k, v, o, B, S, H, KVH, window, s);
-    case 64: return fa_launch<T, 64>(q, k, v, o, B, S, H, KVH, window, s);
-    case 128: return fa_launch<T, 128>(q, k, v, o, B, S, H, KVH, window, s);
+    case 32:
+      return fa_launch<T, 32>(q, k, v, o, lse, B, S, H, KVH, window, s);
+    case 64:
+      return fa_launch<T, 64>(q, k, v, o, lse, B, S, H, KVH, window, s);
+    case 128:
+      return fa_launch<T, 128>(q, k, v, o, lse, B, S, H, KVH, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -223,19 +235,24 @@ cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, S, H,
 // D), k/v (B, S, KVH, D), contiguous; D in {32, 64, 128}; H % KVH == 0;
-// window 0 = full causal. Returns cudaGetLastError() after the launch.
+// window 0 = full causal. lse: null, or (B, H, S) f32 that receives each
+// row's log-sum-exp of its scaled scores (the training forward's; the
+// label round passes null and writes nothing more). Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
-                                      int B, int S, int H, int KVH, int D,
-                                      int window, void* stream) {
+                                      void* lse, int B, int S, int H,
+                                      int KVH, int D, int window,
+                                      void* stream) {
   if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)idkd::fa_dispatch<float>(D, q, k, v, o, B, S, H, KVH, window,
-                                         s);
+    return (int)idkd::fa_dispatch<float>(D, q, k, v, o,
+                                         static_cast<float*>(lse), B, S, H,
+                                         KVH, window, s);
   if (dtype == 1)
-    return (int)idkd::fa_dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, H, KVH,
-                                                 window, s);
+    return (int)idkd::fa_dispatch<__nv_bfloat16>(
+        D, q, k, v, o, static_cast<float*>(lse), B, S, H, KVH, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -185,13 +185,17 @@ __device__ __forceinline__ void ft_pack(const float (&sc)[64],
   }
 }
 
-template <int D>
+// LSE: write each row's log-sum-exp to lse (the training forward's); a
+// template parameter, so the round's kernel is compiled without the store
+// (a runtime test of the pointer cost 2.5% there, PERF.md)
+template <int D, bool LSE>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ o, int S, int H,
-                          int KVH, int window, float scale_log2) {
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int S, int H, int KVH,
+                          int window, float scale_log2) {
   using L = FtSmem<D>;
   constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
@@ -324,6 +328,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  if constexpr (LSE) {
+    // the rows' log-sum-exp of the scaled scores, for the backward pass:
+    // m is in raw score units, l sums exp((s - m) * scale)
+    if (r.col == 0) {
+      const float scale = scale_log2 * 0.6931471805599453f;
+      float* lr = lse + ((size_t)b * H + h) * S;
+      if (r.a < S) lr[r.a] = m_a * scale + logf(l_a);
+      if (r.b < S) lr[r.b] = m_b * scale + logf(l_b);
+    }
+  }
   const size_t row_stride = (size_t)H * D;
   __nv_bfloat16* oa = o + ((size_t)b * S + r.a) * row_stride + (size_t)h * D;
   __nv_bfloat16* ob = oa + 8 * row_stride;
@@ -343,7 +357,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KVH, int window,
+                      float* lse, int B, int S, int H, int KVH, int window,
                       cudaStream_t stream) {
   // q (B, S, H, D) and k/v (B, S, KVH, D) as 4-D maps, innermost first
   CUtensorMap mq, mk, mv;
@@ -362,14 +376,15 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
       !make_map_bf16(&mv, v, 4, dk, sk, bk))
     return cudaErrorInvalidValue;
   const int smem = FtSmem<D>::BYTES;
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_attention_tc_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = lse != nullptr ? flash_attention_tc_kernel<D, true>
+                               : flash_attention_tc_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + FT_ROWS - 1) / FT_ROWS, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_attention_tc_kernel<D><<<grid, FT_THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, KVH, window,
+  kernel<<<grid, FT_THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, S, H, KVH, window,
       scale_log2);
   return cudaGetLastError();
 }
@@ -377,19 +392,22 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace idkd
 
 // bf16 q/o (B, S, H, D), k/v (B, S, KVH, D), contiguous, 16-byte aligned;
-// D in {64, 128}; H % KVH == 0; window 0 = full causal. Returns
+// D in {64, 128}; H % KVH == 0; window 0 = full causal; lse null, or
+// (B, H, S) f32 for the rows' log-sum-exp (training only). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the kernel does not take or a tensor map the driver refuses).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int S, int H, int KVH, int D,
+                                         const void* v, void* o, void* lse,
+                                         int B, int S, int H, int KVH, int D,
                                          int window, void* stream) {
   if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)idkd::ft_launch<64>(q, k, v, o, B, S, H, KVH, window, s);
+    return (int)idkd::ft_launch<64>(q, k, v, o, static_cast<float*>(lse), B,
+                                    S, H, KVH, window, s);
   if (D == 128)
-    return (int)idkd::ft_launch<128>(q, k, v, o, B, S, H, KVH, window, s);
+    return (int)idkd::ft_launch<128>(q, k, v, o, static_cast<float*>(lse), B,
+                                     S, H, KVH, window, s);
   return (int)cudaErrorInvalidValue;
 }

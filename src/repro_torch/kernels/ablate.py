@@ -10,6 +10,15 @@ passes' device times from the profiler.
 
     python -m repro_torch.kernels.ablate          # on a machine with an H100
 
+``--forward`` instead times the LM forward kernels as the label round
+calls them (no grad, at Hymba-1.5B's round shape): ``flash_attention``
+global and windowed in bf16, and ``ssd_scan``. Run by path with another
+checkout's package first on ``PYTHONPATH``, it times that checkout's
+kernels through the same calls, so two versions can be timed in turns
+within one machine:
+
+    PYTHONPATH=<checkout>/src python src/repro_torch/kernels/ablate.py --forward
+
 It prints the card's name and power limit first. It imports nothing the
 kernels' wrappers do not; the variants are never used by the port.
 """
@@ -184,6 +193,36 @@ def ablate_ssd(gen):
         del xdt, dta, b, c, y, st, ce
 
 
+def forward_times(gen):
+    """Device ms of the LM forward kernels at the round's shape (B 8,
+    S 2048 + 128 meta tokens; 25/5 heads x 64, window 0 and 1024; SSD
+    50 heads x 64, N 16), as ``flash_attention`` and ``ssd_scan`` run
+    them under ``torch.no_grad``."""
+    import repro_torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    print(f"package: {repro_torch.__file__}")
+    B, S = 8, 2176
+    q = torch.randn((B, S, 25, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, S, 5, 64), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    xdt = torch.randn((B, S, 50, 64), generator=gen, device="cuda")
+    dta = -3 * torch.rand((B, S, 50), generator=gen, device="cuda")
+    b, c = (torch.randn((B, S, 1, 16), generator=gen, device="cuda")
+            for _ in range(2))
+    calls = {"flash_attention window 0":
+             lambda: flash_attention(q, k, v, window=0),
+             "flash_attention window 1024":
+             lambda: flash_attention(q, k, v, window=1024),
+             "ssd_scan": lambda: ssd_scan(xdt, dta, b, c, chunk=256)}
+    with torch.no_grad():
+        res = _in_turns({n: (lambda f=f: (f(), 0)[1]) for n, f in
+                         calls.items()}, 20)
+    print("forward kernels, round shape: " + "; ".join(
+        f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate: needs an NVIDIA GPU", file=sys.stderr)
@@ -193,6 +232,9 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "--forward" in sys.argv[1:]:
+        forward_times(gen)
+        return 0
     ablate_msp(gen)
     ablate_ssd(gen)
     return 0

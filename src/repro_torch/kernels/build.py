@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("head_select", "head_select_tc", "msp_select", "flash_attention",
-           "flash_attention_tc", "ssd_scan")
+           "flash_attention_tc", "flash_attention_bwd", "ssd_scan",
+           "ssd_scan_bwd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

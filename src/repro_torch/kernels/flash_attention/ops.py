@@ -18,6 +18,17 @@ launch in ``launches`` and ``launches_by_variant``, and
 :func:`flash_attention_plain` — the reference's chunked online softmax in
 plain PyTorch — runs on CPU tensors only; a CUDA call that no kernel
 takes raises.
+
+The backward pass. With grad enabled and an input that requires grad,
+:func:`flash_attention` on CUDA tensors goes through
+:class:`FlashAttentionFn`: its forward launches the same kernel with the
+rows' log-sum-exp written to a (B, H, S) f32 buffer (under
+``torch.no_grad`` the kernel is passed no buffer and writes nothing
+more), and its backward is :func:`flash_attention_bwd`, the kernels of
+``csrc/flash_attention_bwd.cu`` (FlashAttention-2's formulas, header
+note there) on CUDA tensors and :func:`flash_attention_bwd_plain` on CPU
+tensors. The JAX package has no backward kernel (its training
+differentiates ``chunked_attention``).
 """
 from __future__ import annotations
 
@@ -82,26 +93,75 @@ def _variant(dtype, head_dim: int) -> str:
     return "simt"
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
+                              chunk: int = 512):
+    """The plain PyTorch version of the backward pass, the explicit
+    FlashAttention-2 formulas: D = rowsum(dO∘O); P = exp(Q·Kᵀ·scale −
+    lse) under the forward's causal / window mask; dV = Pᵀ·dO;
+    dS = P∘(dO·Vᵀ − D); dQ = dS·K·scale; dK = dSᵀ·Q·scale; dK and dV
+    summed over each KV head's group. ``lse`` (B, H, S) f32 is the
+    forward's row log-sum-exp of the scaled scores. Query rows run in
+    ``chunk``-long blocks; math in f32 (or float64 inputs' float64),
+    gradients in q's dtype."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    wd = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / float(D) ** 0.5
+    qf = q.to(wd).reshape(B, S, KVH, G, D)
+    kf, vf = k.to(wd), v.to(wd)
+    dof = do.to(wd).reshape(B, S, KVH, G, D)
+    delta = (do.to(wd) * o.to(wd)).sum(-1).reshape(B, S, KVH, G)
+    lsef = lse.to(wd).permute(0, 2, 1).reshape(B, S, KVH, G)
+    pos = torch.arange(S, device=q.device)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for c0 in range(0, S, chunk):
+        rows = pos[c0:c0 + chunk]
+        allow = pos[None, :] <= rows[:, None]
+        if window > 0:
+            allow = allow & (rows[:, None] - pos[None, :] < window)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf[:, c0:c0 + chunk], kf)
+        p = torch.exp(s * scale - lsef[:, c0:c0 + chunk, ..., None])
+        p = torch.where(allow[None, :, None, None, :], p, 0.0)
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof[:, c0:c0 + chunk], vf)
+        ds = p * (dp - delta[:, c0:c0 + chunk, ..., None])
+        dv += torch.einsum("bqhgk,bqhgd->bkhd", p, dof[:, c0:c0 + chunk])
+        dq[:, c0:c0 + chunk] = torch.einsum("bqhgk,bkhd->bqhgd", ds,
+                                            kf) * scale
+        dk += torch.einsum("bqhgk,bqhgd->bkhd", ds,
+                           qf[:, c0:c0 + chunk]) * scale
+    out = q.dtype
+    return (dq.reshape(B, S, H, D).to(out), dk.to(out), dv.to(out))
+
+
 def _fn(variant: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if variant == "tc":
         fn = build.load("flash_attention_tc").flash_attention_tc_launch
-        args = [p, p, p, p, i, i, i, i, i, i, p]
+        args = [p, p, p, p, p, i, i, i, i, i, i, p]
+    elif variant == "bwd":
+        fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+        args = [i] + [p] * 10 + [i] * 6 + [p]
     else:
         fn = build.load("flash_attention").flash_attention_launch
-        args = [i, p, p, p, p, i, i, i, i, i, i, p]
+        args = [i, p, p, p, p, p, i, i, i, i, i, i, p]
     if fn.argtypes is None:
         fn.argtypes = args
         fn.restype = i
     return fn
 
 
-def _launch(variant: str, q, k, v, window: int):
-    """Run one kernel on checked CUDA tensors and count the launch."""
+def _launch(variant: str, q, k, v, window: int, lse=None):
+    """Run one forward kernel on checked CUDA tensors and count the
+    launch; ``lse`` (B, H, S) f32, when given, receives the rows'
+    log-sum-exp (training only)."""
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
     shape = (B, S, H, k.shape[2], D, int(window), stream)
     with torch.cuda.device(q.device):
         if variant == "tc":
@@ -116,14 +176,8 @@ def _launch(variant: str, q, k, v, window: int):
     return out
 
 
-def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
-    """Causal GQA attention with a per-layer ``window`` (0 = full).
-    ``chunk`` is the plain version's key block; the kernels tile keys by
-    64 (``simt``) or 128 (``tc``)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window, chunk=chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check(q, k, v):
+    """Raise on what the CUDA kernels do not take; returns the variant."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     if k.shape != (B, S, KVH, D) or v.shape != k.shape:
@@ -143,6 +197,89 @@ def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
         if variant == "tc" and t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must start on a "
                              f"16-byte boundary (TMA)")
+    return variant
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
+                        chunk: int = 512):
+    """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
+    rows' log-sum-exp ``lse`` (B, H, S) f32 and dO: on CUDA tensors the
+    three kernels of ``csrc/flash_attention_bwd.cu`` (one launch counted
+    per call), on CPU tensors :func:`flash_attention_bwd_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
+                                         chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check(q, k, v)
+    B, S, H, D = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous {q.dtype} {tuple(q.shape)} tensor "
+                             f"on {q.device}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(B, H, S)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, S), device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _fn("bwd")(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2],
+                        D, int(window),
+                        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` on CUDA tensors with a kernel backward: the
+    forward launches the forward kernel of :func:`_variant` with its
+    rows' log-sum-exp written, the backward ``csrc/flash_attention_bwd.cu``
+    through :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), device=q.device)
+        out = _launch(_variant(q.dtype, q.shape[-1]), q, k, v, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         window=ctx.window)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
+    """Causal GQA attention with a per-layer ``window`` (0 = full).
+    ``chunk`` is the plain version's key block; the kernels tile keys by
+    64 (``simt``) or 128 (``tc``). With grad enabled and an input that
+    requires grad the call goes through :class:`FlashAttentionFn`; under
+    ``torch.no_grad`` no log-sum-exp is written."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window=window, chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    variant = _check(q, k, v)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, int(window))
     return _launch(variant, q, k, v, window)
 
 

@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.core.distill import top_k
-from repro_torch.kernels import build
+from repro_torch.kernels import build, forbid_grad
 
 DETECTORS = ("msp", "energy")
 KMAX = 16            # largest k the kernels take
@@ -212,6 +212,7 @@ def head_select(hidden, w, bias=None, *, temperature: float = 10.0,
                 k: int = 8, detector: str = "msp"):
     if detector not in DETECTORS:
         raise ValueError(f"unknown detector {detector!r}")
+    forbid_grad("head_select", hidden, w, bias)
     if hidden.device.type == "cpu":
         return head_select_plain(hidden, w, bias, temperature=temperature,
                                  k=k, detector=detector)

@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.core.distill import top_k
-from repro_torch.kernels import build
+from repro_torch.kernels import build, forbid_grad
 
 DETECTORS = ("msp", "energy")
 KMAX = 16
@@ -53,6 +53,7 @@ def msp_select(logits, *, temperature: float = 10.0, k: int = 8,
                detector: str = "msp"):
     if detector not in DETECTORS:
         raise ValueError(f"unknown detector {detector!r}")
+    forbid_grad("msp_select", logits)
     if logits.device.type == "cpu":
         return msp_select_plain(logits, temperature=temperature, k=k,
                                 detector=detector)

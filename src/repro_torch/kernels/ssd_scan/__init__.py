@@ -1,1 +1,2 @@
-from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain  # noqa: F401
+from repro_torch.kernels.ssd_scan.ops import (  # noqa: F401
+    SSDScanFn, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)

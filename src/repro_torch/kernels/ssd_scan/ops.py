@@ -20,6 +20,15 @@ only; a CUDA call that the kernels cannot take raises.
 :func:`ssd_scan_passes_plain` states the kernels' three passes in plain
 PyTorch. None takes an initial state or returns the final one (decode is
 not ported).
+
+The backward pass. With grad enabled and an input that requires grad,
+:func:`ssd_scan` on CUDA tensors goes through :class:`SSDScanFn`, whose
+backward is :func:`ssd_scan_bwd`: (dxdt, ddta, db, dc) given dy, from
+the kernels of ``csrc/ssd_scan_bwd.cu`` (one block per (b, h) walking the
+sequence forward and then backward, header note there) on CUDA tensors
+and from :func:`ssd_scan_bwd_plain` on CPU tensors. The JAX package has
+no backward kernel (its training differentiates ``ssd_chunked``); the
+forward's own kernels run under ``torch.no_grad`` as before.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
 MAX_STATE = 8192       # P · N entries of a head's state
 TILE = 64              # the kernels' own tile of positions
+BWD_STATES = (4, 8, 12, 16, 32, 64, 128)   # N the backward kernel takes
 
 
 def ssd_scan_plain(xdt, dta, b, c, *, chunk: int):
@@ -155,6 +165,51 @@ def ssd_scan_passes_plain(xdt, dta, b, c, *, tile: int = TILE):
                                 tile=tile)
 
 
+def ssd_scan_bwd_plain(xdt, dta, b, c, dy):
+    """The plain PyTorch version of the backward pass: (dxdt, ddta, db,
+    dc) of ``ssd_scan``'s y given dy, in the inputs' dtype, as the
+    kernel computes them (``csrc/ssd_scan_bwd.cu``): the forward state
+    h_t = a_t h_{t-1} + xdt_t ⊗ b_t and the reverse state
+    g_s = a_{s+1} g_{s+1} + dy_s ⊗ c_s (a = exp(dta)) walked one position
+    at a time; dxdt_s = g_s b_s, dc_t = Σ_h h_tᵀ dy_t, db_s = Σ_h g_sᵀ
+    xdt_s; ddta the reverse cumulative sum (in double) of
+    dcum_t = dy_t·(a_t h_{t-1} c_t) − xdt_t·(a_{t+1} g_{t+1} b_t), which
+    is dy_t·y_t − xdt_t·dxdt_t without the diagonal term the two share."""
+    B, S, H, P = xdt.shape
+    G, N = b.shape[2], b.shape[3]
+    R = H // G
+    bh = b.repeat_interleave(R, dim=2)                       # (B,S,H,N)
+    ch = c.repeat_interleave(R, dim=2)
+    a = torch.exp(dta)                                       # (B,S,H)
+    opts = dict(dtype=xdt.dtype, device=xdt.device)
+    dxdt = torch.empty((B, S, H, P), **opts)
+    dbh = torch.empty((B, S, H, N), **opts)
+    dch = torch.empty((B, S, H, N), **opts)
+    dcum = torch.empty((B, S, H), **opts)
+    st = torch.zeros((B, H, P, N), **opts)
+    for t in range(S):
+        hd = a[:, t, :, None, None] * st
+        dcum[:, t] = torch.einsum("bhp,bhpn,bhn->bh", dy[:, t], hd, ch[:, t])
+        st = hd + xdt[:, t, :, :, None] * bh[:, t, :, None, :]
+        dch[:, t] = torch.einsum("bhpn,bhp->bhn", st, dy[:, t])
+    st = torch.zeros((B, H, P, N), **opts)
+    a_next = torch.zeros((B, H), **opts)
+    for s in reversed(range(S)):
+        gd = a_next[..., None, None] * st
+        dcum[:, s] -= torch.einsum("bhp,bhpn,bhn->bh", xdt[:, s], gd,
+                                   bh[:, s])
+        st = gd + dy[:, s, :, :, None] * ch[:, s, :, None, :]
+        dxdt[:, s] = torch.einsum("bhpn,bhn->bhp", st, bh[:, s])
+        dbh[:, s] = torch.einsum("bhpn,bhp->bhn", st, xdt[:, s])
+        a_next = a[:, s]
+    # the reverse cumulative sum in double, as the kernel runs it
+    ddta = torch.flip(torch.cumsum(torch.flip(dcum, [1]).double(), dim=1),
+                      [1]).to(dcum.dtype)
+    db = dbh.reshape(B, S, G, R, N).sum(dim=3)
+    dc = dch.reshape(B, S, G, R, N).sum(dim=3)
+    return dxdt, ddta, db, dc
+
+
 def _fn():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
@@ -164,19 +219,17 @@ def _fn():
     return fn
 
 
-def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
-    """y (B, S, H, P) f32 of the chunked SSD scan; see the module note.
-    On CUDA tensors ``chunk`` is checked but the kernels tile by their
-    own :data:`TILE`; one call issues the three passes (one kernel when
-    S <= TILE) and counts one launch."""
-    if initial_state is not None:
-        raise NotImplementedError(
-            "ssd_scan: an initial state (decode, chunked prefill) is not "
-            "ported (ROADMAP.md item 10b)")
-    if xdt.device.type == "cpu":
-        return ssd_scan_plain(xdt, dta, b, c, chunk=chunk)
-    if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {xdt.device}")
+def _bwd_fn():
+    fn = build.load("ssd_scan_bwd").ssd_scan_bwd_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i] * 6 + [p]
+        fn.restype = i
+    return fn
+
+
+def _check(xdt, dta, b, c, chunk: int):
+    """Raise on what the CUDA kernels do not take."""
     B, S, H, P = xdt.shape
     G, N = b.shape[2], b.shape[3]
     if dta.shape != (B, S, H) or b.shape != (B, S, G, N) \
@@ -203,6 +256,13 @@ def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
         if name != "dta" and t.data_ptr() % 16:
             raise ValueError(f"ssd_scan kernel takes 16-byte aligned "
                              f"{name}")
+
+
+def _launch(xdt, dta, b, c):
+    """The three forward passes on checked CUDA tensors; counts the
+    launch."""
+    B, S, H, P = xdt.shape
+    G, N = b.shape[2], b.shape[3]
     nt = -(-S // TILE) - 1
     dev = xdt.device
     y = torch.empty_like(xdt)
@@ -217,6 +277,84 @@ def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1
     return y
+
+
+def ssd_scan_bwd(xdt, dta, b, c, dy):
+    """(dxdt, ddta, db, dc) of ``ssd_scan``'s y given dy: on CUDA tensors
+    the kernels of ``csrc/ssd_scan_bwd.cu`` (one launch counted per
+    call), on CPU tensors :func:`ssd_scan_bwd_plain`."""
+    if xdt.device.type == "cpu":
+        return ssd_scan_bwd_plain(xdt, dta, b, c, dy)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: unsupported device {xdt.device}")
+    _check(xdt, dta, b, c, 1)
+    B, S, H, P = xdt.shape
+    G, N = b.shape[2], b.shape[3]
+    if N not in BWD_STATES:
+        raise ValueError(f"ssd_scan backward kernel takes N in "
+                         f"{BWD_STATES}, got {N}")
+    if dy.shape != xdt.shape or dy.dtype != torch.float32 \
+            or dy.device != xdt.device or not dy.is_contiguous():
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous float32 "
+                         f"{tuple(xdt.shape)} tensor on {xdt.device}")
+    dev = xdt.device
+    dxdt = torch.empty_like(xdt)
+    ddta = torch.empty_like(dta)
+    db = torch.empty_like(b)
+    dc = torch.empty_like(c)
+    dbh = torch.empty((B, S, H, N), device=dev)
+    dch = torch.empty((B, S, H, N), device=dev)
+    with torch.cuda.device(dev):
+        rc = _bwd_fn()(xdt.data_ptr(), dta.data_ptr(), b.data_ptr(),
+                       c.data_ptr(), dy.data_ptr(), dxdt.data_ptr(),
+                       ddta.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                       dbh.data_ptr(), dch.data_ptr(), B, S, H, P, G, N,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    ssd_scan_bwd.launches += 1
+    return dxdt, ddta, db, dc
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan`` on CUDA tensors with a kernel backward: the forward
+    launches ``csrc/ssd_scan.cu``, the backward ``csrc/ssd_scan_bwd.cu``
+    through :func:`ssd_scan_bwd`. Saves the inputs, not y."""
+
+    @staticmethod
+    def forward(ctx, xdt, dta, b, c):
+        ctx.save_for_backward(xdt, dta, b, c)
+        return _launch(xdt, dta, b, c)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
+    """y (B, S, H, P) f32 of the chunked SSD scan; see the module note.
+    On CUDA tensors ``chunk`` is checked but the kernels tile by their
+    own :data:`TILE`; one call issues the three passes (one kernel when
+    S <= TILE) and counts one launch. With grad enabled and an input
+    that requires grad the call goes through :class:`SSDScanFn`, whose
+    backward is a kernel too; under ``torch.no_grad`` nothing else runs."""
+    if initial_state is not None:
+        raise NotImplementedError(
+            "ssd_scan: an initial state (decode, chunked prefill) is not "
+            "ported (ROADMAP.md item 10b)")
+    if xdt.device.type == "cpu":
+        return ssd_scan_plain(xdt, dta, b, c, chunk=chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {xdt.device}")
+    _check(xdt, dta, b, c, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, dta, b, c)):
+        return SSDScanFn.apply(xdt, dta, b, c)
+    return _launch(xdt, dta, b, c)
 
 
 ssd_scan.launches = 0

@@ -1,6 +1,8 @@
-"""The LM slice's path at full width, as ``chip_smoke.py`` drives it: one
-homogenization round (``launch.train.idkd_label_round``) of Hymba-1.5B
-nodes on a ring.
+"""The LM slice's paths at full width, as ``chip_smoke.py`` drives them:
+one homogenization round (``launch.train.idkd_label_round``) of
+Hymba-1.5B nodes on a ring (:func:`setup`), and decentralized training
+with IDKD (``launch.train.run_training``) of the same nodes
+(:func:`train`).
 
 * Model: Hymba-1.5B as configured (32 layers, d_model 1600, 25 heads /
   5 KV heads × 64, d_ff 5504, SSM 50 heads × 64 with state 16 and chunk
@@ -15,12 +17,22 @@ nodes on a ring.
   its first m = min(16, smallest partition) private sequences.
 * Round: top-8 sparse labels, 8 public sequences per streaming
   microbatch, T = 10, MSP detector.
+* Training (:data:`TRAIN`): the same model, nodes and data (every node
+  initialised from the run's seed 4, as ``run_training`` starts them),
+  QG-DSGDm-N with Metropolis gossip, 2 sequences per node and step, lr
+  0.1 (the reference CLI's LM rate; the normalized update has norm lr
+  over all 6.6 B parameters, and bf16 losses stay finite), 4 steps:
+  2 plain, the round at step 2 (the round above), 2 sparse-KD steps on
+  the neighbours' averaged top-8 labels with 4 public sequences per node
+  and step. All 32 layers, each recomputed in its backward pass
+  (``cfg.remat``).
 
-``setup`` takes the same arguments at any size, so the CPU tests drive
-this module with a reduced config.
+``setup`` and ``train`` take the same arguments at any size, so the CPU
+tests drive this module with a reduced config.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Sequence
 
@@ -28,11 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import IDKDConfig, ModelConfig
+from repro_torch.configs.base import IDKDConfig, ModelConfig, TrainConfig
 from repro_torch.core.topology import Topology
 from repro_torch.data.dirichlet import dirichlet_partition
 from repro_torch.data.synthetic import make_lm_data
-from repro_torch.launch.train import idkd_label_round, private_sequences
+from repro_torch.launch.train import (idkd_label_round, private_sequences,
+                                      run_training)
 from repro_torch.models.transformer import DecoderModel
 from repro_torch.runtime import resolve_device
 
@@ -45,6 +58,11 @@ ALPHA = 0.1
 DATA_SEED = 4            # TrainConfig's default seed, as run_training uses
 ROUND = IDKDConfig(label_topk=8, stream_microbatch=8, label_backend="sparse",
                    temperature=10.0, detector="msp")
+TRAIN = TrainConfig(algorithm="qg-dsgdm-n", topology="ring",
+                    num_nodes=NUM_NODES, alpha=ALPHA, lr=0.1, batch_size=2,
+                    steps=4, seed=DATA_SEED,
+                    idkd=dataclasses.replace(ROUND, start_step=2,
+                                             num_rounds=1))
 
 
 @dataclass
@@ -98,3 +116,13 @@ def setup(cfg: ModelConfig = CONFIG, *, num_nodes: int = NUM_NODES,
                    public=public,
                    private=private_sequences(tokens, parts, seq_len),
                    topology=Topology.make("ring", num_nodes), icfg=icfg)
+
+
+def train(cfg: ModelConfig = CONFIG, tcfg: TrainConfig = TRAIN, *,
+          seq_len: int = SEQ_LEN, n_private: int = N_PRIVATE,
+          n_public: int = N_PUBLIC, device="cuda", verbose: bool = False):
+    """``run_training`` with IDKD on this configuration, the loss logged
+    after every step (host runner)."""
+    return run_training(cfg, tcfg, seq_len=seq_len, n_seqs=n_private,
+                        n_public=n_public, log_every=1, use_idkd=True,
+                        verbose=verbose, driver_mode="host", device=device)

@@ -3,8 +3,10 @@ sliding window (``src/repro/models/attention.py``).
 
 :func:`chunked_attention` is the reference's entry point; on the ported
 path (causal self-attention from position 0, optionally windowed) it is
-the ``flash_attention`` kernel on the card and the kernel's plain
-version — the reference's chunked online softmax — on the CPU. Prefix-LM
+the ``flash_attention`` kernel on the card — through ``FlashAttentionFn``
+when gradients are wanted, whose backward is the hand-written backward
+kernel — and the kernel's plain version — the reference's chunked online
+softmax, differentiated by autograd — on the CPU. Prefix-LM
 masks, cross-attention and MLA (ROADMAP.md item 10c), ``kv_valid_len``
 and KV-cache decode (item 10b) are not ported and raise.
 """

@@ -3,7 +3,9 @@
 The reference keeps params as a nested dict of arrays; the port keeps a
 flat dict keyed by the same paths joined with ``/``. A leading node
 axis, when present, is kept. Takes and returns numpy arrays on the
-reference side, so neither direction needs the other framework.
+reference side, so neither direction needs the other framework. The
+port's tensors never share memory with the arrays they came from:
+QG-DSGDm-N trains params in place.
 
 * ResNet (:func:`from_jax_params`, :func:`to_jax_params`): f32, HWIO
   conv kernels ``(kh, kw, cin, cout)`` become OIHW ``(cout, cin, kh,
@@ -53,7 +55,8 @@ def from_jax_params(tree, device="cuda") -> Dict[str, torch.Tensor]:
                 a = a.transpose(0, 4, 3, 1, 2)
             else:
                 raise ValueError(f"conv leaf {path!r} has shape {a.shape}")
-        out[path] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        out[path] = torch.from_numpy(np.ascontiguousarray(a)).to(
+            device, copy=True)
     return out
 
 
@@ -86,7 +89,7 @@ def from_jax_lm_params(tree, device="cuda") -> Dict[str, torch.Tensor]:
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.ascontiguousarray(a))
-        out[path] = t.to(device)
+        out[path] = t.to(device, copy=True)
     return out
 
 

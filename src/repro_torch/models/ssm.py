@@ -102,8 +102,10 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int, initial_state=None):
     here in plain torch; the scan is ``ssd_scan``: on the card its three
     kernels (tile states and tile outputs in parallel over tiles and
     heads, the state passing sequential over tiles), on the CPU its
-    plain version at ``chunk``. The reference also returns the final
-    state; decode needs it and is not ported, so only y is returned."""
+    plain version at ``chunk``. With gradients wanted, the card's call
+    goes through ``SSDScanFn`` (a kernel backward), and autograd carries
+    the prologue. The reference also returns the final state; decode
+    needs it and is not ported, so only y is returned."""
     a = -torch.exp(a_log)
     dta = dt * a
     xdt = x * dt[..., None]

@@ -9,6 +9,12 @@ every leaf, as the port's ResNet has) are what :meth:`forward_features`,
 :meth:`logits`, :meth:`forward` and :meth:`head_params` take, with
 tokens (L, B, S). The trunk loops over nodes and layers in Python: the
 kernels launch through ctypes, which ``torch.func.vmap`` cannot batch.
+Node and layer slices are taken with ``torch.unbind``, so autograd
+stacks a leaf's gradient once instead of adding one zero-filled copy
+of the whole stacked leaf per slice. With grad enabled, ``cfg.remat``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint`` per layer). :meth:`loss` is the
+next-token loss of every node.
 
 Ported: dense and hybrid stacks — attention, SSM and Hymba's parallel
 attention ∥ SSM heads with branch norms, per-layer sliding windows,
@@ -21,6 +27,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -88,8 +95,28 @@ def _layer_forward(p: Params, x, cfg: ModelConfig, window: int):
     return x
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether each layer is recomputed in the backward pass: the
+    reference's ``cfg.remat`` with policy "nothing" (or its alias
+    "full"); "everything" saves every residual, as no checkpoint does.
+    The "dots" policy (``dots_with_no_batch_dims_saveable``: keep the
+    matmul outputs) is not ported (ROADMAP.md item 10d)."""
+    if not cfg.remat:
+        return False
+    if cfg.remat_policy in ("nothing", "full"):
+        return True
+    if cfg.remat_policy == "everything":
+        return False
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (dots_with_no_batch_dims_saveable) is not "
+            "ported (ROADMAP.md item 10d)")
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: expected "
+                     "'nothing', 'dots', or 'everything'")
+
+
 class DecoderModel:
-    """init / forward_features / head_params / logits / forward."""
+    """init / forward_features / head_params / logits / forward / loss."""
 
     input_key = "tokens"
 
@@ -153,10 +180,15 @@ class DecoderModel:
                 (h.shape[0],) + p["meta_tokens"].shape)
             h = torch.cat([meta, h], dim=1)
             n_prefix = cfg.num_prefix_tokens
-        layers = sub(p, LAYERS)
+        layers = {k: torch.unbind(v) for k, v in sub(p, LAYERS).items()}
+        remat = _remat(cfg) and torch.is_grad_enabled()
         for li, window in enumerate(self.layer_windows()):
-            h = _layer_forward({k: v[li] for k, v in layers.items()}, h, cfg,
-                               window)
+            lp = {k: v[li] for k, v in layers.items()}
+            if remat:
+                h = checkpoint(_layer_forward, lp, h, cfg, window,
+                               use_reentrant=False)
+            else:
+                h = _layer_forward(lp, h, cfg, window)
         h = apply_norm(sub(p, "ln_f/"), h, cfg)
         return h[:, n_prefix:] if n_prefix else h
 
@@ -167,10 +199,10 @@ class DecoderModel:
         tokens = torch.as_tensor(batch[self.input_key])
         dev = next(iter(params.values())).device
         tokens = tokens.to(device=dev, dtype=torch.long)
-        L = tokens.shape[0]
+        nodes = {k: torch.unbind(v) for k, v in params.items()}
         h = torch.stack([self._hidden_one({k: v[i] for k, v in
-                                           params.items()}, tokens[i])
-                         for i in range(L)])
+                                           nodes.items()}, tokens[i])
+                         for i in range(tokens.shape[0])])
         return h, torch.zeros((), device=dev)
 
     def head_params(self, params: Params):
@@ -191,6 +223,31 @@ class DecoderModel:
         """(logits (L, B, S, V), aux)."""
         h, aux = self.forward_features(params, batch)
         return self.logits(params, h), aux
+
+    def loss(self, params: Params, batch):
+        """Next-token loss of every node: ``(loss (L,), metrics)``, the
+        f32 log-sum-exp of the logits minus the gold logit, averaged over
+        ``batch["loss_mask"]`` (all positions when absent), as the
+        reference's ``loss``. MTP and MoE terms are not ported (the
+        constructor refuses those configs)."""
+        h, aux = self.forward_features(params, batch)
+        logits = self.logits(params, h).float()
+        labels = torch.as_tensor(batch["labels"]).to(device=logits.device,
+                                                     dtype=torch.long)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = lse - gold                                     # (L, B, S)
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones_like(nll)
+        else:
+            mask = torch.as_tensor(mask).to(device=nll.device,
+                                            dtype=torch.float32)
+            mask = (mask[..., None] if mask.dim() < nll.dim() else mask
+                    ).expand(nll.shape)
+        dims = tuple(range(1, nll.dim()))
+        loss = (nll * mask).sum(dims) / torch.clamp(mask.sum(dims), min=1.0)
+        return loss, {"nll": loss, "aux": aux}
 
     def init_decode_state(self, batch: int, context: int):
         raise NotImplementedError("decode (KV cache, SSM state) is not "

@@ -45,6 +45,13 @@ class Schedule:
     gossip: str = "sync"
 
 
+def fit_every_k(steps: int, start: int, rounds: int) -> int:
+    """The even ``every_k_steps`` spacing that fits ``rounds`` rounds into
+    ``[start, steps)``: the CLI's default when it is given a round count
+    without a period."""
+    return max(1, (steps - start) // max(rounds, 1))
+
+
 def idkd_round_steps(cfg: IDKDConfig, steps: int) -> Tuple[int, ...]:
     """``num_rounds`` rounds spaced ``every_k_steps`` apart from
     ``start_step``, clipped to the run length."""

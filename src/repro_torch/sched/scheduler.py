@@ -4,10 +4,12 @@
 Schedule` against driver *hooks*: it owns segment iteration, the
 homogenization rounds, communication accounting and eval boundaries;
 the hooks own everything model-specific (the runner for the current
-phase, the label round, the eval). This is the reference's scheduler
-reduced to what the main path runs: churn, rewires, faults, telemetry,
-resilience, capture and resume are still to port (ROADMAP.md queue 1
-item 11) and raise.
+phase, the label round, the eval). :class:`CompiledFederationHooks`
+adds the phase-keyed step and runner caches and threads the round's
+sampler state (``self.ctx``) through the runner of every KD phase. This
+is the reference's scheduler reduced to what the ported paths run:
+churn, rewires, faults, telemetry, resilience, capture and resume are
+still to port (ROADMAP.md queue 1 item 11) and raise.
 """
 from __future__ import annotations
 
@@ -36,6 +38,64 @@ class FederationHooks:
 
     def on_eval(self, params, step: int, losses) -> None:
         """An eval boundary was crossed after ``step``."""
+
+
+class CompiledFederationHooks(FederationHooks):
+    """:class:`FederationHooks` with the steps, mixers and host runners
+    cached per (phase, graph), and the round-varying sampler payload in
+    ``self.ctx`` passed to the runner of every phase but "plain".
+    Subclasses set ``model``, ``algo`` and ``lr_fn`` and
+    implement ``_make_mixer(topology)``, ``_adapter()`` and
+    ``_sampler()`` for the current ``phase``; ``on_round`` advances the
+    phase and refreshes ``ctx``. Only one graph per run is ported (no
+    rewire events), so the graph key is the topology's name and size."""
+
+    model = None
+    algo = None
+    lr_fn = None
+
+    def __init__(self):
+        self.phase = "plain"
+        self.ctx = None
+        self._mixers = {}
+        self._steps = {}
+        self._runners = {}
+
+    def _make_mixer(self, topology: Topology) -> Callable:
+        raise NotImplementedError
+
+    def _adapter(self):
+        raise NotImplementedError
+
+    def _sampler(self):
+        raise NotImplementedError
+
+    def _mixer(self, topology: Topology) -> Callable:
+        key = (topology.name, topology.n)
+        if key not in self._mixers:
+            self._mixers[key] = self._make_mixer(topology)
+        return self._mixers[key]
+
+    def _step(self, topology: Topology) -> Callable:
+        from repro_torch.core import driver
+        key = (self.phase, topology.name, topology.n)
+        if key not in self._steps:
+            self._steps[key] = driver.make_step(
+                self.model, self.algo, self._mixer(topology),
+                self._adapter())
+        return self._steps[key]
+
+    def runner(self, topology: Topology) -> Callable:
+        from repro_torch.core import driver
+        key = (self.phase, topology.name, topology.n)
+        run = self._runners.get(key)
+        if run is None:
+            run = driver.make_host_runner(self._step(topology),
+                                          self._sampler(), self.lr_fn)
+            self._runners[key] = run
+        if self.phase == "plain":
+            return run
+        return lambda p, o, g, s0, ns: run(p, o, g, s0, ns, self.ctx)
 
 
 def run_schedule(schedule: Schedule, hooks: FederationHooks, params,

@@ -46,6 +46,19 @@ LM_FAMILIES = (("flash_attention", ("flash_attention_kernel",
                ("elementwise + reductions", ("at::native",)))
 
 
+LM_TRAIN_FAMILIES = (
+    ("flash_attention forward", ("flash_attention_kernel",
+                                 "flash_attention_tc_kernel")),
+    ("flash_attention backward", ("fab_delta", "fab_dkdv", "fab_dq")),
+    ("ssd_scan forward", ("ssd_chunk_states", "ssd_state_passing",
+                          "ssd_chunk_scan")),
+    ("ssd_scan backward", ("ssd_bwd_scan", "ssd_bwd_group_sum")),
+    ("head_select", ("head_select_kernel", "head_select_tc_kernel",
+                     "head_select_merge_kernel")),
+    ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),
+    ("elementwise + reductions", ("at::native",)))
+
+
 def _family(name: str, families) -> str:
     for fam, keys in families:
         if any(k in name for k in keys):
@@ -86,6 +99,7 @@ def _window(label: str, fn, top: int, per: int = 1, families=FAMILIES):
         print(f"  {fam:28s} {d / 1e3 / per:8.2f} ms  {d / total:6.1%}")
     for name, (d, n) in sorted(names.items(), key=lambda x: -x[1][0])[:top]:
         print(f"    {d / 1e3 / per:8.3f} ms {n / per:7.1f}x  {name[:80]}")
+    return wall_us, busy, fams
 
 
 def trace_lm(top: int):
@@ -108,15 +122,85 @@ def trace_lm(top: int):
             families=LM_FAMILIES)
 
 
+def trace_lmtrain(top: int):
+    import numpy as np
+    from repro_torch import lmpath
+    from repro_torch.core.algorithms import make_algorithm
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.core.topology import Topology
+    from repro_torch.data.dirichlet import dirichlet_partition
+    from repro_torch.data.synthetic import make_lm_data
+    from repro_torch.launch.steps import stack_params
+    from repro_torch.models.transformer import DecoderModel
+    cfg, tcfg = lmpath.CONFIG, lmpath.TRAIN
+    icfg, n, S = tcfg.idkd, tcfg.num_nodes, lmpath.SEQ_LEN
+    model = DecoderModel(cfg)
+    params = stack_params(model.init(tcfg.seed, "cuda"), n)
+    algo = make_algorithm(tcfg.algorithm, momentum=tcfg.momentum,
+                          weight_decay=tcfg.weight_decay)
+    mixer = make_mixer(Topology.make(tcfg.topology, n), device="cuda")
+    opt = algo.init(params)
+    tokens, topics = make_lm_data(cfg.vocab_size, S + 1, lmpath.N_PRIVATE,
+                                  seed=tcfg.seed)
+    parts = dirichlet_partition(topics, n, tcfg.alpha,
+                                np.random.default_rng(tcfg.seed))
+    public, _ = make_lm_data(cfg.vocab_size, S, lmpath.N_PUBLIC,
+                             num_topics=10, seed=tcfg.seed + 99)
+    # a KD payload of the round's shape: (deg + 1) x top-k labels per
+    # token (the step's cost does not depend on the values)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k_out = 3 * icfg.label_topk
+    vals = torch.rand((n, len(public), S, k_out), generator=gen,
+                      device="cuda")
+    vals /= vals.sum(-1, keepdim=True)
+    idx = torch.randint(0, cfg.vocab_size, vals.shape, generator=gen,
+                        device="cuda", dtype=torch.int32)
+    sample = driver.make_lm_kd_sampler(
+        driver.pad_partitions(parts, "cuda"), tokens, tcfg.batch_size,
+        public, vals, idx, torch.ones((n, len(public)), device="cuda"),
+        pub_batch=min(4, len(public)))
+    step = driver.make_step(model, algo, mixer,
+                            driver.lm_sparse_kd_adapter(icfg))
+    batch = sample(gen, 0)
+    params, opt, _ = step(params, opt, batch, tcfg.lr)       # warm-up
+    state = {}
+
+    def grads():
+        state["g"], _ = step.grads(params, batch)
+
+    def update():
+        algo.step(params, state.pop("g"), opt, tcfg.lr, mixer)
+
+    what = (f"{n} Hymba-1.5B nodes x ({tcfg.batch_size} private + "
+            f"{min(4, len(public))} public sequences of {S} tokens)")
+    w1, b1, f1 = _window(f"KD step gradients, {what}", grads, top,
+                         families=LM_TRAIN_FAMILIES)
+    w2, b2, _ = _window("KD step update (QG-DSGDm-N, in place, and the "
+                        "gossip mix)", update, top,
+                        families=LM_TRAIN_FAMILIES)
+    fams = dict(f1)
+    fams["optimizer + gossip"] = b2
+    total = sum(fams.values())
+    print(f"KD step as a whole: {(w1 + w2) / 1e3:.2f} ms wall, "
+          f"{(b1 + b2) / 1e3:.2f} ms in kernels, device idle share "
+          f"{1 - (b1 + b2) / (w1 + w2):.3f}")
+    for fam, d in sorted(fams.items(), key=lambda x: -x[1]):
+        print(f"  {fam:28s} {d / 1e3:8.2f} ms  {d / total:6.1%}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("resnet", "lm"), default="resnet")
+    ap.add_argument("--path", choices=("resnet", "lm", "lmtrain"),
+                    default="resnet")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.path == "lm":
         trace_lm(args.top)
+        return
+    if args.path == "lmtrain":
+        trace_lmtrain(args.top)
         return
     sim = full_width_sim("cuda")
     params = sim.run().params                  # warm-up

@@ -4,6 +4,8 @@ Marked ``cuda``: each test decides inside its body whether a card is
 there and skips elsewhere. This file imports no JAX, so it runs on a
 GPU machine without it: ``PYTHONPATH=src python -m pytest
 tests/test_torch_cuda.py -q``."""
+import math
+
 import pytest
 import torch
 
@@ -284,3 +286,146 @@ def test_cuda_head_select_tc_forced_split_and_ties(monkeypatch, nsplit):
             for a, r in zip(out[:2], ref[:2]):
                 torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
             assert torch.equal(out[2], ref[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,KVH,D,window", [
+    (75, 4, 2, 64, 20), (130, 4, 1, 32, 0), (200, 2, 2, 128, 64),
+    (130, 5, 5, 64, 0), (300, 5, 1, 64, 1024), (2176, 25, 5, 64, 0),
+    (2176, 25, 5, 64, 1024)])
+def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
+                                                window):
+    """On the card: the backward kernel against flash_attention_bwd_plain
+    on the same q, k, v, o, lse and dO — GQA ratios 1, 2, 4, 5, windows
+    0, 20, 64 and 1024, ragged S up to Hymba's 2176, every head_dim the
+    kernel takes. Each gradient's error is at most 1e-4 of its max
+    |value| (sums of up to S products reordered, in f32 either way), in
+    bf16 plus two bf16 ulps of the element's own |value| (each side
+    rounds its f32 sum to bf16, and a sum a hair either side of a
+    rounding boundary moves by one ulp of itself). Through autograd, the
+    forward's lse matches the plain log-sum-exp within 1e-5 and the
+    gradients come from the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    B = 2 if S < 2176 else 1
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
+    do = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(qr, kr, vr, window=window)
+    assert out.grad_fn is not None and out.dtype == dt
+    out.backward(do)
+    assert flash_attention.launches == n_fwd + 1
+    assert flash_attention_bwd.launches == n_bwd + 1
+    # the forward's lse against the plain log-sum-exp
+    G = H // KVH
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, 2)) / math.sqrt(D)
+    pos = torch.arange(S, device="cuda")
+    allow = pos[None, :] <= pos[:, None]
+    if window:
+        allow &= pos[:, None] - pos[None, :] < window
+    lse_ref = torch.logsumexp(s.masked_fill(~allow, -1e30), -1)
+    del s
+    _, _, _, o, lse = (x.detach() for x in _saved_lse(q, k, v, window))
+    assert torch.equal(o, out.detach())
+    assert float((lse - lse_ref).abs().max()) <= 1e-5 * max(
+        1.0, float(lse_ref.abs().max()))
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    for name, a, r, viaf in zip("qkv", got, ref, (qr, kr, vr)):
+        assert a.dtype == dt and bool(torch.isfinite(a).all()), name
+        rf = r.float()
+        tol = 1e-4 * rf.abs().max()
+        if dtype == "bfloat16":
+            _, e = torch.frexp(rf.abs())        # |r| = m · 2^e, m in [0.5, 1)
+            ulp = torch.ldexp(torch.ones_like(rf), e - 8)
+            tol = tol + torch.where(rf == 0, 0.0, 2.0 * ulp)
+        excess = float(((a.float() - rf).abs() / tol).max())
+        assert excess <= 1.0, (name, excess)
+        assert torch.equal(viaf.grad, a), name
+
+
+def _saved_lse(q, k, v, window):
+    """The tensors FlashAttentionFn saves for its backward."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    qr = q.clone().requires_grad_(True)
+    out = FlashAttentionFn.apply(qr, k, v, window)
+    return out.grad_fn.saved_tensors
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_no_grad_writes_no_lse():
+    """Under torch.no_grad the forward launches as before: one forward
+    launch, no autograd record, no backward launch, the same variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    q = torch.randn((1, 200, 4, 64), device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k = torch.randn((1, 200, 2, 64), device="cuda", dtype=torch.bfloat16)
+    n, nb = flash_attention.launches, flash_attention_bwd.launches
+    tc = flash_attention.launches_by_variant["tc"]
+    with torch.no_grad():
+        out = flash_attention(q, k, k, window=64)
+    assert out.grad_fn is None
+    assert flash_attention.launches == n + 1
+    assert flash_attention.launches_by_variant["tc"] == tc + 1
+    assert flash_attention_bwd.launches == nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,G,N,steep", [
+    (2, 100, 4, 16, 2, 8, 1.0),
+    (1, 77, 4, 32, 4, 16, 1.0),
+    (2, 130, 4, 64, 2, 16, 1.0),
+    (1, 300, 2, 64, 1, 128, 1.0),
+    (1, 2176, 50, 64, 1, 16, 1.0),     # Hymba-1.5B's layout
+    (1, 2048, 48, 64, 1, 128, 1.0),    # Mamba-2-780M's layout
+    (1, 40, 4, 16, 2, 4, 1.0),         # a short sequence, N 4
+    (2, 200, 4, 64, 1, 16, 50.0)])     # steep: exp underflows to 0
+def test_cuda_ssd_scan_bwd_matches_plain(B, S, H, P, G, N, steep):
+    """On the card: the backward kernel against ssd_scan_bwd_plain.
+    Against the plain version in float64, each gradient's max error is
+    within 4x that of the plain version in float32 plus 1e-5 of the
+    gradient's max |value| (ddta is a cumulative sum over S); through
+    autograd, ssd_scan's output carries a grad_fn and its backward is the
+    kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                              ssd_scan_bwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((B, S, H, P), generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    a = -steep * torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+    xdt, dta = (x * dt[..., None]).contiguous(), (dt * a).contiguous()
+    b = torch.randn((B, S, G, N), generator=g, device="cuda")
+    c = torch.randn((B, S, G, N), generator=g, device="cuda")
+    dy = torch.randn((B, S, H, P), generator=g, device="cuda")
+    ins = [t.clone().requires_grad_(True) for t in (xdt, dta, b, c)]
+    n0, nb = ssd_scan.launches, ssd_scan_bwd.launches
+    y = ssd_scan(*ins, chunk=64)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert ssd_scan.launches == n0 + 1 and ssd_scan_bwd.launches == nb + 1
+    got = ssd_scan_bwd(xdt, dta, b, c, dy)
+    exact = ssd_scan_bwd_plain(*(t.double() for t in (xdt, dta, b, c, dy)))
+    plain = ssd_scan_bwd_plain(xdt, dta, b, c, dy)
+    for name, a_, p_, e_, t_ in zip(("dxdt", "ddta", "db", "dc"), got,
+                                    plain, exact, ins):
+        assert bool(torch.isfinite(a_).all()), name
+        assert torch.equal(t_.grad, a_), name
+        e_k = float((a_.double() - e_).abs().max())
+        e_p = float((p_.double() - e_).abs().max())
+        assert e_k <= 4 * e_p + 1e-5 * float(e_.abs().max()), (name, e_k,
+                                                                e_p)
