@@ -47,9 +47,15 @@ LM-2. the LM homogenization round at full width (``repro_torch.lmpath``:
    path (thresholds, masks and labels);
    LM-1 also holds the two backward kernels to their plain versions at
    Hymba's training shapes (2 sequences of 2048 + 128 meta tokens):
-   ``flash_attention``'s (global and windowed, f32 and bf16, beside the
-   backward of ``scaled_dot_product_attention``) and ``ssd_scan``'s (in
-   float64, and at Mamba-2-780M's N = 128);
+   ``flash_attention``'s (global and windowed; the SIMT kernel in f32,
+   the bf16 tensor-core kernel against the plain version that rounds P
+   and dS to bf16 as it does element by element, within twice that
+   version's own excess when lse moves by one f32 ulp, and against it and
+   the f32 one no farther than twice
+   ``scaled_dot_product_attention``'s backward; its SIMT and
+   tensor-core variants timed in turns beside SDPA's backward) and
+   ``ssd_scan``'s (four passes over tiles, in float64, and at
+   Mamba-2-780M's N = 128);
 LM-3. the one-shot round (``msp_select`` on (n, P, S, V) logits) on the
    first 8 public sequences, held against the streaming round, and
    ``msp_select`` against its plain version on that round's logits;
@@ -59,9 +65,10 @@ LM-4. decentralized training with IDKD at full width
    times, peak memory, the loss history, each kernel's forward and
    backward launches per step; every loss finite, every parameter leaf
    of every node given a finite non-zero gradient, the backward kernels
-   launched nodes x layers times a plain step (twice that a KD step), and
-   a reduced Hymba trained the same 4 steps on the card and on the CPU
-   to the same params.
+   launched nodes x layers times a plain step (twice that a KD step),
+   every bf16 attention backward on the tensor cores, and a reduced
+   Hymba trained the same 4 steps on the card and on the CPU to the same
+   params.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -113,6 +120,23 @@ FLASH_BWD_RTOL = 1e-4        # flash backward: each gradient's error
                              # in f32 either way); in bf16, plus two bf16
                              # ulps of the element's own |value| (each side
                              # rounds its f32 sum to bf16)
+FLASH_BWD_TC_FLIP = 2.0      # the bf16 tensor-core flash backward rounds
+                             # P and dS to bf16 as its tensor-core
+                             # operands: against the plain version with
+                             # the same rounding points, each element
+                             # within FLASH_BWD_RTOL's rule, or, where the
+                             # plain version itself breaks that rule when
+                             # lse moves by one f32 ulp (a one-ulp f32
+                             # difference before a bf16 rounding moves a
+                             # term by a bf16 ulp), within this many times
+                             # its worst excess (the kernel's P also comes
+                             # from exp2 of an f32 argument and f32 sums
+                             # in another order, each a few ulps off)
+FLASH_BWD_TC_VS_SDPA = 2.0   # and, beside it, each gradient's max error
+                             # against that plain version and against the
+                             # f32 one at most this many times that of
+                             # SDPA's backward (which rounds P and dS to
+                             # bf16 too) on the same inputs
 LSE_RTOL = 1e-5              # the training forward's row log-sum-exp
                              # against the plain masked logsumexp, of
                              # max(1, max |lse|)
@@ -594,16 +618,84 @@ def _sdpa_bwd(torch, q, k, v, do, window):
     return call
 
 
+def _check_flash_bwd_simt(torch, got, ref, dname, tag):
+    """The SIMT backward against the f32 plain version: every element
+    within FLASH_BWD_RTOL's element-wise rule. Returns the max error."""
+    err = 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        e = float((a.float() - r.float()).abs().max())
+        scale = float(r.float().abs().max())
+        excess = _flash_bwd_excess(torch, a, r, dname)
+        check(excess <= 1.0, f"{tag}: {name} error over its element-wise "
+                             f"tolerance by {excess:.3g}x (max error "
+                             f"{e:.3g}, max |{name}| {scale:.3g})")
+        print(f"  {tag}: {name} max error {e:.3g} (max |{name}| "
+              f"{scale:.3g}; worst element at {excess:.3g} of its "
+              f"tolerance)")
+        err = max(err, e)
+    return err
+
+
+def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag):
+    """The tensor-core backward against the plain version that rounds P
+    and dS to bf16 as the kernel does: (a) element-wise, by
+    FLASH_BWD_RTOL's rule or within FLASH_BWD_TC_FLIP times the worst
+    excess of that plain version against itself with lse moved by one f32
+    ulp either way; and, beside it, each gradient's max error against the
+    same plain version and (b) against the f32 one at most
+    FLASH_BWD_TC_VS_SDPA times SDPA's backward's on the same inputs.
+    Returns the max error against the bf16-operand version."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+    ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
+                                      operands="bf16")
+    moved = [flash_attention_bwd_plain(
+        q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
+        window=window, operands="bf16") for to in (math.inf, -math.inf)]
+    lib = [g.transpose(1, 2) for g in _sdpa_bwd(torch, q, k, v, do,
+                                                window)()]
+    err = 0.0
+    for i, (name, a, rb, rf, sd) in enumerate(zip(("dq", "dk", "dv"), got,
+                                                  ref_b, ref, lib)):
+        excess = _flash_bwd_excess(torch, a, rb, "bfloat16")
+        flip = max(_flash_bwd_excess(torch, mv[i], rb, "bfloat16")
+                   for mv in moved)
+        limit = max(1.0, FLASH_BWD_TC_FLIP * flip)
+        check(excess <= limit,
+              f"{tag}: {name} rule (a): worst element at {excess:.3g} of "
+              f"its element-wise tolerance, limit {limit:.3g} (the plain "
+              f"version at lse ± 1 ulp reads {flip:.3g})")
+        errs = {}
+        for rule, yard in (("a", rb), ("b", rf)):
+            e_k = float((a.float() - yard.float()).abs().max())
+            e_l = float((sd.float() - yard.float()).abs().max())
+            check(e_k <= FLASH_BWD_TC_VS_SDPA * e_l,
+                  f"{tag}: {name} against the "
+                  f"{'bf16-operand' if rule == 'a' else 'f32'} plain "
+                  f"version: max error {e_k:.3g}, SDPA's {e_l:.3g}")
+            errs[rule] = (e_k, e_l)
+        print(f"  {tag}: {name} rule (a) element-wise excess {excess:.3g} "
+              f"(limit {limit:.3g}; the plain version at lse ± 1 ulp "
+              f"{flip:.3g}); max error against the bf16-operand plain "
+              f"version {errs['a'][0]:.3g} (SDPA {errs['a'][1]:.3g}), "
+              f"against the f32 one {errs['b'][0]:.3g} (SDPA "
+              f"{errs['b'][1]:.3g})")
+        err = max(err, errs["a"][0])
+    return err
+
+
 def phase_lm_backward(torch, rows):
     """LM-1's backward checks, at Hymba-1.5B's training shapes (2
     sequences of 2048 tokens + 128 meta tokens per node): the attention
-    backward kernel against flash_attention_bwd_plain (global and
-    windowed, f32 and bf16; scaled_dot_product_attention's backward as
-    the library figure), and the SSD backward kernel against
-    ssd_scan_bwd_plain in float64, at Hymba's and Mamba-2-780M's shapes."""
+    backward kernels against flash_attention_bwd_plain (global and
+    windowed; the SIMT kernel in f32, the tensor-core one in bf16, its
+    SIMT twin timed in turns; scaled_dot_product_attention's backward as
+    the library figure and the tc kernel's yardstick), and the SSD
+    backward kernels against ssd_scan_bwd_plain in float64, at Hymba's
+    and Mamba-2-780M's shapes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
     from repro_torch.lmpath import CONFIG, TRAIN
     from repro_torch.models.ssm import ssm_dims
@@ -620,27 +712,21 @@ def phase_lm_backward(torch, rows):
                                  device=dev).to(dtype) for _ in range(2))
             k, v = (torch.randn((B, S, KVH, D), generator=gen,
                                 device=dev).to(dtype) for _ in range(2))
+            variant = flash_ops._variant(dtype, D)
             tag = (f"flash_attention backward S={S} B={B} window={window} "
                    f"{dname}")
             o, lse = _flash_saved(torch, q, k, v, window, tag)
             got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
             ref = flash_attention_bwd_plain(q, k, v, o, lse, do,
                                             window=window)
-            err = 0.0
-            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            for name, a in zip(("dq", "dk", "dv"), got):
                 check(a.dtype == dtype and bool(torch.isfinite(a).all()),
                       f"{tag}: {name} non-finite or {a.dtype}")
-                e = float((a.float() - r.float()).abs().max())
-                scale = float(r.float().abs().max())
-                excess = _flash_bwd_excess(torch, a, r, dname)
-                check(excess <= 1.0, f"{tag}: {name} error over its "
-                                     f"element-wise tolerance by {excess:.3g}x"
-                                     f" (max error {e:.3g}, max |{name}| "
-                                     f"{scale:.3g})")
-                print(f"  {tag}: {name} max error {e:.3g} (max |{name}| "
-                      f"{scale:.3g}; worst element at {excess:.3g} of its "
-                      f"tolerance)")
-                err = max(err, e)
+            if variant == "tc":
+                err = _check_flash_bwd_tc(torch, q, k, v, o, lse, do,
+                                          window, got, ref, tag)
+            else:
+                err = _check_flash_bwd_simt(torch, got, ref, dname, tag)
             del got, ref
             nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
                                             q.element_size())
@@ -655,13 +741,23 @@ def phase_lm_backward(torch, rows):
                 print(f"{tag}: scaled_dot_product_attention backward "
                       f"refused: {exc}")
                 lms = None
-            rows["flash_attention_bwd"].append(dict(
-                window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
-                bound_ms=bnd, bound_by=by, library_ms=lms))
-            print(f"{tag}: max_abs_err {err:.3g}; {ms:.3f} ms, "
-                  f"bound {bnd:.3f} ms ({by}, {flops / ms / 1e9:.1f} TFLOP/s "
-                  f"achieved, {bnd / ms:.2%} of the bound), plain "
-                  f"{pms:.3f} ms, sdpa backward {lms} ms")
+            row = dict(window=window, dtype=dname, err=err, ms=ms,
+                       plain_ms=pms, bound_ms=bnd, bound_by=by,
+                       library_ms=lms)
+            print(f"{tag}: variant {variant}, max_abs_err {err:.3g}; "
+                  f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bnd / ms:.2%} "
+                  f"of the bound), plain {pms:.3f} ms, sdpa backward {lms} "
+                  f"ms")
+            if variant == "tc":
+                row["simt_ms"], row["tc_ms"] = in_turns(
+                    lambda: flash_ops._bwd_launch("simt", q, k, v, o, lse,
+                                                  do, window),
+                    lambda: flash_ops._bwd_launch("tc", q, k, v, o, lse, do,
+                                                  window), 3, torch)
+                print(variants_line(f"{tag} variants", row["simt_ms"],
+                                    row["tc_ms"], flops, bnd))
+            rows["flash_attention_bwd"].append(row)
             del q, k, v, do, o, lse
     for label, mcfg, Ss in (("hymba", cfg, S),
                             ("mamba2-780m", get_config("mamba2-780m"), 2048)):
@@ -1269,8 +1365,9 @@ def phase_lm_train(torch):
     cfg = lmpath.CONFIG
     for f in counters.values():
         f.launches = 0
-    for f in (flash_attention, head_select):
-        f.launches_by_variant = {"tc": 0, "simt": 0}
+    with_variants = ("flash_attention", "flash_attention_bwd", "head_select")
+    for name in with_variants:
+        counters[name].launches_by_variant = {"tc": 0, "simt": 0}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1282,7 +1379,7 @@ def phase_lm_train(torch):
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     variants = {k: dict(counters[k].launches_by_variant)
-                for k in ("flash_attention", "head_select")}
+                for k in with_variants}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     hist = out["loss_history"]
     del out
@@ -1362,21 +1459,21 @@ def kernel_line(kres, lm_rows, paths, variants):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
     one-shot branch for msp_select; Hymba's training step for the two
-    backward kernels; for the two kernels with a tensor-core variant,
+    backward kernels; for the three kernels with a tensor-core variant,
     that variant's bf16 time, the SIMT time being on an earlier line);
     ``max_abs_err`` is the largest over every shape checked; ``launches``
     sums the paths that ran it (``paths``: {path: {kernel: launches}},
     each counted from 0 over that path's run), ``launches_by_path``
     splits them and ``launches_by_variant`` splits them by kernel
     (``source`` is the tensor-core variant's file where there is one;
-    ``ssd_scan`` has one kernel, on the tensor cores, and ``msp_select``
-    and the backward kernels one each, on the SIMT units). The backward
+    the two ``ssd_scan`` kernels have one variant each, on the tensor
+    cores, and ``msp_select`` one, on the SIMT units). The backward
     kernels replace no Pallas kernel of their own (the JAX package
     differentiates its jnp forms): ``replaces`` names the Pallas kernel
     whose backward they are."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
-    tc = {"head_select", "flash_attention"}
+    tc = {"head_select", "flash_attention", "flash_attention_bwd"}
     flash = next(r for r in lm_rows["flash_attention"]
                  if r["window"] and r["dtype"] == "bfloat16")
     flash_bwd = next(r for r in lm_rows["flash_attention_bwd"]
@@ -1394,7 +1491,8 @@ def kernel_line(kres, lm_rows, paths, variants):
         by_path = {path: counts.get(name, 0)
                    for path, counts in paths.items()}
         by_variant = {"tc": 0, "simt": 0} if name in tc else {
-            ("tc" if name == "ssd_scan" else "simt"): sum(by_path.values())}
+            ("simt" if name == "msp_select" else "tc"):
+                sum(by_path.values())}
         if name in tc:
             for path in variants.values():
                 for v, n in path.get(name, {}).items():

@@ -135,8 +135,9 @@ class DecentralizedSimulator:
         if driver_mode not in ("auto", "host"):
             raise NotImplementedError(
                 f"driver_mode={driver_mode!r} is not ported yet (the host "
-                "runner is; CUDA-graph capture and the sharded driver are "
-                "ROADMAP.md queue 1 items 8 and 13)")
+                "runner is; CUDA-graph capture, the scan runner's "
+                "counterpart, is ROADMAP.md queue 1 item 15, and the "
+                "sharded driver item 13)")
         if model_parallel > 1:
             raise NotImplementedError(
                 "model_parallel > 1 is not ported yet; see ROADMAP.md "

@@ -19,7 +19,13 @@
 // and, when window > 0, qp - window < kp. Math in f32; gradients in the
 // inputs' dtype.
 //
-// Design (a first, simple kernel; tensor cores are later work):
+// This is the SIMT variant: f32, and bf16 at head_dim 32. bf16 at
+// head_dim 64 and 128 runs flash_attention_bwd_tc.cu on the tensor cores
+// (P computed once, five products); this kernel keeps f32 math
+// throughout, which f32 training's tolerance (1e-4 of max |grad|)
+// needs and bf16 tensor-core operands would break.
+//
+// Design (a first, simple kernel):
 //  * fab_delta: one warp per (b, s, h) row.
 //  * fab_dkdv: one block per (b, kv head, 64-key tile) owns dK and dV of
 //    its keys in registers and walks the group's query heads and the

@@ -19,6 +19,14 @@ within one machine:
 
     PYTHONPATH=<checkout>/src python src/repro_torch/kernels/ablate.py --forward
 
+``--backward`` splits the two backward calls at Hymba-1.5B's training
+shape into their kernels' device times (the profiler): the tensor-core
+attention backward's three and the SSD backward's four; and times
+``ssd_scan_bwd.cu`` with groups of its tile kernel's products cut out,
+and with its products accumulated inside the ``mma`` as the forward's
+are, that variant's and the committed kernel's max errors against the
+plain version in float64 printed beside the plain f32 version's.
+
 It prints the card's name and power limit first. It imports nothing the
 kernels' wrappers do not; the variants are never used by the port.
 """
@@ -56,18 +64,60 @@ ABLATIONS = {
            "for (int ks = 0; ks < 0; ++ks) {"),
           ("    if (ci > 0) {", "    if (ci < 0) {")]),
     ],
+    "ssd_scan_bwd": [
+        ("as committed", []),
+        ("1xTF32 products", [("  mma_tf32(d, a.lo, b.hi);\n"
+                              "  mma_tf32(d, a.hi, b.lo);\n", "")]),
+        ("products accumulated in the mma (mma3, as the forward)",
+         [("        mma3_rn(acc[j], a, bf);", "        mma3(acc[j], a, bf);"),
+          ("              mma3_rn(acc[i], fa, fb);",
+           "              mma3(acc[i], fa, fb);")]),
+        ("no R product", [("acc, nj, 16 * tt, 0, P, 8 * cg, 4,",
+                           "acc, nj, 16 * tt, 0, 0, 8 * cg, 4,")]),
+        ("no y< / dx> products",
+         [("acc, pj, 16 * tt, 0, 16 * tt + 16, 8 * cg, 4,",
+           "acc, pj, 16 * tt, 0, 0, 8 * cg, 4,"),
+          ("acc, pj, 16 * tt, 16 * tt, SSD_Q, 8 * cg, 4,",
+           "acc, pj, 16 * tt, 16 * tt, 16 * tt, 8 * cg, 4,"),
+          ("acc, pj, 16 * tt, 0, NS, 8 * cg, 4,",
+           "acc, pj, 16 * tt, 0, 0, 8 * cg, 4,")]),
+        ("no dc / db products",
+         [("acc, NJ, 16 * tt, 0, 16 * tt + 16, nc0, 2,",
+           "acc, NJ, 16 * tt, 0, 0, nc0, 2,"),
+          ("acc, NJ, 16 * tt, 16 * tt, SSD_Q, nc0, 2,",
+           "acc, NJ, 16 * tt, 16 * tt, 16 * tt, nc0, 2,"),
+          ("acc, NJ, 16 * tt, 0, P, nc0, 2,",
+           "acc, NJ, 16 * tt, 0, 0, nc0, 2,")]),
+    ],
 }
 
 
+# the ssd_scan_bwd variants that still compute the whole function, whose
+# errors --backward prints beside their times
+EXACT_BWD = ("as committed",
+             "products accumulated in the mma (mma3, as the forward)")
+
+
+def _inline_headers(src: str) -> str:
+    """The source with its ``ssd_common.cuh`` include written out, so that
+    an edit can reach the code the forward and backward share."""
+    inc = '#include "ssd_common.cuh"'
+    if inc not in src:
+        return src
+    head = (build.CSRC / "ssd_common.cuh").read_text()
+    return src.replace(inc, head.replace("#pragma once\n", ""))
+
+
 def _sources(kernel: str):
-    src = (build.CSRC / f"{kernel}.cu").read_text()
+    src = _inline_headers((build.CSRC / f"{kernel}.cu").read_text())
     out = []
     for i, (name, edits) in enumerate(ABLATIONS[kernel]):
         s = src
         for old, new in edits:
             if old not in s:
                 raise RuntimeError(f"{kernel} ablation {name!r}: {old!r} is "
-                                   f"not in csrc/{kernel}.cu")
+                                   f"not in csrc/{kernel}.cu or its "
+                                   f"ssd_common.cuh")
             s = s.replace(old, new)
         out.append((name, OUT / f"{kernel}_{i}.cu", s))
     return out
@@ -193,6 +243,79 @@ def ablate_ssd(gen):
         del xdt, dta, b, c, y, st, ce
 
 
+def _device_ms_by_kernel(fn, reps: int):
+    """{kernel name: device ms per call} of fn() from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us:
+            name = e.key.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + us / reps / 1e3
+    return out
+
+
+def backward_passes(gen):
+    """Device ms of each kernel of the two backward calls at Hymba-1.5B's
+    training shape (B 2, S 2048 + 128 meta tokens): ``flash_attention``'s
+    tensor-core backward (bf16, window 0 and 1024) and ``ssd_scan``'s
+    four passes (N 16; and Mamba-2-780M's N 128, S 2048)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops, ssd_scan_bwd
+    B, S = 2, 2176
+    q, do, o = (torch.randn((B, S, 25, 64), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    k, v = (torch.randn((B, S, 5, 64), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    lse = 4 + torch.rand((B, 25, S), generator=gen, device="cuda")
+    for window in (0, 1024):
+        res = _device_ms_by_kernel(lambda: flash_ops._bwd_launch(
+            "tc", q, k, v, o, lse, do, window), 10)
+        print(f"flash_attention backward tc, window {window} (ms per call): "
+              + ", ".join(f"{n} {ms:.4f}" for n, ms in res.items()),
+              flush=True)
+    fns = _build("ssd_scan_bwd")
+    for label, (S_, H, N) in (("hymba", (S, 50, 16)),
+                              ("mamba2-780m", (2048, 48, 128))):
+        xdt, dy = (torch.randn((B, S_, H, 64), generator=gen, device="cuda")
+                   for _ in range(2))
+        dta = -3 * torch.rand((B, S_, H), generator=gen, device="cuda")
+        b, c = (torch.randn((B, S_, 1, N), generator=gen, device="cuda")
+                for _ in range(2))
+        res = _device_ms_by_kernel(lambda: ssd_scan_bwd(xdt, dta, b, c, dy),
+                                   10)
+        print(f"ssd_scan backward {label} (B {B}, S {S_}, H {H}, N {N}; ms "
+              f"per call): " + ", ".join(f"{n} {ms:.4f}"
+                                         for n, ms in res.items()),
+              flush=True)
+
+        def run(fn):
+            ssd_ops._bwd_run(fn, xdt, dta, b, c, dy)   # raises on an error
+            return 0
+        calls = {name: (lambda fn=fn: run(fn)) for name, fn in fns.items()}
+        res = _in_turns(calls, 10)
+        print(f"ssd_scan backward {label} ablations: " + "; ".join(
+            f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
+        ins = (xdt, dta, b, c, dy)
+        exact = ssd_ops.ssd_scan_bwd_plain(*(t.double() for t in ins))
+        outs = {"plain f32": ssd_ops.ssd_scan_bwd_plain(*ins)}
+        outs.update((n, ssd_ops._bwd_run(fns[n], *ins)) for n in EXACT_BWD)
+        for i, g in enumerate(("dxdt", "ddta", "db", "dc")):
+            print(f"ssd_scan backward {label} {g} max error against float64 "
+                  f"(max |{g}| {float(exact[i].abs().max()):.4g}): "
+                  + "; ".join(f"{n} {float((o[i] - exact[i]).abs().max()):.4g}"
+                              for n, o in outs.items()), flush=True)
+        del xdt, dy, dta, b, c, ins, exact, outs
+
+
 def forward_times(gen):
     """Device ms of the LM forward kernels at the round's shape (B 8,
     S 2048 + 128 meta tokens; 25/5 heads x 64, window 0 and 1024; SSD
@@ -234,6 +357,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--forward" in sys.argv[1:]:
         forward_times(gen)
+        return 0
+    if "--backward" in sys.argv[1:]:
+        backward_passes(gen)
         return 0
     ablate_msp(gen)
     ablate_ssd(gen)

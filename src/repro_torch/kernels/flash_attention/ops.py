@@ -24,11 +24,16 @@ The backward pass. With grad enabled and an input that requires grad,
 :class:`FlashAttentionFn`: its forward launches the same kernel with the
 rows' log-sum-exp written to a (B, H, S) f32 buffer (under
 ``torch.no_grad`` the kernel is passed no buffer and writes nothing
-more), and its backward is :func:`flash_attention_bwd`, the kernels of
-``csrc/flash_attention_bwd.cu`` (FlashAttention-2's formulas, header
-note there) on CUDA tensors and :func:`flash_attention_bwd_plain` on CPU
-tensors. The JAX package has no backward kernel (its training
-differentiates ``chunked_attention``).
+more), and its backward is :func:`flash_attention_bwd`
+(FlashAttention-2's formulas) on CUDA tensors and
+:func:`flash_attention_bwd_plain` on CPU tensors. The backward has the
+forward's two variants, picked by the same :func:`_variant`:
+``csrc/flash_attention_bwd_tc.cu`` (``tc``: bf16 at head_dim 64 or 128,
+P and dS rounded to bf16 as the tensor cores' operands, which
+``flash_attention_bwd_plain(..., operands="bf16")`` reproduces) and
+``csrc/flash_attention_bwd.cu`` (``simt``: f32 math). The JAX package
+has no backward kernel (its training differentiates
+``chunked_attention``).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 TC_HEAD_DIMS = (64, 128)
+TC_BWD_TILE = 64       # the tc backward's key and query tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -94,7 +100,7 @@ def _variant(dtype, head_dim: int) -> str:
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
-                              chunk: int = 512):
+                              chunk: int = 512, operands: str = "f32"):
     """The plain PyTorch version of the backward pass, the explicit
     FlashAttention-2 formulas: D = rowsum(dO∘O); P = exp(Q·Kᵀ·scale −
     lse) under the forward's causal / window mask; dV = Pᵀ·dO;
@@ -102,7 +108,13 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
     summed over each KV head's group. ``lse`` (B, H, S) f32 is the
     forward's row log-sum-exp of the scaled scores. Query rows run in
     ``chunk``-long blocks; math in f32 (or float64 inputs' float64),
-    gradients in q's dtype."""
+    gradients in q's dtype. ``operands="bf16"`` rounds P and dS to bf16
+    before the products that take them (dV, dK, dQ), as the ``tc``
+    kernel feeds them to the tensor cores; sums stay in the working
+    dtype. ``"f32"`` rounds nothing."""
+    if operands not in ("f32", "bf16"):
+        raise ValueError(f"operands must be 'f32' or 'bf16', got "
+                         f"{operands!r}")
     B, S, H, D = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -127,6 +139,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
         p = torch.where(allow[None, :, None, None, :], p, 0.0)
         dp = torch.einsum("bqhgd,bkhd->bqhgk", dof[:, c0:c0 + chunk], vf)
         ds = p * (dp - delta[:, c0:c0 + chunk, ..., None])
+        if operands == "bf16":
+            p = p.to(torch.bfloat16).to(wd)
+            ds = ds.to(torch.bfloat16).to(wd)
         dv += torch.einsum("bqhgk,bqhgd->bkhd", p, dof[:, c0:c0 + chunk])
         dq[:, c0:c0 + chunk] = torch.einsum("bqhgk,bkhd->bqhgd", ds,
                                             kf) * scale
@@ -141,9 +156,12 @@ def _fn(variant: str):
     if variant == "tc":
         fn = build.load("flash_attention_tc").flash_attention_tc_launch
         args = [p, p, p, p, p, i, i, i, i, i, i, p]
-    elif variant == "bwd":
+    elif variant == "bwd_simt":
         fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
         args = [i] + [p] * 10 + [i] * 6 + [p]
+    elif variant == "bwd_tc":
+        fn = build.load("flash_attention_bwd_tc").flash_attention_bwd_tc_launch
+        args = [p] * 13 + [i] * 6 + [p]
     else:
         fn = build.load("flash_attention").flash_attention_launch
         args = [i, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -200,19 +218,47 @@ def _check(q, k, v):
     return variant
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
-                        chunk: int = 512):
-    """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
-    rows' log-sum-exp ``lse`` (B, H, S) f32 and dO: on CUDA tensors the
-    three kernels of ``csrc/flash_attention_bwd.cu`` (one launch counted
-    per call), on CPU tensors :func:`flash_attention_bwd_plain`."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
-                                         chunk=chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd: unsupported device "
-                         f"{q.device}")
-    _check(q, k, v)
+def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int):
+    """Run one backward call of the given variant on checked CUDA
+    tensors and count it (each variant issues three kernels a call).
+    ``tc`` sums dK and dV over the group's heads from f32 per-query-head
+    partials and dQ in an f32 accumulator that the key tiles add into
+    (so dQ's summation order varies between runs; dK and dV do not)."""
+    B, S, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    shape = (B, S, H, k.shape[2], D, int(window), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr())
+    with torch.cuda.device(q.device):
+        if variant == "tc":
+            sp = -(-S // TC_BWD_TILE) * TC_BWD_TILE
+            dev = q.device
+            ld = torch.empty((B, H, sp, 2), device=dev)
+            dq_acc = torch.empty((B, H, sp, D), device=dev)
+            dk_part = torch.empty((B, S, H, D), device=dev)
+            dv_part = torch.empty((B, S, H, D), device=dev)
+            rc = _fn("bwd_tc")(*ptrs, ld.data_ptr(), dq_acc.data_ptr(),
+                               dk_part.data_ptr(), dv_part.data_ptr(),
+                               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                               *shape)
+        else:
+            delta = torch.empty((B, H, S), device=q.device)
+            rc = _fn("bwd_simt")(_DTYPES[q.dtype], *ptrs, delta.data_ptr(),
+                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 *shape)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward {variant} kernel "
+                           f"launch failed: CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_variant[variant] += 1
+    return dq, dk, dv
+
+
+def _bwd_check(q, k, v, o, lse, do):
+    """Raise on what the backward kernels do not take; returns the
+    variant, the forward's (:func:`_variant`)."""
+    variant = _check(q, k, v)
     B, S, H, D = q.shape
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype \
@@ -220,34 +266,43 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous {q.dtype} {tuple(q.shape)} tensor "
                              f"on {q.device}")
+        if variant == "tc" and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must start on a "
+                             f"16-byte boundary (TMA)")
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
-            or not lse.is_contiguous():
+            or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be contiguous "
-                         f"float32 {(B, H, S)}")
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, S), device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _fn("bwd")(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                        dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2],
-                        D, int(window),
-                        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"CUDA error {rc}")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+                         f"float32 {(B, H, S)} on {q.device}")
+    return variant
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
+                        chunk: int = 512):
+    """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
+    rows' log-sum-exp ``lse`` (B, H, S) f32 and dO: on CUDA tensors the
+    kernels of the forward's variant (``csrc/flash_attention_bwd_tc.cu``
+    for bf16 at head_dim 64/128, ``csrc/flash_attention_bwd.cu``
+    otherwise; one launch counted per call), on CPU tensors
+    :func:`flash_attention_bwd_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
+                                         chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    return _bwd_launch(_bwd_check(q, k, v, o, lse, do), q, k, v, o, lse, do,
+                       window)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_variant = {"tc": 0, "simt": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` on CUDA tensors with a kernel backward: the
     forward launches the forward kernel of :func:`_variant` with its
-    rows' log-sum-exp written, the backward ``csrc/flash_attention_bwd.cu``
-    through :func:`flash_attention_bwd`."""
+    rows' log-sum-exp written, the backward the same variant's backward
+    kernels through :func:`flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int):

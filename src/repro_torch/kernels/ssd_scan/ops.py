@@ -24,10 +24,12 @@ not ported).
 The backward pass. With grad enabled and an input that requires grad,
 :func:`ssd_scan` on CUDA tensors goes through :class:`SSDScanFn`, whose
 backward is :func:`ssd_scan_bwd`: (dxdt, ddta, db, dc) given dy, from
-the kernels of ``csrc/ssd_scan_bwd.cu`` (one block per (b, h) walking the
-sequence forward and then backward, header note there) on CUDA tensors
-and from :func:`ssd_scan_bwd_plain` on CPU tensors. The JAX package has
-no backward kernel (its training differentiates ``ssd_chunked``); the
+the kernels of ``csrc/ssd_scan_bwd.cu`` (four passes over the forward's
+tiles, two of them parallel over tiles; header note there) on CUDA
+tensors and from :func:`ssd_scan_bwd_plain` (the recurrence walked one
+position at a time) on CPU tensors; :func:`ssd_scan_bwd_passes_plain`
+states the kernels' passes in plain PyTorch. The JAX package has no
+backward kernel (its training differentiates ``ssd_chunked``); the
 forward's own kernels run under ``torch.no_grad`` as before.
 """
 from __future__ import annotations
@@ -210,20 +212,90 @@ def ssd_scan_bwd_plain(xdt, dta, b, c, dy):
     return dxdt, ddta, db, dc
 
 
+def ssd_scan_bwd_passes_plain(xdt, dta, b, c, dy, *, tile: int = TILE):
+    """The backward kernels' passes in plain PyTorch, at their tile
+    length: equal to :func:`ssd_scan_bwd_plain` in exact arithmetic.
+    Within a tile, with cum its inclusive cumulative sum of dta (in
+    double, as the kernels take it), L[t, u] = exp(cum_t − cum_u) for
+    u ≤ t and M = (C·Bᵀ)∘L the forward's intra-tile matrix:
+
+    1. per tile, its forward state S = Σ_u exp(cum_end − cum_u) xdt_u ⊗
+       b_u and its reverse state R = Σ_t exp(cum_t) dy_t ⊗ c_t;
+    2. the state entering each tile from the left, and G_next, the
+       reverse state entering it from the right: G_next[i] = R[i+1] +
+       exp(cum_end[i+1]) G_next[i+1];
+    3. per tile and head, with M' the strictly lower part of M,
+       y< = M'·X + exp(cum)∘(C·state_inᵀ) and dx> = M'ᵀ·dY +
+       w∘(B·G_nextᵀ) (w = exp(cum_end − cum)), the parts of y and dxdt
+       from strictly earlier and strictly later positions; then
+       dxdt = dx> + (c_t·b_t) dy_t, Rm = L∘(dY·Xᵀ),
+       dc = Σ_h Rm·B + exp(cum)∘(dY·state_in),
+       db = Σ_h Rmᵀ·C + w∘(X·G_next),
+       dcum_t = dy_t·y<_t − xdt_t·dx>_t (no diagonal term to cancel);
+    4. ddta, the reverse cumulative sum of dcum over S, in double.
+
+    No decay is factored as exp(cum_t)·exp(−cum_u)."""
+    B, S, H, P = xdt.shape
+    G, N = b.shape[2], b.shape[3]
+    R = H // G
+    wd = xdt.dtype
+    xc, dyc = _tiles(xdt, tile), _tiles(dy, tile)            # (B,nc,Q,H,P)
+    bh = _tiles(b, tile).repeat_interleave(R, dim=3)         # (B,nc,Q,H,N)
+    ch = _tiles(c, tile).repeat_interleave(R, dim=3)
+    cum = torch.cumsum(_tiles(dta, tile).double(), dim=2)    # (B,nc,Q,H)
+    cum_end = cum[:, :, -1]                                  # (B,nc,H)
+    w = torch.exp(cum_end[:, :, None] - cum).to(wd)
+    ecum = torch.exp(cum).to(wd)
+    # pass 1: the tiles' forward and reverse states
+    fwd = torch.einsum("bnuh,bnuhp,bnuhm->bnhpm", w, xc, bh)
+    rev = torch.einsum("bnth,bnthp,bnthm->bnhpm", ecum, dyc, ch)
+    # pass 2: the states entering each tile from the left and the right
+    nc = xc.shape[1]
+    decay = torch.exp(cum_end).to(wd)[..., None, None]       # (B,nc,H,1,1)
+    state_in = torch.zeros_like(fwd)
+    g_next = torch.zeros_like(rev)
+    for i in range(1, nc):
+        state_in[:, i] = decay[:, i - 1] * state_in[:, i - 1] + fwd[:, i - 1]
+    for i in range(nc - 2, -1, -1):
+        g_next[:, i] = rev[:, i + 1] + decay[:, i + 1] * g_next[:, i + 1]
+    # pass 3: per tile and head
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,nc,t,u,H)
+    tri = torch.tril(torch.ones((tile, tile), dtype=torch.bool,
+                                device=xdt.device))[:, :, None]
+    lmat = torch.exp(torch.where(tri, seg, torch.tensor(
+        -torch.inf, dtype=seg.dtype, device=xdt.device))).to(wd)
+    strict = torch.tril(torch.ones((tile, tile), dtype=wd,
+                                   device=xdt.device), -1)[:, :, None]
+    cb = torch.einsum("bnthm,bnuhm->bntuh", ch, bh)
+    m_lt = cb * lmat * strict
+    y_lt = torch.einsum("bntuh,bnuhp->bnthp", m_lt, xc) + ecum[..., None] \
+        * torch.einsum("bnthm,bnhpm->bnthp", ch, state_in)
+    dx_gt = torch.einsum("bntuh,bnthp->bnuhp", m_lt, dyc) + w[..., None] \
+        * torch.einsum("bnuhm,bnhpm->bnuhp", bh, g_next)
+    diag = torch.einsum("bnthm,bnthm->bnth", ch, bh)
+    dxdt = dx_gt + diag[..., None] * dyc
+    rm = lmat * torch.einsum("bnthp,bnuhp->bntuh", dyc, xc)
+    dch = torch.einsum("bntuh,bnuhm->bnthm", rm, bh) + ecum[..., None] \
+        * torch.einsum("bnthp,bnhpm->bnthm", dyc, state_in)
+    dbh = torch.einsum("bntuh,bnthm->bnuhm", rm, ch) + w[..., None] \
+        * torch.einsum("bnuhp,bnhpm->bnuhm", xc, g_next)
+    dcum = (dyc * y_lt).sum(-1).double() - (xc * dx_gt).sum(-1).double()
+    # pass 4: the reverse cumulative sum over S, in double; group sums
+    dcum = dcum.reshape(B, -1, H)[:, :S]
+    ddta = torch.flip(torch.cumsum(torch.flip(dcum, [1]), dim=1), [1])
+
+    def seq(t):
+        return t.reshape((B, -1) + t.shape[3:])[:, :S]
+    db = seq(dbh).reshape(B, S, G, R, N).sum(dim=3)
+    dc = seq(dch).reshape(B, S, G, R, N).sum(dim=3)
+    return seq(dxdt), ddta.to(wd), db, dc
+
+
 def _fn():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        fn.restype = i
-    return fn
-
-
-def _bwd_fn():
-    fn = build.load("ssd_scan_bwd").ssd_scan_bwd_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 6 + [p]
         fn.restype = i
     return fn
 
@@ -281,8 +353,9 @@ def _launch(xdt, dta, b, c):
 
 def ssd_scan_bwd(xdt, dta, b, c, dy):
     """(dxdt, ddta, db, dc) of ``ssd_scan``'s y given dy: on CUDA tensors
-    the kernels of ``csrc/ssd_scan_bwd.cu`` (one launch counted per
-    call), on CPU tensors :func:`ssd_scan_bwd_plain`."""
+    the four passes of ``csrc/ssd_scan_bwd.cu`` over :data:`TILE`-long
+    tiles (one launch counted per call), on CPU tensors
+    :func:`ssd_scan_bwd_plain`."""
     if xdt.device.type == "cpu":
         return ssd_scan_bwd_plain(xdt, dta, b, c, dy)
     if xdt.device.type != "cuda":
@@ -294,26 +367,48 @@ def ssd_scan_bwd(xdt, dta, b, c, dy):
         raise ValueError(f"ssd_scan backward kernel takes N in "
                          f"{BWD_STATES}, got {N}")
     if dy.shape != xdt.shape or dy.dtype != torch.float32 \
-            or dy.device != xdt.device or not dy.is_contiguous():
-        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous float32 "
-                         f"{tuple(xdt.shape)} tensor on {xdt.device}")
+            or dy.device != xdt.device or not dy.is_contiguous() \
+            or dy.data_ptr() % 16:
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous, 16-byte "
+                         f"aligned float32 {tuple(xdt.shape)} tensor on "
+                         f"{xdt.device}")
+    out = _bwd_run(build.load("ssd_scan_bwd").ssd_scan_bwd_launch, xdt, dta,
+                   b, c, dy)
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+def _bwd_run(fn, xdt, dta, b, c, dy):
+    """(dxdt, ddta, db, dc) from ``fn``, a build of
+    ``csrc/ssd_scan_bwd.cu``'s C entry point, on checked CUDA tensors:
+    its outputs and scratch allocated, its argument types set."""
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 16 + [i] * 6 + [p]
+        fn.restype = i
+    B, S, H, P = xdt.shape
+    G, N = b.shape[2], b.shape[3]
     dev = xdt.device
+    T = -(-S // TILE)
     dxdt = torch.empty_like(xdt)
     ddta = torch.empty_like(dta)
     db = torch.empty_like(b)
     dc = torch.empty_like(c)
     dbh = torch.empty((B, S, H, N), device=dev)
     dch = torch.empty((B, S, H, N), device=dev)
+    fwd = torch.empty((B, T - 1, H, P, N), device=dev)
+    rev = torch.empty((B, T - 1, H, P, N), device=dev)
+    cum_end = torch.empty((B, T - 1, H), device=dev)
+    dcum = torch.empty((B, S, H), device=dev, dtype=torch.float64)
+    tot = torch.empty((B, T, H), device=dev, dtype=torch.float64)
     with torch.cuda.device(dev):
-        rc = _bwd_fn()(xdt.data_ptr(), dta.data_ptr(), b.data_ptr(),
-                       c.data_ptr(), dy.data_ptr(), dxdt.data_ptr(),
-                       ddta.data_ptr(), db.data_ptr(), dc.data_ptr(),
-                       dbh.data_ptr(), dch.data_ptr(), B, S, H, P, G, N,
-                       torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(*(t.data_ptr() for t in (
+            xdt, dta, b, c, dy, dxdt, ddta, db, dc, dbh, dch, fwd, rev,
+            cum_end, dcum, tot)), B, S, H, P, G, N,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
                            f"error {rc}")
-    ssd_scan_bwd.launches += 1
     return dxdt, ddta, db, dc
 
 

@@ -49,10 +49,12 @@ LM_FAMILIES = (("flash_attention", ("flash_attention_kernel",
 LM_TRAIN_FAMILIES = (
     ("flash_attention forward", ("flash_attention_kernel",
                                  "flash_attention_tc_kernel")),
-    ("flash_attention backward", ("fab_delta", "fab_dkdv", "fab_dq")),
+    ("flash_attention backward", ("fab_delta", "fab_dkdv", "fab_dq",
+                                  "fbt_prep", "fbt_main", "fbt_finish")),
+    ("ssd_scan backward", ("ssd_bwd_chunk_states", "ssd_bwd_state_passing",
+                           "ssd_bwd_tile", "ssd_bwd_finish")),
     ("ssd_scan forward", ("ssd_chunk_states", "ssd_state_passing",
                           "ssd_chunk_scan")),
-    ("ssd_scan backward", ("ssd_bwd_scan", "ssd_bwd_group_sum")),
     ("head_select", ("head_select_kernel", "head_select_tc_kernel",
                      "head_select_merge_kernel")),
     ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),

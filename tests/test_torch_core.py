@@ -127,8 +127,10 @@ def test_unported_pieces_raise():
                      topology=tt, telemetry=object())
     data = make_classification_data(image_size=8, n_train=32, n_val=8,
                                     n_test=8)
-    for kw in ({"driver_mode": "shard"}, {"model_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in (({"driver_mode": "shard"}, "item 13"),
+                     ({"driver_mode": "scan"}, "item 15"),
+                     ({"model_parallel": 2}, "item 13")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             DecentralizedSimulator(SMALL_CONFIG, TrainConfig(num_nodes=4),
                                    data, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

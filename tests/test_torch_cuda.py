@@ -288,30 +288,89 @@ def test_cuda_head_select_tc_forced_split_and_ties(monkeypatch, nsplit):
             assert torch.equal(out[2], ref[2])
 
 
+def _bf16_ulp(r):
+    """One bf16 ulp at each element's |r| (0 where r is 0)."""
+    _, e = torch.frexp(r.abs())             # |r| = m · 2^e, m in [0.5, 1)
+    return torch.where(r == 0, 0.0, torch.ldexp(torch.ones_like(r), e - 8))
+
+
+def _bwd_excess(a, r, dtype):
+    """Max over elements of |a - r| over the element-wise rule: 1e-4 of
+    max |r|, in bf16 plus two bf16 ulps of the element's own |r|."""
+    rf = r.float()
+    tol = 1e-4 * rf.abs().max()
+    if dtype == "bfloat16":
+        tol = tol + 2.0 * _bf16_ulp(rf)
+    return float(((a.float() - rf).abs() / tol).max())
+
+
+TC_FLIP = 2.0   # the tc backward's rule (a), see the test below
+
+
+def _max_err(a, r):
+    return float((a.float() - r.float()).abs().max())
+
+
+def _sdpa_bwd_grads(q, k, v, do, window):
+    """(dq, dk, dv) of scaled_dot_product_attention (enable_gqa, the same
+    causal / window mask) on the same inputs, in their (B, S, h, D)
+    layout: the yardstick of the tc backward's rules."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    S = q.shape[1]
+    mask = None
+    if window:
+        pos = torch.arange(S, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=not window,
+                                         enable_gqa=True)
+    grads = torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    return [g.transpose(1, 2) for g in grads]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,KVH,D,window", [
     (75, 4, 2, 64, 20), (130, 4, 1, 32, 0), (200, 2, 2, 128, 64),
     (130, 5, 5, 64, 0), (300, 5, 1, 64, 1024), (2176, 25, 5, 64, 0),
-    (2176, 25, 5, 64, 1024)])
+    (2176, 25, 5, 64, 1024), (517, 6, 3, 128, 0), (2176, 25, 5, 128, 1024)])
 def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
                                                 window):
-    """On the card: the backward kernel against flash_attention_bwd_plain
+    """On the card: the backward kernels against flash_attention_bwd_plain
     on the same q, k, v, o, lse and dO — GQA ratios 1, 2, 4, 5, windows
     0, 20, 64 and 1024, ragged S up to Hymba's 2176, every head_dim the
-    kernel takes. Each gradient's error is at most 1e-4 of its max
-    |value| (sums of up to S products reordered, in f32 either way), in
-    bf16 plus two bf16 ulps of the element's own |value| (each side
-    rounds its f32 sum to bf16, and a sum a hair either side of a
-    rounding boundary moves by one ulp of itself). Through autograd, the
-    forward's lse matches the plain log-sum-exp within 1e-5 and the
-    gradients come from the kernel."""
+    kernels take. The SIMT kernel (f32; bf16 at head_dim 32): each
+    gradient's error is at most 1e-4 of its max |value| (sums of up to S
+    products reordered, in f32 either way), in bf16 plus two bf16 ulps of
+    the element's own |value| (each side rounds its f32 sum to bf16, and
+    a sum a hair either side of a rounding boundary moves by one ulp of
+    itself). The tc kernel (bf16 at head_dim 64 and 128) rounds P and dS
+    to bf16 as the tensor cores' operands, as scaled_dot_product_attention's
+    backward does. (a) Against the plain version that rounds them at the
+    same points (operands="bf16"), element by element: within the
+    element-wise rule, or, where that plain version itself breaks the rule
+    when lse moves by one f32 ulp either way (an f32 difference of one ulp
+    before a bf16 rounding moves a term by a bf16 ulp), within TC_FLIP
+    times its worst excess (the kernel's P also comes from exp2 of an f32
+    argument and f32 sums in another order, each a few ulps off). Beside
+    it, each gradient's max error against that version and (b) against
+    the plain version in f32 operands is at most twice SDPA's on the same
+    inputs. Through autograd, the forward's lse matches the plain
+    log-sum-exp within 1e-5 and the gradients come from the kernel of the
+    forward's variant: dK and dV bitwise; the tc kernel's dQ within one
+    bf16 ulp of each element plus 1e-4 of max |dQ| (its key tiles add
+    into an f32 sum in the order they run; it is rounded to bf16 once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention.ops import _variant
     g = torch.Generator(device="cuda").manual_seed(3)
     dt = getattr(torch, dtype)
+    variant = _variant(dt, D)
     B = 2 if S < 2176 else 1
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
     k = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
@@ -319,11 +378,13 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
     do = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    n_var = flash_attention_bwd.launches_by_variant[variant]
     out = flash_attention(qr, kr, vr, window=window)
     assert out.grad_fn is not None and out.dtype == dt
     out.backward(do)
     assert flash_attention.launches == n_fwd + 1
     assert flash_attention_bwd.launches == n_bwd + 1
+    assert flash_attention_bwd.launches_by_variant[variant] == n_var + 1
     # the forward's lse against the plain log-sum-exp
     G = H // KVH
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
@@ -340,17 +401,34 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
         1.0, float(lse_ref.abs().max()))
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
     got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
-    for name, a, r, viaf in zip("qkv", got, ref, (qr, kr, vr)):
+    if variant == "tc":
+        ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
+                                          operands="bf16")
+        moved = [flash_attention_bwd_plain(
+            q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
+            window=window, operands="bf16") for to in (math.inf, -math.inf)]
+        lib = _sdpa_bwd_grads(q, k, v, do, window)
+    for i, (name, a, r, viaf) in enumerate(zip("qkv", got, ref,
+                                               (qr, kr, vr))):
         assert a.dtype == dt and bool(torch.isfinite(a).all()), name
-        rf = r.float()
-        tol = 1e-4 * rf.abs().max()
-        if dtype == "bfloat16":
-            _, e = torch.frexp(rf.abs())        # |r| = m · 2^e, m in [0.5, 1)
-            ulp = torch.ldexp(torch.ones_like(rf), e - 8)
-            tol = tol + torch.where(rf == 0, 0.0, 2.0 * ulp)
-        excess = float(((a.float() - rf).abs() / tol).max())
-        assert excess <= 1.0, (name, excess)
-        assert torch.equal(viaf.grad, a), name
+        if variant == "simt":
+            assert _bwd_excess(a, r, dtype) <= 1.0, name
+            assert torch.equal(viaf.grad, a), name
+            continue
+        excess = _bwd_excess(a, ref_b[i], dtype)
+        flip = max(_bwd_excess(mv[i], ref_b[i], dtype) for mv in moved)
+        assert excess <= max(1.0, TC_FLIP * flip), (name, excess, flip)
+        for rule, yard in (("a", ref_b[i]), ("b", r)):
+            e_kernel = _max_err(a, yard)
+            e_lib = _max_err(lib[i], yard)
+            assert e_kernel <= 2.0 * e_lib, (name, rule, e_kernel, e_lib)
+        if name == "q":
+            gq, aq = viaf.grad.float(), a.float()
+            tol = (_bf16_ulp(torch.maximum(gq.abs(), aq.abs()))
+                   + 1e-4 * aq.abs().max())
+            assert bool(((gq - aq).abs() <= tol).all()), name
+        else:
+            assert torch.equal(viaf.grad, a), name
 
 
 def _saved_lse(q, k, v, window):

@@ -1,5 +1,6 @@
 """The host side of the tensor-core kernels, which the CPU reaches: the
-choice between the ``tc`` and ``simt`` kernels from dtype and shape,
+choice between the ``tc`` and ``simt`` kernels from dtype and shape (the
+attention backward's included, with its checks),
 ``head_select``'s K-major repack of the head and its padding, its column
 split, and the split's merge (``merge_head_stats``' math) in plain
 PyTorch — against ``head_select_plain`` and against the reference's
@@ -12,7 +13,8 @@ import torch
 
 from repro.kernels.head_select.ref import (head_select_stats_ref,
                                            merge_head_stats)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.head_select import head_select
 from repro_torch.kernels.head_select import ops as head_ops
@@ -36,6 +38,39 @@ def test_flash_variant_from_dtype_and_head_dim(dtype, D, want):
             flash_ops._variant(dtype, D)
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float16, 64, TypeError),
+    (torch.bfloat16, 96, ValueError)])
+def test_flash_bwd_variant_is_the_forwards(dtype, D, want):
+    """The backward's checks pick the forward's variant from dtype and
+    head_dim (the bf16 tensor-core backward at 64/128, the SIMT one
+    otherwise) and raise on the rest, never falling back."""
+    q = torch.zeros((1, 9, 4, D), dtype=dtype)
+    k = torch.zeros((1, 9, 2, D), dtype=dtype)
+    lse = torch.zeros((1, 4, 9))
+    if isinstance(want, str):
+        assert flash_ops._bwd_check(q, k, k, q, lse, q) == want
+    else:
+        with pytest.raises(want):
+            flash_ops._bwd_check(q, k, k, q, lse, q)
+
+
+def test_flash_bwd_checks_refuse_what_the_kernels_do_not_take():
+    """o and dO of q's shape and dtype, contiguous; for the tc variant
+    16-byte aligned (TMA); lse (B, H, S) f32."""
+    q = torch.zeros((1, 9, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 9, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 9))
+    odd = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    for o, do, ls in ((q.float(), q, lse), (q, q.transpose(1, 2), lse),
+                      (q, odd, lse), (q, q, lse.double()),
+                      (q, q, torch.zeros((1, 9, 4)))):
+        with pytest.raises(ValueError):
+            flash_ops._bwd_check(q, k, k, o, ls, do)
+
+
 @pytest.mark.parametrize("dtype,want", [
     (torch.bfloat16, "tc"), (torch.float32, "simt"),
     (torch.float16, TypeError), (torch.float64, TypeError)])
@@ -48,16 +83,20 @@ def test_head_select_variant_from_dtype(dtype, want):
 
 
 def test_cpu_calls_count_no_variant():
-    """CPU tensors take the plain versions: no launch, of either kernel."""
+    """CPU tensors take the plain versions: no launch, of any kernel."""
     before = (dict(head_select.launches_by_variant),
-              dict(flash_attention.launches_by_variant))
+              dict(flash_attention.launches_by_variant),
+              dict(flash_attention_bwd.launches_by_variant))
     head_select(torch.randn(1, 4, 8).bfloat16(),
                 torch.randn(1, 8, 12).bfloat16(), k=2)
     x = torch.randn(1, 9, 2, 64).bfloat16()
     flash_attention(x, x, x)
+    flash_attention_bwd(x, x, x, x, torch.zeros((1, 2, 9)), x)
     assert (head_select.launches_by_variant,
-            flash_attention.launches_by_variant) == before
-    assert set(before[0]) == set(before[1]) == {"tc", "simt"}
+            flash_attention.launches_by_variant,
+            flash_attention_bwd.launches_by_variant) == before
+    assert set(before[0]) == set(before[1]) == set(before[2]) == {"tc",
+                                                                 "simt"}
 
 
 @pytest.mark.parametrize("L,N,D,C", [(2, 5, 48, 300), (1, 7, 50, 301),
