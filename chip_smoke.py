@@ -55,7 +55,11 @@ LM-2. the LM homogenization round at full width (``repro_torch.lmpath``:
    ``scaled_dot_product_attention``'s backward; its SIMT and
    tensor-core variants timed in turns beside SDPA's backward) and
    ``ssd_scan``'s (four passes over tiles, in float64, and at
-   Mamba-2-780M's N = 128);
+   Mamba-2-780M's N = 128); and, for the dense family, both flash
+   kernels at head_dim 96 (Phi-3-mini: B 8 x 2048 tokens x 32/32 heads
+   forward, B 2 training forward and backward, a ragged S with a window;
+   f32 on the SIMT kernels, bf16 on the tensor cores, by the same rules)
+   and ``head_select`` at Qwen3-1.7B's tied head and Phi-3-mini's;
 LM-3. the one-shot round (``msp_select`` on (n, P, S, V) logits) on the
    first 8 public sequences, held against the streaming round, and
    ``msp_select`` against its plain version on that round's logits;
@@ -68,7 +72,15 @@ LM-4. decentralized training with IDKD at full width
    launched nodes x layers times a plain step (twice that a KD step),
    every bf16 attention backward on the tensor cores, and a reduced
    Hymba trained the same 4 steps on the card and on the CPU to the same
-   params.
+   params;
+LM-5. the same for Qwen3-1.7B, the reference CLI's default arch
+   (``lmpath.QWEN3_TRAIN``: 4 ring nodes, 1 private and 2 public
+   sequences per node and step; tied head, qk-norm, head_dim 128);
+LM-6. the same for Phi-3-mini (``lmpath.PHI3_TRAIN``: 2 ring nodes),
+   every attention launch on the tensor-core kernels at head_dim 96; then
+   the four dense configs (Qwen3-1.7B, Phi-3-mini at head_dim 96,
+   Qwen1.5-0.5B, Mistral-Nemo-12B) at ``reduced()`` in f32, one plain and
+   one KD step each on the card and on the CPU to the same params.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -78,6 +90,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -146,7 +159,8 @@ SSD_BWD_ATOL = 1e-5          # ssd_scan's backward: the float64 rule above,
 TRAIN_PARAM_ATOL = 1e-5      # reduced Hymba (f32) trained 4 steps on the
 TRAIN_LOSS_RTOL = 1e-5       # card and on the CPU: consensus params and
                              # the loss history (see phase_lm_train)
-TRAIN_PEAK_GIB = 72.0        # LM-4's peak device memory budget
+TRAIN_PEAK_GIB = 72.0        # LM-4's, LM-5's and LM-6's peak device
+                             # memory budget
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
                                                       # bf16 tensor cores
@@ -683,6 +697,125 @@ def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag):
     return err
 
 
+def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label):
+    """One forward case on fresh random q, k, v: the kernel against its
+    plain version (FLASH_ATOL), its time beside its bound, the plain
+    version's and SDPA's; in bf16 the SIMT and tc variants in turns."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    dev = "cuda"
+    dname = str(dtype).split(".")[-1]
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+    tag = f"flash_attention {label}S={S} B={B} window={window} {dname}"
+    err = _check_flash(torch, q, k, v, window, tag)
+    nbytes, flops = _flash_work(B, S, H, KVH, D, window, q.element_size())
+    bnd, by = bound_ms(nbytes, flops, dname)
+    ms = timed(lambda: flash_attention(q, k, v, window=window), 5, torch)
+    pms = timed(lambda: flash_attention_plain(q, k, v, window=window), 2,
+                torch)
+    lib = _sdpa(torch, q, k, v, window)
+    try:
+        lib_err = float((lib().float() - flash_attention_plain(
+            q, k, v, window=window).float()).abs().max())
+        lms = timed(lib, 5, torch)
+    except RuntimeError as exc:      # no SDPA backend takes it
+        print(f"{tag}: scaled_dot_product_attention refused: {exc}")
+        lib_err = lms = None
+    row = dict(window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
+               bound_ms=bnd, bound_by=by, library_ms=lms)
+    print(f"{tag}: variant {flash_ops._variant(q.dtype, D)}, "
+          f"max_abs_err {err:.3g} (tol {FLASH_ATOL[dname]}); "
+          f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bnd / ms:.2%} of the "
+          f"bound), plain {pms:.3f} ms, sdpa {lms} ms (its max diff from "
+          f"the plain version {lib_err})")
+    if dname == "bfloat16":
+        row["simt_ms"], row["tc_ms"] = in_turns(
+            lambda: flash_ops._launch("simt", q, k, v, window),
+            lambda: flash_ops._launch("tc", q, k, v, window), 5, torch)
+        print(variants_line(f"{tag} variants", row["simt_ms"], row["tc_ms"],
+                            flops, bnd))
+    return row
+
+
+def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
+                   timing=True):
+    """One backward case on fresh random q, k, v, dO: the training
+    forward's o and lse held to their plain versions (_flash_saved), then
+    the backward kernel of the forward's variant against the plain
+    version (the SIMT kernel by the element-wise rule, the tc kernel by
+    _check_flash_bwd_tc's); with ``timing``, its time beside its bound,
+    the plain version's and SDPA's backward, and in bf16 both variants
+    in turns."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    dev = "cuda"
+    dname = str(dtype).split(".")[-1]
+    q, do = (torch.randn((B, S, H, D), generator=gen,
+                         device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, KVH, D), generator=gen,
+                        device=dev).to(dtype) for _ in range(2))
+    variant = flash_ops._variant(dtype, D)
+    tag = (f"flash_attention backward {label}S={S} B={B} window={window} "
+           f"{dname}")
+    o, lse = _flash_saved(torch, q, k, v, window, tag)
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+    for name, a in zip(("dq", "dk", "dv"), got):
+        check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+              f"{tag}: {name} non-finite or {a.dtype}")
+    if variant == "tc":
+        err = _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got,
+                                  ref, tag)
+    else:
+        err = _check_flash_bwd_simt(torch, got, ref, dname, tag)
+    del got, ref
+    row = dict(window=window, dtype=dname, err=err)
+    if not timing:
+        print(f"{tag}: variant {variant}, max_abs_err {err:.3g}")
+        return row
+    nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
+                                    q.element_size())
+    bnd, by = bound_ms(nbytes, flops, dname)
+    ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                           window=window), 3, torch)
+    pms = timed(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, window=window), 1, torch)
+    try:
+        lms = timed(_sdpa_bwd(torch, q, k, v, do, window), 3, torch)
+    except RuntimeError as exc:      # no SDPA backend takes it
+        print(f"{tag}: scaled_dot_product_attention backward refused: {exc}")
+        lms = None
+    row.update(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
+               library_ms=lms)
+    print(f"{tag}: variant {variant}, max_abs_err {err:.3g}; "
+          f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bnd / ms:.2%} "
+          f"of the bound), plain {pms:.3f} ms, sdpa backward {lms} ms")
+    # the training forward (the instantiation that writes lse) alone
+    buf = torch.empty_like(lse)
+    fbnd = bound_ms(*_flash_work(B, S, H, KVH, D, window, q.element_size()),
+                    dname)[0]
+    row["train_fwd_ms"] = timed(lambda: flash_ops._launch(
+        variant, q, k, v, window, buf), 5, torch)
+    row["train_fwd_bound_ms"] = fbnd
+    print(f"{tag}: the training forward (o and lse) {row['train_fwd_ms']:.3f}"
+          f" ms, bound {fbnd:.3f} ms ({fbnd / row['train_fwd_ms']:.2%})")
+    if variant == "tc":
+        row["simt_ms"], row["tc_ms"] = in_turns(
+            lambda: flash_ops._bwd_launch("simt", q, k, v, o, lse, do,
+                                          window),
+            lambda: flash_ops._bwd_launch("tc", q, k, v, o, lse, do,
+                                          window), 3, torch)
+        print(variants_line(f"{tag} variants", row["simt_ms"],
+                            row["tc_ms"], flops, bnd))
+    return row
+
+
 def phase_lm_backward(torch, rows):
     """LM-1's backward checks, at Hymba-1.5B's training shapes (2
     sequences of 2048 tokens + 128 meta tokens per node): the attention
@@ -693,9 +826,6 @@ def phase_lm_backward(torch, rows):
     backward kernels against ssd_scan_bwd_plain in float64, at Hymba's
     and Mamba-2-780M's shapes."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain)
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
     from repro_torch.lmpath import CONFIG, TRAIN
     from repro_torch.models.ssm import ssm_dims
@@ -707,58 +837,8 @@ def phase_lm_backward(torch, rows):
     rows["flash_attention_bwd"], rows["ssd_scan_bwd"] = [], []
     for window in (0, cfg.sliding_window):
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            q, do = (torch.randn((B, S, H, D), generator=gen,
-                                 device=dev).to(dtype) for _ in range(2))
-            k, v = (torch.randn((B, S, KVH, D), generator=gen,
-                                device=dev).to(dtype) for _ in range(2))
-            variant = flash_ops._variant(dtype, D)
-            tag = (f"flash_attention backward S={S} B={B} window={window} "
-                   f"{dname}")
-            o, lse = _flash_saved(torch, q, k, v, window, tag)
-            got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
-            ref = flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                            window=window)
-            for name, a in zip(("dq", "dk", "dv"), got):
-                check(a.dtype == dtype and bool(torch.isfinite(a).all()),
-                      f"{tag}: {name} non-finite or {a.dtype}")
-            if variant == "tc":
-                err = _check_flash_bwd_tc(torch, q, k, v, o, lse, do,
-                                          window, got, ref, tag)
-            else:
-                err = _check_flash_bwd_simt(torch, got, ref, dname, tag)
-            del got, ref
-            nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
-                                            q.element_size())
-            bnd, by = bound_ms(nbytes, flops, dname)
-            ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                   window=window), 3, torch)
-            pms = timed(lambda: flash_attention_bwd_plain(
-                q, k, v, o, lse, do, window=window), 1, torch)
-            try:
-                lms = timed(_sdpa_bwd(torch, q, k, v, do, window), 3, torch)
-            except RuntimeError as exc:      # no SDPA backend takes it
-                print(f"{tag}: scaled_dot_product_attention backward "
-                      f"refused: {exc}")
-                lms = None
-            row = dict(window=window, dtype=dname, err=err, ms=ms,
-                       plain_ms=pms, bound_ms=bnd, bound_by=by,
-                       library_ms=lms)
-            print(f"{tag}: variant {variant}, max_abs_err {err:.3g}; "
-                  f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bnd / ms:.2%} "
-                  f"of the bound), plain {pms:.3f} ms, sdpa backward {lms} "
-                  f"ms")
-            if variant == "tc":
-                row["simt_ms"], row["tc_ms"] = in_turns(
-                    lambda: flash_ops._bwd_launch("simt", q, k, v, o, lse,
-                                                  do, window),
-                    lambda: flash_ops._bwd_launch("tc", q, k, v, o, lse, do,
-                                                  window), 3, torch)
-                print(variants_line(f"{tag} variants", row["simt_ms"],
-                                    row["tc_ms"], flops, bnd))
-            rows["flash_attention_bwd"].append(row)
-            del q, k, v, do, o, lse
+            rows["flash_attention_bwd"].append(_flash_bwd_row(
+                torch, gen, B, S, H, KVH, D, window, dtype, ""))
     for label, mcfg, Ss in (("hymba", cfg, S),
                             ("mamba2-780m", get_config("mamba2-780m"), 2048)):
         Hs, P = ssm_dims(mcfg)[1], mcfg.ssm.head_dim
@@ -810,14 +890,69 @@ def phase_lm_backward(torch, rows):
     torch.cuda.empty_cache()
 
 
+def _head_select_row(torch, gen, label, L, N, Dm, C, *, tied, turns):
+    """head_select (bf16, msp, k = 8) on L nodes' N rows against its plain
+    version one node at a time, its time beside its bound and the plain
+    version's; ``tied`` passes the head as the transpose of an (L, C, Dm)
+    embedding, as a tied model's ``head_params`` does (no copy), else an
+    (L, Dm, C) head that the tc kernel repacks K-major per call; with
+    ``turns`` the SIMT and tc variants timed in turns. The plain version
+    runs on at most 2^29 logits at a time (its f32 logits and its sort's
+    values and int64 indices: 8 GiB), rows being independent."""
+    from repro_torch.kernels.head_select import head_select, head_select_plain
+    from repro_torch.kernels.head_select import ops as head_ops
+    dev = "cuda"
+    h = torch.randn((L, N, Dm), generator=gen, device=dev).to(torch.bfloat16)
+    if tied:
+        w = (torch.randn((L, C, Dm), generator=gen, device=dev) / Dm ** 0.5
+             ).to(torch.bfloat16).transpose(-1, -2)
+    else:
+        w = (torch.randn((L, Dm, C), generator=gen, device=dev) / Dm ** 0.5
+             ).to(torch.bfloat16)
+    kw = dict(temperature=10.0, k=8, detector="msp")
+    out = head_select(h, w, None, **kw)
+    step = min(N, (1 << 29) // C)
+    chunks = [(i, r) for i in range(L) for r in range(0, N, step)]
+
+    def plain(i, r):
+        return head_select_plain(h[i:i + 1, r:r + step], w[i:i + 1], None,
+                                 **kw)
+    err = 0.0
+    for i, r in chunks:             # the plain version a node's rows at a
+        ref = plain(i, r)           # time
+        logits = torch.matmul(h[i:i + 1, r:r + step].float(),
+                              w[i:i + 1].float())
+        e, ties = _compare(torch, [t[i:i + 1, r:r + step] for t in out],
+                           ref, logits, f"head_select {label} node {i} "
+                                        f"rows {r}:{r + step}")
+        err = max(err, e)
+        del ref, logits
+    nbytes = (L * N * Dm + L * Dm * C) * 2 + L * N * (4 + 8 * 8)
+    bnd, by = bound_ms(nbytes, 2.0 * L * N * Dm * C, "bfloat16")
+    ms = timed(lambda: head_select(h, w, None, **kw), 2, torch)
+    pms = sum(timed(lambda: plain(i, r), 1, torch) for i, r in chunks)
+    tag = (f"head_select {label} L={L} rows={L * N} D={Dm} C={C} "
+           f"{'tied ' if tied else ''}bf16 msp k=8")
+    split = head_ops._column_splits(L, N, C, Dm, _sms(torch))
+    print(f"{tag}: variant {head_ops._variant(h.dtype)}, column split "
+          f"{split[1]}, max_abs_err {err:.3g}; {ms:.2f} ms, bound "
+          f"{bnd:.3f} ms ({by}, {bnd / ms:.2%} of it), plain {pms:.2f} ms "
+          f"({len(chunks)} calls)")
+    if turns:
+        sms, tms = in_turns(
+            lambda: head_ops._launch("simt", h, w, None, **kw),
+            lambda: head_ops._launch("tc", h, w, None, **kw), 1, torch)
+        print(variants_line(f"{tag} variants", sms, tms,
+                            2.0 * L * N * Dm * C, bnd))
+    del h, w, out
+    torch.cuda.empty_cache()
+    return dict(shape=label, err=err, ms=ms, plain_ms=pms, bound_ms=bnd,
+                bound_by=by)
+
+
 def phase_lm_kernels(torch):
     """LM-1: each LM kernel against its plain version at Hymba's shapes;
     in bf16 the SIMT and tensor-core variants timed in turns."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.head_select import head_select, head_select_plain
-    from repro_torch.kernels.head_select import ops as head_ops
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.configs import get_config
     from repro_torch.lmpath import CONFIG
@@ -831,43 +966,8 @@ def phase_lm_kernels(torch):
     rows = {"flash_attention": [], "ssd_scan": [], "head_select": []}
     for window in (0, cfg.sliding_window):
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-            k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
-            v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
-            tag = f"flash_attention S={S} B={B} window={window} {dname}"
-            err = _check_flash(torch, q, k, v, window, tag)
-            nbytes, flops = _flash_work(B, S, H, KVH, D, window,
-                                        q.element_size())
-            bnd, by = bound_ms(nbytes, flops, dname)
-            ms = timed(lambda: flash_attention(q, k, v, window=window), 5,
-                       torch)
-            pms = timed(lambda: flash_attention_plain(q, k, v, window=window),
-                        2, torch)
-            lib = _sdpa(torch, q, k, v, window)
-            try:
-                lib_err = float((lib().float() - flash_attention_plain(
-                    q, k, v, window=window).float()).abs().max())
-                lms = timed(lib, 5, torch)
-            except RuntimeError as exc:      # no SDPA backend takes it
-                print(f"{tag}: scaled_dot_product_attention refused: {exc}")
-                lib_err = lms = None
-            rows["flash_attention"].append(dict(
-                window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
-                bound_ms=bnd, bound_by=by, library_ms=lms))
-            print(f"{tag}: variant {flash_ops._variant(q.dtype, D)}, "
-                  f"max_abs_err {err:.3g} (tol {FLASH_ATOL[dname]}); "
-                  f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved), plain "
-                  f"{pms:.3f} ms, sdpa {lms} ms (its max diff from the "
-                  f"plain version {lib_err})")
-            if dname == "bfloat16":
-                sms, tms = in_turns(
-                    lambda: flash_ops._launch("simt", q, k, v, window),
-                    lambda: flash_ops._launch("tc", q, k, v, window), 5,
-                    torch)
-                print(variants_line(f"{tag} variants", sms, tms, flops, bnd))
-            del q, k, v
+            rows["flash_attention"].append(_flash_fwd_row(
+                torch, gen, B, S, H, KVH, D, window, dtype, ""))
     # Hymba's mixer, and Mamba-2-780M's (state size 128) at 2048 tokens
     for label, mcfg, Ss in (("hymba", cfg, S),
                             ("mamba2-780m", get_config("mamba2-780m"), 2048)):
@@ -899,42 +999,67 @@ def phase_lm_kernels(torch):
               f"plain {pms:.3f} ms")
         del x, dt, dta, xdt, b, c
     # head_select at Hymba's head: 4 nodes x 8 sequences x 2048 tokens
-    L, N, Dm, C = 4, 8 * 2048, cfg.d_model, cfg.vocab_size
-    h = torch.randn((L, N, Dm), generator=gen, device=dev).to(torch.bfloat16)
-    w = (torch.randn((L, Dm, C), generator=gen, device=dev) / Dm ** 0.5
-         ).to(torch.bfloat16)
-    kw = dict(temperature=10.0, k=8, detector="msp")
-    out = head_select(h, w, None, **kw)
-    err = 0.0
-    for i in range(L):              # the plain version one node at a time:
-        ref = head_select_plain(h[i:i + 1], w[i:i + 1], None, **kw)
-        logits = torch.matmul(h[i:i + 1].float(), w[i:i + 1].float())
-        e, ties = _compare(torch, [t[i:i + 1] for t in out], ref, logits,
-                           f"head_select hymba node {i}")
-        err = max(err, e)
-        del ref, logits
-    nbytes = (L * N * Dm + L * Dm * C) * 2 + L * N * (4 + 8 * 8)
-    bnd, by = bound_ms(nbytes, 2.0 * L * N * Dm * C, "bfloat16")
-    ms = timed(lambda: head_select(h, w, None, **kw), 2, torch)
-    pms = sum(timed(lambda: head_select_plain(h[i:i + 1], w[i:i + 1], None,
-                                              **kw), 1, torch)
-              for i in range(L))
-    tag = f"head_select hymba L={L} rows={L * N} D={Dm} C={C} bf16 msp k=8"
-    split = head_ops._column_splits(L, N, C, Dm, _sms(torch))
-    print(f"{tag}: variant {head_ops._variant(h.dtype)}, column split "
-          f"{split[1]}, max_abs_err {err:.3g}; {ms:.2f} ms, bound "
-          f"{bnd:.3f} ms ({by}), plain {pms:.2f} ms (4 node calls)")
-    sms, tms = in_turns(
-        lambda: head_ops._launch("simt", h, w, None, **kw),
-        lambda: head_ops._launch("tc", h, w, None, **kw), 1, torch)
-    rows["head_select"].append(dict(shape="hymba", err=err, ms=ms,
-                                    plain_ms=pms, bound_ms=bnd, bound_by=by))
-    print(variants_line(f"{tag} variants", sms, tms, 2.0 * L * N * Dm * C,
-                        bnd))
-    del h, w, out
+    rows["head_select"].append(_head_select_row(
+        torch, gen, "hymba", 4, 8 * 2048, cfg.d_model, cfg.vocab_size,
+        tied=False, turns=True))
     torch.cuda.empty_cache()
     phase_lm_backward(torch, rows)
     return rows
+
+
+def phase_lm_dense_kernels(torch, rows):
+    """LM-1 for the dense family. The flash kernels at head_dim 96
+    (Phi-3-mini's 3072 / 32 heads), SIMT in f32 and tc in bf16: the
+    forward at Phi-3's round shape (B 8, S 2048, 32/32 heads, global),
+    the training forward (o and its log-sum-exp) and the backward at its
+    training shape (B 2), each held to its plain version by the rules of
+    head_dim 64 and 128 and timed beside its bound, the plain version and
+    SDPA; then a ragged S (1000) with a window (300), both directions,
+    both dtypes, checked. Then the bf16 tc kernels at Qwen3-1.7B's
+    attention (16/8 heads x 128, global, S 2048) by the same rules: the
+    forward at its round shape (B 8), the training forward and the
+    backward at its KD step's public batch (B 2). Then head_select at
+    Qwen3-1.7B's tied head (4 nodes x 8 sequences x 2048 tokens over
+    151,936 tokens) and at Phi-3-mini's untied one (2 nodes, 32,064
+    tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.lmpath import (PHI3_TRAIN, QWEN3_PUB_BATCH,
+                                    QWEN3_TRAIN, ROUND)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    phi3, qwen3 = get_config("phi3-mini-3.8b"), get_config("qwen3-1.7b")
+    H, KVH, D = phi3.num_heads, phi3.num_kv_heads, phi3.resolved_head_dim
+    S, B_round, B_train = 2048, ROUND.stream_microbatch, PHI3_TRAIN.batch_size
+    rows["flash_attention_d96"], rows["flash_attention_bwd_d96"] = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows["flash_attention_d96"].append(_flash_fwd_row(
+            torch, gen, B_round, S, H, KVH, D, 0, dtype, "D=96 "))
+        rows["flash_attention_bwd_d96"].append(_flash_bwd_row(
+            torch, gen, B_train, S, H, KVH, D, 0, dtype, "D=96 "))
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):     # ragged, windowed
+        q, k, v = (torch.randn((2, 1000, 8, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        err = _check_flash(torch, q, k, v, 300, f"flash_attention D=96 "
+                                                f"S=1000 window=300 {dtype}")
+        rows["flash_attention_d96"].append(dict(window=300, err=err))
+        rows["flash_attention_bwd_d96"].append(_flash_bwd_row(
+            torch, gen, 2, 1000, 8, 4, D, 300, dtype, "D=96 ", timing=False))
+        del q, k, v
+    torch.cuda.empty_cache()
+    H, KVH, D = qwen3.num_heads, qwen3.num_kv_heads, qwen3.resolved_head_dim
+    rows["flash_attention_qwen3"] = [_flash_fwd_row(
+        torch, gen, B_round, S, H, KVH, D, 0, torch.bfloat16, "Qwen3 ")]
+    rows["flash_attention_bwd_qwen3"] = [_flash_bwd_row(
+        torch, gen, QWEN3_PUB_BATCH, S, H, KVH, D, 0, torch.bfloat16,
+        "Qwen3 ")]
+    torch.cuda.empty_cache()
+    rows["head_select_dense"] = [
+        _head_select_row(torch, gen, "qwen3", QWEN3_TRAIN.num_nodes,
+                         ROUND.stream_microbatch * S, qwen3.d_model,
+                         qwen3.vocab_size, tied=True, turns=False),
+        _head_select_row(torch, gen, "phi3", PHI3_TRAIN.num_nodes,
+                         ROUND.stream_microbatch * S, phi3.d_model,
+                         phi3.vocab_size, tied=False, turns=False)]
 
 
 class _KernelClock:
@@ -1023,6 +1148,8 @@ def phase_lm_round(torch):
         f.launches = 0
     for f in (flash_attention, head_select):
         f.launches_by_variant = {"tc": 0, "simt": 0}
+    flash_attention.launches_by_head_dim = dict.fromkeys(
+        flash_attention.launches_by_head_dim, 0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1034,6 +1161,7 @@ def phase_lm_round(torch):
     launches = {k: f.launches for k, f in counters.items()}
     variants = {k: dict(counters[k].launches_by_variant)
                 for k in ("flash_attention", "head_select")}
+    dims = {"flash_attention": dict(flash_attention.launches_by_head_dim)}
     for c in clocks.values():
         c.restore()
     dev_ms = start.elapsed_time(end)
@@ -1168,7 +1296,7 @@ def phase_lm_round(torch):
           f"{float(mask.float().mean()):.4f}")
     lm.stats = dict(wall_s=wall, device_ms=dev_ms, kernel_ms=per_kernel,
                     peak_gib=peak, kept=kept)
-    return lm, launches, variants
+    return lm, launches, variants, dims
 
 
 def _check_msp_rows(torch, x, kw, what, rows=8192):
@@ -1294,19 +1422,18 @@ def _same_draws(torch, seed):
                   (DecoderModel, "init", init_on_cpu))
 
 
-def phase_lm_train(torch):
-    """LM-4: decentralized training with IDKD at full width
-    (``repro_torch.lmpath.train``: Hymba-1.5B on 4 ring nodes, 2 plain
+def _train_full(torch, label, cfg, tcfg, pub_batch=None):
+    """One full-width ``repro_torch.lmpath.train`` run (2 plain
     QG-DSGDm-N steps, the homogenization round, 2 sparse-KD steps): each
     step's and the round's wall time, peak memory, the loss history and
     each kernel's forward and backward launches per step. Fails unless
     every loss is finite, every parameter leaf of every node gets a
-    finite gradient that is non-zero somewhere at every step, and the
+    finite gradient that is non-zero somewhere at every step, the
     backward kernels launch nodes x layers times per plain step and twice
-    that per KD step (the KD adapter's second forward). Then a reduced
-    Hymba (f32) trains the same 4 steps on the card and on the CPU, and
-    the two end within TRAIN_PARAM_ATOL (params) and TRAIN_LOSS_RTOL
-    (losses)."""
+    that per KD step (the KD adapter's second forward), every bf16 flash
+    and head_select launch goes through the tc variant, every flash
+    launch runs at the config's head_dim, and the peak stays within
+    TRAIN_PEAK_GIB. Launches are counted from 0 over this run."""
     import repro_torch.core.driver as drv
     import repro_torch.launch.train as train_mod
     from repro_torch import lmpath
@@ -1362,100 +1489,175 @@ def phase_lm_train(torch):
         rounds.append(time.perf_counter() - t0)
         return out
 
-    cfg = lmpath.CONFIG
     for f in counters.values():
         f.launches = 0
     with_variants = ("flash_attention", "flash_attention_bwd", "head_select")
     for name in with_variants:
         counters[name].launches_by_variant = {"tc": 0, "simt": 0}
+    for f in (flash_attention, flash_attention_bwd):
+        f.launches_by_head_dim = dict.fromkeys(f.launches_by_head_dim, 0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _Patch((drv, "make_step", timed_make_step),
                 (train_mod, "make_algorithm", checked_algorithm),
                 (train_mod, "idkd_label_round", timed_round)):
-        out = lmpath.train(device="cuda")
+        out = lmpath.train(cfg, tcfg, pub_batch=pub_batch, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     variants = {k: dict(counters[k].launches_by_variant)
                 for k in with_variants}
+    by_dim = {k: dict(counters[k].launches_by_head_dim)
+              for k in ("flash_attention", "flash_attention_bwd")}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    hist = out["loss_history"]
+    hist, pub = out["loss_history"], out["pub_batch"]
     del out
     torch.cuda.empty_cache()
-    n, L = lmpath.TRAIN.num_nodes, cfg.num_layers
-    print(f"LM training (Hymba-1.5B, {n} ring nodes, {L} layers, batch "
-          f"{lmpath.TRAIN.batch_size} x 2048 tokens, lr "
-          f"{lmpath.TRAIN.lr}): {wall:.1f} s wall with set-up, peak memory "
-          f"{peak:.1f} GiB; round {rounds} s; losses {hist}")
+    n, L, hd = tcfg.num_nodes, cfg.num_layers, cfg.resolved_head_dim
+    print(f"{label}: LM training ({cfg.name}, {n} ring nodes, {L} layers, "
+          f"head_dim {hd}, batch {tcfg.batch_size} x 2048 tokens, KD "
+          f"public {pub} x 2048, lr {tcfg.lr}): {wall:.1f} s wall with "
+          f"set-up, peak memory {peak:.2f} GiB; round {rounds} s; losses "
+          f"{hist}")
     for i, st in enumerate(steps):
         print(f"  step {i} ({st['kind']}): {st['s']:.2f} s, loss "
               f"{st['loss']:.4f}, launches {st['launches']}")
-    check(len(rounds) == 1, f"{len(rounds)} label rounds ran, not 1")
+    check(len(rounds) == 1, f"{label}: {len(rounds)} label rounds ran, "
+                            f"not 1")
     kinds = [st["kind"] for st in steps]
-    check(kinds == ["plain", "plain", "kd", "kd"], f"steps ran as {kinds}")
+    check(kinds == ["plain", "plain", "kd", "kd"],
+          f"{label}: steps ran as {kinds}")
     check(len(hist) == 4 and all(math.isfinite(x) for x in hist),
-          f"loss history {hist}")
-    check(not bad, f"parameter leaves without a finite, non-zero gradient "
-                   f"(step, leaf, per-node norms): {bad[:5]}")
+          f"{label}: loss history {hist}")
+    check(not bad, f"{label}: parameter leaves without a finite, non-zero "
+                   f"gradient (step, leaf, per-node norms): {bad[:5]}")
+    ssm = cfg.ssm.enabled
     for st in steps:
         want = n * L * (2 if st["kind"] == "kd" else 1)
         for name in ("flash_attention_bwd", "ssd_scan_bwd"):
-            check(st["launches"][name] == want,
-                  f"{st['kind']} step: {st['launches'][name]} {name} "
-                  f"launches, the schedule implies {n} nodes x {L} layers"
+            got = st["launches"][name]
+            check(got == (want if ssm or name.startswith("flash") else 0),
+                  f"{label}: {st['kind']} step: {got} {name} launches, the "
+                  f"schedule implies {n} nodes x {L} layers"
                   f"{' x 2 (the KD forward)' if st['kind'] == 'kd' else ''}"
-                  f" = {want}")
+                  f" = {want}{'' if ssm else ' (no SSM: 0 for ssd_scan)'}")
         for name in ("flash_attention", "ssd_scan"):
-            check(st["launches"][name] == 2 * want,
-                  f"{st['kind']} step: {st['launches'][name]} {name} "
-                  f"launches; with per-layer recompute, {2 * want}")
-    check(launches["head_select"] > 0, "head_select was not launched in "
-                                       "the training run's round")
+            got = st["launches"][name]
+            check(got == (2 * want if ssm or name.startswith("flash")
+                          else 0),
+                  f"{label}: {st['kind']} step: {got} {name} launches; "
+                  f"with per-layer recompute, {2 * want}")
+    check(launches["head_select"] > 0, f"{label}: head_select was not "
+                                       f"launched in the training run's "
+                                       f"round")
     for name, by in variants.items():
         check(by == {"tc": launches[name], "simt": 0},
-              f"{name}: {by} of {launches[name]} launches of the training "
-              f"run went through each variant; all must be tc")
-    check(peak <= TRAIN_PEAK_GIB, f"peak memory {peak:.1f} GiB > "
+              f"{label}: {name}: {by} of {launches[name]} launches went "
+              f"through each variant; all must be tc")
+    for name, by in by_dim.items():
+        check(by[hd] == launches[name],
+              f"{label}: {name}: {by} launches by head_dim; all "
+              f"{launches[name]} must run at {hd}")
+    check(peak <= TRAIN_PEAK_GIB, f"{label}: peak memory {peak:.1f} GiB > "
                                   f"{TRAIN_PEAK_GIB} GiB")
-    print(f"every leaf of every node got a finite, non-zero gradient at "
-          f"every step; backward launches per step = nodes x layers (x 2 "
-          f"in KD steps): {[st['launches']['flash_attention_bwd'] for st in steps]}")
+    print(f"{label}: every leaf of every node got a finite, non-zero "
+          f"gradient at every step; backward launches per step = nodes x "
+          f"layers (x 2 in KD steps): "
+          f"{[st['launches']['flash_attention_bwd'] for st in steps]}, "
+          f"all tc at head_dim {hd}")
+    return dict(launches=launches, variants=variants, by_head_dim=by_dim,
+                steps=steps, rounds=rounds, peak_gib=peak, hist=hist)
 
-    # a reduced Hymba, f32, on the card and on the CPU: the same steps
-    small = lmpath.CONFIG.reduced().replace(num_layers=3, num_kv_heads=2,
-                                            remat=True)
-    tcfg = dataclasses.replace(lmpath.TRAIN, idkd=dataclasses.replace(
-        lmpath.TRAIN.idkd, stream_microbatch=5))
-    kw = dict(seq_len=120, n_private=256, n_public=12)
+
+def _train_card_vs_cpu(torch, label, cfg, tcfg, pub_batch=None, **kw):
+    """``lmpath.train`` of a reduced f32 config on the card and on the
+    CPU with the same weights and index draws: consensus params within
+    TRAIN_PARAM_ATOL, losses within TRAIN_LOSS_RTOL, label bytes equal.
+    Returns (param error, loss error)."""
+    from repro_torch import lmpath
     runs = {}
     for device in ("cuda", "cpu"):
         with _same_draws(torch, 7):
-            runs[device] = lmpath.train(small, tcfg, device=device, **kw)
+            runs[device] = lmpath.train(cfg, tcfg, pub_batch=pub_batch,
+                                        device=device, **kw)
     gpu, cpu = runs["cuda"], runs["cpu"]
     dp = max(float((gpu["params"][k].cpu() - v).abs().max())
              for k, v in cpu["params"].items())
     dl = max(abs(a - b) / abs(b) for a, b in zip(gpu["loss_history"],
                                                  cpu["loss_history"]))
     check(gpu["ledger"]["label_bytes"] == cpu["ledger"]["label_bytes"],
-          f"reduced training: label bytes {gpu['ledger']['label_bytes']} on "
-          f"the card, {cpu['ledger']['label_bytes']} on the CPU")
-    check(dl <= TRAIN_LOSS_RTOL, f"reduced training, card vs CPU: losses "
+          f"{label}: label bytes {gpu['ledger']['label_bytes']} on the "
+          f"card, {cpu['ledger']['label_bytes']} on the CPU")
+    check(dl <= TRAIN_LOSS_RTOL, f"{label}, card vs CPU: losses "
                                  f"{gpu['loss_history']} vs "
                                  f"{cpu['loss_history']}")
-    check(dp <= TRAIN_PARAM_ATOL, f"reduced training, card vs CPU: params "
-                                  f"differ by {dp:.3g}")
+    check(dp <= TRAIN_PARAM_ATOL, f"{label}, card vs CPU: params differ by "
+                                  f"{dp:.3g}")
+    return dp, dl
+
+
+def phase_lm_train(torch):
+    """LM-4: decentralized training with IDKD at full width
+    (``repro_torch.lmpath.train``: Hymba-1.5B on 4 ring nodes,
+    _train_full's checks), then a reduced Hymba (f32) trained the same 4
+    steps on the card and on the CPU (_train_card_vs_cpu)."""
+    from repro_torch import lmpath
+    out = _train_full(torch, "LM-4", lmpath.CONFIG, lmpath.TRAIN)
+    small = lmpath.CONFIG.reduced().replace(num_layers=3, num_kv_heads=2,
+                                            remat=True)
+    tcfg = dataclasses.replace(lmpath.TRAIN, idkd=dataclasses.replace(
+        lmpath.TRAIN.idkd, stream_microbatch=5))
+    dp, dl = _train_card_vs_cpu(torch, "reduced Hymba", small, tcfg,
+                                seq_len=120, n_private=256, n_public=12)
     print(f"reduced Hymba (3 layers, kv 2, f32, S 120 + 8 meta > window "
           f"{small.sliding_window}, per-layer recompute), 4 steps on the card "
           f"and on the CPU with the same draws: consensus params within "
           f"{dp:.3g} (tol {TRAIN_PARAM_ATOL}), losses within {dl:.3g} "
           f"relative (tol {TRAIN_LOSS_RTOL}), label bytes equal")
-    return dict(launches=launches, variants=variants, steps=steps,
-                rounds=rounds, peak_gib=peak, hist=hist)
+    return out
 
 
-def kernel_line(kres, lm_rows, paths, variants):
+def phase_lm_dense(torch):
+    """LM-5 and LM-6: the dense family trained with IDKD at full width
+    (_train_full's checks): Qwen3-1.7B, the reference CLI's default arch,
+    on 4 ring nodes (``lmpath.QWEN3_TRAIN``, 1 private and
+    ``QWEN3_PUB_BATCH`` public sequences per node), and Phi-3-mini on 2
+    (``lmpath.PHI3_TRAIN``), every attention launch of it at head_dim 96
+    on the tc kernels. Then each of the four dense configs at
+    ``reduced()`` (Phi-3 at head_dim 96), f32, one plain and one KD step
+    on the card and on the CPU (_train_card_vs_cpu): qkv-bias, qk-norm,
+    tied heads and the ring of 2 on the card."""
+    from repro_torch import lmpath
+    from repro_torch.configs import get_config
+    qwen3 = _train_full(torch, "LM-5", get_config("qwen3-1.7b"),
+                        lmpath.QWEN3_TRAIN, lmpath.QWEN3_PUB_BATCH)
+    phi3 = _train_full(torch, "LM-6", get_config("phi3-mini-3.8b"),
+                       lmpath.PHI3_TRAIN)
+    runs = {"qwen3-1.7b": (lmpath.QWEN3_TRAIN, lmpath.QWEN3_PUB_BATCH),
+            "phi3-mini-3.8b": (lmpath.PHI3_TRAIN, None),
+            "qwen1.5-0.5b": (lmpath.TRAIN, None),
+            "mistral-nemo-12b": (lmpath.TRAIN, None)}
+    for arch, (tcfg, pub) in runs.items():
+        small = get_config(arch).reduced().replace(remat=True)
+        if arch == "phi3-mini-3.8b":
+            small = small.replace(head_dim=96)
+        tcfg = dataclasses.replace(tcfg, steps=2, idkd=dataclasses.replace(
+            tcfg.idkd, start_step=1, stream_microbatch=5))
+        dp, dl = _train_card_vs_cpu(torch, f"reduced {arch}", small, tcfg,
+                                    pub, seq_len=120, n_private=256,
+                                    n_public=12)
+        print(f"reduced {arch} ({small.num_layers} layers, "
+              f"{small.num_heads}/{small.num_kv_heads} heads x "
+              f"{small.resolved_head_dim}, f32, {tcfg.num_nodes} nodes), one "
+              f"plain and one KD step on the card and on the CPU with the "
+              f"same draws: consensus params within {dp:.3g} (tol "
+              f"{TRAIN_PARAM_ATOL}), losses within {dl:.3g} relative (tol "
+              f"{TRAIN_LOSS_RTOL}), label bytes equal")
+    return qwen3, phi3
+
+
+def kernel_line(kres, lm_rows, paths, variants, head_dims):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
     one-shot branch for msp_select; Hymba's training step for the two
@@ -1467,25 +1669,40 @@ def kernel_line(kres, lm_rows, paths, variants):
     splits them and ``launches_by_variant`` splits them by kernel
     (``source`` is the tensor-core variant's file where there is one;
     the two ``ssd_scan`` kernels have one variant each, on the tensor
-    cores, and ``msp_select`` one, on the SIMT units). The backward
-    kernels replace no Pallas kernel of their own (the JAX package
-    differentiates its jnp forms): ``replaces`` names the Pallas kernel
-    whose backward they are."""
+    cores, and ``msp_select`` one, on the SIMT units). The two flash
+    entries also split their launches by head_dim (``head_dims``: {path:
+    {kernel: {head_dim: launches}}}) and carry their bf16 times at
+    head_dim 96 (Phi-3-mini's round and training shapes) under
+    ``at_head_dim_96``; ``head_select`` carries its times at the dense
+    heads (Qwen3-1.7B's tied, Phi-3-mini's) under ``dense_heads``. The
+    backward kernels replace no Pallas kernel of their own (the JAX
+    package differentiates its jnp forms): ``replaces`` names the Pallas
+    kernel whose backward they are."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
     tc = {"head_select", "flash_attention", "flash_attention_bwd"}
-    flash = next(r for r in lm_rows["flash_attention"]
-                 if r["window"] and r["dtype"] == "bfloat16")
-    flash_bwd = next(r for r in lm_rows["flash_attention_bwd"]
-                     if r["window"] and r["dtype"] == "bfloat16")
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def bf16(rows, window):
+        return next(r for r in rows if r.get("window") == window
+                    and r.get("dtype") == "bfloat16" and "ms" in r)
+    flash = bf16(lm_rows["flash_attention"], 1024)
+    flash_bwd = bf16(lm_rows["flash_attention_bwd"], 1024)
     picks = {"head_select": (lm_rows["head_select"][0], "head_select", 131),
              "msp_select": (lm_rows["msp_select"][0], "msp_select", 67),
              "flash_attention": (flash, "flash_attention", 69),
              "ssd_scan": (lm_rows["ssd_scan"][0], "ssd_scan", 60),
              "flash_attention_bwd": (flash_bwd, "flash_attention", 69),
              "ssd_scan_bwd": (lm_rows["ssd_scan_bwd"][0], "ssd_scan", 60)}
-    errs = {"head_select": kres["head_select"] + lm_rows["head_select"],
-            "msp_select": kres["msp_select"] + lm_rows["msp_select"]}
+    errs = {"head_select": (kres["head_select"] + lm_rows["head_select"]
+                            + lm_rows["head_select_dense"]),
+            "msp_select": kres["msp_select"] + lm_rows["msp_select"],
+            "flash_attention": (lm_rows["flash_attention"]
+                                + lm_rows["flash_attention_d96"]
+                                + lm_rows["flash_attention_qwen3"]),
+            "flash_attention_bwd": (lm_rows["flash_attention_bwd"]
+                                    + lm_rows["flash_attention_bwd_d96"]
+                                    + lm_rows["flash_attention_bwd_qwen3"])}
     line = []
     for name, (row, pallas, at) in picks.items():
         by_path = {path: counts.get(name, 0)
@@ -1497,19 +1714,30 @@ def kernel_line(kres, lm_rows, paths, variants):
             for path in variants.values():
                 for v, n in path.get(name, {}).items():
                     by_variant[v] += n
-        line.append({"name": name, "route": "cuda",
-                     "source": src.format(name + ("_tc" if name in tc
-                                                  else "")),
-                     "replaces": ref.format(pallas, at),
-                     "launches": sum(by_path.values()),
-                     "launches_by_path": by_path,
-                     "launches_by_variant": by_variant,
-                     "max_abs_err": max(r["err"] for r in
-                                        errs.get(name, lm_rows.get(name))),
-                     "ms": row["ms"], "plain_ms": row["plain_ms"],
-                     "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"],
-                     "library_ms": row.get("library_ms")})
+        entry = {"name": name, "route": "cuda",
+                 "source": src.format(name + ("_tc" if name in tc else "")),
+                 "replaces": ref.format(pallas, at),
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "launches_by_variant": by_variant,
+                 "max_abs_err": max(r["err"] for r in
+                                    errs.get(name, lm_rows.get(name))),
+                 **{k: row.get(k) for k in timing}}
+        if name.startswith("flash"):
+            by_dim = {}
+            for path in head_dims.values():
+                for d, n in path.get(name, {}).items():
+                    by_dim[d] = by_dim.get(d, 0) + n
+            entry["launches_by_head_dim"] = by_dim
+            d96 = bf16(lm_rows[name + "_d96"], 0)
+            entry["at_head_dim_96"] = {k: d96.get(k) for k in timing}
+            qwen3 = bf16(lm_rows[name + "_qwen3"], 0)
+            entry["at_qwen3"] = {k: qwen3.get(k) for k in timing}
+        if name == "head_select":
+            entry["dense_heads"] = [{"shape": r["shape"],
+                                     **{k: r.get(k) for k in timing}}
+                                    for r in lm_rows["head_select_dense"]]
+        line.append(entry)
     return line
 
 
@@ -1520,6 +1748,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    # LM-5 holds ~63 GiB of the card's 79: in fixed-size segments the
+    # KD step's vocabulary-wide blocks can leave 18 GiB reserved but
+    # unusable and run out of memory; growable segments do not fragment
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1540,19 +1773,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lm_rows = phase_lm_kernels(torch)
-    lm, lm_launches, lm_variants = phase_lm_round(torch)
+    phase_lm_dense_kernels(torch, lm_rows)
+    lm, lm_launches, lm_variants, lm_dims = phase_lm_round(torch)
     lm_launches["msp_select"], msp_row = phase_lm_oneshot(torch, lm)
     lm_rows["msp_select"] = [msp_row]
     del lm
     torch.cuda.empty_cache()
     train = phase_lm_train(torch)
+    qwen3, phi3 = phase_lm_dense(torch)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3}
     print(json.dumps({"kernels": kernel_line(
-        kres, lm_rows, {"resnet_path": launches, "lm_path": lm_launches,
-                        "lm_train_path": train["launches"]},
+        kres, lm_rows,
+        {"resnet_path": launches, "lm_path": lm_launches,
+         **{k: v["launches"] for k, v in trains.items()}},
         {"resnet_path": variants, "lm_path": lm_variants,
-         "lm_train_path": train["variants"]})}))
+         **{k: v["variants"] for k, v in trains.items()}},
+        {"lm_path": lm_dims,
+         **{k: v["by_head_dim"] for k, v in trains.items()}})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

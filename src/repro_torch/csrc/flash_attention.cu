@@ -24,7 +24,7 @@
 // its diagonal, so every row ends with a real maximum.
 //
 // Variants. This SIMT kernel serves float32 and bf16 at head_dim 32;
-// bf16 at head_dim 64 and 128 runs flash_attention_tc.cu on the tensor
+// bf16 at head_dim 64, 96 and 128 runs flash_attention_tc.cu on the tensor
 // cores. f32 stays here on purpose: its tolerance (2e-5) rules out TF32
 // tiles, this kernel already beats scaled_dot_product_attention in f32
 // at Hymba's shape (8.6 vs 20.3 ms, PERF.md), and the full-width paths
@@ -225,6 +225,8 @@ cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
       return fa_launch<T, 32>(q, k, v, o, lse, B, S, H, KVH, window, s);
     case 64:
       return fa_launch<T, 64>(q, k, v, o, lse, B, S, H, KVH, window, s);
+    case 96:
+      return fa_launch<T, 96>(q, k, v, o, lse, B, S, H, KVH, window, s);
     case 128:
       return fa_launch<T, 128>(q, k, v, o, lse, B, S, H, KVH, window, s);
     default: return cudaErrorInvalidValue;
@@ -234,7 +236,7 @@ cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace idkd
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, S, H,
-// D), k/v (B, S, KVH, D), contiguous; D in {32, 64, 128}; H % KVH == 0;
+// D), k/v (B, S, KVH, D), contiguous; D in {32, 64, 96, 128}; H % KVH == 0;
 // window 0 = full causal. lse: null, or (B, H, S) f32 that receives each
 // row's log-sum-exp of its scaled scores (the training forward's; the
 // label round passes null and writes nothing more). Returns

@@ -20,7 +20,7 @@
 // inputs' dtype.
 //
 // This is the SIMT variant: f32, and bf16 at head_dim 32. bf16 at
-// head_dim 64 and 128 runs flash_attention_bwd_tc.cu on the tensor cores
+// head_dim 64, 96 and 128 runs flash_attention_bwd_tc.cu on the tensor cores
 // (P computed once, five products); this kernel keeps f32 math
 // throughout, which f32 training's tolerance (1e-4 of max |grad|)
 // needs and bf16 tensor-core operands would break.
@@ -367,6 +367,9 @@ cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
     case 64:
       return fab_launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                S, H, KVH, window, s);
+    case 96:
+      return fab_launch<T, 96>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               S, H, KVH, window, s);
     case 128:
       return fab_launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                 S, H, KVH, window, s);
@@ -380,7 +383,7 @@ cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
 // q/o/dout/dq (B, S, H, D), k/v/dk/dv (B, S, KVH, D), contiguous; lse
 // (B, H, S) f32 from the forward; delta (B, H, S) f32 scratch; D in {32,
-// 64, 128}; H % KVH == 0; window 0 = full causal. Three launches; returns
+// 64, 96, 128}; H % KVH == 0; window 0 = full causal. Three launches; returns
 // cudaGetLastError() after them.
 extern "C" int flash_attention_bwd_launch(int dtype, const void* q,
                                           const void* k, const void* v,

@@ -2,7 +2,7 @@
 // the gradients of causal grouped-query attention with a per-layer
 // sliding window and a ragged tail, given the forward's output O and its
 // rows' log-sum-exp. The bf16 variant of the port's attention backward,
-// for head_dim 64 and 128 (f32, and bf16 at head_dim 32, run
+// for head_dim 64, 96 and 128 (f32, and bf16 at head_dim 32, run
 // csrc/flash_attention_bwd.cu).
 //
 // The JAX package has no backward Pallas kernel: its training
@@ -64,8 +64,16 @@
 // gives fbt_main 168 registers a thread, no spills); at D = 128 the dK
 // and dV fragments take 128 registers, dQ's two 64-column halves are
 // formed one after the other, and one block runs per SM (254 registers,
-// no spills). ptxas's report is in
-// build/kernels/libflash_attention_bwd_tc-*.log.
+// no spills). D = 96 (Phi-3-mini) takes D = 128's layout: two 64-dim
+// column blocks, the tensor maps at the true innermost extent 96 with a
+// 64-wide box, so TMA fills columns 96..127 of the second block with
+// zeros (the mbarriers still count the whole box). The score products
+// run their 6 true depth steps; dV, dK and dQ's second block carry 32
+// zero columns (128/96 of their true work) that are never stored: the
+// dQ rows go to the bulk reduction D * 4 = 384 bytes long from a shared
+// row padded past D, and the dK, dV partials and fbt_finish write
+// columns < D only (the next head starts at column D). ptxas's report
+// is in build/kernels/libflash_attention_bwd_tc-*.log.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,13 +90,14 @@ constexpr float FBT_LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct FbtSmem {
-  static constexpr int NB = D / 64;                 // 64-dim column blocks
+  static constexpr int NB = (D + 63) / 64;          // 64-dim column blocks
   static constexpr int TILE = NB * FBT_TILE * 128;  // a 64-row bf16 tile
   static constexpr int K = 0;
   static constexpr int V = TILE;
   static constexpr int STAGES = 2 * TILE;   // stage s: Q, then dO
   static constexpr int DS = STAGES + FBT_STAGES * 2 * TILE;  // dS^T bf16
-  static constexpr int DQS = D + 8;         // dQ row stride (floats)
+  static constexpr int DQS = D + 8;         // dQ row stride (floats); only
+                                            // columns < D are written
   static constexpr int DQ = DS + FBT_TILE * 128;
   static constexpr int LD = DQ + FBT_TILE * DQS * 4;   // (lse, D) rows
   static constexpr int BAR = LD + FBT_STAGES * FBT_TILE * 8;
@@ -153,11 +162,11 @@ __device__ __forceinline__ void fbt_scores(float (&acc)[32], const uint8_t* A,
 // acc[nb] (64 keys x 64 dims) += A (64 keys x 64 rows, registers) . T
 // (64 rows x D, MN-major from a TMA tile)
 template <int D>
-__device__ __forceinline__ void fbt_accumulate(float (&acc)[D / 64][32],
-                                               const uint32_t (&a)[4][4],
-                                               const uint8_t* T) {
+__device__ __forceinline__ void fbt_accumulate(
+    float (&acc)[FbtSmem<D>::NB][32], const uint32_t (&a)[4][4],
+    const uint8_t* T) {
 #pragma unroll
-  for (int nb = 0; nb < D / 64; ++nb)
+  for (int nb = 0; nb < FbtSmem<D>::NB; ++nb)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_m64n64k16_rs_tb(
@@ -345,6 +354,7 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int d = nb * 64 + 8 * j + c2;
+        if (d >= D) continue;          // D = 96: the zero-filled columns
         *reinterpret_cast<float2*>(dQs + r_a * L::DQS + d) =
             make_float2(dq[4 * j], dq[4 * j + 1]);
         *reinterpret_cast<float2*>(dQs + r_b * L::DQS + d) =
@@ -371,6 +381,7 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + c2;
+      if (d >= D) continue;
       if (kp_a < S) {
         *reinterpret_cast<float2*>(dk_part + off_a + d) =
             make_float2(dk[nb][4 * j], dk[nb][4 * j + 1]);
@@ -491,7 +502,7 @@ cudaError_t fbt_launch(const void* q, const void* k, const void* v,
 // bf16 q/o/dout/dq (B, S, H, D), k/v/dk/dv (B, S, KVH, D), contiguous,
 // 16-byte aligned; lse (B, H, S) f32 from the forward. Scratch (f32):
 // ld (B, H, Sp, 2), dq_acc (B, H, Sp, D) with Sp = S rounded up to 64,
-// dk_part and dv_part (B, S, H, D). D in {64, 128}; H % KVH == 0; window
+// dk_part and dv_part (B, S, H, D). D in {64, 96, 128}; H % KVH == 0; window
 // 0 = full causal. Three launches; returns cudaGetLastError() after them
 // (cudaErrorInvalidValue for a shape the kernel does not take or a
 // tensor map the driver refuses).
@@ -510,6 +521,9 @@ extern "C" int flash_attention_bwd_tc_launch(
   float* pv = static_cast<float*>(dv_part);
   if (D == 64)
     return (int)idkd::fbt_launch<64>(q, k, v, o, dout, l, ldp, acc, pk, pv,
+                                     dq, dk, dv, B, S, H, KVH, window, s);
+  if (D == 96)
+    return (int)idkd::fbt_launch<96>(q, k, v, o, dout, l, ldp, acc, pk, pv,
                                      dq, dk, dv, B, S, H, KVH, window, s);
   if (D == 128)
     return (int)idkd::fbt_launch<128>(q, k, v, o, dout, l, ldp, acc, pk, pv,

@@ -10,7 +10,7 @@
 // row qp the keys kp with kp <= qp and, when window > 0, qp - window < kp;
 // keys and rows past S masked; q (B, S, H, D), k/v (B, S, KVH, D) bf16,
 // head h reading kv head h / (H / KVH) in place; scores scaled by
-// 1/sqrt(D); softmax statistics in f32; output bf16; D in {64, 128}.
+// 1/sqrt(D); softmax statistics in f32; output bf16; D in {64, 96, 128}.
 //
 // Bound on the H100. At Hymba's shape (B 8, S 2176, 25/5 heads x 64) a
 // call is 0.12 TFLOP (global) / 0.09 TFLOP (window 1024) against 55 MB
@@ -26,6 +26,13 @@
 //    mbarriers, so the next tile's copy overlaps this tile's math. Every
 //    tile is a stack of 128-byte rows (64 head dims) with 128-byte
 //    swizzle; D = 128 is two such column blocks. Rows past S read zeros.
+//  * D = 96 is two column blocks too, the second half empty: the tensor
+//    maps keep the true innermost extent 96 with a 64-wide box, so TMA
+//    fills columns 96..127 of the second box with zeros (and still counts
+//    the whole box's bytes on the mbarrier). Q.K^T runs its 6 true depth
+//    steps; P.V's second block multiplies 32 zero columns of V, which
+//    costs 128/96 of the true P.V work and is never stored: the epilogue
+//    writes columns < D only (the next head's data starts at column D).
 //  * Scores: S = Q.K^T is a wgmma m64n128k16 per 16 head dims, Q (A)
 //    and K (B) both K-major from shared memory, f32 accumulators.
 //  * Online softmax on the accumulator fragment: a thread holds two rows
@@ -73,7 +80,7 @@ constexpr int FT_ROW_BYTES = 128;  // one 64-dim row of bf16
 
 template <int D>
 struct FtSmem {
-  static constexpr int NB = D / 64;                        // column blocks
+  static constexpr int NB = (D + 63) / 64;                 // column blocks
   static constexpr int Q_BYTES = NB * FT_ROWS * FT_ROW_BYTES;
   static constexpr int KV_BYTES = NB * FT_KEYS * FT_ROW_BYTES;  // K or V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -108,11 +115,11 @@ __device__ __forceinline__ void ft_scores(float (&sc)[64],
 
 // Issue O += P V for one tile, P from registers (no commit).
 template <int D>
-__device__ __forceinline__ void ft_pv(float (&oacc)[D / 64][32],
+__device__ __forceinline__ void ft_pv(float (&oacc)[FtSmem<D>::NB][32],
                                       const uint32_t (&pa)[8][4],
                                       const uint8_t* Vs) {
 #pragma unroll
-  for (int nb = 0; nb < D / 64; ++nb)
+  for (int nb = 0; nb < FtSmem<D>::NB; ++nb)
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t db = sw128_desc(
@@ -346,6 +353,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + r.col;
+      if (d >= D) continue;            // D = 96: the zero-filled columns
       if (r.a < S)
         *reinterpret_cast<uint32_t*>(oa + d) = pack_bf16x2(
             oacc[nb][4 * j] * inv_a, oacc[nb][4 * j + 1] * inv_a);
@@ -392,7 +400,7 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace idkd
 
 // bf16 q/o (B, S, H, D), k/v (B, S, KVH, D), contiguous, 16-byte aligned;
-// D in {64, 128}; H % KVH == 0; window 0 = full causal; lse null, or
+// D in {64, 96, 128}; H % KVH == 0; window 0 = full causal; lse null, or
 // (B, H, S) f32 for the rows' log-sum-exp (training only). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the kernel does not take or a tensor map the driver refuses).
@@ -405,6 +413,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return (int)idkd::ft_launch<64>(q, k, v, o, static_cast<float*>(lse), B,
+                                    S, H, KVH, window, s);
+  if (D == 96)
+    return (int)idkd::ft_launch<96>(q, k, v, o, static_cast<float*>(lse), B,
                                     S, H, KVH, window, s);
   if (D == 128)
     return (int)idkd::ft_launch<128>(q, k, v, o, static_cast<float*>(lse), B,

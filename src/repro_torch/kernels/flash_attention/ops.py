@@ -10,11 +10,13 @@ output in q's dtype.
 
 Two CUDA kernels compute it, neither forming the (S, S) scores; their
 header notes give each design and what bounds it on the H100:
-``csrc/flash_attention_tc.cu`` (``tc``: bf16 at head_dim 64 or 128, on
-the tensor cores) and ``csrc/flash_attention.cu`` (``simt``: f32, and
-bf16 at head_dim 32). :func:`_variant` picks one from dtype and head_dim
-alone; :func:`flash_attention` runs it on CUDA tensors and counts the
-launch in ``launches`` and ``launches_by_variant``, and
+``csrc/flash_attention_tc.cu`` (``tc``: bf16 at head_dim 64, 96 or
+128, on the tensor cores; 96 runs in two 64-dim column blocks whose
+second half TMA fills with zeros) and ``csrc/flash_attention.cu``
+(``simt``: f32, and bf16 at head_dim 32). :func:`_variant` picks one
+from dtype and head_dim alone; :func:`flash_attention` runs it on CUDA
+tensors and counts the launch in ``launches``, ``launches_by_variant``
+and ``launches_by_head_dim``, and
 :func:`flash_attention_plain` — the reference's chunked online softmax in
 plain PyTorch — runs on CPU tensors only; a CUDA call that no kernel
 takes raises.
@@ -28,8 +30,8 @@ more), and its backward is :func:`flash_attention_bwd`
 (FlashAttention-2's formulas) on CUDA tensors and
 :func:`flash_attention_bwd_plain` on CPU tensors. The backward has the
 forward's two variants, picked by the same :func:`_variant`:
-``csrc/flash_attention_bwd_tc.cu`` (``tc``: bf16 at head_dim 64 or 128,
-P and dS rounded to bf16 as the tensor cores' operands, which
+``csrc/flash_attention_bwd_tc.cu`` (``tc``: bf16 at head_dim 64, 96 or
+128, P and dS rounded to bf16 as the tensor cores' operands, which
 ``flash_attention_bwd_plain(..., operands="bf16")`` reproduces) and
 ``csrc/flash_attention_bwd.cu`` (``simt``: f32 math). The JAX package
 has no backward kernel (its training differentiates
@@ -44,8 +46,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
-TC_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
+TC_HEAD_DIMS = (64, 96, 128)
 TC_BWD_TILE = 64       # the tc backward's key and query tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,8 +88,8 @@ def flash_attention_plain(q, k, v, *, window: int = 0, chunk: int = 512):
 
 def _variant(dtype, head_dim: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"tc"`` (tensor cores)
-    for bf16 at head_dim 64 or 128, ``"simt"`` for f32 and for bf16 at
-    head_dim 32; anything else raises."""
+    for bf16 at head_dim 64, 96 or 128, ``"simt"`` for f32 and for bf16
+    at head_dim 32; anything else raises."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q, k, v, got {dtype}")
@@ -191,6 +193,7 @@ def _launch(variant: str, q, k, v, window: int, lse=None):
                            f"failed: CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.launches_by_variant[variant] += 1
+    flash_attention.launches_by_head_dim[D] += 1
     return out
 
 
@@ -252,6 +255,7 @@ def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int):
                            f"launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_variant[variant] += 1
+    flash_attention_bwd.launches_by_head_dim[D] += 1
     return dq, dk, dv
 
 
@@ -281,7 +285,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
     """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
     rows' log-sum-exp ``lse`` (B, H, S) f32 and dO: on CUDA tensors the
     kernels of the forward's variant (``csrc/flash_attention_bwd_tc.cu``
-    for bf16 at head_dim 64/128, ``csrc/flash_attention_bwd.cu``
+    for bf16 at head_dim 64/96/128, ``csrc/flash_attention_bwd.cu``
     otherwise; one launch counted per call), on CPU tensors
     :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cpu":
@@ -296,6 +300,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_variant = {"tc": 0, "simt": 0}
+flash_attention_bwd.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -340,3 +345,4 @@ def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
 
 flash_attention.launches = 0
 flash_attention.launches_by_variant = {"tc": 0, "simt": 0}
+flash_attention.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)

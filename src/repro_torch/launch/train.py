@@ -24,7 +24,8 @@ sharded driver and ``model_parallel`` (item 13), churn, rewire and
 fault events, telemetry and resilience (item 11), compressed and
 delayed gossip (item 12).
 
-Usage (CPU, reduced config):
+Usage (CPU, reduced config; ``--arch`` defaults to the reference's
+``qwen3-1.7b``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --steps 8 --nodes 4 --idkd --device cpu
 """
@@ -128,7 +129,7 @@ class _LMFederation(sched.CompiledFederationHooks):
     def __init__(self, *, model, algo, tcfg: TrainConfig,
                  idkd_cfg: IDKDConfig, cfg: ModelConfig, tokens, parts,
                  public_tokens, seq_len: int, wire_dtype: str,
-                 verbose: bool, device):
+                 verbose: bool, device, pub_batch: Optional[int] = None):
         super().__init__()
         self.model = model
         self.algo = algo
@@ -141,6 +142,8 @@ class _LMFederation(sched.CompiledFederationHooks):
         self.seq_len = seq_len
         self.wire_dtype = wire_dtype
         self.verbose = verbose
+        self.pub_batch = (min(4, len(public_tokens)) if pub_batch is None
+                          else pub_batch)
         self.device = device
         self.lr_fn = lambda s: tcfg.lr
         self.priv_parts = driver.pad_partitions(parts, device)
@@ -180,7 +183,7 @@ class _LMFederation(sched.CompiledFederationHooks):
             self.kd_sampler = driver.make_lm_kd_sampler(
                 self.priv_parts, self.tokens, self.tcfg.batch_size,
                 self.public_tokens, sparse.values, sparse.indices, w,
-                pub_batch=min(4, len(self.public_tokens)))
+                pub_batch=self.pub_batch)
         self.phase = "kd"
         mask = id_mask.cpu().numpy()
         counts = mask.sum(axis=1)
@@ -206,17 +209,22 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
                  events: Sequence = (),
                  schedule: Optional[sched.Schedule] = None,
                  model_parallel: int = 1, telemetry=None, resil=None,
-                 device="cuda") -> Dict[str, Any]:
+                 device="cuda", pub_batch: Optional[int] = None
+                 ) -> Dict[str, Any]:
     """Decentralized LM training, as the reference's ``run_training``:
     data and partitions from ``tcfg.seed``, every node initialised from
     ``tcfg.seed`` (identical nodes, as the paper starts them), the
     schedule compiled from ``tcfg`` (``log_every`` boundaries and the
     IDKD rounds ``tcfg.idkd`` asks for when ``use_idkd``). Returns the
     consensus params, the loss at each log boundary, the model, the
-    topology, the ledger and the schedule. Only the host runner is
-    ported (``driver_mode="host"``, the default here). QG-DSGDm-N
+    topology, the ledger, the schedule and the public sequences per node
+    of a KD step. Only the host runner is ported (``driver_mode="host"``,
+    the default here). QG-DSGDm-N
     updates in place, so that a full-width federation holds one copy of
-    params, momentum and grads."""
+    params, momentum and grads. ``pub_batch``, the public sequences per
+    node in a KD step, is the reference's ``min(4, n_public)`` when None;
+    a full-width run sets it lower where that many vocabulary-wide
+    logits would not fit the card (``lmpath.QWEN3_PUB_BATCH``)."""
     if driver_mode == "scan":
         raise NotImplementedError(
             "driver_mode='scan' (the lax.scan runner; on the card, CUDA-"
@@ -267,7 +275,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
                         idkd_cfg=idkd_cfg, cfg=cfg, tokens=tokens,
                         parts=parts, public_tokens=public_tokens,
                         seq_len=seq_len, wire_dtype=wire_dtype,
-                        verbose=verbose, device=device)
+                        verbose=verbose, device=device, pub_batch=pub_batch)
     opt_state = algo.init(params)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed + 1)
     nparams = sum(v[0].numel() for v in params.values())
@@ -292,14 +300,15 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
         elem_bytes=sched.wire_elem_bytes(wire_dtype, cfg.dtype))
     return {"params": consensus_params(params), "loss_history": history,
             "model": model, "topology": topo, "ledger": ledger.as_dict(),
-            "schedule": schedule, "last_round": fed.last_round_stats}
+            "schedule": schedule, "last_round": fed.last_round_stats,
+            "pub_batch": fed.pub_batch}
 
 
 def main():
     ap = argparse.ArgumentParser(
         description="Decentralized LM training with IDKD (the ported "
                     "flags of the reference's CLI).")
-    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--nodes", type=int, default=8)
     ap.add_argument("--alpha", type=float, default=0.1)

@@ -26,6 +26,27 @@ with IDKD (``launch.train.run_training``) of the same nodes
   the neighbours' averaged top-8 labels with 4 public sequences per node
   and step. All 32 layers, each recomputed in its backward pass
   (``cfg.remat``).
+* The dense family at full width, each a named ``TrainConfig`` that
+  :func:`train` runs as it runs :data:`TRAIN` (nodes initialised from
+  the run's seed, the round as :data:`TRAIN`'s at step 2, 2 plain and 2
+  sparse-KD steps, every layer recomputed):
+
+  - :data:`QWEN3_TRAIN`: Qwen3-1.7B (``qwen3-1.7b``, the reference
+    CLI's default arch: 28 layers, d_model 2048, 16/8 heads × 128,
+    qk-norm, tied head over 151,936 tokens, about 1.72 B parameters) on
+    4 ring nodes, 1 private sequence per node and step and
+    :data:`QWEN3_PUB_BATCH` = 2 public sequences per node in a KD step.
+    Params, grads and momentum take 4 × 1.72 B × 6 B ≈ 41 GB; TRAIN's
+    2 private and 4 public sequences would add ~50 GB of
+    vocabulary-wide logits in a KD step, which one H100 cannot hold.
+    Its ~63 GiB peak needs ``PYTORCH_CUDA_ALLOC_CONF=
+    expandable_segments:True`` (as ``chip_smoke.py`` sets it): in
+    fixed-size segments the KD step's blocks can fragment past the card.
+  - :data:`PHI3_TRAIN`: Phi-3-mini (``phi3-mini-3.8b``: 32 layers,
+    d_model 3072, 32/32 heads × 96, untied head over 32,064 tokens,
+    about 3.82 B parameters) on 2 ring nodes at TRAIN's 2 private and
+    4 public sequences: 2 × 3.82 B × 6 B ≈ 46 GB of state (4 nodes
+    would need over 90 GB). Its attention runs the head_dim-96 kernels.
 
 ``setup`` and ``train`` take the same arguments at any size, so the CPU
 tests drive this module with a reduced config.
@@ -63,6 +84,9 @@ TRAIN = TrainConfig(algorithm="qg-dsgdm-n", topology="ring",
                     steps=4, seed=DATA_SEED,
                     idkd=dataclasses.replace(ROUND, start_step=2,
                                              num_rounds=1))
+QWEN3_TRAIN = dataclasses.replace(TRAIN, batch_size=1)
+QWEN3_PUB_BATCH = 2
+PHI3_TRAIN = dataclasses.replace(TRAIN, num_nodes=2)
 
 
 @dataclass
@@ -120,9 +144,12 @@ def setup(cfg: ModelConfig = CONFIG, *, num_nodes: int = NUM_NODES,
 
 def train(cfg: ModelConfig = CONFIG, tcfg: TrainConfig = TRAIN, *,
           seq_len: int = SEQ_LEN, n_private: int = N_PRIVATE,
-          n_public: int = N_PUBLIC, device="cuda", verbose: bool = False):
+          n_public: int = N_PUBLIC, pub_batch=None, device="cuda",
+          verbose: bool = False):
     """``run_training`` with IDKD on this configuration, the loss logged
-    after every step (host runner)."""
+    after every step (host runner); ``pub_batch`` as ``run_training``'s
+    (None: the reference's)."""
     return run_training(cfg, tcfg, seq_len=seq_len, n_seqs=n_private,
                         n_public=n_public, log_every=1, use_idkd=True,
-                        verbose=verbose, driver_mode="host", device=device)
+                        verbose=verbose, driver_mode="host", device=device,
+                        pub_batch=pub_batch)

@@ -46,7 +46,9 @@ def test_cuda_kernels_match_plain(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,KVH,D,window", [(75, 4, 2, 64, 20),
                                               (130, 4, 1, 32, 0),
-                                              (200, 2, 2, 128, 64)])
+                                              (200, 2, 2, 128, 64),
+                                              (197, 4, 4, 96, 0),
+                                              (300, 4, 2, 96, 100)])
 def test_cuda_flash_attention_matches_plain(dtype, S, H, KVH, D, window):
     """On the card: flash_attention against its plain version — GQA,
     windows, ragged S, every head_dim the kernel takes (2e-5 in f32, one
@@ -173,12 +175,12 @@ def test_cuda_msp_select_rows_of_every_alignment(dtype, N, C, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("H,KVH", [(5, 5), (5, 1)])
 @pytest.mark.parametrize("window", [0, 20, 100, 1024])
 @pytest.mark.parametrize("S", [75, 128, 2176])
 def test_cuda_flash_attention_tc_matches_plain(S, window, H, KVH, D):
-    """On the card: bf16 at head_dim 64 and 128 goes through the
+    """On the card: bf16 at head_dim 64, 96 and 128 goes through the
     tensor-core kernel (``launches_by_variant``) and matches the plain f32
     version within one bf16 ulp of the output (2e-2) — ragged S, windows
     smaller than a tile and not a multiple of it, GQA groups of 1 and 5."""
@@ -336,7 +338,9 @@ def _sdpa_bwd_grads(q, k, v, do, window):
 @pytest.mark.parametrize("S,H,KVH,D,window", [
     (75, 4, 2, 64, 20), (130, 4, 1, 32, 0), (200, 2, 2, 128, 64),
     (130, 5, 5, 64, 0), (300, 5, 1, 64, 1024), (2176, 25, 5, 64, 0),
-    (2176, 25, 5, 64, 1024), (517, 6, 3, 128, 0), (2176, 25, 5, 128, 1024)])
+    (2176, 25, 5, 64, 1024), (517, 6, 3, 128, 0), (2176, 25, 5, 128, 1024),
+    (75, 4, 4, 96, 20), (517, 6, 3, 96, 0), (2048, 32, 32, 96, 0),
+    (300, 4, 2, 96, 1024)])
 def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
                                                 window):
     """On the card: the backward kernels against flash_attention_bwd_plain
@@ -347,7 +351,7 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
     products reordered, in f32 either way), in bf16 plus two bf16 ulps of
     the element's own |value| (each side rounds its f32 sum to bf16, and
     a sum a hair either side of a rounding boundary moves by one ulp of
-    itself). The tc kernel (bf16 at head_dim 64 and 128) rounds P and dS
+    itself). The tc kernel (bf16 at head_dim 64, 96 and 128) rounds P and dS
     to bf16 as the tensor cores' operands, as scaled_dot_product_attention's
     backward does. (a) Against the plain version that rounds them at the
     same points (operands="bf16"), element by element: within the

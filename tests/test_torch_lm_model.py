@@ -42,7 +42,8 @@ BF16_ULPS = 4             # bf16 logits: bf16 ulps of max|logit|
 BF16_NOISE = (0.5, 2.0)   # the port's bf16-vs-f32 gap over the reference's
 BF16_CORR = 0.3           # least correlation of the two bf16 rounding fields
 
-ARCHS = ["hymba-1.5b", "mamba2-780m"]
+ARCHS = ["hymba-1.5b", "mamba2-780m", "qwen3-1.7b", "phi3-mini-3.8b",
+         "qwen1.5-0.5b", "mistral-nemo-12b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -26,11 +26,12 @@ torch.set_num_threads(1)
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 32, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
-    (torch.float16, 64, TypeError), (torch.bfloat16, 96, ValueError),
-    (torch.float32, 256, ValueError)])
+    (torch.float16, 64, TypeError), (torch.bfloat16, 80, ValueError),
+    (torch.float32, 256, ValueError), (torch.bfloat16, 96, "tc"),
+    (torch.float32, 96, "simt")])
 def test_flash_variant_from_dtype_and_head_dim(dtype, D, want):
-    """bf16 at head_dim 64/128 takes the tensor cores, f32 and bf16 at 32
-    the SIMT kernel; anything else raises, never falls back."""
+    """bf16 at head_dim 64/96/128 takes the tensor cores, f32 and bf16
+    at 32 the SIMT kernel; anything else raises, never falls back."""
     if isinstance(want, str):
         assert flash_ops._variant(dtype, D) == want
     else:
@@ -42,10 +43,11 @@ def test_flash_variant_from_dtype_and_head_dim(dtype, D, want):
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 128, "simt"), (torch.float16, 64, TypeError),
-    (torch.bfloat16, 96, ValueError)])
+    (torch.bfloat16, 80, ValueError), (torch.bfloat16, 96, "tc"),
+    (torch.float32, 96, "simt")])
 def test_flash_bwd_variant_is_the_forwards(dtype, D, want):
     """The backward's checks pick the forward's variant from dtype and
-    head_dim (the bf16 tensor-core backward at 64/128, the SIMT one
+    head_dim (the bf16 tensor-core backward at 64/96/128, the SIMT one
     otherwise) and raise on the rest, never falling back."""
     q = torch.zeros((1, 9, 4, D), dtype=dtype)
     k = torch.zeros((1, 9, 2, D), dtype=dtype)
