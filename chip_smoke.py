@@ -80,7 +80,24 @@ LM-6. the same for Phi-3-mini (``lmpath.PHI3_TRAIN``: 2 ring nodes),
    every attention launch on the tensor-core kernels at head_dim 96; then
    the four dense configs (Qwen3-1.7B, Phi-3-mini at head_dim 96,
    Qwen1.5-0.5B, Mistral-Nemo-12B) at ``reduced()`` in f32, one plain and
-   one KD step each on the card and on the CPU to the same params.
+   one KD step each on the card and on the CPU to the same params;
+LM-7. MusicGen-medium's decentralized train step at full width
+   (``lmpath.train_steps`` with ``lmpath.MUSICGEN_TRAIN``: 4 ring nodes,
+   48 layers, 4 codebooks, 2 sequences of 1500 frames per node,
+   cross-attention to 64 conditioning vectors, 3 steps): each step's
+   wall time and loss, peak memory, the flash launches by kernel, mode
+   and variant; every loss finite, every leaf of every node given a
+   finite non-zero gradient, the params moved, every flash launch `tc`
+   at head_dim 64 and each mode's launches what the layer loop implies
+   (nodes x layers x 2 forward, with the recompute, and nodes x layers
+   backward, a step); then the reduced MusicGen (2 layers, Sk 8, f32)
+   one step on the card and on the CPU to the same params. LM-1 holds
+   both flash kernels' non-causal mode (cross-attention) to their plain
+   versions first: at MusicGen's layer (B 2, Sq 1500, Sk 64, 24/24 x 64;
+   SIMT in f32, tc in bf16, forward and backward, timed beside SDPA), at
+   a multi-tile ragged key set longer than the queries with GQA (B 1,
+   Sq 333, Sk 700, 8/2 x 64), and MusicGen's causal self-attention
+   (B 2, S 1500).
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -462,11 +479,17 @@ def phase_quickstart(torch):
 
 
 # ------------------------------------------------------------- LM phases
-def _flash_work(B, S, H, KVH, D, window, elem):
-    """(bytes, flops) of one causal (windowed) attention call: q, k, v
-    read and o written once; 4·D flops per visible (q, k) pair and head."""
-    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(S))
-    return ((2 * B * S * H * D + 2 * B * S * KVH * D) * elem,
+def _flash_work(B, S, H, KVH, D, window, elem, Sk=None):
+    """(bytes, flops) of one attention call, causal (windowed) or, with
+    ``Sk``, non-causal over Sk keys: q, k, v read and o written once;
+    4·D flops per visible (q, k) pair and head."""
+    if Sk is None:
+        Sk = S
+        pairs = sum(min(q + 1, window) if window else q + 1
+                    for q in range(S))
+    else:
+        pairs = S * Sk
+    return ((2 * B * S * H * D + 2 * B * Sk * KVH * D) * elem,
             4.0 * D * H * B * pairs)
 
 
@@ -481,7 +504,7 @@ def _ssd_work(B, S, H, P, G, N):
     return nbytes, float(flops)
 
 
-def _sdpa(torch, q, k, v, window):
+def _sdpa(torch, q, k, v, window, causal=True):
     """The library yardstick: one scaled_dot_product_attention call on
     (B, H, S, D) copies of the same inputs (made outside the timing)."""
     import torch.nn.functional as F
@@ -495,16 +518,16 @@ def _sdpa(torch, q, k, v, window):
 
     def call():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=not window,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
             enable_gqa=True).transpose(1, 2)
     return call
 
 
-def _check_flash(torch, q, k, v, window, what):
+def _check_flash(torch, q, k, v, window, what, causal=True):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    out = flash_attention(q, k, v, window=window)
-    ref = flash_attention_plain(q, k, v, window=window)
+    out = flash_attention(q, k, v, window=window, causal=causal)
+    ref = flash_attention_plain(q, k, v, window=window, causal=causal)
     dname = str(q.dtype).split(".")[-1]
     err = float((out.float() - ref.float()).abs().max())
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
@@ -535,14 +558,15 @@ def _check_ssd(torch, xdt, dta, b, c, chunk, what):
     return err
 
 
-def _flash_bwd_work(B, S, H, KVH, D, window, elem):
-    """(bytes, flops) of one attention backward: q, k, v, o, dO and the
-    f32 lse read, dq, dk, dv written once; five products of the causal
-    (windowed) score matrix's size (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q),
-    2.5 times the forward's two."""
-    _, flops = _flash_work(B, S, H, KVH, D, window, elem)
-    return ((4 * B * S * H * D + 4 * B * S * KVH * D) * elem + 4 * B * H * S,
-            2.5 * flops)
+def _flash_bwd_work(B, S, H, KVH, D, window, elem, Sk=None):
+    """(bytes, flops) of one attention backward: q, o, dO (S rows), k, v
+    (Sk, S without ``Sk``) and the f32 lse read, dq, dk, dv written once;
+    five products of the (causal, windowed) score matrix's size (Q·Kᵀ,
+    dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q), 2.5 times the forward's two."""
+    _, flops = _flash_work(B, S, H, KVH, D, window, elem, Sk)
+    Sk = S if Sk is None else Sk
+    return ((4 * B * S * H * D + 4 * B * Sk * KVH * D) * elem
+            + 4 * B * H * S, 2.5 * flops)
 
 
 def _ssd_bwd_work(B, S, H, P, G, N):
@@ -556,7 +580,7 @@ def _ssd_bwd_work(B, S, H, P, G, N):
     return nbytes, float(B * S * H * 10 * N * P)
 
 
-def _flash_saved(torch, q, k, v, window, what):
+def _flash_saved(torch, q, k, v, window, what, causal=True):
     """o and lse as the training forward writes them (FlashAttentionFn's
     saved tensors; in bf16 the tc kernel's instantiation that stores the
     log-sum-exp), each held to its plain version: o to
@@ -565,19 +589,20 @@ def _flash_saved(torch, q, k, v, window, what):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     out = flash_attention(q.clone().requires_grad_(True), k, v,
-                          window=window)
+                          window=window, causal=causal)
     check(out.grad_fn is not None, "flash_attention with grad returned no "
                                    "grad_fn")
     _, _, _, o, lse = (t.detach() for t in out.grad_fn.saved_tensors)
     dname = str(q.dtype).split(".")[-1]
     e_o = float((o.float() - flash_attention_plain(
-        q, k, v, window=window).float()).abs().max())
+        q, k, v, window=window, causal=causal).float()).abs().max())
     B, S, H, D = q.shape
     G = H // k.shape[2]
-    pos = torch.arange(S, device=q.device)
-    allow = pos[None, :] <= pos[:, None]
+    pos, k_pos = (torch.arange(n, device=q.device) for n in (S, k.shape[1]))
+    allow = (k_pos[None, :] <= pos[:, None]) if causal else \
+        torch.ones((S, k.shape[1]), dtype=torch.bool, device=q.device)
     if window:
-        allow &= pos[:, None] - pos[None, :] < window
+        allow &= pos[:, None] - k_pos[None, :] < window
     lse_ref = torch.empty_like(lse)
     for h in range(H):                     # one head's (B, S, S) at a time
         s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
@@ -609,7 +634,7 @@ def _flash_bwd_excess(torch, a, r, dname):
     return float(((a.float() - rf).abs() / tol).max())
 
 
-def _sdpa_bwd(torch, q, k, v, do, window):
+def _sdpa_bwd(torch, q, k, v, do, window, causal=True):
     """The library yardstick of the backward: autograd of one
     scaled_dot_product_attention call (enable_gqa, the same masks) on
     (B, H, S, D) copies, its forward run once outside the timing."""
@@ -624,7 +649,7 @@ def _sdpa_bwd(torch, q, k, v, do, window):
         mask = ((pos[None, :] <= pos[:, None])
                 & (pos[:, None] - pos[None, :] < window))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                         is_causal=not window,
+                                         is_causal=causal and not window,
                                          enable_gqa=True)
 
     def call():
@@ -650,7 +675,8 @@ def _check_flash_bwd_simt(torch, got, ref, dname, tag):
     return err
 
 
-def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag):
+def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag,
+                        causal=True):
     """The tensor-core backward against the plain version that rounds P
     and dS to bf16 as the kernel does: (a) element-wise, by
     FLASH_BWD_RTOL's rule or within FLASH_BWD_TC_FLIP times the worst
@@ -660,13 +686,13 @@ def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag):
     FLASH_BWD_TC_VS_SDPA times SDPA's backward's on the same inputs.
     Returns the max error against the bf16-operand version."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
-    ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
-                                      operands="bf16")
+    kw = dict(window=window, causal=causal, operands="bf16")
+    ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     moved = [flash_attention_bwd_plain(
         q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
-        window=window, operands="bf16") for to in (math.inf, -math.inf)]
+        **kw) for to in (math.inf, -math.inf)]
     lib = [g.transpose(1, 2) for g in _sdpa_bwd(torch, q, k, v, do,
-                                                window)()]
+                                                window, causal)()]
     err = 0.0
     for i, (name, a, rb, rf, sd) in enumerate(zip(("dq", "dk", "dv"), got,
                                                   ref_b, ref, lib)):
@@ -697,29 +723,36 @@ def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag):
     return err
 
 
-def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label):
+def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
+                   Sk=None):
     """One forward case on fresh random q, k, v: the kernel against its
     plain version (FLASH_ATOL), its time beside its bound, the plain
-    version's and SDPA's; in bf16 the SIMT and tc variants in turns."""
+    version's and SDPA's; in bf16 the SIMT and tc variants in turns.
+    With ``Sk`` the call is non-causal over Sk keys (cross-attention)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     dev = "cuda"
     dname = str(dtype).split(".")[-1]
+    causal = Sk is None
+    kw = dict(window=window, causal=causal)
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
-    tag = f"flash_attention {label}S={S} B={B} window={window} {dname}"
-    err = _check_flash(torch, q, k, v, window, tag)
-    nbytes, flops = _flash_work(B, S, H, KVH, D, window, q.element_size())
+    k = torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
+                    device=dev).to(dtype)
+    v = torch.randn(k.shape, generator=gen, device=dev).to(dtype)
+    tag = (f"flash_attention {label}S={S}{'' if causal else f' Sk={Sk}'} "
+           f"B={B} {'window=' + str(window) if causal else 'cross'} "
+           f"{dname}")
+    err = _check_flash(torch, q, k, v, window, tag, causal)
+    nbytes, flops = _flash_work(B, S, H, KVH, D, window, q.element_size(),
+                                Sk)
     bnd, by = bound_ms(nbytes, flops, dname)
-    ms = timed(lambda: flash_attention(q, k, v, window=window), 5, torch)
-    pms = timed(lambda: flash_attention_plain(q, k, v, window=window), 2,
-                torch)
-    lib = _sdpa(torch, q, k, v, window)
+    ms = timed(lambda: flash_attention(q, k, v, **kw), 5, torch)
+    pms = timed(lambda: flash_attention_plain(q, k, v, **kw), 2, torch)
+    lib = _sdpa(torch, q, k, v, window, causal)
     try:
         lib_err = float((lib().float() - flash_attention_plain(
-            q, k, v, window=window).float()).abs().max())
+            q, k, v, **kw).float()).abs().max())
         lms = timed(lib, 5, torch)
     except RuntimeError as exc:      # no SDPA backend takes it
         print(f"{tag}: scaled_dot_product_attention refused: {exc}")
@@ -734,43 +767,48 @@ def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label):
           f"the plain version {lib_err})")
     if dname == "bfloat16":
         row["simt_ms"], row["tc_ms"] = in_turns(
-            lambda: flash_ops._launch("simt", q, k, v, window),
-            lambda: flash_ops._launch("tc", q, k, v, window), 5, torch)
+            lambda: flash_ops._launch("simt", q, k, v, window, causal),
+            lambda: flash_ops._launch("tc", q, k, v, window, causal), 5,
+            torch)
         print(variants_line(f"{tag} variants", row["simt_ms"], row["tc_ms"],
                             flops, bnd))
     return row
 
 
 def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
-                   timing=True):
+                   timing=True, Sk=None):
     """One backward case on fresh random q, k, v, dO: the training
     forward's o and lse held to their plain versions (_flash_saved), then
     the backward kernel of the forward's variant against the plain
     version (the SIMT kernel by the element-wise rule, the tc kernel by
     _check_flash_bwd_tc's); with ``timing``, its time beside its bound,
     the plain version's and SDPA's backward, and in bf16 both variants
-    in turns."""
+    in turns. With ``Sk`` the call is non-causal over Sk keys."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     dev = "cuda"
     dname = str(dtype).split(".")[-1]
+    causal = Sk is None
+    kw = dict(window=window, causal=causal)
     q, do = (torch.randn((B, S, H, D), generator=gen,
                          device=dev).to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, S, KVH, D), generator=gen,
+    k, v = (torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
                         device=dev).to(dtype) for _ in range(2))
     variant = flash_ops._variant(dtype, D)
-    tag = (f"flash_attention backward {label}S={S} B={B} window={window} "
-           f"{dname}")
-    o, lse = _flash_saved(torch, q, k, v, window, tag)
-    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
-    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
-    for name, a in zip(("dq", "dk", "dv"), got):
-        check(a.dtype == dtype and bool(torch.isfinite(a).all()),
-              f"{tag}: {name} non-finite or {a.dtype}")
+    tag = (f"flash_attention backward {label}S={S}"
+           f"{'' if causal else f' Sk={Sk}'} B={B} "
+           f"{'window=' + str(window) if causal else 'cross'} {dname}")
+    o, lse = _flash_saved(torch, q, k, v, window, tag, causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, a, t in zip(("dq", "dk", "dv"), got, (q, k, v)):
+        check(a.dtype == dtype and a.shape == t.shape
+              and bool(torch.isfinite(a).all()),
+              f"{tag}: {name} non-finite, {a.dtype} or {tuple(a.shape)}")
     if variant == "tc":
         err = _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got,
-                                  ref, tag)
+                                  ref, tag, causal)
     else:
         err = _check_flash_bwd_simt(torch, got, ref, dname, tag)
     del got, ref
@@ -779,14 +817,15 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
         print(f"{tag}: variant {variant}, max_abs_err {err:.3g}")
         return row
     nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
-                                    q.element_size())
+                                    q.element_size(), Sk)
     bnd, by = bound_ms(nbytes, flops, dname)
-    ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                           window=window), 3, torch)
+    ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 3,
+               torch)
     pms = timed(lambda: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, window=window), 1, torch)
+        q, k, v, o, lse, do, **kw), 1, torch)
     try:
-        lms = timed(_sdpa_bwd(torch, q, k, v, do, window), 3, torch)
+        lms = timed(_sdpa_bwd(torch, q, k, v, do, window, causal), 3,
+                    torch)
     except RuntimeError as exc:      # no SDPA backend takes it
         print(f"{tag}: scaled_dot_product_attention backward refused: {exc}")
         lms = None
@@ -798,19 +837,19 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
           f"of the bound), plain {pms:.3f} ms, sdpa backward {lms} ms")
     # the training forward (the instantiation that writes lse) alone
     buf = torch.empty_like(lse)
-    fbnd = bound_ms(*_flash_work(B, S, H, KVH, D, window, q.element_size()),
-                    dname)[0]
+    fbnd = bound_ms(*_flash_work(B, S, H, KVH, D, window, q.element_size(),
+                                 Sk), dname)[0]
     row["train_fwd_ms"] = timed(lambda: flash_ops._launch(
-        variant, q, k, v, window, buf), 5, torch)
+        variant, q, k, v, window, causal, buf), 5, torch)
     row["train_fwd_bound_ms"] = fbnd
     print(f"{tag}: the training forward (o and lse) {row['train_fwd_ms']:.3f}"
           f" ms, bound {fbnd:.3f} ms ({fbnd / row['train_fwd_ms']:.2%})")
     if variant == "tc":
         row["simt_ms"], row["tc_ms"] = in_turns(
             lambda: flash_ops._bwd_launch("simt", q, k, v, o, lse, do,
-                                          window),
+                                          window, causal),
             lambda: flash_ops._bwd_launch("tc", q, k, v, o, lse, do,
-                                          window), 3, torch)
+                                          window, causal), 3, torch)
         print(variants_line(f"{tag} variants", row["simt_ms"],
                             row["tc_ms"], flops, bnd))
     return row
@@ -1422,6 +1461,30 @@ def _same_draws(torch, seed):
                   (DecoderModel, "init", init_on_cpu))
 
 
+def _grad_checked(torch, make_algorithm, bad):
+    """``make_algorithm`` whose step first records in ``bad`` each leaf
+    of a node without a finite gradient that is non-zero somewhere, as
+    (step, leaf, per-node norms), steps counted from 0 over every
+    algorithm it makes."""
+    calls = [0]
+
+    def checked_algorithm(*a, **kw):
+        algo = make_algorithm(*a, **kw)
+        real = algo.step
+
+        def step(params, grads, state, lr, mix):
+            for k, g in grads.items():
+                norm = torch.linalg.vector_norm(
+                    g.reshape(g.shape[0], -1), dim=1, dtype=torch.float32)
+                ok = torch.isfinite(norm) & (norm > 0)
+                if not bool(ok.all()):
+                    bad.append((calls[0], k, norm.tolist()))
+            calls[0] += 1
+            return real(params, grads, state, lr, mix)
+        return dataclasses.replace(algo, step=step)
+    return checked_algorithm
+
+
 def _train_full(torch, label, cfg, tcfg, pub_batch=None):
     """One full-width ``repro_torch.lmpath.train`` run (2 plain
     QG-DSGDm-N steps, the homogenization round, 2 sparse-KD steps): each
@@ -1467,19 +1530,7 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
         step.init_opt = real.init_opt
         return step
 
-    def checked_algorithm(*a, **kw):
-        algo = make_algorithm(*a, **kw)
-        real = algo.step
-
-        def step(params, grads, state, lr, mix):
-            for k, g in grads.items():
-                norm = torch.linalg.vector_norm(
-                    g.reshape(g.shape[0], -1), dim=1, dtype=torch.float32)
-                ok = torch.isfinite(norm) & (norm > 0)
-                if not bool(ok.all()):
-                    bad.append((len(steps), k, norm.tolist()))
-            return real(params, grads, state, lr, mix)
-        return dataclasses.replace(algo, step=step)
+    checked_algorithm = _grad_checked(torch, make_algorithm, bad)
 
     def timed_round(*a, **kw):
         torch.cuda.synchronize()
@@ -1657,6 +1708,170 @@ def phase_lm_dense(torch):
     return qwen3, phi3
 
 
+def phase_lm_musicgen_kernels(torch, rows):
+    """LM-1 for MusicGen-medium: both flash kernels' non-causal mode
+    (cross-attention) at its layer's shape (B 2, Sq 1500, Sk 64, 24/24
+    heads x 64: the SIMT kernels in f32, the tc kernels in bf16, forward
+    and backward, each held to its plain version by the rules above and
+    timed beside its bound, the plain version and SDPA with
+    is_causal=False), at a multi-tile ragged key set longer than the
+    queries with GQA (B 1, Sq 333, Sk 700, 8/2 x 64; both dtypes, both
+    directions, checked), then its causal self-attention (B 2, S 1500,
+    bf16, forward and backward, timed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.lmpath import MUSICGEN_SEQ_LEN, MUSICGEN_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cfg = get_config("musicgen-medium")
+    B, S, Sk = MUSICGEN_TRAIN.batch_size, MUSICGEN_SEQ_LEN, cfg.cross_attn_len
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rows["flash_attention_cross"], rows["flash_attention_bwd_cross"] = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows["flash_attention_cross"].append(_flash_fwd_row(
+            torch, gen, B, S, H, KVH, D, 0, dtype, "MusicGen ", Sk=Sk))
+        rows["flash_attention_bwd_cross"].append(_flash_bwd_row(
+            torch, gen, B, S, H, KVH, D, 0, dtype, "MusicGen ", Sk=Sk))
+    for dtype in (torch.float32, torch.bfloat16):     # Sk > Sq, GQA
+        q = torch.randn((1, 333, 8, 64), generator=gen, device="cuda"
+                        ).to(dtype)
+        k, v = (torch.randn((1, 700, 2, 64), generator=gen, device="cuda"
+                            ).to(dtype) for _ in range(2))
+        err = _check_flash(torch, q, k, v, 0, f"flash_attention S=333 "
+                           f"Sk=700 8/2 heads cross {dtype}", causal=False)
+        rows["flash_attention_cross"].append(dict(window=0, err=err))
+        rows["flash_attention_bwd_cross"].append(_flash_bwd_row(
+            torch, gen, 1, 333, 8, 2, 64, 0, dtype, "", timing=False,
+            Sk=700))
+        del q, k, v
+    rows["flash_attention_musicgen"] = [_flash_fwd_row(
+        torch, gen, B, S, H, KVH, D, 0, torch.bfloat16, "MusicGen ")]
+    rows["flash_attention_bwd_musicgen"] = [_flash_bwd_row(
+        torch, gen, B, S, H, KVH, D, 0, torch.bfloat16, "MusicGen ")]
+    torch.cuda.empty_cache()
+
+
+def _musicgen_card_vs_cpu(torch, cfg, tcfg, seq_len):
+    """``lmpath.train_steps`` of a reduced f32 MusicGen, one step on the
+    card and on the CPU from the same weights and batch (both made on
+    the CPU): params within TRAIN_PARAM_ATOL, the loss within
+    TRAIN_LOSS_RTOL. Returns (param error, loss error, the card run's
+    flash launches)."""
+    from repro_torch import lmpath
+    real = lmpath.train_batch
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cpu_gen = torch.Generator().manual_seed(7)
+
+        def train_batch(cfg_, n, batch_size, seq, gen):
+            return {k: v.to(gen.device) for k, v in real(
+                cfg_, n, batch_size, seq, cpu_gen).items()}
+        with _same_draws(torch, 7), _Patch((lmpath, "train_batch",
+                                            train_batch)):
+            runs[device] = lmpath.train_steps(cfg, tcfg, seq_len=seq_len,
+                                              steps=1, device=device)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    dp = max(float((gpu["params"][k].cpu() - v).abs().max())
+             for k, v in cpu["params"].items())
+    lg, lc = gpu["steps"][0]["loss"], cpu["steps"][0]["loss"]
+    dl = abs(lg - lc) / abs(lc)
+    check(dl <= TRAIN_LOSS_RTOL, f"reduced MusicGen, card vs CPU: loss "
+                                 f"{lg} vs {lc}")
+    check(dp <= TRAIN_PARAM_ATOL, f"reduced MusicGen, card vs CPU: params "
+                                  f"differ by {dp:.3g}")
+    return dp, dl, gpu["steps"][0]["launches"]
+
+
+def phase_lm_musicgen(torch):
+    """LM-7: MusicGen-medium's decentralized train step at full width
+    (``lmpath.train_steps``, ``lmpath.MUSICGEN_TRAIN``: 4 ring nodes, 2
+    sequences of 1500 frames, 4 codebooks, 64 conditioning vectors, 3
+    steps). Fails unless every loss is finite, every leaf of every node
+    gets a finite gradient that is non-zero somewhere at every step, the
+    params move, every flash launch is tc at head_dim 64, each mode's
+    launches a step are nodes x layers x 2 forward (the recompute) and
+    nodes x layers backward, and the peak stays within TRAIN_PEAK_GIB.
+    Then the reduced MusicGen (2 layers, Sk 8, f32, per-layer recompute)
+    one step on the card and on the CPU (_musicgen_card_vs_cpu), whose
+    card run must go through the SIMT kernels in both modes."""
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch import lmpath
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ops import _zero_counts
+    cfg, tcfg = get_config("musicgen-medium"), lmpath.MUSICGEN_TRAIN
+    n, L, hd = tcfg.num_nodes, cfg.num_layers, cfg.resolved_head_dim
+    for f in (flash_attention, flash_attention_bwd):
+        _zero_counts(f)
+    bad = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with _Patch((steps_mod, "make_algorithm", _grad_checked(
+            torch, steps_mod.make_algorithm, bad))):
+        out = lmpath.train_steps(cfg, tcfg, seq_len=lmpath.MUSICGEN_SEQ_LEN,
+                                 steps=tcfg.steps, device="cuda")
+    wall = time.perf_counter() - t0
+    steps, peak = out["steps"], out["peak_gib"]
+    moved, pairs = out["moved"], out["pairs"]
+    del out
+    torch.cuda.empty_cache()
+    by_dim = {f.__name__: dict(f.launches_by_head_dim)
+              for f in (flash_attention, flash_attention_bwd)}
+    print(f"LM-7: MusicGen training step ({cfg.name}, {n} ring nodes, {L} "
+          f"layers, {cfg.num_codebooks} codebooks, batch "
+          f"{tcfg.batch_size} x {lmpath.MUSICGEN_SEQ_LEN} frames, "
+          f"conditioning {cfg.cross_attn_len}, lr {tcfg.lr}): {wall:.1f} s "
+          f"wall with set-up, peak memory {peak:.2f} GiB; {moved} of "
+          f"{pairs} (leaf, node) pairs moved")
+    for i, st in enumerate(steps):
+        print(f"  step {i}: {st['s']:.2f} s, loss {st['loss']:.4f}, flash "
+              f"launches {st['launches']}")
+    check(len(steps) == tcfg.steps and all(
+        math.isfinite(st["loss"]) for st in steps),
+        f"LM-7: losses {[st['loss'] for st in steps]}")
+    check(not bad, f"LM-7: parameter leaves without a finite, non-zero "
+                   f"gradient (step, leaf, per-node norms): {bad[:5]}")
+    check(moved > 0, "LM-7: no parameter moved")
+    want = {"flash_attention": 2 * n * L, "flash_attention_bwd": n * L}
+    for i, st in enumerate(steps):
+        for name, modes in st["launches"].items():
+            for mode, by in modes.items():
+                check(by == {"tc": want[name], "simt": 0},
+                      f"LM-7 step {i}: {name} {mode} launches {by}; the "
+                      f"layer loop implies {want[name]}, all tc")
+    for name, dims in by_dim.items():
+        total = sum(dims.values())
+        check(dims[hd] == total == 2 * want[name] * len(steps),
+              f"LM-7: {name} launches by head_dim {dims}")
+    check(peak <= TRAIN_PEAK_GIB, f"LM-7: peak memory {peak:.1f} GiB > "
+                                  f"{TRAIN_PEAK_GIB} GiB")
+    small = cfg.reduced().replace(remat=True)
+    dp, dl, launches = _musicgen_card_vs_cpu(torch, small, tcfg, 40)
+    ns, ls = tcfg.num_nodes, small.num_layers
+    for name, per in (("flash_attention", 2), ("flash_attention_bwd", 1)):
+        for mode, by in launches[name].items():
+            check(by == {"tc": 0, "simt": per * ns * ls},
+                  f"reduced MusicGen on the card: {name} {mode} launches "
+                  f"{by}, want {per * ns * ls} simt")
+    print(f"reduced MusicGen ({small.num_layers} layers, "
+          f"{small.num_codebooks} codebooks, Sk {small.cross_attn_len}, f32, "
+          f"per-layer recompute), one step on the card and on the CPU with "
+          f"the same weights and batch: params within {dp:.3g} (tol "
+          f"{TRAIN_PARAM_ATOL}), loss within {dl:.3g} relative (tol "
+          f"{TRAIN_LOSS_RTOL}); card launches {launches}")
+    # the kernels line's entries: the causal mode under each kernel's
+    # name, the cross mode under "<name>_cross"; every launch at hd
+    launches, variants, dims = {}, {}, {}
+    for name in want:
+        for mode in ("causal", "cross"):
+            key = name + ("_cross" if mode == "cross" else "")
+            variants[key] = {v: sum(st["launches"][name][mode][v]
+                                    for st in steps) for v in ("tc", "simt")}
+            launches[key] = sum(variants[key].values())
+            dims[key] = {hd: launches[key]}
+    return dict(steps=steps, peak_gib=peak, launches=launches,
+                variants=variants, by_head_dim=dims)
+
+
 def kernel_line(kres, lm_rows, paths, variants, head_dims):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
@@ -1677,7 +1892,13 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
     heads (Qwen3-1.7B's tied, Phi-3-mini's) under ``dense_heads``. The
     backward kernels replace no Pallas kernel of their own (the JAX
     package differentiates its jnp forms): ``replaces`` names the Pallas
-    kernel whose backward they are."""
+    kernel whose backward they are. ``flash_attention_cross`` and
+    ``flash_attention_bwd_cross`` are the same two kernels' non-causal
+    mode (the Pallas kernel's causal=False), counted and timed apart:
+    their launches are LM-7's cross-attention ones, their times the bf16
+    tc kernels' at MusicGen's layer (B 2, Sq 1500, Sk 64); the causal
+    entries carry their times at MusicGen's self-attention under
+    ``at_musicgen``."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
     tc = {"head_select", "flash_attention", "flash_attention_bwd"}
@@ -1693,29 +1914,38 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
              "flash_attention": (flash, "flash_attention", 69),
              "ssd_scan": (lm_rows["ssd_scan"][0], "ssd_scan", 60),
              "flash_attention_bwd": (flash_bwd, "flash_attention", 69),
-             "ssd_scan_bwd": (lm_rows["ssd_scan_bwd"][0], "ssd_scan", 60)}
+             "ssd_scan_bwd": (lm_rows["ssd_scan_bwd"][0], "ssd_scan", 60),
+             "flash_attention_cross": (
+                 bf16(lm_rows["flash_attention_cross"], 0),
+                 "flash_attention", 69),
+             "flash_attention_bwd_cross": (
+                 bf16(lm_rows["flash_attention_bwd_cross"], 0),
+                 "flash_attention", 69)}
     errs = {"head_select": (kres["head_select"] + lm_rows["head_select"]
                             + lm_rows["head_select_dense"]),
             "msp_select": kres["msp_select"] + lm_rows["msp_select"],
             "flash_attention": (lm_rows["flash_attention"]
                                 + lm_rows["flash_attention_d96"]
-                                + lm_rows["flash_attention_qwen3"]),
+                                + lm_rows["flash_attention_qwen3"]
+                                + lm_rows["flash_attention_musicgen"]),
             "flash_attention_bwd": (lm_rows["flash_attention_bwd"]
                                     + lm_rows["flash_attention_bwd_d96"]
-                                    + lm_rows["flash_attention_bwd_qwen3"])}
+                                    + lm_rows["flash_attention_bwd_qwen3"]
+                                    + lm_rows["flash_attention_bwd_musicgen"])}
     line = []
     for name, (row, pallas, at) in picks.items():
+        base = name.removesuffix("_cross")
         by_path = {path: counts.get(name, 0)
                    for path, counts in paths.items()}
-        by_variant = {"tc": 0, "simt": 0} if name in tc else {
+        by_variant = {"tc": 0, "simt": 0} if base in tc else {
             ("simt" if name == "msp_select" else "tc"):
                 sum(by_path.values())}
-        if name in tc:
+        if base in tc:
             for path in variants.values():
                 for v, n in path.get(name, {}).items():
                     by_variant[v] += n
         entry = {"name": name, "route": "cuda",
-                 "source": src.format(name + ("_tc" if name in tc else "")),
+                 "source": src.format(base + ("_tc" if base in tc else "")),
                  "replaces": ref.format(pallas, at),
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -1729,6 +1959,11 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
                 for d, n in path.get(name, {}).items():
                     by_dim[d] = by_dim.get(d, 0) + n
             entry["launches_by_head_dim"] = by_dim
+            if name != base:
+                line.append(entry)
+                continue
+            mg = lm_rows[name + "_musicgen"][0]
+            entry["at_musicgen"] = {k: mg.get(k) for k in timing}
             d96 = bf16(lm_rows[name + "_d96"], 0)
             entry["at_head_dim_96"] = {k: d96.get(k) for k in timing}
             qwen3 = bf16(lm_rows[name + "_qwen3"], 0)
@@ -1774,6 +2009,7 @@ def main() -> int:
 
     lm_rows = phase_lm_kernels(torch)
     phase_lm_dense_kernels(torch, lm_rows)
+    phase_lm_musicgen_kernels(torch, lm_rows)
     lm, lm_launches, lm_variants, lm_dims = phase_lm_round(torch)
     lm_launches["msp_select"], msp_row = phase_lm_oneshot(torch, lm)
     lm_rows["msp_select"] = [msp_row]
@@ -1781,9 +2017,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_lm_train(torch)
     qwen3, phi3 = phase_lm_dense(torch)
+    musicgen = phase_lm_musicgen(torch)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3}
+    trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
+              "musicgen-train": musicgen}
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
         {"resnet_path": launches, "lm_path": lm_launches,

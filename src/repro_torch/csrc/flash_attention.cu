@@ -1,27 +1,32 @@
-// flash_attention for Hopper (sm_90a): causal grouped-query attention with
-// an online softmax, a per-layer sliding window and a ragged tail.
+// flash_attention for Hopper (sm_90a): grouped-query attention with an
+// online softmax, causal with a per-layer sliding window, or bidirectional
+// over a key set of its own length (cross-attention), with ragged tails.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas / _flash_kernel in
 // src/repro/kernels/flash_attention/kernel.py, and computes what the
 // model's chunked_attention (src/repro/models/attention.py) computes on
-// the decoder path, which the Pallas kernel alone does not: per q row qp
-// the keys kp with kp <= qp and, when window > 0, qp - window < kp; keys
-// and rows past S are masked. q (B, S, H, D), k/v (B, S, KVH, D), float32
-// or bfloat16; head h reads kv head h / (H / KVH) without a copy; math in
-// f32 with q scaled by 1/sqrt(D) first; output in q's dtype.
+// the decoder path, which the Pallas kernel alone does not. causal: per
+// q row qp the keys kp with kp <= qp and, when window > 0,
+// qp - window < kp (Sk = Sq). Not causal (the Pallas kernel's
+// causal=False): every key kp < Sk. Keys past Sk and rows past Sq are
+// masked. q (B, Sq, H, D), k/v (B, Sk, KVH, D), float32 or bfloat16; head
+// h reads kv head h / (H / KVH) without a copy; math in f32 with q scaled
+// by 1/sqrt(D) first; output in q's dtype.
 //
 // Design. The TPU kernel carries (m, l, acc) in VMEM scratch across a
 // sequential key grid axis. Here one block owns one (b, h, 64-row q tile)
 // and walks the key tiles from the first that the window reaches to the
-// diagonal inside the block; tiles that are masked for every row of the
-// block are never visited (the Pallas kernel's pl.when). Q, K and V tiles
+// diagonal inside the block (causal) or to the last key (not causal);
+// tiles that are masked for every row of the block are never visited (the
+// Pallas kernel's pl.when). Q, K and V tiles
 // sit in shared memory as f32; four threads share a q row: each computes
 // the scores of 16 of the tile's 64 keys and owns a quarter of the output
 // dims, so (m, l) and acc live in registers. Masked scores are -1e30, not
 // -inf, as in the reference: a row whose first visited tile is all masked
 // accumulates weight-1 garbage that the first unmasked tile multiplies by
 // exp(-1e30 - m) = 0, exactly as in chunked_attention; every row reaches
-// its diagonal, so every row ends with a real maximum.
+// its diagonal, or (not causal) sees key 0 in its first tile, so every
+// row ends with a real maximum.
 //
 // Variants. This SIMT kernel serves float32 and bf16 at head_dim 32;
 // bf16 at head_dim 64, 96 and 128 runs flash_attention_tc.cu on the tensor
@@ -34,6 +39,9 @@
 // work is 4*S*S*D/2 flops per head for causal rows: bound by operations
 // (1.8 ms at the f32 FMA rate). This kernel reads shared memory at about
 // one float4 per four FMAs and reaches ~14 TFLOP/s, a fifth of that rate.
+// Cross-attention at MusicGen's shape (Sq 1500, Sk 64, 24 heads x 64) is
+// bound by bytes instead: q and o are read and written once, and the key
+// set is one tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,8 +75,8 @@ template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int S, int H, int KVH,
-                       int window, float scale) {
+                       float* __restrict__ lse, int Sq, int Sk, int H,
+                       int KVH, int window, bool causal, float scale) {
   constexpr int LD = D + 4;       // tile row stride in floats (16-byte rows,
                                   // conflict-free float4 reads)
   constexpr int CH = D / 16;      // float4 output chunks per thread
@@ -89,22 +97,23 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KVH * D;
-  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * D;
-  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * D;
+  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * D;
+  const T* kb = k + (size_t)b * Sk * kv_stride + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * Sk * kv_stride + (size_t)kvh * D;
 
   for (int e = tid; e < FA_ROWS * D; e += FA_THREADS) {
     const int rr = e / D, d = e % D, s = q0 + rr;
-    Qs[rr * LD + d] = s < S ? to_f(qb[(size_t)s * q_stride + d]) * scale
-                            : 0.0f;
+    Qs[rr * LD + d] = s < Sq ? to_f(qb[(size_t)s * q_stride + d]) * scale
+                             : 0.0f;
   }
 
   // key tiles [t_begin, t_end]: from the first key that the window lets
-  // the tile's first row see, to the tile's last row's diagonal
-  const int q_last = min(q0 + FA_ROWS, S) - 1;
+  // the tile's first row see, to the tile's last row's diagonal (causal)
+  // or the last key
+  const int q_last = min(q0 + FA_ROWS, Sq) - 1;
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_first / FA_KEYS;
-  const int t_end = q_last / FA_KEYS;
+  const int t_end = (causal ? q_last : Sk - 1) / FA_KEYS;
 
   float m_run = NEG, l_run = 0.0f;
   float acc[4 * CH];
@@ -116,7 +125,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's K/V reads are done
     for (int e = tid; e < FA_KEYS * D; e += FA_THREADS) {
       const int kk = e / D, d = e % D, s = k0 + kk;
-      const bool in = s < S;
+      const bool in = s < Sk;
       Ks[kk * LD + d] = in ? to_f(kb[(size_t)s * kv_stride + d]) : 0.0f;
       Vs[kk * LD + d] = in ? to_f(vb[(size_t)s * kv_stride + d]) : 0.0f;
     }
@@ -143,7 +152,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int kp = k0 + 4 * i + j;
-      const bool ok = kp <= qp && kp < S && (window <= 0 || qp - kp < window);
+      const bool ok = kp < Sk && (!causal || kp <= qp) &&
+                      (window <= 0 || qp - kp < window);
       sc[i] = ok ? sc[i] : NEG;
       tmax = fmaxf(tmax, sc[i]);
     }
@@ -181,9 +191,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (qp < S) {
+  if (qp < Sq) {
     const float inv = 1.0f / fmaxf(l_run, 1e-30f);
-    T* ob = o + ((size_t)b * S + qp) * q_stride + (size_t)h * D;
+    T* ob = o + ((size_t)b * Sq + qp) * q_stride + (size_t)h * D;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int d = 4 * (j + 4 * c);
@@ -192,69 +202,76 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     // the row's log-sum-exp of its scaled scores, for the backward pass
     if constexpr (LSE) {
-      if (j == 0) lse[((size_t)b * H + h) * S + qp] = m_run + logf(l_run);
+      if (j == 0) lse[((size_t)b * H + h) * Sq + qp] = m_run + logf(l_run);
     }
   }
 }
 
 template <typename T, int D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int S, int H, int KVH, int window,
-                      cudaStream_t stream) {
+                      float* lse, int B, int Sq, int Sk, int H, int KVH,
+                      int window, bool causal, cudaStream_t stream) {
   const size_t smem = fa_smem_bytes<D>();
   auto kernel = lse != nullptr ? flash_attention_kernel<T, D, true>
                                : flash_attention_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
+  const dim3 grid((Sq + FA_ROWS - 1) / FA_ROWS, H, B);
   const float scale = 1.0f / sqrtf((float)D);
   kernel<<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KVH, window,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KVH,
+      window, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
-                        void* o, float* lse, int B, int S, int H, int KVH,
-                        int window, cudaStream_t s) {
+                        void* o, float* lse, int B, int Sq, int Sk, int H,
+                        int KVH, int window, bool causal, cudaStream_t s) {
   switch (D) {
     case 32:
-      return fa_launch<T, 32>(q, k, v, o, lse, B, S, H, KVH, window, s);
+      return fa_launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
+                              causal, s);
     case 64:
-      return fa_launch<T, 64>(q, k, v, o, lse, B, S, H, KVH, window, s);
+      return fa_launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
+                              causal, s);
     case 96:
-      return fa_launch<T, 96>(q, k, v, o, lse, B, S, H, KVH, window, s);
+      return fa_launch<T, 96>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
+                              causal, s);
     case 128:
-      return fa_launch<T, 128>(q, k, v, o, lse, B, S, H, KVH, window, s);
+      return fa_launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
+                               causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace idkd
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, S, H,
-// D), k/v (B, S, KVH, D), contiguous; D in {32, 64, 96, 128}; H % KVH == 0;
-// window 0 = full causal. lse: null, or (B, H, S) f32 that receives each
-// row's log-sum-exp of its scaled scores (the training forward's; the
-// label round passes null and writes nothing more). Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, Sq, H,
+// D), k/v (B, Sk, KVH, D), contiguous; D in {32, 64, 96, 128}; H % KVH == 0;
+// causal 1: Sk == Sq, window 0 = full causal; causal 0: every key visible
+// (window 0). lse: null, or (B, H, Sq) f32 that receives each row's
+// log-sum-exp of its scaled scores (the training forward's; the label
+// round passes null and writes nothing more). Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
-                                      void* lse, int B, int S, int H,
-                                      int KVH, int D, int window,
-                                      void* stream) {
-  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0)
+                                      void* lse, int B, int Sq, int Sk,
+                                      int H, int KVH, int D, int window,
+                                      int causal, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
+      (causal && Sk != Sq) || (!causal && window > 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)idkd::fa_dispatch<float>(D, q, k, v, o,
-                                         static_cast<float*>(lse), B, S, H,
-                                         KVH, window, s);
+                                         static_cast<float*>(lse), B, Sq, Sk,
+                                         H, KVH, window, causal != 0, s);
   if (dtype == 1)
     return (int)idkd::fa_dispatch<__nv_bfloat16>(
-        D, q, k, v, o, static_cast<float*>(lse), B, S, H, KVH, window, s);
+        D, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, window,
+        causal != 0, s);
   return (int)cudaErrorInvalidValue;
 }

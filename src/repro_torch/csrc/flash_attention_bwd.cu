@@ -1,6 +1,7 @@
 // flash_attention's backward pass for Hopper (sm_90a): the gradients of
-// causal grouped-query attention with a per-layer sliding window and a
-// ragged tail, given the forward's output O and its rows' log-sum-exp.
+// grouped-query attention, causal with a per-layer sliding window or
+// bidirectional over a key set of its own length (cross-attention), with
+// ragged tails, given the forward's output O and its rows' log-sum-exp.
 //
 // The JAX package has no backward Pallas kernel: its training
 // differentiates chunked_attention (src/repro/models/attention.py) with
@@ -14,10 +15,10 @@
 //   dV    = P^T dO,  dS = P o (dO V^T - D)
 //   dK    = dS^T Q * scale, summed over the group's query heads (fab_dkdv)
 //   dQ    = dS K * scale                                  (fab_dq)
-// q/o/dO (B, S, H, D), k/v (B, S, KVH, D), float32 or bfloat16; head h
-// reads kv head h / (H / KVH); key kp is visible to row qp iff kp <= qp
-// and, when window > 0, qp - window < kp. Math in f32; gradients in the
-// inputs' dtype.
+// q/o/dO (B, Sq, H, D), k/v (B, Sk, KVH, D), float32 or bfloat16; head h
+// reads kv head h / (H / KVH); causal (Sk = Sq): key kp is visible to row
+// qp iff kp <= qp and, when window > 0, qp - window < kp; not causal:
+// every key kp < Sk. Math in f32; gradients in the inputs' dtype.
 //
 // This is the SIMT variant: f32, and bf16 at head_dim 32. bf16 at
 // head_dim 64, 96 and 128 runs flash_attention_bwd_tc.cu on the tensor cores
@@ -29,8 +30,9 @@
 //  * fab_delta: one warp per (b, s, h) row.
 //  * fab_dkdv: one block per (b, kv head, 64-key tile) owns dK and dV of
 //    its keys in registers and walks the group's query heads and the
-//    query tiles that see its keys (from the diagonal to the window's
-//    far edge): no atomics, each key's sums in one fixed order. Four
+//    query tiles that see its keys (from the diagonal, or the first row
+//    when not causal, to the window's far edge or the last row): no
+//    atomics, each key's sums in one fixed order. Four
 //    threads share a key: each recomputes the scores of 16 of the tile's
 //    64 rows and owns a quarter of the head dims.
 //  * fab_dq: one block per (b, h, 64-row query tile), over the key tiles
@@ -72,7 +74,8 @@ constexpr size_t fb_smem_bytes() {
 }
 
 // Rows [s0, s0 + 64) of head `head` of a (B, S, heads, D) tensor into an
-// f32 tile of row stride D + 4; rows past S read zeros.
+// f32 tile of row stride D + 4; rows past S read zeros (S is the
+// tensor's own length: Sq for q and dO, Sk for k and v).
 template <typename T, int D>
 __device__ __forceinline__ void fb_load(float* dst, const T* src, int b,
                                         int s0, int head, int S, int heads) {
@@ -128,9 +131,10 @@ __device__ __forceinline__ void fb_accumulate(float (&acc)[D / 4],
   }
 }
 
-__device__ __forceinline__ bool fb_visible(int qp, int kp, int S,
-                                           int window) {
-  return kp <= qp && qp < S && kp < S && (window <= 0 || qp - kp < window);
+__device__ __forceinline__ bool fb_visible(int qp, int kp, int Sq, int Sk,
+                                           int window, bool causal) {
+  return qp < Sq && kp < Sk && (!causal || kp <= qp) &&
+         (window <= 0 || qp - kp < window);
 }
 
 // D = rowsum(dO o O) per (b, h, s), f32 (B, H, S): one warp per row.
@@ -163,8 +167,8 @@ __global__ void __launch_bounds__(FB_THREADS)
 fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ delta,
-         T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KVH,
-         int window, float scale) {
+         T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
+         int KVH, int window, bool causal, float scale) {
   constexpr int LD = D + 4;
   constexpr int CH = D / 16;
   extern __shared__ float4 smem4[];
@@ -186,14 +190,15 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int j = tid & 3;
   const int kp = k0 + r;
 
-  fb_load<T, D>(Ks, k, b, k0, kvh, S, KVH);
-  fb_load<T, D>(Vs, v, b, k0, kvh, S, KVH);
+  fb_load<T, D>(Ks, k, b, k0, kvh, Sk, KVH);
+  fb_load<T, D>(Vs, v, b, k0, kvh, Sk, KVH);
 
-  // query tiles that see a key of this tile: from the diagonal to the
-  // last row the window lets reach the tile's last key
-  const int k_last = min(k0 + FB_ROWS, S) - 1;
-  const int q_last = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
-  const int t_begin = k0 / FB_TILE;
+  // query tiles that see a key of this tile: from the diagonal (causal)
+  // or the first row to the last row the window lets reach the tile's
+  // last key
+  const int k_last = min(k0 + FB_ROWS, Sk) - 1;
+  const int q_last = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  const int t_begin = causal ? k0 / FB_TILE : 0;
   const int t_end = q_last / FB_TILE;
 
   float dka[4 * CH], dva[4 * CH];
@@ -202,17 +207,17 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const float* lrow = lse + ((size_t)b * H + h) * S;
-    const float* erow = delta + ((size_t)b * H + h) * S;
+    const float* lrow = lse + ((size_t)b * H + h) * Sq;
+    const float* erow = delta + ((size_t)b * H + h) * Sq;
     for (int t = t_begin; t <= t_end; ++t) {
       const int q0 = t * FB_TILE;
       __syncthreads();  // the previous tile's reads are done
-      fb_load<T, D>(Qs, q, b, q0, h, S, H);
-      fb_load<T, D>(Os, dout, b, q0, h, S, H);
+      fb_load<T, D>(Qs, q, b, q0, h, Sq, H);
+      fb_load<T, D>(Os, dout, b, q0, h, Sq, H);
       if (tid < FB_TILE) {
         const int s = q0 + tid;
-        Ls[tid] = s < S ? lrow[s] : 0.0f;
-        Es[tid] = s < S ? erow[s] : 0.0f;
+        Ls[tid] = s < Sq ? lrow[s] : 0.0f;
+        Es[tid] = s < Sq ? erow[s] : 0.0f;
       }
       __syncthreads();
 
@@ -222,7 +227,7 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int row = 4 * i + j;
-        const bool ok = fb_visible(q0 + row, kp, S, window);
+        const bool ok = fb_visible(q0 + row, kp, Sq, Sk, window, causal);
         const float p = ok ? expf(sc[i] * scale - Ls[row]) : 0.0f;
         Ps[r * FB_LP + row] = p;
         Ds[r * FB_LP + row] = p * (dp[i] - Es[row]);
@@ -233,8 +238,8 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (kp < S) {
-    const size_t off = (((size_t)b * S + kp) * KVH + kvh) * D;
+  if (kp < Sk) {
+    const size_t off = (((size_t)b * Sk + kp) * KVH + kvh) * D;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int d = 4 * (j + 4 * c);
@@ -253,7 +258,8 @@ __global__ void __launch_bounds__(FB_THREADS)
 fab_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ delta,
-       T* __restrict__ dq, int S, int H, int KVH, int window, float scale) {
+       T* __restrict__ dq, int Sq, int Sk, int H, int KVH, int window,
+       bool causal, float scale) {
   constexpr int LD = D + 4;
   constexpr int CH = D / 16;
   extern __shared__ float4 smem4[];
@@ -272,15 +278,16 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int j = tid & 3;
   const int qp = q0 + r;
 
-  fb_load<T, D>(Qs, q, b, q0, h, S, H);
-  fb_load<T, D>(Os, dout, b, q0, h, S, H);
-  const float l_r = qp < S ? lse[((size_t)b * H + h) * S + qp] : 0.0f;
-  const float e_r = qp < S ? delta[((size_t)b * H + h) * S + qp] : 0.0f;
+  fb_load<T, D>(Qs, q, b, q0, h, Sq, H);
+  fb_load<T, D>(Os, dout, b, q0, h, Sq, H);
+  const float l_r = qp < Sq ? lse[((size_t)b * H + h) * Sq + qp] : 0.0f;
+  const float e_r = qp < Sq ? delta[((size_t)b * H + h) * Sq + qp] : 0.0f;
 
-  const int q_last = min(q0 + FB_ROWS, S) - 1;
+  // the key tiles the forward visits
+  const int q_last = min(q0 + FB_ROWS, Sq) - 1;
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_first / FB_TILE;
-  const int t_end = q_last / FB_TILE;
+  const int t_end = (causal ? q_last : Sk - 1) / FB_TILE;
 
   float dqa[4 * CH];
 #pragma unroll
@@ -289,8 +296,8 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_begin; t <= t_end; ++t) {
     const int k0 = t * FB_TILE;
     __syncthreads();
-    fb_load<T, D>(Ks, k, b, k0, kvh, S, KVH);
-    fb_load<T, D>(Vs, v, b, k0, kvh, S, KVH);
+    fb_load<T, D>(Ks, k, b, k0, kvh, Sk, KVH);
+    fb_load<T, D>(Vs, v, b, k0, kvh, Sk, KVH);
     __syncthreads();
 
     float sc[16], dp[16];
@@ -299,7 +306,7 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int key = 4 * i + j;
-      const bool ok = fb_visible(qp, k0 + key, S, window);
+      const bool ok = fb_visible(qp, k0 + key, Sq, Sk, window, causal);
       const float p = ok ? expf(sc[i] * scale - l_r) : 0.0f;
       Ds[r * FB_LP + key] = p * (dp[i] - e_r);
     }
@@ -307,8 +314,8 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
     fb_accumulate<D>(dqa, Ds, r, Ks, j);
   }
 
-  if (qp < S) {
-    const size_t off = (((size_t)b * S + qp) * H + h) * D;
+  if (qp < Sq) {
+    const size_t off = (((size_t)b * Sq + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int d = 4 * (j + 4 * c);
@@ -323,8 +330,8 @@ template <typename T, int D>
 cudaError_t fab_launch(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv, int B,
-                       int S, int H, int KVH, int window,
-                       cudaStream_t stream) {
+                       int Sq, int Sk, int H, int KVH, int window,
+                       bool causal, cudaStream_t stream) {
   const size_t smem = fb_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       fab_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -335,23 +342,25 @@ cudaError_t fab_launch(const void* q, const void* k, const void* v,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
-  const long long rows = (long long)B * S * H;
+  const long long rows = (long long)B * Sq * H;
   fab_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, S, H,
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, Sq, H,
       D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int tiles = (S + FB_ROWS - 1) / FB_ROWS;
-  fab_dkdv<T, D><<<dim3(tiles, KVH, B), FB_THREADS, smem, stream>>>(
+  const int k_tiles = (Sk + FB_ROWS - 1) / FB_ROWS;
+  fab_dkdv<T, D><<<dim3(k_tiles, KVH, B), FB_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KVH, window, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, window,
+      causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fab_dq<T, D><<<dim3(tiles, H, B), FB_THREADS, smem, stream>>>(
+  const int q_tiles = (Sq + FB_ROWS - 1) / FB_ROWS;
+  fab_dq<T, D><<<dim3(q_tiles, H, B), FB_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, KVH, window, scale);
+      static_cast<T*>(dq), Sq, Sk, H, KVH, window, causal, scale);
   return cudaGetLastError();
 }
 
@@ -359,20 +368,21 @@ template <typename T>
 cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
                          float* delta, void* dq, void* dk, void* dv, int B,
-                         int S, int H, int KVH, int window, cudaStream_t s) {
+                         int Sq, int Sk, int H, int KVH, int window,
+                         bool causal, cudaStream_t s) {
   switch (D) {
     case 32:
       return fab_launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               S, H, KVH, window, s);
+                               Sq, Sk, H, KVH, window, causal, s);
     case 64:
       return fab_launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               S, H, KVH, window, s);
+                               Sq, Sk, H, KVH, window, causal, s);
     case 96:
       return fab_launch<T, 96>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               S, H, KVH, window, s);
+                               Sq, Sk, H, KVH, window, causal, s);
     case 128:
       return fab_launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                S, H, KVH, window, s);
+                                Sq, Sk, H, KVH, window, causal, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -381,28 +391,33 @@ cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace idkd
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
-// q/o/dout/dq (B, S, H, D), k/v/dk/dv (B, S, KVH, D), contiguous; lse
-// (B, H, S) f32 from the forward; delta (B, H, S) f32 scratch; D in {32,
-// 64, 96, 128}; H % KVH == 0; window 0 = full causal. Three launches; returns
+// q/o/dout/dq (B, Sq, H, D), k/v/dk/dv (B, Sk, KVH, D), contiguous; lse
+// (B, H, Sq) f32 from the forward; delta (B, H, Sq) f32 scratch; D in
+// {32, 64, 96, 128}; H % KVH == 0; causal 1: Sk == Sq, window 0 = full
+// causal; causal 0: every key visible (window 0). Three launches; returns
 // cudaGetLastError() after them.
 extern "C" int flash_attention_bwd_launch(int dtype, const void* q,
                                           const void* k, const void* v,
                                           const void* o, const void* dout,
                                           const void* lse, void* delta,
                                           void* dq, void* dk, void* dv,
-                                          int B, int S, int H, int KVH,
-                                          int D, int window, void* stream) {
-  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0)
+                                          int B, int Sq, int Sk, int H,
+                                          int KVH, int D, int window,
+                                          int causal, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
+      (causal && Sk != Sq) || (!causal && window > 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* e = static_cast<float*>(delta);
+  const bool c = causal != 0;
   if (dtype == 0)
     return (int)idkd::fab_dispatch<float>(D, q, k, v, o, dout, l, e, dq, dk,
-                                          dv, B, S, H, KVH, window, s);
+                                          dv, B, Sq, Sk, H, KVH, window, c,
+                                          s);
   if (dtype == 1)
     return (int)idkd::fab_dispatch<__nv_bfloat16>(D, q, k, v, o, dout, l, e,
-                                                  dq, dk, dv, B, S, H, KVH,
-                                                  window, s);
+                                                  dq, dk, dv, B, Sq, Sk, H,
+                                                  KVH, window, c, s);
   return (int)cudaErrorInvalidValue;
 }

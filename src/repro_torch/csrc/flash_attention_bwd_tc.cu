@@ -1,7 +1,8 @@
 // flash_attention's backward pass, bf16 on Hopper's tensor cores (sm_90a):
-// the gradients of causal grouped-query attention with a per-layer
-// sliding window and a ragged tail, given the forward's output O and its
-// rows' log-sum-exp. The bf16 variant of the port's attention backward,
+// the gradients of grouped-query attention, causal with a per-layer
+// sliding window or bidirectional over a key set of its own length
+// (cross-attention), with ragged tails, given the forward's output O and
+// its rows' log-sum-exp. The bf16 variant of the port's attention backward,
 // for head_dim 64, 96 and 128 (f32, and bf16 at head_dim 32, run
 // csrc/flash_attention_bwd.cu).
 //
@@ -16,21 +17,25 @@
 //   D  = rowsum(dO o O),  P = exp(Q K^T * scale - lse) under the mask
 //   dV = P^T dO,  dS = P o (dO V^T - D),  dK = dS^T Q * scale,
 //   dQ = dS K * scale
-// q/o/dO (B, S, H, D), k/v (B, S, KVH, D) bf16; head h reads kv head
-// h / (H / KVH); key kp is visible to row qp iff kp <= qp and, when
-// window > 0, qp - window < kp; lse (B, H, S) f32; gradients bf16.
+// q/o/dO (B, Sq, H, D), k/v (B, Sk, KVH, D) bf16; head h reads kv head
+// h / (H / KVH); causal (Sk = Sq): key kp is visible to row qp iff
+// kp <= qp and, when window > 0, qp - window < kp; not causal: every key
+// kp < Sk; lse (B, H, Sq) f32; gradients bf16.
 //
 // Bound on the H100. Five products of the (causal, windowed) score
 // matrix's size, 2.5x the forward's matmul work: at Hymba's training
 // shape (B 2, S 2176, 25/5 heads x 64) 76 GFLOP global, 54 GFLOP at
 // window 1024, against ~28 MB of inputs and outputs: bound by the bf16
 // tensor cores (989 TFLOP/s), and at D = 64 nearly as much by the one
-// exponential per score on the SFU.
+// exponential per score on the SFU. Cross-attention at MusicGen's shape
+// (B 2, Sq 1500, Sk 64, 24 heads x 64) is bound by bytes (q, o, dO, dQ);
+// its single key tile gives fbt_main one block per (b, h), 48 blocks on
+// 132 SMs, each walking all 24 query tiles.
 //
 // Design: three kernels a call.
 //  * fbt_prep: one warp per (b, h, row): D = rowsum(dO o O) and the
 //    row's lse * log2(e) side by side in an f32 (B, H, Sp, 2) array
-//    (Sp = S rounded up to 64; padding rows get lse = 1e30, so P = 0),
+//    (Sp = Sq rounded up to 64; padding rows get lse = 1e30, so P = 0),
 //    and the row of the f32 dQ accumulator (B, H, Sp, D) zeroed.
 //  * fbt_main: one block per (b, query head h, 64-key tile), 850 blocks
 //    at Hymba's training shape, key tiles that see the most query tiles
@@ -38,12 +43,16 @@
 //    loads the key tile's K and V once by TMA, then streams 64-row Q and
 //    dO tiles (128-byte swizzle, as flash_attention_tc.cu) with their
 //    rows' (lse, D) through a ring of 2 shared-memory stages guarded by
-//    full / empty mbarriers, from the diagonal to the window's far edge.
+//    full / empty mbarriers, from the diagonal (causal) or the first
+//    row to the window's far edge or the last row.
 //    Per query tile, all on the accumulator fragments of the warpgroup's
 //    64 keys:
 //      S^T = K Q^T and dP^T = V dO^T: wgmma, both operands K-major;
 //      P^T = exp2(S^T scale log2e - lse log2e), masked only on the tiles
-//        that straddle the diagonal or the window's edge; dS^T =
+//        that straddle the diagonal, the window's edge or Sk (a key past
+//        Sk is a zero-filled row of K and V, whose P would be
+//        exp2(-lse log2e), not 0, and whose dQ term 0 times a P that may
+//        overflow); dS^T =
 //        P^T o (dP^T - D): P is computed once for dV, dK and dQ (five
 //        products, where the SIMT kernel recomputes P and dP for dQ);
 //      dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 as
@@ -55,13 +64,14 @@
 //        unit's bulk reduction (cp.reduce.async.bulk .add.f32) into the
 //        dQ accumulator, row by row.
 //    The block's dK and dV (f32, in registers over the whole walk) go
-//    to per-query-head f32 partials (B, S, H, D).
+//    to per-query-head f32 partials (B, Sk, H, D).
 //  * fbt_finish: dK = scale * (the group's G partials summed in a fixed
 //    order), dV likewise unscaled, dQ = scale * accumulator, to bf16.
 // dK and dV are the same from run to run; dQ's additions from the key
 // tiles arrive in the order the blocks run, so its last bits vary.
 // Registers: at D = 64 two blocks share an SM (one warpgroup each; ptxas
-// gives fbt_main 168 registers a thread, no spills); at D = 128 the dK
+// gives fbt_main 168 registers a thread, no spills in the causal
+// instantiation, 20 bytes in the non-causal one); at D = 128 the dK
 // and dV fragments take 128 registers, dQ's two 64-column halves are
 // formed one after the other, and one block runs per SM (254 registers,
 // no spills). D = 96 (Phi-3-mini) takes D = 128's layout: two 64-dim
@@ -113,7 +123,7 @@ __global__ void __launch_bounds__(256)
 fbt_prep(const __nv_bfloat16* __restrict__ o,
          const __nv_bfloat16* __restrict__ dout,
          const float* __restrict__ lse, float2* __restrict__ ld,
-         float* __restrict__ dq_acc, long long rows, int S, int Sp, int H) {
+         float* __restrict__ dq_acc, long long rows, int Sq, int Sp, int H) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
@@ -122,8 +132,8 @@ fbt_prep(const __nv_bfloat16* __restrict__ o,
   const int h = (int)(bh % H);
   const long long b = bh / H;
   float acc = 0.0f;
-  if (s < S) {
-    const size_t off = (((size_t)b * S + s) * H + h) * D;
+  if (s < Sq) {
+    const size_t off = (((size_t)b * Sq + s) * H + h) * D;
 #pragma unroll
     for (int d = 2 * lane; d < D; d += 64) {
       const float2 ov = __bfloat1622float2(
@@ -140,8 +150,8 @@ fbt_prep(const __nv_bfloat16* __restrict__ o,
   for (int d = 2 * lane; d < D; d += 64)
     *reinterpret_cast<float2*>(z + d) = make_float2(0.0f, 0.0f);
   if (lane == 0)
-    ld[row] = s < S ? make_float2(lse[(size_t)bh * S + s] * FBT_LOG2E, acc)
-                    : make_float2(1e30f, 0.0f);
+    ld[row] = s < Sq ? make_float2(lse[(size_t)bh * Sq + s] * FBT_LOG2E, acc)
+                     : make_float2(1e30f, 0.0f);
 }
 
 // One wgmma per 16 head dims: acc (64 x 64) = A B^T with A, B the 64-row
@@ -174,15 +184,18 @@ __device__ __forceinline__ void fbt_accumulate(
           sw128_desc(T + nb * FBT_TILE * 128 + kk * 16 * 128, 1024), 1);
 }
 
-template <int D>
+// CAUSAL: the mode, a template parameter so that the causal kernel's
+// mask and register use stay the self-attention kernel's (as a runtime
+// flag it made fbt_main<64> spill and run slower, PERF.md)
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(FBT_THREADS, D == 64 ? 2 : 1)
 fbt_main(const __grid_constant__ CUtensorMap tq,
          const __grid_constant__ CUtensorMap tdo,
          const __grid_constant__ CUtensorMap tk,
          const __grid_constant__ CUtensorMap tv,
          const float2* __restrict__ ld, float* __restrict__ dq_acc,
-         float* __restrict__ dk_part, float* __restrict__ dv_part, int S,
-         int Sp, int H, int KVH, int window, float scale_log2) {
+         float* __restrict__ dk_part, float* __restrict__ dv_part, int Sq,
+         int Sk, int Sp, int H, int KVH, int window, float scale_log2) {
   using L = FbtSmem<D>;
   constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
@@ -196,9 +209,9 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
   const int k0 = kt * FBT_TILE;
   const int kvh = h / (H / KVH);
-  const int k_last = min(k0 + FBT_TILE, S) - 1;
-  const int q_last = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
-  const int t_begin = kt, t_end = q_last / FBT_TILE;
+  const int k_last = min(k0 + FBT_TILE, Sk) - 1;
+  const int q_last = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  const int t_begin = CAUSAL ? kt : 0, t_end = q_last / FBT_TILE;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -278,7 +291,8 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
     // P^T and dS^T on the fragments: element 4j + e is key row r_a
     // (e < 2) or r_b, query column 8j + c2 + (e & 1)
     const bool need_mask =
-        t == kt || (window > 0 && q0 + FBT_TILE - 1 - k0 >= window);
+        CAUSAL ? t == kt || (window > 0 && q0 + FBT_TILE - 1 - k0 >= window)
+               : k0 + FBT_TILE > Sk;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -288,7 +302,9 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
         float p = fast_exp2(fmaf(sc[4 * j + e], scale_log2, -l.x));
         if (need_mask) {
           const int qp = q0 + col, kp = e < 2 ? kp_a : kp_b;
-          if (kp > qp || (window > 0 && qp - kp >= window)) p = 0.0f;
+          if (CAUSAL ? kp > qp || (window > 0 && qp - kp >= window)
+                     : kp >= Sk)
+            p = 0.0f;
         }
         sc[4 * j + e] = p;
         dp[4 * j + e] = p * (dp[4 * j + e] - l.y);
@@ -374,7 +390,7 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
 
   // the block's dK (unscaled) and dV into the per-query-head partials
   const size_t row_stride = (size_t)H * D;
-  const size_t off_a = ((size_t)b * S + kp_a) * row_stride + (size_t)h * D;
+  const size_t off_a = ((size_t)b * Sk + kp_a) * row_stride + (size_t)h * D;
   const size_t off_b = off_a + 8 * row_stride;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -382,13 +398,13 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + c2;
       if (d >= D) continue;
-      if (kp_a < S) {
+      if (kp_a < Sk) {
         *reinterpret_cast<float2*>(dk_part + off_a + d) =
             make_float2(dk[nb][4 * j], dk[nb][4 * j + 1]);
         *reinterpret_cast<float2*>(dv_part + off_a + d) =
             make_float2(dv[nb][4 * j], dv[nb][4 * j + 1]);
       }
-      if (kp_b < S) {
+      if (kp_b < Sk) {
         *reinterpret_cast<float2*>(dk_part + off_b + d) =
             make_float2(dk[nb][4 * j + 2], dk[nb][4 * j + 3]);
         *reinterpret_cast<float2*>(dv_part + off_b + d) =
@@ -405,8 +421,8 @@ __device__ __forceinline__ void fbt_store4(__nv_bfloat16* dst, float4 v,
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// dq (B, S, H, D) from the accumulator (B, H, Sp, D); dk, dv
-// (B, S, KVH, D) from the partials (B, S, H, D), each group's G heads
+// dq (B, Sq, H, D) from the accumulator (B, H, Sp, D); dk, dv
+// (B, Sk, KVH, D) from the partials (B, Sk, H, D), each group's G heads
 // summed in order. Four dims a thread.
 template <int D>
 __global__ void __launch_bounds__(256)
@@ -414,7 +430,7 @@ fbt_finish(const float* __restrict__ dq_acc,
            const float* __restrict__ dk_part,
            const float* __restrict__ dv_part, __nv_bfloat16* __restrict__ dq,
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-           long long nq4, long long nk4, int S, int Sp, int H, int KVH,
+           long long nq4, long long nk4, int Sq, int Sp, int H, int KVH,
            float scale) {
   constexpr int D4 = D / 4;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -423,14 +439,14 @@ fbt_finish(const float* __restrict__ dq_acc,
     const long long r = e / D4;            // (b, s, h)
     const int h = (int)(r % H);
     const long long bs = r / H;
-    const int s = (int)(bs % S);
-    const long long b = bs / S;
+    const int s = (int)(bs % Sq);
+    const long long b = bs / Sq;
     const float4 v = *reinterpret_cast<const float4*>(
         dq_acc + (((size_t)b * H + h) * Sp + s) * D + d);
     fbt_store4(dq + (size_t)r * D + d, v, scale);
   }
   if (e < nk4) {
-    const long long r = e / D4;            // (b, s, kvh)
+    const long long r = e / D4;            // (b, s < Sk, kvh)
     const int kvh = (int)(r % KVH);
     const long long bs = r / KVH;
     const int G = H / KVH;
@@ -453,18 +469,19 @@ cudaError_t fbt_launch(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float2* ld, float* dq_acc, float* dk_part,
                        float* dv_part, void* dq, void* dk, void* dv, int B,
-                       int S, int H, int KVH, int window,
-                       cudaStream_t stream) {
-  const int tiles = (S + FBT_TILE - 1) / FBT_TILE, Sp = tiles * FBT_TILE;
+                       int Sq, int Sk, int H, int KVH, int window,
+                       bool causal, cudaStream_t stream) {
+  const int q_tiles = (Sq + FBT_TILE - 1) / FBT_TILE, Sp = q_tiles * FBT_TILE;
+  const int k_tiles = (Sk + FBT_TILE - 1) / FBT_TILE;
   CUtensorMap mq, mdo, mk, mv;
-  const cuuint64_t dq_dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                                 (cuuint64_t)B};
+  const cuuint64_t dq_dims[4] = {(cuuint64_t)D, (cuuint64_t)H,
+                                 (cuuint64_t)Sq, (cuuint64_t)B};
   const cuuint64_t sq[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                            (cuuint64_t)S * H * D * 2};
+                            (cuuint64_t)Sq * H * D * 2};
   const cuuint64_t dk_dims[4] = {(cuuint64_t)D, (cuuint64_t)KVH,
-                                 (cuuint64_t)S, (cuuint64_t)B};
+                                 (cuuint64_t)Sk, (cuuint64_t)B};
   const cuuint64_t sk[3] = {(cuuint64_t)D * 2, (cuuint64_t)KVH * D * 2,
-                            (cuuint64_t)S * KVH * D * 2};
+                            (cuuint64_t)Sk * KVH * D * 2};
   const cuuint32_t box[4] = {64, 1, FBT_TILE, 1};
   if (!make_map_bf16(&mq, q, 4, dq_dims, sq, box) ||
       !make_map_bf16(&mdo, dout, 4, dq_dims, sq, box) ||
@@ -474,45 +491,50 @@ cudaError_t fbt_launch(const void* q, const void* k, const void* v,
   const long long rows = (long long)B * H * Sp;
   fbt_prep<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), lse, ld, dq_acc, rows, S, Sp,
+      static_cast<const __nv_bfloat16*>(dout), lse, ld, dq_acc, rows, Sq, Sp,
       H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = FbtSmem<D>::BYTES;
-  err = cudaFuncSetAttribute(fbt_main<D>,
+  auto main_kernel = causal ? fbt_main<D, true> : fbt_main<D, false>;
+  err = cudaFuncSetAttribute(main_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
-  fbt_main<D><<<dim3(H, B, tiles), FBT_THREADS, smem, stream>>>(
-      mq, mdo, mk, mv, ld, dq_acc, dk_part, dv_part, S, Sp, H, KVH, window,
-      scale * FBT_LOG2E);
+  main_kernel<<<dim3(H, B, k_tiles), FBT_THREADS, smem, stream>>>(
+      mq, mdo, mk, mv, ld, dq_acc, dk_part, dv_part, Sq, Sk, Sp, H, KVH,
+      window, scale * FBT_LOG2E);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long nq4 = (long long)B * S * H * (D / 4);
-  const long long nk4 = (long long)B * S * KVH * (D / 4);
-  fbt_finish<D><<<(unsigned)((nq4 + 255) / 256), 256, 0, stream>>>(
+  const long long nq4 = (long long)B * Sq * H * (D / 4);
+  const long long nk4 = (long long)B * Sk * KVH * (D / 4);
+  const long long n4 = nq4 > nk4 ? nq4 : nk4;
+  fbt_finish<D><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
       dq_acc, dk_part, dv_part, static_cast<__nv_bfloat16*>(dq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), nq4,
-      nk4, S, Sp, H, KVH, scale);
+      nk4, Sq, Sp, H, KVH, scale);
   return cudaGetLastError();
 }
 
 }  // namespace idkd
 
-// bf16 q/o/dout/dq (B, S, H, D), k/v/dk/dv (B, S, KVH, D), contiguous,
-// 16-byte aligned; lse (B, H, S) f32 from the forward. Scratch (f32):
-// ld (B, H, Sp, 2), dq_acc (B, H, Sp, D) with Sp = S rounded up to 64,
-// dk_part and dv_part (B, S, H, D). D in {64, 96, 128}; H % KVH == 0; window
-// 0 = full causal. Three launches; returns cudaGetLastError() after them
+// bf16 q/o/dout/dq (B, Sq, H, D), k/v/dk/dv (B, Sk, KVH, D), contiguous,
+// 16-byte aligned; lse (B, H, Sq) f32 from the forward. Scratch (f32):
+// ld (B, H, Sp, 2), dq_acc (B, H, Sp, D) with Sp = Sq rounded up to 64,
+// dk_part and dv_part (B, Sk, H, D). D in {64, 96, 128}; H % KVH == 0;
+// causal 1: Sk == Sq, window 0 = full causal; causal 0: every key visible
+// (window 0). Three launches; returns cudaGetLastError() after them
 // (cudaErrorInvalidValue for a shape the kernel does not take or a
 // tensor map the driver refuses).
 extern "C" int flash_attention_bwd_tc_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ld, void* dq_acc, void* dk_part,
-    void* dv_part, void* dq, void* dk, void* dv, int B, int S, int H, int KVH,
-    int D, int window, void* stream) {
-  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0 || H > 65535 || B > 65535)
+    void* dv_part, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
+    int H, int KVH, int D, int window, int causal, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 || H > 65535 ||
+      B > 65535 || (causal && Sk != Sq) || (!causal && window > 0))
     return (int)cudaErrorInvalidValue;
+  const bool c = causal != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float2* ldp = static_cast<float2*>(ld);
@@ -521,12 +543,15 @@ extern "C" int flash_attention_bwd_tc_launch(
   float* pv = static_cast<float*>(dv_part);
   if (D == 64)
     return (int)idkd::fbt_launch<64>(q, k, v, o, dout, l, ldp, acc, pk, pv,
-                                     dq, dk, dv, B, S, H, KVH, window, s);
+                                     dq, dk, dv, B, Sq, Sk, H, KVH, window,
+                                     c, s);
   if (D == 96)
     return (int)idkd::fbt_launch<96>(q, k, v, o, dout, l, ldp, acc, pk, pv,
-                                     dq, dk, dv, B, S, H, KVH, window, s);
+                                     dq, dk, dv, B, Sq, Sk, H, KVH, window,
+                                     c, s);
   if (D == 128)
     return (int)idkd::fbt_launch<128>(q, k, v, o, dout, l, ldp, acc, pk, pv,
-                                      dq, dk, dv, B, S, H, KVH, window, s);
+                                      dq, dk, dv, B, Sq, Sk, H, KVH, window,
+                                      c, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,14 +1,17 @@
-// flash_attention, bf16 on Hopper's tensor cores (sm_90a): causal
-// grouped-query attention with an online softmax, a per-layer sliding
-// window and a ragged tail. The bf16 variant of the port's flash_attention
-// (the f32 variant, and bf16 at head_dim 32, run csrc/flash_attention.cu).
+// flash_attention, bf16 on Hopper's tensor cores (sm_90a): grouped-query
+// attention with an online softmax, causal with a per-layer sliding
+// window, or bidirectional over a key set of its own length
+// (cross-attention), with ragged tails. The bf16 variant of the port's
+// flash_attention (the f32 variant, and bf16 at head_dim 32, run
+// csrc/flash_attention.cu).
 //
 // Replaces, with flash_attention.cu, the Pallas TPU kernel
 // flash_attention_pallas / _flash_kernel in
 // src/repro/kernels/flash_attention/kernel.py, and computes the same
-// function as that file's SIMT kernel and as flash_attention_plain: per q
-// row qp the keys kp with kp <= qp and, when window > 0, qp - window < kp;
-// keys and rows past S masked; q (B, S, H, D), k/v (B, S, KVH, D) bf16,
+// function as that file's SIMT kernel and as flash_attention_plain:
+// causal, per q row qp the keys kp with kp <= qp and, when window > 0,
+// qp - window < kp (Sk = Sq); not causal, every key kp < Sk; keys past Sk
+// and rows past Sq masked; q (B, Sq, H, D), k/v (B, Sk, KVH, D) bf16,
 // head h reading kv head h / (H / KVH) in place; scores scaled by
 // 1/sqrt(D); softmax statistics in f32; output bf16; D in {64, 96, 128}.
 //
@@ -16,6 +19,8 @@
 // call is 0.12 TFLOP (global) / 0.09 TFLOP (window 1024) against 55 MB
 // of q/k/v/o: bound by the bf16 tensor cores (989 TFLOP/s), and at
 // D = 64 nearly as much by the exponentials (one per score, on the SFU).
+// Cross-attention at MusicGen's shape (B 2, Sq 1500, Sk 64, 24 heads x
+// 64) is 1.2 GFLOP against 19 MB: bound by bytes, q and o.
 //
 // Design. One block owns a 128-row q tile of one (b, h): two consumer
 // warpgroups own 64 rows each, and one producer warp streams the key
@@ -25,7 +30,10 @@
 //    through a ring of 3 shared-memory stages guarded by full/empty
 //    mbarriers, so the next tile's copy overlaps this tile's math. Every
 //    tile is a stack of 128-byte rows (64 head dims) with 128-byte
-//    swizzle; D = 128 is two such column blocks. Rows past S read zeros.
+//    swizzle; D = 128 is two such column blocks. Rows past Sq (Q) and Sk
+//    (K, V) read zeros: the maps' row extents are Sq and Sk, so a
+//    128-key box over a 64-key set is half zeros (and still counts the
+//    whole box's bytes on the mbarrier).
 //  * D = 96 is two column blocks too, the second half empty: the tensor
 //    maps keep the true innermost extent 96 with a 64-wide box, so TMA
 //    fills columns 96..127 of the second box with zeros (and still counts
@@ -49,13 +57,16 @@
 //    previous tile's P.V inside one warpgroup measured no faster on the
 //    H100; PERF.md.)
 //  * Skipped tiles: the key tiles outside [the first key the window lets
-//    the tile's first row see, the last row's diagonal] are never
-//    loaded; a warpgroup skips the math of a tile that is masked for all
-//    its 64 rows. The mask (kp <= qp, the window, kp < S) is applied only
-//    on tiles that straddle the diagonal, the window's edge or S.
+//    the tile's first row see, the last row's diagonal (causal) or the
+//    last key] are never loaded; a warpgroup skips the math of a tile
+//    that is masked for all its 64 rows. The mask (kp <= qp when causal,
+//    the window, kp < Sk) is applied only on tiles that straddle the
+//    diagonal, the window's edge or Sk. A zero-filled key past Sk scores
+//    0, not -inf: the Sk test is what keeps it out of the softmax.
 //  * -1e30 masking, as the reference: a row whose first visited tile is
 //    all masked gathers weight-1 garbage that its first unmasked tile
-//    scales by exp2((-1e30 - m) * c) = 0; every row reaches its diagonal.
+//    scales by exp2((-1e30 - m) * c) = 0; every row reaches its diagonal
+//    (causal) or sees key 0 in its first tile (not causal).
 //
 // bf16 P adds ~2^-9 relative error per weight; the check against the
 // plain f32 version stays at one bf16 ulp of the output (2e-2).
@@ -93,7 +104,7 @@ struct FtRows {
   int a, b;        // the thread's two q rows (a and a + 8)
   int c0, c1;      // its warpgroup's 64 rows
   int col;         // its column within each 8-key group
-  int S, window;
+  int Sk, window;
   float scale_log2;
 };
 
@@ -129,14 +140,18 @@ __device__ __forceinline__ void ft_pv(float (&oacc)[FtSmem<D>::NB][32],
 }
 
 // Mask the tile's scores where it straddles the diagonal, the window's
-// edge or S; fold them into the running (m, l) of the thread's two rows;
+// edge or Sk; fold them into the running (m, l) of the thread's two rows;
 // leave exp2((s - m) * c) in sc and the rescale factors of O in al_*.
+// Not CAUSAL: only keys past Sk are masked (the window is 0).
+template <bool CAUSAL>
 __device__ __forceinline__ void ft_softmax(float (&sc)[64], const FtRows& r,
                                            int k0, float& m_a, float& m_b,
                                            float& l_a, float& l_b,
                                            float& al_a, float& al_b) {
-  const bool need_mask = k0 + FT_KEYS - 1 > r.c0 || k0 + FT_KEYS > r.S ||
-                         (r.window > 0 && r.c1 - k0 >= r.window);
+  const bool need_mask =
+      CAUSAL ? k0 + FT_KEYS - 1 > r.c0 || k0 + FT_KEYS > r.Sk ||
+                   (r.window > 0 && r.c1 - k0 >= r.window)
+             : k0 + FT_KEYS > r.Sk;
   if (need_mask) {
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -144,8 +159,9 @@ __device__ __forceinline__ void ft_softmax(float (&sc)[64], const FtRows& r,
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + 8 * j + r.col + (e & 1);
         const int qp = e < 2 ? r.a : r.b;
-        const bool ok = kp <= qp && kp < r.S &&
-                        (r.window <= 0 || qp - kp < r.window);
+        const bool ok = CAUSAL ? kp <= qp && kp < r.Sk &&
+                                     (r.window <= 0 || qp - kp < r.window)
+                               : kp < r.Sk;
         if (!ok) sc[4 * j + e] = NEG;
       }
   }
@@ -194,15 +210,17 @@ __device__ __forceinline__ void ft_pack(const float (&sc)[64],
 
 // LSE: write each row's log-sum-exp to lse (the training forward's); a
 // template parameter, so the round's kernel is compiled without the store
-// (a runtime test of the pointer cost 2.5% there, PERF.md)
-template <int D, bool LSE>
+// (a runtime test of the pointer cost 2.5% there, PERF.md). CAUSAL: the
+// mode, a template parameter too, so that the causal kernel stays the
+// self-attention kernel it was.
+template <int D, bool LSE, bool CAUSAL>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int S, int H, int KVH,
-                          int window, float scale_log2) {
+                          float* __restrict__ lse, int Sq, int Sk, int H,
+                          int KVH, int window, float scale_log2) {
   using L = FtSmem<D>;
   constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
@@ -218,10 +236,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const int q_last = min(q0 + FT_ROWS, S) - 1;
+  const int q_last = min(q0 + FT_ROWS, Sq) - 1;
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_first / FT_KEYS;
-  const int t_end = q_last / FT_KEYS;
+  const int t_end = (CAUSAL ? q_last : Sk - 1) / FT_KEYS;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -268,7 +286,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   r.c0 = q0 + 64 * wg;                 // the warpgroup's row range
   r.c1 = r.c0 + 63;
   r.col = 2 * (lane % 4);              // this thread's column in an n8
-  r.S = S;
+  r.Sk = Sk;
   r.window = window;
   r.scale_log2 = scale_log2;
   const uint8_t* Qw = Qs + wg * 64 * FT_ROW_BYTES;
@@ -277,8 +295,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // without the tiles masked for all its 64 rows, which it only waits for
   // and releases
   int ta = t_begin;
-  const int tb = min(t_end, r.c1 / FT_KEYS);
-  if (r.c0 >= S) ta = t_end + 1;
+  const int tb = CAUSAL ? min(t_end, r.c1 / FT_KEYS) : t_end;
+  if (r.c0 >= Sq) ta = t_end + 1;
   while (ta <= tb && window > 0 && ta * FT_KEYS + FT_KEYS - 1 <= r.c0 - window)
     ++ta;
   auto stage = [&](int t) { return (t - t_begin) % FT_STAGES; };
@@ -305,7 +323,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
-      ft_softmax(sc, r, t * FT_KEYS, m_a, m_b, l_a, l_b, al_a, al_b);
+      ft_softmax<CAUSAL>(sc, r, t * FT_KEYS, m_a, m_b, l_a, l_b, al_a,
+                         al_b);
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
@@ -340,13 +359,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // m is in raw score units, l sums exp((s - m) * scale)
     if (r.col == 0) {
       const float scale = scale_log2 * 0.6931471805599453f;
-      float* lr = lse + ((size_t)b * H + h) * S;
-      if (r.a < S) lr[r.a] = m_a * scale + logf(l_a);
-      if (r.b < S) lr[r.b] = m_b * scale + logf(l_b);
+      float* lr = lse + ((size_t)b * H + h) * Sq;
+      if (r.a < Sq) lr[r.a] = m_a * scale + logf(l_a);
+      if (r.b < Sq) lr[r.b] = m_b * scale + logf(l_b);
     }
   }
   const size_t row_stride = (size_t)H * D;
-  __nv_bfloat16* oa = o + ((size_t)b * S + r.a) * row_stride + (size_t)h * D;
+  __nv_bfloat16* oa = o + ((size_t)b * Sq + r.a) * row_stride + (size_t)h * D;
   __nv_bfloat16* ob = oa + 8 * row_stride;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -354,10 +373,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + r.col;
       if (d >= D) continue;            // D = 96: the zero-filled columns
-      if (r.a < S)
+      if (r.a < Sq)
         *reinterpret_cast<uint32_t*>(oa + d) = pack_bf16x2(
             oacc[nb][4 * j] * inv_a, oacc[nb][4 * j + 1] * inv_a);
-      if (r.b < S)
+      if (r.b < Sq)
         *reinterpret_cast<uint32_t*>(ob + d) = pack_bf16x2(
             oacc[nb][4 * j + 2] * inv_b, oacc[nb][4 * j + 3] * inv_b);
     }
@@ -365,18 +384,18 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int S, int H, int KVH, int window,
-                      cudaStream_t stream) {
-  // q (B, S, H, D) and k/v (B, S, KVH, D) as 4-D maps, innermost first
+                      float* lse, int B, int Sq, int Sk, int H, int KVH,
+                      int window, bool causal, cudaStream_t stream) {
+  // q (B, Sq, H, D) and k/v (B, Sk, KVH, D) as 4-D maps, innermost first
   CUtensorMap mq, mk, mv;
-  const cuuint64_t dq[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+  const cuuint64_t dq[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq,
                             (cuuint64_t)B};
   const cuuint64_t sq[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                            (cuuint64_t)S * H * D * 2};
-  const cuuint64_t dk[4] = {(cuuint64_t)D, (cuuint64_t)KVH, (cuuint64_t)S,
+                            (cuuint64_t)Sq * H * D * 2};
+  const cuuint64_t dk[4] = {(cuuint64_t)D, (cuuint64_t)KVH, (cuuint64_t)Sk,
                             (cuuint64_t)B};
   const cuuint64_t sk[3] = {(cuuint64_t)D * 2, (cuuint64_t)KVH * D * 2,
-                            (cuuint64_t)S * KVH * D * 2};
+                            (cuuint64_t)Sk * KVH * D * 2};
   const cuuint32_t bq[4] = {64, 1, FT_ROWS, 1};
   const cuuint32_t bk[4] = {64, 1, FT_KEYS, 1};
   if (!make_map_bf16(&mq, q, 4, dq, sq, bq) ||
@@ -384,41 +403,49 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
       !make_map_bf16(&mv, v, 4, dk, sk, bk))
     return cudaErrorInvalidValue;
   const int smem = FtSmem<D>::BYTES;
-  auto kernel = lse != nullptr ? flash_attention_tc_kernel<D, true>
-                               : flash_attention_tc_kernel<D, false>;
+  auto kernel =
+      lse != nullptr ? (causal ? flash_attention_tc_kernel<D, true, true>
+                               : flash_attention_tc_kernel<D, true, false>)
+                     : (causal ? flash_attention_tc_kernel<D, false, true>
+                               : flash_attention_tc_kernel<D, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + FT_ROWS - 1) / FT_ROWS, H, B);
+  const dim3 grid((Sq + FT_ROWS - 1) / FT_ROWS, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   kernel<<<grid, FT_THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, S, H, KVH, window,
-      scale_log2);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KVH,
+      window, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace idkd
 
-// bf16 q/o (B, S, H, D), k/v (B, S, KVH, D), contiguous, 16-byte aligned;
-// D in {64, 96, 128}; H % KVH == 0; window 0 = full causal; lse null, or
-// (B, H, S) f32 for the rows' log-sum-exp (training only). Returns
+// bf16 q/o (B, Sq, H, D), k/v (B, Sk, KVH, D), contiguous, 16-byte
+// aligned; D in {64, 96, 128}; H % KVH == 0; causal 1: Sk == Sq, window
+// 0 = full causal; causal 0: every key visible (window 0); lse null, or
+// (B, H, Sq) f32 for the rows' log-sum-exp (training only). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the kernel does not take or a tensor map the driver refuses).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
-                                         int B, int S, int H, int KVH, int D,
-                                         int window, void* stream) {
-  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0)
+                                         int B, int Sq, int Sk, int H,
+                                         int KVH, int D, int window,
+                                         int causal, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
+      (causal && Sk != Sq) || (!causal && window > 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const bool c = causal != 0;
   if (D == 64)
-    return (int)idkd::ft_launch<64>(q, k, v, o, static_cast<float*>(lse), B,
-                                    S, H, KVH, window, s);
+    return (int)idkd::ft_launch<64>(q, k, v, o, l, B, Sq, Sk, H, KVH,
+                                    window, c, s);
   if (D == 96)
-    return (int)idkd::ft_launch<96>(q, k, v, o, static_cast<float*>(lse), B,
-                                    S, H, KVH, window, s);
+    return (int)idkd::ft_launch<96>(q, k, v, o, l, B, Sq, Sk, H, KVH,
+                                    window, c, s);
   if (D == 128)
-    return (int)idkd::ft_launch<128>(q, k, v, o, static_cast<float*>(lse), B,
-                                     S, H, KVH, window, s);
+    return (int)idkd::ft_launch<128>(q, k, v, o, l, B, Sq, Sk, H, KVH,
+                                     window, c, s);
   return (int)cudaErrorInvalidValue;
 }

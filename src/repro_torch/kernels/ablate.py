@@ -19,6 +19,12 @@ within one machine:
 
     PYTHONPATH=<checkout>/src python src/repro_torch/kernels/ablate.py --forward
 
+``--flash`` times the tensor-core ``flash_attention`` kernels, forward
+as the round calls them (B 8, no log-sum-exp) and backward at the
+training batch (B 2), at the causal shapes the LM paths run (Hymba-1.5B
+global and windowed, Qwen3-1.7B, Phi-3-mini), through the same calls
+for whichever checkout is first on ``PYTHONPATH``, as ``--forward``.
+
 ``--backward`` splits the two backward calls at Hymba-1.5B's training
 shape into their kernels' device times (the profiler): the tensor-core
 attention backward's three and the SSD backward's four; and times
@@ -346,6 +352,35 @@ def forward_times(gen):
         f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
 
 
+def flash_times(gen):
+    """Device ms of the tc flash forward (B 8, no lse) and backward (B 2)
+    at the LM paths' causal shapes, in turns, through ``_launch`` and
+    ``_bwd_launch`` of the package on the path."""
+    import repro_torch
+    from repro_torch.kernels.flash_attention import ops
+    print(f"package: {repro_torch.__file__}")
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    for label, S, H, KVH, D, window in (
+            ("hymba-1.5b global", 2176, 25, 5, 64, 0),
+            ("hymba-1.5b window 1024", 2176, 25, 5, 64, 1024),
+            ("qwen3-1.7b", 2048, 16, 8, 128, 0),
+            ("phi3-mini-3.8b", 2048, 32, 32, 96, 0)):
+        q8, k8, v8 = bf16(8, S, H, D), bf16(8, S, KVH, D), bf16(8, S, KVH, D)
+        q, o, do = bf16(2, S, H, D), bf16(2, S, H, D), bf16(2, S, H, D)
+        k, v = bf16(2, S, KVH, D), bf16(2, S, KVH, D)
+        lse = 4 + torch.rand((2, H, S), generator=gen, device="cuda")
+        res = _in_turns({
+            "forward B 8": lambda: (ops._launch("tc", q8, k8, v8, window),
+                                    0)[1],
+            "backward B 2": lambda: (ops._bwd_launch(
+                "tc", q, k, v, o, lse, do, window), 0)[1]}, 20)
+        print(f"flash_attention tc {label}: " + "; ".join(
+            f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate: needs an NVIDIA GPU", file=sys.stderr)
@@ -360,6 +395,9 @@ def main() -> int:
         return 0
     if "--backward" in sys.argv[1:]:
         backward_passes(gen)
+        return 0
+    if "--flash" in sys.argv[1:]:
+        flash_times(gen)
         return 0
     ablate_msp(gen)
     ablate_ssd(gen)

@@ -1,12 +1,16 @@
-"""flash_attention: causal grouped-query attention with a sliding window.
+"""flash_attention: grouped-query attention, causal with a sliding window
+or bidirectional over a key set of its own length.
 
 Replaces the Pallas TPU kernel ``flash_attention_pallas`` (body
 ``_flash_kernel``) of ``src/repro/kernels/flash_attention/kernel.py``,
 and computes what the decoder's ``chunked_attention`` computes on its
-path: q (B, S, H, D), k/v (B, S, KVH, D), head h reading kv head
-h // (H // KVH); key kp is visible to row qp iff kp <= qp and, for
-``window`` > 0, qp - window < kp. f32 math, q scaled by 1/sqrt(D) first,
-output in q's dtype.
+path: q (B, Sq, H, D), k/v (B, Sk, KVH, D), head h reading kv head
+h // (H // KVH). Causal (the default, self-attention: Sk = Sq): key kp
+is visible to row qp iff kp <= qp and, for ``window`` > 0,
+qp - window < kp. ``causal=False`` (cross-attention, any Sk >= 1): every
+key kp < Sk is visible to every row; the reference would still apply a
+window one-sided there, a combination nothing calls, so it raises.
+f32 math, q scaled by 1/sqrt(D) first, output in q's dtype.
 
 Two CUDA kernels compute it, neither forming the (S, S) scores; their
 header notes give each design and what bounds it on the H100:
@@ -15,8 +19,9 @@ header notes give each design and what bounds it on the H100:
 second half TMA fills with zeros) and ``csrc/flash_attention.cu``
 (``simt``: f32, and bf16 at head_dim 32). :func:`_variant` picks one
 from dtype and head_dim alone; :func:`flash_attention` runs it on CUDA
-tensors and counts the launch in ``launches``, ``launches_by_variant``
-and ``launches_by_head_dim``, and
+tensors and counts the launch in ``launches``, ``launches_by_variant``,
+``launches_by_head_dim`` and ``launches_by_mode`` ({"causal", "cross"}
+× variant; "cross" counts every non-causal launch), and
 :func:`flash_attention_plain` — the reference's chunked online softmax in
 plain PyTorch — runs on CPU tensors only; a CUDA call that no kernel
 takes raises.
@@ -52,17 +57,42 @@ TC_BWD_TILE = 64       # the tc backward's key and query tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_plain(q, k, v, *, window: int = 0, chunk: int = 512):
+def _check_mode(Sq: int, Sk: int, causal: bool, window: int):
+    """Raise on a (causal, window, Sk) combination no kernel takes."""
+    if causal and Sk != Sq:
+        raise ValueError(f"flash_attention: causal attention takes k, v of "
+                         f"q's length ({Sq}), got {Sk}; cross-attention "
+                         f"is causal=False")
+    if not causal and window > 0:
+        raise ValueError("flash_attention: causal=False with a window is "
+                         "not ported (the reference would apply the window "
+                         "one-sided; nothing calls it)")
+
+
+def _allow(q_pos, k_pos, causal: bool, window: int):
+    """(len(q_pos), len(k_pos)) mask of the visible (row, key) pairs."""
+    if causal:
+        allow = k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            allow = allow & (q_pos[:, None] - k_pos[None, :] < window)
+        return allow
+    return torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
+                      device=q_pos.device)
+
+
+def flash_attention_plain(q, k, v, *, window: int = 0, causal: bool = True,
+                          chunk: int = 512):
     """The plain PyTorch version: ``chunked_attention``'s online softmax
     over ``chunk``-long key blocks, masked with -1e30 as the reference
     masks."""
     B, S, H, D = q.shape
-    KVH = k.shape[2]
+    Sk, KVH = k.shape[1], k.shape[2]
+    _check_mode(S, Sk, causal, window)
     G = H // KVH
     scale = 1.0 / torch.sqrt(torch.tensor(float(D)))
     qf = q.reshape(B, S, KVH, G, D).float() * scale
     q_pos = torch.arange(S, device=q.device)
-    n_chunks = -(-S // chunk)
+    n_chunks = -(-Sk // chunk)
     m = torch.full((B, S, KVH, G), NEG_INF, device=q.device)
     l = torch.zeros((B, S, KVH, G), device=q.device)
     acc = torch.zeros((B, S, KVH, G, v.shape[-1]), device=q.device)
@@ -70,9 +100,7 @@ def flash_attention_plain(q, k, v, *, window: int = 0, chunk: int = 512):
         kc = k[:, c * chunk:(c + 1) * chunk].float()
         vc = v[:, c * chunk:(c + 1) * chunk].float()
         k_pos = c * chunk + torch.arange(kc.shape[1], device=q.device)
-        allow = k_pos[None, :] <= q_pos[:, None]
-        if window > 0:
-            allow = allow & (q_pos[:, None] - k_pos[None, :] < window)
+        allow = _allow(q_pos, k_pos, causal, window)
         s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kc)
         s = torch.where(allow[None, :, None, None, :], s,
                         torch.tensor(NEG_INF, device=q.device))
@@ -102,10 +130,11 @@ def _variant(dtype, head_dim: int) -> str:
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
-                              chunk: int = 512, operands: str = "f32"):
+                              causal: bool = True, chunk: int = 512,
+                              operands: str = "f32"):
     """The plain PyTorch version of the backward pass, the explicit
     FlashAttention-2 formulas: D = rowsum(dO∘O); P = exp(Q·Kᵀ·scale −
-    lse) under the forward's causal / window mask; dV = Pᵀ·dO;
+    lse) under the forward's mask (causal / window, or none); dV = Pᵀ·dO;
     dS = P∘(dO·Vᵀ − D); dQ = dS·K·scale; dK = dSᵀ·Q·scale; dK and dV
     summed over each KV head's group. ``lse`` (B, H, S) f32 is the
     forward's row log-sum-exp of the scaled scores. Query rows run in
@@ -119,6 +148,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
                          f"{operands!r}")
     B, S, H, D = q.shape
     KVH = k.shape[2]
+    _check_mode(S, k.shape[1], causal, window)
     G = H // KVH
     wd = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = 1.0 / float(D) ** 0.5
@@ -128,14 +158,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
     delta = (do.to(wd) * o.to(wd)).sum(-1).reshape(B, S, KVH, G)
     lsef = lse.to(wd).permute(0, 2, 1).reshape(B, S, KVH, G)
     pos = torch.arange(S, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
     dq = torch.empty_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     for c0 in range(0, S, chunk):
-        rows = pos[c0:c0 + chunk]
-        allow = pos[None, :] <= rows[:, None]
-        if window > 0:
-            allow = allow & (rows[:, None] - pos[None, :] < window)
+        allow = _allow(pos[c0:c0 + chunk], k_pos, causal, window)
         s = torch.einsum("bqhgd,bkhd->bqhgk", qf[:, c0:c0 + chunk], kf)
         p = torch.exp(s * scale - lsef[:, c0:c0 + chunk, ..., None])
         p = torch.where(allow[None, :, None, None, :], p, 0.0)
@@ -157,32 +185,46 @@ def _fn(variant: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if variant == "tc":
         fn = build.load("flash_attention_tc").flash_attention_tc_launch
-        args = [p, p, p, p, p, i, i, i, i, i, i, p]
+        args = [p] * 5 + [i] * 8 + [p]
     elif variant == "bwd_simt":
         fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-        args = [i] + [p] * 10 + [i] * 6 + [p]
+        args = [i] + [p] * 10 + [i] * 8 + [p]
     elif variant == "bwd_tc":
         fn = build.load("flash_attention_bwd_tc").flash_attention_bwd_tc_launch
-        args = [p] * 13 + [i] * 6 + [p]
+        args = [p] * 13 + [i] * 8 + [p]
     else:
         fn = build.load("flash_attention").flash_attention_launch
-        args = [i, p, p, p, p, p, i, i, i, i, i, i, p]
+        args = [i] + [p] * 5 + [i] * 8 + [p]
     if fn.argtypes is None:
         fn.argtypes = args
         fn.restype = i
     return fn
 
 
-def _launch(variant: str, q, k, v, window: int, lse=None):
-    """Run one forward kernel on checked CUDA tensors and count the
-    launch; ``lse`` (B, H, S) f32, when given, receives the rows'
-    log-sum-exp (training only)."""
+def _shape(q, k, window: int, causal: bool, stream):
+    """The kernels' trailing integer arguments and stream."""
     B, S, H, D = q.shape
+    return (B, S, k.shape[1], H, k.shape[2], D, int(window), int(causal),
+            stream)
+
+
+def _count(fn, variant: str, D: int, causal: bool):
+    fn.launches += 1
+    fn.launches_by_variant[variant] += 1
+    fn.launches_by_head_dim[D] += 1
+    fn.launches_by_mode["causal" if causal else "cross"][variant] += 1
+
+
+def _launch(variant: str, q, k, v, window: int, causal: bool = True,
+            lse=None):
+    """Run one forward kernel on checked CUDA tensors and count the
+    launch; ``lse`` (B, H, Sq) f32, when given, receives the rows'
+    log-sum-exp (training only)."""
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
-    shape = (B, S, H, k.shape[2], D, int(window), stream)
+    shape = _shape(q, k, window, causal, stream)
     with torch.cuda.device(q.device):
         if variant == "tc":
             rc = _fn("tc")(*ptrs, *shape)
@@ -191,20 +233,19 @@ def _launch(variant: str, q, k, v, window: int, lse=None):
     if rc != 0:
         raise RuntimeError(f"flash_attention {variant} kernel launch "
                            f"failed: CUDA error {rc}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_variant[variant] += 1
-    flash_attention.launches_by_head_dim[D] += 1
+    _count(flash_attention, variant, q.shape[-1], causal)
     return out
 
 
-def _check(q, k, v):
+def _check(q, k, v, *, causal: bool = True, window: int = 0):
     """Raise on what the CUDA kernels do not take; returns the variant."""
     B, S, H, D = q.shape
-    KVH = k.shape[2]
-    if k.shape != (B, S, KVH, D) or v.shape != k.shape:
+    Sk, KVH = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, KVH, D) or v.shape != k.shape or Sk < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: the kernel "
-                         f"takes self-attention with k, v (B, S, KVH, D)")
+                         f"takes k, v (B, Sk, KVH, D) with Sk >= 1")
+    _check_mode(S, Sk, causal, window)
     if KVH < 1 or H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} kv heads")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -221,16 +262,18 @@ def _check(q, k, v):
     return variant
 
 
-def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int):
+def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int,
+                causal: bool = True):
     """Run one backward call of the given variant on checked CUDA
     tensors and count it (each variant issues three kernels a call).
     ``tc`` sums dK and dV over the group's heads from f32 per-query-head
     partials and dQ in an f32 accumulator that the key tiles add into
     (so dQ's summation order varies between runs; dK and dV do not)."""
     B, S, H, D = q.shape
+    Sk = k.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape = (B, S, H, k.shape[2], D, int(window), stream)
+    shape = _shape(q, k, window, causal, stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
@@ -239,8 +282,8 @@ def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int):
             dev = q.device
             ld = torch.empty((B, H, sp, 2), device=dev)
             dq_acc = torch.empty((B, H, sp, D), device=dev)
-            dk_part = torch.empty((B, S, H, D), device=dev)
-            dv_part = torch.empty((B, S, H, D), device=dev)
+            dk_part = torch.empty((B, Sk, H, D), device=dev)
+            dv_part = torch.empty((B, Sk, H, D), device=dev)
             rc = _fn("bwd_tc")(*ptrs, ld.data_ptr(), dq_acc.data_ptr(),
                                dk_part.data_ptr(), dv_part.data_ptr(),
                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -253,16 +296,15 @@ def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int):
     if rc != 0:
         raise RuntimeError(f"flash_attention backward {variant} kernel "
                            f"launch failed: CUDA error {rc}")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.launches_by_variant[variant] += 1
-    flash_attention_bwd.launches_by_head_dim[D] += 1
+    _count(flash_attention_bwd, variant, D, causal)
     return dq, dk, dv
 
 
-def _bwd_check(q, k, v, o, lse, do):
+def _bwd_check(q, k, v, o, lse, do, *, causal: bool = True,
+               window: int = 0):
     """Raise on what the backward kernels do not take; returns the
     variant, the forward's (:func:`_variant`)."""
-    variant = _check(q, k, v)
+    variant = _check(q, k, v, causal=causal, window=window)
     B, S, H, D = q.shape
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype \
@@ -281,26 +323,33 @@ def _bwd_check(q, k, v, o, lse, do):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
-                        chunk: int = 512):
+                        causal: bool = True, chunk: int = 512):
     """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
-    rows' log-sum-exp ``lse`` (B, H, S) f32 and dO: on CUDA tensors the
+    rows' log-sum-exp ``lse`` (B, H, Sq) f32 and dO: on CUDA tensors the
     kernels of the forward's variant (``csrc/flash_attention_bwd_tc.cu``
     for bf16 at head_dim 64/96/128, ``csrc/flash_attention_bwd.cu``
     otherwise; one launch counted per call), on CPU tensors
     :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
-                                         chunk=chunk)
+                                         causal=causal, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    return _bwd_launch(_bwd_check(q, k, v, o, lse, do), q, k, v, o, lse, do,
-                       window)
+    variant = _bwd_check(q, k, v, o, lse, do, causal=causal, window=window)
+    return _bwd_launch(variant, q, k, v, o, lse, do, window, causal)
 
 
-flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_variant = {"tc": 0, "simt": 0}
-flash_attention_bwd.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+def _zero_counts(fn):
+    """Set a kernel entry's launch counters to zero."""
+    fn.launches = 0
+    fn.launches_by_variant = {"tc": 0, "simt": 0}
+    fn.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+    fn.launches_by_mode = {m: {"tc": 0, "simt": 0}
+                           for m in ("causal", "cross")}
+
+
+_zero_counts(flash_attention_bwd)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -310,39 +359,43 @@ class FlashAttentionFn(torch.autograd.Function):
     kernels through :func:`flash_attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int):
+    def forward(ctx, q, k, v, window: int, causal: bool = True):
         B, S, H, _ = q.shape
         lse = torch.empty((B, H, S), device=q.device)
-        out = _launch(_variant(q.dtype, q.shape[-1]), q, k, v, window, lse)
+        out = _launch(_variant(q.dtype, q.shape[-1]), q, k, v, window,
+                      causal, lse)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
+        ctx.window, ctx.causal = window, causal
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         window=ctx.window)
-        return dq, dk, dv, None
+                                         window=ctx.window,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, window: int = 0, chunk: int = 512):
-    """Causal GQA attention with a per-layer ``window`` (0 = full).
-    ``chunk`` is the plain version's key block; the kernels tile keys by
-    64 (``simt``) or 128 (``tc``). With grad enabled and an input that
-    requires grad the call goes through :class:`FlashAttentionFn`; under
-    ``torch.no_grad`` no log-sum-exp is written."""
+def flash_attention(q, k, v, *, window: int = 0, causal: bool = True,
+                    chunk: int = 512):
+    """GQA attention: causal with a per-layer ``window`` (0 = full), or
+    with ``causal=False`` every key of k, v (B, Sk, KVH, D) visible to
+    every row (cross-attention). ``chunk`` is the plain version's key
+    block; the kernels tile keys by 64 (``simt``) or 128 (``tc``). With
+    grad enabled and an input that requires grad the call goes through
+    :class:`FlashAttentionFn`; under ``torch.no_grad`` no log-sum-exp is
+    written."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window, chunk=chunk)
+        return flash_attention_plain(q, k, v, window=window, causal=causal,
+                                     chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    variant = _check(q, k, v)
+    variant = _check(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, int(window))
-    return _launch(variant, q, k, v, window)
+        return FlashAttentionFn.apply(q, k, v, int(window), bool(causal))
+    return _launch(variant, q, k, v, window, causal)
 
 
-flash_attention.launches = 0
-flash_attention.launches_by_variant = {"tc": 0, "simt": 0}
-flash_attention.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+_zero_counts(flash_attention)

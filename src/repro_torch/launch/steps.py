@@ -31,7 +31,9 @@ def make_train_step(model, tcfg: TrainConfig, num_nodes: int,
                     wire_dtype: str = "native", device="cuda") -> Callable:
     """The decentralized LM train step on ``tcfg.topology``:
     ``train_step(params, opt_state, batch, lr) -> (params, opt_state,
-    {"loss": loss})`` on node-stacked params and (n, B, S) batches, with
+    {"loss": loss})`` on node-stacked params and (n, B, S) batches —
+    (n, B, S, K) tokens and labels and an (n, B, Sk, d) ``conditioning``
+    for MusicGen, which ride along to ``model.loss`` — with
     ``train_step.init_opt``. QG-DSGDm-N updates params and momentum in
     place (the returned dicts hold the tensors passed in)."""
     algo = make_algorithm(tcfg.algorithm, momentum=tcfg.momentum,

@@ -89,6 +89,20 @@ def _tokens(x, device):
                            device=device).long()
 
 
+def _refuse_codebooks(cfg: ModelConfig):
+    """The reference has no LM data or round path for multi-codebook
+    tokens: its ``run_training`` makes (n, S) token sequences and its
+    round sends such models to a one-shot path that passes 2-D tokens
+    and no conditioning."""
+    if cfg.num_codebooks > 1:
+        raise ValueError(
+            f"{cfg.name}: {cfg.num_codebooks} codebooks; the reference has "
+            "no LM data or round path for multi-codebook tokens "
+            "(src/repro/launch/train.py:123-125 sends them to a one-shot "
+            "round that cannot run them); train them with "
+            "launch.steps.make_train_step (lmpath.train_steps)")
+
+
 @torch.no_grad()
 def idkd_label_round(model, params_stacked, public_tokens, private_tokens,
                      idkd_cfg: IDKDConfig, topology: Topology,
@@ -101,6 +115,7 @@ def idkd_label_round(model, params_stacked, public_tokens, private_tokens,
     round streams the public corpus in ``stream_microbatch`` sequences
     through ``labeling.streaming_label_round``; otherwise it forms the
     node logits and runs ``labeling.label_round``."""
+    _refuse_codebooks(model.cfg)
     if mesh is not None:
         raise NotImplementedError("idkd_label_round: sharded rounds "
                                   "(mesh=) are ROADMAP.md queue 1 item 13")
@@ -225,6 +240,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     node in a KD step, is the reference's ``min(4, n_public)`` when None;
     a full-width run sets it lower where that many vocabulary-wide
     logits would not fit the card (``lmpath.QWEN3_PUB_BATCH``)."""
+    _refuse_codebooks(cfg)
     if driver_mode == "scan":
         raise NotImplementedError(
             "driver_mode='scan' (the lax.scan runner; on the card, CUDA-"

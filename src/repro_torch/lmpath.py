@@ -1,8 +1,9 @@
 """The LM slice's paths at full width, as ``chip_smoke.py`` drives them:
 one homogenization round (``launch.train.idkd_label_round``) of
-Hymba-1.5B nodes on a ring (:func:`setup`), and decentralized training
+Hymba-1.5B nodes on a ring (:func:`setup`), decentralized training
 with IDKD (``launch.train.run_training``) of the same nodes
-(:func:`train`).
+(:func:`train`), and MusicGen-medium's decentralized train step
+(``launch.steps.make_train_step``, :func:`train_steps`).
 
 * Model: Hymba-1.5B as configured (32 layers, d_model 1600, 25 heads /
   5 KV heads × 64, d_ff 5504, SSM 50 heads × 64 with state 16 and chunk
@@ -48,12 +49,31 @@ with IDKD (``launch.train.run_training``) of the same nodes
     4 public sequences: 2 × 3.82 B × 6 B ≈ 46 GB of state (4 nodes
     would need over 90 GB). Its attention runs the head_dim-96 kernels.
 
-``setup`` and ``train`` take the same arguments at any size, so the CPU
-tests drive this module with a reduced config.
+* :data:`MUSICGEN_TRAIN`: MusicGen-medium (``musicgen-medium``: 48
+  layers, d_model 1536, 24/24 heads × 64, d_ff 6144, GELU, LayerNorm,
+  4 codebooks × 2048 tokens with untied per-codebook heads, a
+  cross-attention block per layer over 64 conditioning vectors; bf16;
+  1.837 B parameters as the port's ``init`` makes them, 1.375 B by the
+  reference's ``param_count()``, which counts no cross-attention and
+  one table per extra codebook) on 4 ring nodes, QG-DSGDm-N at
+  :data:`TRAIN`'s lr, 2 sequences per node of :data:`MUSICGEN_SEQ_LEN`
+  = 1500 frames (MusicGen's 30-second training crops at EnCodec's 50 Hz,
+  arXiv:2306.05284), every layer recomputed. The reference's
+  ``run_training`` and round have no path for multi-codebook tokens, so
+  :func:`train_steps` runs ``make_train_step`` on random batches in
+  ``launch.input_specs.train_specs``' layout. Params, grads and
+  momentum take 4 × 1.837 B × 6 B ≈ 44 GB (QG-DSGDm-N updates in place);
+  the layer inputs that per-layer recompute saves 4 nodes × 48 layers ×
+  2 × 1500 × 1536 × 2 B ≈ 1.8 GB; the f32 logits (2, 1500, 4, 2048)
+  0.1 GB a node: a peak of ~45–50 GB.
+
+``setup``, ``train`` and ``train_steps`` take the same arguments at any
+size, so the CPU tests drive this module with a reduced config.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, Sequence
 
@@ -65,6 +85,9 @@ from repro_torch.configs.base import IDKDConfig, ModelConfig, TrainConfig
 from repro_torch.core.topology import Topology
 from repro_torch.data.dirichlet import dirichlet_partition
 from repro_torch.data.synthetic import make_lm_data
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import (idkd_label_round, private_sequences,
                                       run_training)
 from repro_torch.models.transformer import DecoderModel
@@ -87,6 +110,8 @@ TRAIN = TrainConfig(algorithm="qg-dsgdm-n", topology="ring",
 QWEN3_TRAIN = dataclasses.replace(TRAIN, batch_size=1)
 QWEN3_PUB_BATCH = 2
 PHI3_TRAIN = dataclasses.replace(TRAIN, num_nodes=2)
+MUSICGEN_TRAIN = dataclasses.replace(TRAIN, steps=3, idkd=None)
+MUSICGEN_SEQ_LEN = 1500
 
 
 @dataclass
@@ -153,3 +178,78 @@ def train(cfg: ModelConfig = CONFIG, tcfg: TrainConfig = TRAIN, *,
                         n_public=n_public, log_every=1, use_idkd=True,
                         verbose=verbose, driver_mode="host", device=device,
                         pub_batch=pub_batch)
+
+
+def train_batch(cfg: ModelConfig, num_nodes: int, batch_size: int,
+                seq_len: int, gen: torch.Generator):
+    """One node-stacked batch in ``train_specs``' layout, drawn on
+    ``gen``'s device: token streams seq_len + 1 long, tokens = [:S] and
+    labels = [1:] ((n, B, S, K) with K codebooks, else (n, B, S)); for
+    a cross-attention model, conditioning (n, B, cross_attn_len, d)
+    from N(0, 1) in ``cfg.dtype``."""
+    K = cfg.num_codebooks
+    shape = (num_nodes, batch_size, seq_len + 1) + ((K,) if K > 1 else ())
+    seq = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                        device=gen.device)
+    batch = {"tokens": seq[:, :, :-1], "labels": seq[:, :, 1:]}
+    if cfg.cross_attention:
+        batch["conditioning"] = torch.randn(
+            (num_nodes, batch_size, cfg.cross_attn_len, cfg.d_model),
+            generator=gen, device=gen.device).to(getattr(torch, cfg.dtype))
+    return batch
+
+
+def _flash_counts():
+    return {f.__name__: {m: dict(v) for m, v in f.launches_by_mode.items()}
+            for f in (flash_attention, flash_attention_bwd)}
+
+
+def train_steps(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int,
+                steps: int, device="cuda"):
+    """``steps`` steps of ``launch.steps.make_train_step`` (``tcfg``'s
+    algorithm, topology, nodes and lr; ``tcfg.batch_size`` sequences per
+    node) from nodes all initialised from ``tcfg.seed``, on batches from
+    :func:`train_batch` (a generator on the device seeded from
+    ``tcfg.seed``). Returns the final params, each step's loss, wall
+    seconds (ended by a synchronize on the card) and flash launches by
+    kernel, mode and variant, a fingerprint of how many (leaf, node)
+    pairs the run changed, and the peak device memory in GiB (None on
+    the CPU)."""
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    n = tcfg.num_nodes
+    model = DecoderModel(cfg)
+    params = node_params(model, [tcfg.seed] * n, device)
+
+    def fingerprint():
+        return {k: v.reshape(n, -1).sum(1, dtype=torch.float32)
+                for k, v in params.items()}
+    before = fingerprint()
+    step = make_train_step(model, tcfg, n, device=device)
+    opt = step.init_opt(params)
+    gen = torch.Generator(device=device).manual_seed(tcfg.seed)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    out = []
+    for _ in range(steps):
+        batch = train_batch(cfg, n, tcfg.batch_size, seq_len, gen)
+        counts = _flash_counts()
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch, tcfg.lr)
+        loss = float(metrics["loss"])
+        if cuda:
+            torch.cuda.synchronize(device)
+        after = _flash_counts()
+        out.append(dict(loss=loss, s=time.perf_counter() - t0, launches={
+            name: {m: {v: after[name][m][v] - c for v, c in by.items()}
+                   for m, by in modes.items()}
+            for name, modes in counts.items()}))
+        del batch
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda \
+        else None
+    moved = sum(int((a != before[k]).sum())
+                for k, a in fingerprint().items())
+    return dict(params=params, steps=out, moved=moved,
+                pairs=n * len(params), peak_gib=peak)

@@ -1,14 +1,16 @@
-"""Decoder self-attention: GQA with RoPE, qk-norm, qkv-bias and a per-layer
-sliding window (``src/repro/models/attention.py``).
+"""Decoder attention: GQA with RoPE, qk-norm, qkv-bias and a per-layer
+sliding window, and cross-attention to a conditioning sequence
+(MusicGen's) (``src/repro/models/attention.py``).
 
 :func:`chunked_attention` is the reference's entry point; on the ported
-path (causal self-attention from position 0, optionally windowed) it is
-the ``flash_attention`` kernel on the card — through ``FlashAttentionFn``
+path (causal self-attention from position 0, optionally windowed, and
+non-causal attention over a key set of any length) it is the
+``flash_attention`` kernel on the card — through ``FlashAttentionFn``
 when gradients are wanted, whose backward is the hand-written backward
 kernel — and the kernel's plain version — the reference's chunked online
-softmax, differentiated by autograd — on the CPU. Prefix-LM
-masks, cross-attention and MLA (ROADMAP.md item 10c), ``kv_valid_len``
-and KV-cache decode (item 10b) are not ported and raise.
+softmax, differentiated by autograd — on the CPU. Prefix-LM masks and
+MLA (ROADMAP.md item 10c), ``q_offset``, ``kv_valid_len`` and KV-cache
+decode (item 10b) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -22,15 +24,19 @@ from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
 def chunked_attention(q, k, v, *, q_offset=0, causal=True, window=0,
                       prefix_len: int = 0, kv_valid_len=None,
                       chunk: int = 512):
-    """q (B, S, H, D), k/v (B, S, KVH, D) -> (B, S, H, D) in q's dtype."""
-    if not causal or q_offset or prefix_len or kv_valid_len is not None \
-            or k.shape[1] != q.shape[1]:
+    """q (B, Sq, H, D), k/v (B, Sk, KVH, D) -> (B, Sq, H, D) in q's dtype:
+    causal self-attention (Sk = Sq) or, with ``causal=False``, every key
+    visible (cross-attention)."""
+    if prefix_len:
         raise NotImplementedError(
-            "chunked_attention: only causal self-attention from position 0 "
-            "is ported (prefix-LM and cross-attention are ROADMAP.md item "
-            "10c; kv_valid_len and decode item 10b)")
+            "chunked_attention: the prefix-LM mask (PaliGemma) is not "
+            "ported (ROADMAP.md item 10c)")
+    if q_offset or kv_valid_len is not None:
+        raise NotImplementedError(
+            "chunked_attention: q_offset and kv_valid_len (decode) are not "
+            "ported (ROADMAP.md item 10b)")
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           window=int(window), chunk=chunk)
+                           window=int(window), causal=causal, chunk=chunk)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -83,4 +89,22 @@ def attention_forward(params, x, cfg: ModelConfig, *, positions=None,
     out = chunked_attention(q, k, v, causal=True, window=window,
                             prefix_len=cfg.prefix_lm_prefix,
                             chunk=min(cfg.attn_chunk, S))
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
+    return init_attention(gen, cfg, dtype)
+
+
+def cross_attention_forward(params, x, memory, cfg: ModelConfig):
+    """Non-causal attention of x (B, S, d) over ``memory`` (B, Sk, d):
+    q from x, k and v from memory, no RoPE, as the reference's."""
+    B, S, _ = x.shape
+    Sk = memory.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (memory @ params["wk"]).reshape(B, Sk, cfg.num_kv_heads, hd)
+    v = (memory @ params["wv"]).reshape(B, Sk, cfg.num_kv_heads, hd)
+    out = chunked_attention(q, k, v, causal=False,
+                            chunk=min(cfg.attn_chunk, Sk))
     return out.reshape(B, S, -1) @ params["wo"]

@@ -7,9 +7,10 @@ layer leaves carry the reference's leading layer axis. :meth:`init`
 makes one node's params; node-stacked params (a leading node axis on
 every leaf, as the port's ResNet has) are what :meth:`forward_features`,
 :meth:`logits`, :meth:`forward` and :meth:`head_params` take, with
-tokens (L, B, S). The trunk loops over nodes and layers in Python: the
-kernels launch through ctypes, which ``torch.func.vmap`` cannot batch.
-Node and layer slices are taken with ``torch.unbind``, so autograd
+tokens (L, B, S), or (L, B, S, K) for K codebooks, and, for a
+cross-attention model, ``batch["conditioning"]`` (L, B, Sk, d). The
+trunk loops over nodes and layers in Python: the kernels launch through
+ctypes, which ``torch.func.vmap`` cannot batch. Node and layer slices are taken with ``torch.unbind``, so autograd
 stacks a leaf's gradient once instead of adding one zero-filled copy
 of the whole stacked leaf per slice. With grad enabled, ``cfg.remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
@@ -18,9 +19,10 @@ next-token loss of every node.
 
 Ported: dense and hybrid stacks — attention, SSM and Hymba's parallel
 attention ∥ SSM heads with branch norms, per-layer sliding windows,
-meta tokens. MoE, MLA, multiple codebooks, VLM patches, cross-attention,
-multi-token prediction (ROADMAP.md item 10c) and decode (item 10b)
-raise ``NotImplementedError``.
+meta tokens — and MusicGen's: summed codebook embeddings, per-codebook
+heads and a cross-attention block per layer over the conditioning. MoE,
+MLA, VLM patches, multi-token prediction (ROADMAP.md item 10c) and
+decode (item 10b) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,6 +68,9 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
                                                device=dev)
             p["ssm_branch_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                               device=dev)
+    if cfg.cross_attention:
+        p["ln_cross"] = init_norm(cfg, cfg.d_model, dtype, dev)
+        p["cross"] = attn.init_cross_attention(gen, cfg, dtype)
     if cfg.d_ff:
         p["ln2"] = init_norm(cfg, cfg.d_model, dtype, dev)
         p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
@@ -86,9 +91,16 @@ def _mix_forward(p: Params, h, cfg: ModelConfig, window: int):
                                   layer_window=window)
 
 
-def _layer_forward(p: Params, x, cfg: ModelConfig, window: int):
+def _layer_forward(p: Params, x, cfg: ModelConfig, window: int,
+                   memory=None):
+    """One layer; the cross-attention block runs only with a ``memory``
+    (a batch without conditioning skips it, as the reference's)."""
     h = apply_norm(sub(p, "ln1/"), x, cfg)
     x = x + _mix_forward(p, h, cfg, window)
+    if memory is not None:
+        h = apply_norm(sub(p, "ln_cross/"), x, cfg)
+        x = x + attn.cross_attention_forward(sub(p, "cross/"), h, memory,
+                                             cfg)
     if "ln2/scale" in p:
         h = apply_norm(sub(p, "ln2/"), x, cfg)
         x = x + apply_mlp(sub(p, "mlp/"), h, cfg)
@@ -123,9 +135,7 @@ class DecoderModel:
     def __init__(self, cfg: ModelConfig):
         missing = [name for name, on in (
             ("MoE", cfg.moe.enabled), ("MLA", cfg.mla.enabled),
-            ("multiple codebooks", cfg.num_codebooks > 1),
             ("VLM patches", cfg.arch_type == "vlm"),
-            ("cross-attention", cfg.cross_attention),
             ("multi-token prediction", cfg.mtp_depth > 0)) if on]
         if missing:
             raise NotImplementedError(
@@ -153,10 +163,15 @@ class DecoderModel:
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        p: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                         dtype)}
-        if not cfg.tie_embeddings:
-            p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+        V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
+        p: Params = {"embed": embed_init(gen, V, d, dtype)}
+        if K > 1:                           # (K - 1, V, d), stacked
+            p["embed_cb"] = torch.stack([embed_init(gen, V, d, dtype)
+                                         for _ in range(K - 1)])
+        if not cfg.tie_embeddings:          # (K, d, V) for K codebooks
+            p["head"] = torch.stack([dense_init(gen, d, V, dtype)
+                                     for _ in range(K)]) if K > 1 else \
+                dense_init(gen, d, V, dtype)
         if cfg.num_prefix_tokens and cfg.arch_type == "hybrid":
             p["meta_tokens"] = normal_init(
                 gen, (cfg.num_prefix_tokens, cfg.d_model), 0.02, dtype)
@@ -169,11 +184,17 @@ class DecoderModel:
         return p
 
     # -- one node -------------------------------------------------------
-    def _hidden_one(self, p: Params, tokens):
+    def _hidden_one(self, p: Params, tokens, memory=None):
         """One node's post-stack, post-final-norm hidden states (B, S, d)
-        with the meta tokens stripped."""
+        with the meta tokens stripped; ``memory`` (B, Sk, d), the
+        conditioning that every layer's cross-attention reads."""
         cfg = self.cfg
-        h = p["embed"][tokens]
+        if cfg.num_codebooks > 1:           # tokens (B, S, K): summed
+            h = p["embed"][tokens[..., 0]]
+            for i, table in enumerate(torch.unbind(p["embed_cb"])):
+                h = h + table[tokens[..., i + 1]]
+        else:
+            h = p["embed"][tokens]
         n_prefix = 0
         if cfg.arch_type == "hybrid" and cfg.num_prefix_tokens:
             meta = p["meta_tokens"][None].expand(
@@ -185,51 +206,71 @@ class DecoderModel:
         for li, window in enumerate(self.layer_windows()):
             lp = {k: v[li] for k, v in layers.items()}
             if remat:
-                h = checkpoint(_layer_forward, lp, h, cfg, window,
+                h = checkpoint(_layer_forward, lp, h, cfg, window, memory,
                                use_reentrant=False)
             else:
-                h = _layer_forward(lp, h, cfg, window)
+                h = _layer_forward(lp, h, cfg, window, memory)
         h = apply_norm(sub(p, "ln_f/"), h, cfg)
         return h[:, n_prefix:] if n_prefix else h
 
     # -- node-stacked ---------------------------------------------------
     def forward_features(self, params: Params, batch):
         """Pre-head activations (L, B, S, d) of every node on its tokens
-        (L, B, S); returns (h, aux) with aux 0 (no MoE)."""
+        (L, B, S[, K]) and, for a cross-attention model, its
+        ``batch["conditioning"]`` (L, B, Sk, d), cast to the params'
+        dtype; returns (h, aux) with aux 0 (no MoE)."""
         tokens = torch.as_tensor(batch[self.input_key])
-        dev = next(iter(params.values())).device
+        dev = params["embed"].device
         tokens = tokens.to(device=dev, dtype=torch.long)
+        memory = batch.get("conditioning") if self.cfg.cross_attention \
+            else None
+        if memory is not None:
+            memory = torch.as_tensor(memory).to(device=dev,
+                                                dtype=params["embed"].dtype)
         nodes = {k: torch.unbind(v) for k, v in params.items()}
-        h = torch.stack([self._hidden_one({k: v[i] for k, v in
-                                           nodes.items()}, tokens[i])
-                         for i in range(tokens.shape[0])])
+        h = torch.stack([self._hidden_one(
+            {k: v[i] for k, v in nodes.items()}, tokens[i],
+            None if memory is None else memory[i])
+            for i in range(tokens.shape[0])])
         return h, torch.zeros((), device=dev)
 
     def head_params(self, params: Params):
         """(unembedding (L, d, V), bias None) — the matrix head_select
-        tiles over the vocabulary."""
+        tiles over the vocabulary. Multi-codebook heads (MusicGen) have
+        no single one and raise, as the reference's."""
+        if self.cfg.num_codebooks > 1:
+            raise ValueError("streaming head-select supports a single "
+                             "unembedding head; num_codebooks > 1 uses "
+                             "the one-shot labeling path")
         if self.cfg.tie_embeddings:
             return params["embed"].transpose(-1, -2), None
         return params["head"], None
 
     def logits(self, params: Params, h):
-        """h (L, ..., d) -> logits (L, ..., V)."""
-        w = self.head_params(params)[0]
-        lead = h.shape[1:-1]
-        out = torch.bmm(h.reshape(h.shape[0], -1, h.shape[-1]), w)
-        return out.reshape((h.shape[0],) + lead + (w.shape[-1],))
+        """h (L, ..., d) -> logits (L, ..., V), or (L, ..., K, V) through
+        K untied codebook heads (the reference's ``"...d,kdv->...kv"``)."""
+        cfg = self.cfg
+        lead = (h.shape[0],) + h.shape[1:-1]
+        flat = h.reshape(h.shape[0], -1, h.shape[-1])
+        if cfg.num_codebooks > 1 and not cfg.tie_embeddings:
+            w = params["head"]                               # (L, K, d, V)
+            out = torch.einsum("lnd,lkdv->lnkv", flat, w)
+            return out.reshape(lead + (w.shape[1], w.shape[3]))
+        w = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
+            else params["head"]
+        return torch.bmm(flat, w).reshape(lead + (w.shape[-1],))
 
     def forward(self, params: Params, batch):
-        """(logits (L, B, S, V), aux)."""
+        """(logits (L, B, S[, K], V), aux)."""
         h, aux = self.forward_features(params, batch)
         return self.logits(params, h), aux
 
     def loss(self, params: Params, batch):
         """Next-token loss of every node: ``(loss (L,), metrics)``, the
         f32 log-sum-exp of the logits minus the gold logit, averaged over
-        ``batch["loss_mask"]`` (all positions when absent), as the
-        reference's ``loss``. MTP and MoE terms are not ported (the
-        constructor refuses those configs)."""
+        ``batch["loss_mask"]`` (all positions when absent; over (B, S, K)
+        with K codebooks), as the reference's ``loss``. MTP and MoE terms
+        are not ported (the constructor refuses those configs)."""
         h, aux = self.forward_features(params, batch)
         logits = self.logits(params, h).float()
         labels = torch.as_tensor(batch["labels"]).to(device=logits.device,

@@ -313,10 +313,10 @@ def _max_err(a, r):
     return float((a.float() - r.float()).abs().max())
 
 
-def _sdpa_bwd_grads(q, k, v, do, window):
+def _sdpa_bwd_grads(q, k, v, do, window, causal=True):
     """(dq, dk, dv) of scaled_dot_product_attention (enable_gqa, the same
-    causal / window mask) on the same inputs, in their (B, S, h, D)
-    layout: the yardstick of the tc backward's rules."""
+    causal / window mask, or none) on the same inputs, in their
+    (B, S, h, D) layout: the yardstick of the tc backward's rules."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
@@ -327,7 +327,7 @@ def _sdpa_bwd_grads(q, k, v, do, window):
         mask = ((pos[None, :] <= pos[:, None])
                 & (pos[:, None] - pos[None, :] < window))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                         is_causal=not window,
+                                         is_causal=causal and not window,
                                          enable_gqa=True)
     grads = torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
     return [g.transpose(1, 2) for g in grads]
@@ -369,49 +369,61 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
     into an f32 sum in the order they run; it is rounded to bf16 once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    _check_bwd(dtype, 2 if S < 2176 else 1, S, S, H, KVH, D, window, True)
+
+
+def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal):
+    """The body of the backward tests: causal (Sk = S) or not, by the
+    rules test_cuda_flash_attention_bwd_matches_plain states."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.flash_attention.ops import _variant
     g = torch.Generator(device="cuda").manual_seed(3)
     dt = getattr(torch, dtype)
     variant = _variant(dt, D)
-    B = 2 if S < 2176 else 1
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
-    k = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
-    v = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
     do = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
     n_var = flash_attention_bwd.launches_by_variant[variant]
-    out = flash_attention(qr, kr, vr, window=window)
+    mode = "causal" if causal else "cross"
+    n_mode = flash_attention_bwd.launches_by_mode[mode][variant]
+    out = flash_attention(qr, kr, vr, window=window, causal=causal)
     assert out.grad_fn is not None and out.dtype == dt
     out.backward(do)
     assert flash_attention.launches == n_fwd + 1
     assert flash_attention_bwd.launches == n_bwd + 1
     assert flash_attention_bwd.launches_by_variant[variant] == n_var + 1
+    assert flash_attention_bwd.launches_by_mode[mode][variant] == n_mode + 1
     # the forward's lse against the plain log-sum-exp
     G = H // KVH
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.float().repeat_interleave(G, 2)) / math.sqrt(D)
-    pos = torch.arange(S, device="cuda")
-    allow = pos[None, :] <= pos[:, None]
-    if window:
-        allow &= pos[:, None] - pos[None, :] < window
-    lse_ref = torch.logsumexp(s.masked_fill(~allow, -1e30), -1)
+    if causal:
+        pos = torch.arange(S, device="cuda")
+        allow = pos[None, :] <= pos[:, None]
+        if window:
+            allow &= pos[:, None] - pos[None, :] < window
+        s = s.masked_fill(~allow, -1e30)
+    lse_ref = torch.logsumexp(s, -1)
     del s
-    _, _, _, o, lse = (x.detach() for x in _saved_lse(q, k, v, window))
+    _, _, _, o, lse = (x.detach() for x in _saved_lse(q, k, v, window,
+                                                      causal))
     assert torch.equal(o, out.detach())
     assert float((lse - lse_ref).abs().max()) <= 1e-5 * max(
         1.0, float(lse_ref.abs().max()))
-    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
-    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    kw = dict(window=window, causal=causal)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     if variant == "tc":
-        ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
+        ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw,
                                           operands="bf16")
         moved = [flash_attention_bwd_plain(
             q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
-            window=window, operands="bf16") for to in (math.inf, -math.inf)]
-        lib = _sdpa_bwd_grads(q, k, v, do, window)
+            **kw, operands="bf16") for to in (math.inf, -math.inf)]
+        lib = _sdpa_bwd_grads(q, k, v, do, window, causal)
     for i, (name, a, r, viaf) in enumerate(zip("qkv", got, ref,
                                                (qr, kr, vr))):
         assert a.dtype == dt and bool(torch.isfinite(a).all()), name
@@ -435,12 +447,63 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
             assert torch.equal(viaf.grad, a), name
 
 
-def _saved_lse(q, k, v, window):
+def _saved_lse(q, k, v, window, causal=True):
     """The tensors FlashAttentionFn saves for its backward."""
     from repro_torch.kernels.flash_attention import FlashAttentionFn
     qr = q.clone().requires_grad_(True)
-    out = FlashAttentionFn.apply(qr, k, v, window)
+    out = FlashAttentionFn.apply(qr, k, v, window, causal)
     return out.grad_fn.saved_tensors
+
+
+# cross-attention (causal=False, Sk != Sq): MusicGen's layer (Sq 1500,
+# Sk 64: one key tile, the key tail in the tc forward's 128-key tile), a
+# key set longer than the queries over several tiles with GQA, a key set
+# of 3, ragged both ways, every head_dim
+CROSS = [(2, 1500, 64, 24, 24, 64), (1, 333, 700, 8, 2, 64),
+         (2, 100, 8, 4, 2, 64), (2, 75, 129, 4, 4, 96),
+         (1, 64, 256, 4, 1, 128), (2, 200, 3, 4, 2, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D", CROSS)
+def test_cuda_flash_attention_cross_matches_plain(dtype, B, Sq, Sk, H, KVH,
+                                                  D):
+    """On the card: the non-causal forward (the SIMT kernel in f32 and at
+    head_dim 32, the tc kernel in bf16 at 64/96/128) against its plain
+    version within 2e-5 in f32 and one bf16 ulp of the output in bf16,
+    counted as a cross launch of its variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import _variant
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
+    variant = _variant(dt, D)
+    n0 = flash_attention.launches_by_mode["cross"][variant]
+    out = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches_by_mode["cross"][variant] == n0 + 1
+    assert out.dtype == dt and out.shape == q.shape
+    ref = flash_attention_plain(q, k, v, causal=False)
+    atol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D", CROSS)
+def test_cuda_flash_attention_cross_bwd_matches_plain(dtype, B, Sq, Sk, H,
+                                                      KVH, D):
+    """On the card: the non-causal backward kernels against
+    flash_attention_bwd_plain(causal=False), dK and dV of k's length, by
+    the rules of test_cuda_flash_attention_bwd_matches_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    _check_bwd(dtype, B, Sq, Sk, H, KVH, D, 0, False)
 
 
 @pytest.mark.cuda

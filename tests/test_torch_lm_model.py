@@ -278,13 +278,19 @@ def consensus_and_stack(model):
 
 
 def test_unported_decoder_features_raise():
+    """MoE, MLA, multi-token prediction and VLM patches (and decode)
+    raise, naming ROADMAP.md; codebooks and cross-attention, ported with
+    MusicGen, build (tests/test_torch_musicgen.py holds them to the
+    reference)."""
     base = t_get_config("hymba-1.5b").reduced()
     for kw in ({"moe": dataclasses.replace(base.moe, num_experts=4)},
                {"mla": dataclasses.replace(base.mla, kv_lora_rank=8)},
-               {"num_codebooks": 2}, {"cross_attention": True},
                {"mtp_depth": 1}, {"arch_type": "vlm"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderModel(base.replace(**kw))
+    for kw in ({"num_codebooks": 2}, {"cross_attention": True,
+                                      "cross_attn_len": 4}):
+        assert DecoderModel(base.replace(**kw)).cfg == base.replace(**kw)
     model = DecoderModel(base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init_decode_state(1, 16)

@@ -73,6 +73,41 @@ def test_flash_bwd_checks_refuse_what_the_kernels_do_not_take():
             flash_ops._bwd_check(q, k, k, o, ls, do)
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 96, "tc"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt")])
+def test_flash_checks_take_cross_attention_and_refuse_the_rest(dtype, D,
+                                                               want):
+    """Both checks take k, v of their own length Sk != Sq with
+    causal=False (either variant), and refuse it with causal=True; they
+    refuse causal=False with a window (the reference's one-sided window,
+    which nothing calls) and an empty key set; so do the plain
+    versions."""
+    q = torch.zeros((1, 9, 4, D), dtype=dtype)
+    lse = torch.zeros((1, 4, 9))
+    for Sk in (1, 5, 70):
+        k = torch.zeros((1, Sk, 2, D), dtype=dtype)
+        assert flash_ops._check(q, k, k, causal=False) == want
+        assert flash_ops._bwd_check(q, k, k, q, lse, q, causal=False) == want
+        for call in (lambda: flash_ops._check(q, k, k),
+                     lambda: flash_ops._bwd_check(q, k, k, q, lse, q),
+                     lambda: flash_ops._check(q, k, k, causal=False,
+                                              window=4),
+                     lambda: flash_ops._bwd_check(q, k, k, q, lse, q,
+                                                  causal=False, window=4),
+                     lambda: flash_ops.flash_attention_plain(
+                         q, k, k, causal=False, window=4),
+                     lambda: flash_ops.flash_attention_bwd_plain(
+                         q, k, k, q, lse, q, causal=False, window=4)):
+            with pytest.raises(ValueError):
+                call()
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention_plain(q, q[:, :5], q[:, :5])
+    empty = torch.zeros((1, 0, 2, D), dtype=dtype)
+    with pytest.raises(ValueError):
+        flash_ops._check(q, empty, empty, causal=False)
+
+
 @pytest.mark.parametrize("dtype,want", [
     (torch.bfloat16, "tc"), (torch.float32, "simt"),
     (torch.float16, TypeError), (torch.float64, TypeError)])
