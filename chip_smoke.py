@@ -98,6 +98,26 @@ LM-7. MusicGen-medium's decentralized train step at full width
    a multi-tile ragged key set longer than the queries with GQA (B 1,
    Sq 333, Sk 700, 8/2 x 64), and MusicGen's causal self-attention
    (B 2, S 1500).
+LM-8. PaliGemma-3B's decentralized train step and prefill at full width
+   (``lmpath.train_steps`` with ``lmpath.PALIGEMMA_TRAIN``: 4 ring nodes,
+   18 layers, 8/1 heads x 256, tied head over 257,216 tokens, 2
+   sequences of 256 patch embeddings + 256 text tokens per node under
+   the prefix-LM mask, 3 steps): each step's wall time and loss, peak
+   memory, the flash launches by kernel, mode and variant; every loss
+   finite, every leaf of every node given a finite non-zero gradient,
+   the params moved, every flash launch a tc "prefix" launch at head_dim
+   256, nodes x layers x 2 forward and nodes x layers backward a step;
+   then one prefill (``launch.steps.make_prefill_step``, no grad) on the
+   final params: (4, 2, 256, 257,216) finite logits from nodes x layers
+   forward launches that write no log-sum-exp; then the reduced
+   PaliGemma with its prefix cut to the 8 patches (f32), one step on the
+   card and on the CPU to the same params. LM-1 holds both flash kernels
+   at head_dim 256 with the prefix-LM mask to their plain versions
+   first, forward and backward, timed beside SDPA with the same boolean
+   mask: PaliGemma's layer (B 2, S 512, prefix 256, 8/1 x 256; SIMT in
+   f32, tc in bf16, in turns), the same shape causal, a prefix ending
+   mid-tile with GQA (B 1, S 333, prefix 200, 8/2 x 256) and a prefix
+   past the sequence (S 200, prefix 300).
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -479,14 +499,16 @@ def phase_quickstart(torch):
 
 
 # ------------------------------------------------------------- LM phases
-def _flash_work(B, S, H, KVH, D, window, elem, Sk=None):
-    """(bytes, flops) of one attention call, causal (windowed) or, with
-    ``Sk``, non-causal over Sk keys: q, k, v read and o written once;
-    4·D flops per visible (q, k) pair and head."""
+def _flash_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0):
+    """(bytes, flops) of one attention call, causal (windowed, or with a
+    prefix-LM mask of ``prefix`` positions: the causal triangle and the
+    prefix square's upper part, P(P - 1)/2 pairs more) or, with ``Sk``,
+    non-causal over Sk keys: q, k, v read and o written once; 4·D flops
+    per visible (q, k) pair and head."""
     if Sk is None:
-        Sk = S
-        pairs = sum(min(q + 1, window) if window else q + 1
-                    for q in range(S))
+        Sk, pc = S, min(prefix, S)
+        pairs = sum(min(q + 1, window) if window else max(q + 1, pc)
+                    if q < pc else q + 1 for q in range(S))
     else:
         pairs = S * Sk
     return ((2 * B * S * H * D + 2 * B * Sk * KVH * D) * elem,
@@ -504,30 +526,40 @@ def _ssd_work(B, S, H, P, G, N):
     return nbytes, float(flops)
 
 
-def _sdpa(torch, q, k, v, window, causal=True):
+def _allow(torch, S, window, prefix=0):
+    """(S, S) boolean mask of a causal call's visible pairs: kp <= qp, or
+    both below ``prefix`` (the prefix-LM mask), within the window."""
+    pos = torch.arange(S, device="cuda")
+    allow = pos[None, :] <= pos[:, None]
+    if prefix:
+        allow |= (pos[:, None] < prefix) & (pos[None, :] < prefix)
+    if window:
+        allow &= pos[:, None] - pos[None, :] < window
+    return allow
+
+
+def _sdpa(torch, q, k, v, window, causal=True, prefix=0):
     """The library yardstick: one scaled_dot_product_attention call on
-    (B, H, S, D) copies of the same inputs (made outside the timing)."""
+    (B, H, S, D) copies of the same inputs (made outside the timing),
+    with the same boolean mask where is_causal cannot say it."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    S = q.shape[1]
-    mask = None
-    if window:
-        pos = torch.arange(S, device=q.device)
-        mask = ((pos[None, :] <= pos[:, None])
-                & (pos[:, None] - pos[None, :] < window))
+    mask = _allow(torch, q.shape[1], window, prefix) \
+        if window or prefix else None
 
     def call():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True).transpose(1, 2)
     return call
 
 
-def _check_flash(torch, q, k, v, window, what, causal=True):
+def _check_flash(torch, q, k, v, window, what, causal=True, prefix=0):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    out = flash_attention(q, k, v, window=window, causal=causal)
-    ref = flash_attention_plain(q, k, v, window=window, causal=causal)
+    kw = dict(window=window, causal=causal, prefix_len=prefix)
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
     dname = str(q.dtype).split(".")[-1]
     err = float((out.float() - ref.float()).abs().max())
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
@@ -558,12 +590,13 @@ def _check_ssd(torch, xdt, dta, b, c, chunk, what):
     return err
 
 
-def _flash_bwd_work(B, S, H, KVH, D, window, elem, Sk=None):
+def _flash_bwd_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0):
     """(bytes, flops) of one attention backward: q, o, dO (S rows), k, v
     (Sk, S without ``Sk``) and the f32 lse read, dq, dk, dv written once;
-    five products of the (causal, windowed) score matrix's size (Q·Kᵀ,
-    dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q), 2.5 times the forward's two."""
-    _, flops = _flash_work(B, S, H, KVH, D, window, elem, Sk)
+    five products of the (causal, windowed, prefix-LM) score matrix's
+    size (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q), 2.5 times the forward's
+    two."""
+    _, flops = _flash_work(B, S, H, KVH, D, window, elem, Sk, prefix)
     Sk = S if Sk is None else Sk
     return ((4 * B * S * H * D + 4 * B * Sk * KVH * D) * elem
             + 4 * B * H * S, 2.5 * flops)
@@ -580,7 +613,7 @@ def _ssd_bwd_work(B, S, H, P, G, N):
     return nbytes, float(B * S * H * 10 * N * P)
 
 
-def _flash_saved(torch, q, k, v, window, what, causal=True):
+def _flash_saved(torch, q, k, v, window, what, causal=True, prefix=0):
     """o and lse as the training forward writes them (FlashAttentionFn's
     saved tensors; in bf16 the tc kernel's instantiation that stores the
     log-sum-exp), each held to its plain version: o to
@@ -588,21 +621,18 @@ def _flash_saved(torch, q, k, v, window, what, causal=True):
     the scaled f32 scores by LSE_RTOL."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    out = flash_attention(q.clone().requires_grad_(True), k, v,
-                          window=window, causal=causal)
+    kw = dict(window=window, causal=causal, prefix_len=prefix)
+    out = flash_attention(q.clone().requires_grad_(True), k, v, **kw)
     check(out.grad_fn is not None, "flash_attention with grad returned no "
                                    "grad_fn")
     _, _, _, o, lse = (t.detach() for t in out.grad_fn.saved_tensors)
     dname = str(q.dtype).split(".")[-1]
     e_o = float((o.float() - flash_attention_plain(
-        q, k, v, window=window, causal=causal).float()).abs().max())
+        q, k, v, **kw).float()).abs().max())
     B, S, H, D = q.shape
     G = H // k.shape[2]
-    pos, k_pos = (torch.arange(n, device=q.device) for n in (S, k.shape[1]))
-    allow = (k_pos[None, :] <= pos[:, None]) if causal else \
+    allow = _allow(torch, S, window, prefix) if causal else \
         torch.ones((S, k.shape[1]), dtype=torch.bool, device=q.device)
-    if window:
-        allow &= pos[:, None] - k_pos[None, :] < window
     lse_ref = torch.empty_like(lse)
     for h in range(H):                     # one head's (B, S, S) at a time
         s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
@@ -634,7 +664,7 @@ def _flash_bwd_excess(torch, a, r, dname):
     return float(((a.float() - rf).abs() / tol).max())
 
 
-def _sdpa_bwd(torch, q, k, v, do, window, causal=True):
+def _sdpa_bwd(torch, q, k, v, do, window, causal=True, prefix=0):
     """The library yardstick of the backward: autograd of one
     scaled_dot_product_attention call (enable_gqa, the same masks) on
     (B, H, S, D) copies, its forward run once outside the timing."""
@@ -642,14 +672,10 @@ def _sdpa_bwd(torch, q, k, v, do, window, causal=True):
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    S = q.shape[1]
-    mask = None
-    if window:
-        pos = torch.arange(S, device=q.device)
-        mask = ((pos[None, :] <= pos[:, None])
-                & (pos[:, None] - pos[None, :] < window))
+    mask = _allow(torch, q.shape[1], window, prefix) \
+        if window or prefix else None
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                         is_causal=causal and not window,
+                                         is_causal=causal and mask is None,
                                          enable_gqa=True)
 
     def call():
@@ -676,7 +702,7 @@ def _check_flash_bwd_simt(torch, got, ref, dname, tag):
 
 
 def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag,
-                        causal=True):
+                        causal=True, prefix=0):
     """The tensor-core backward against the plain version that rounds P
     and dS to bf16 as the kernel does: (a) element-wise, by
     FLASH_BWD_RTOL's rule or within FLASH_BWD_TC_FLIP times the worst
@@ -686,13 +712,14 @@ def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag,
     FLASH_BWD_TC_VS_SDPA times SDPA's backward's on the same inputs.
     Returns the max error against the bf16-operand version."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
-    kw = dict(window=window, causal=causal, operands="bf16")
+    kw = dict(window=window, causal=causal, prefix_len=prefix,
+              operands="bf16")
     ref_b = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     moved = [flash_attention_bwd_plain(
         q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
         **kw) for to in (math.inf, -math.inf)]
     lib = [g.transpose(1, 2) for g in _sdpa_bwd(torch, q, k, v, do,
-                                                window, causal)()]
+                                                window, causal, prefix)()]
     err = 0.0
     for i, (name, a, rb, rf, sd) in enumerate(zip(("dq", "dk", "dv"), got,
                                                   ref_b, ref, lib)):
@@ -723,33 +750,38 @@ def _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got, ref, tag,
     return err
 
 
+def _mode_tag(window, causal, prefix):
+    return (f"prefix={prefix}" if prefix else f"window={window}") \
+        if causal else "cross"
+
+
 def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
-                   Sk=None):
+                   Sk=None, prefix=0):
     """One forward case on fresh random q, k, v: the kernel against its
     plain version (FLASH_ATOL), its time beside its bound, the plain
     version's and SDPA's; in bf16 the SIMT and tc variants in turns.
-    With ``Sk`` the call is non-causal over Sk keys (cross-attention)."""
+    With ``Sk`` the call is non-causal over Sk keys (cross-attention);
+    ``prefix`` > 0 gives the prefix-LM mask."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     dev = "cuda"
     dname = str(dtype).split(".")[-1]
     causal = Sk is None
-    kw = dict(window=window, causal=causal)
+    kw = dict(window=window, causal=causal, prefix_len=prefix)
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
                     device=dev).to(dtype)
     v = torch.randn(k.shape, generator=gen, device=dev).to(dtype)
     tag = (f"flash_attention {label}S={S}{'' if causal else f' Sk={Sk}'} "
-           f"B={B} {'window=' + str(window) if causal else 'cross'} "
-           f"{dname}")
-    err = _check_flash(torch, q, k, v, window, tag, causal)
+           f"B={B} {_mode_tag(window, causal, prefix)} {dname}")
+    err = _check_flash(torch, q, k, v, window, tag, causal, prefix)
     nbytes, flops = _flash_work(B, S, H, KVH, D, window, q.element_size(),
-                                Sk)
+                                Sk, prefix)
     bnd, by = bound_ms(nbytes, flops, dname)
     ms = timed(lambda: flash_attention(q, k, v, **kw), 5, torch)
     pms = timed(lambda: flash_attention_plain(q, k, v, **kw), 2, torch)
-    lib = _sdpa(torch, q, k, v, window, causal)
+    lib = _sdpa(torch, q, k, v, window, causal, prefix)
     try:
         lib_err = float((lib().float() - flash_attention_plain(
             q, k, v, **kw).float()).abs().max())
@@ -767,30 +799,32 @@ def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
           f"the plain version {lib_err})")
     if dname == "bfloat16":
         row["simt_ms"], row["tc_ms"] = in_turns(
-            lambda: flash_ops._launch("simt", q, k, v, window, causal),
-            lambda: flash_ops._launch("tc", q, k, v, window, causal), 5,
-            torch)
+            lambda: flash_ops._launch("simt", q, k, v, window, causal,
+                                      prefix_len=prefix),
+            lambda: flash_ops._launch("tc", q, k, v, window, causal,
+                                      prefix_len=prefix), 5, torch)
         print(variants_line(f"{tag} variants", row["simt_ms"], row["tc_ms"],
                             flops, bnd))
     return row
 
 
 def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
-                   timing=True, Sk=None):
+                   timing=True, Sk=None, prefix=0):
     """One backward case on fresh random q, k, v, dO: the training
     forward's o and lse held to their plain versions (_flash_saved), then
     the backward kernel of the forward's variant against the plain
     version (the SIMT kernel by the element-wise rule, the tc kernel by
     _check_flash_bwd_tc's); with ``timing``, its time beside its bound,
     the plain version's and SDPA's backward, and in bf16 both variants
-    in turns. With ``Sk`` the call is non-causal over Sk keys."""
+    in turns. With ``Sk`` the call is non-causal over Sk keys; ``prefix``
+    > 0 gives the prefix-LM mask."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     dev = "cuda"
     dname = str(dtype).split(".")[-1]
     causal = Sk is None
-    kw = dict(window=window, causal=causal)
+    kw = dict(window=window, causal=causal, prefix_len=prefix)
     q, do = (torch.randn((B, S, H, D), generator=gen,
                          device=dev).to(dtype) for _ in range(2))
     k, v = (torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
@@ -798,8 +832,8 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     variant = flash_ops._variant(dtype, D)
     tag = (f"flash_attention backward {label}S={S}"
            f"{'' if causal else f' Sk={Sk}'} B={B} "
-           f"{'window=' + str(window) if causal else 'cross'} {dname}")
-    o, lse = _flash_saved(torch, q, k, v, window, tag, causal)
+           f"{_mode_tag(window, causal, prefix)} {dname}")
+    o, lse = _flash_saved(torch, q, k, v, window, tag, causal, prefix)
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for name, a, t in zip(("dq", "dk", "dv"), got, (q, k, v)):
@@ -808,7 +842,7 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
               f"{tag}: {name} non-finite, {a.dtype} or {tuple(a.shape)}")
     if variant == "tc":
         err = _check_flash_bwd_tc(torch, q, k, v, o, lse, do, window, got,
-                                  ref, tag, causal)
+                                  ref, tag, causal, prefix)
     else:
         err = _check_flash_bwd_simt(torch, got, ref, dname, tag)
     del got, ref
@@ -817,14 +851,14 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
         print(f"{tag}: variant {variant}, max_abs_err {err:.3g}")
         return row
     nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
-                                    q.element_size(), Sk)
+                                    q.element_size(), Sk, prefix)
     bnd, by = bound_ms(nbytes, flops, dname)
     ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 3,
                torch)
     pms = timed(lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, **kw), 1, torch)
     try:
-        lms = timed(_sdpa_bwd(torch, q, k, v, do, window, causal), 3,
+        lms = timed(_sdpa_bwd(torch, q, k, v, do, window, causal, prefix), 3,
                     torch)
     except RuntimeError as exc:      # no SDPA backend takes it
         print(f"{tag}: scaled_dot_product_attention backward refused: {exc}")
@@ -838,18 +872,18 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     # the training forward (the instantiation that writes lse) alone
     buf = torch.empty_like(lse)
     fbnd = bound_ms(*_flash_work(B, S, H, KVH, D, window, q.element_size(),
-                                 Sk), dname)[0]
+                                 Sk, prefix), dname)[0]
     row["train_fwd_ms"] = timed(lambda: flash_ops._launch(
-        variant, q, k, v, window, causal, buf), 5, torch)
+        variant, q, k, v, window, causal, buf, prefix), 5, torch)
     row["train_fwd_bound_ms"] = fbnd
     print(f"{tag}: the training forward (o and lse) {row['train_fwd_ms']:.3f}"
           f" ms, bound {fbnd:.3f} ms ({fbnd / row['train_fwd_ms']:.2%})")
     if variant == "tc":
         row["simt_ms"], row["tc_ms"] = in_turns(
             lambda: flash_ops._bwd_launch("simt", q, k, v, o, lse, do,
-                                          window, causal),
+                                          window, causal, prefix),
             lambda: flash_ops._bwd_launch("tc", q, k, v, o, lse, do,
-                                          window, causal), 3, torch)
+                                          window, causal, prefix), 3, torch)
         print(variants_line(f"{tag} variants", row["simt_ms"],
                             row["tc_ms"], flops, bnd))
     return row
@@ -1749,12 +1783,12 @@ def phase_lm_musicgen_kernels(torch, rows):
     torch.cuda.empty_cache()
 
 
-def _musicgen_card_vs_cpu(torch, cfg, tcfg, seq_len):
-    """``lmpath.train_steps`` of a reduced f32 MusicGen, one step on the
-    card and on the CPU from the same weights and batch (both made on
-    the CPU): params within TRAIN_PARAM_ATOL, the loss within
-    TRAIN_LOSS_RTOL. Returns (param error, loss error, the card run's
-    flash launches)."""
+def _steps_card_vs_cpu(torch, label, cfg, tcfg, seq_len):
+    """``lmpath.train_steps`` of a reduced f32 config (MusicGen's,
+    PaliGemma's), one step on the card and on the CPU from the same
+    weights and batch (both made on the CPU): params within
+    TRAIN_PARAM_ATOL, the loss within TRAIN_LOSS_RTOL. Returns (param
+    error, loss error, the card run's flash launches)."""
     from repro_torch import lmpath
     real = lmpath.train_batch
     runs = {}
@@ -1773,10 +1807,10 @@ def _musicgen_card_vs_cpu(torch, cfg, tcfg, seq_len):
              for k, v in cpu["params"].items())
     lg, lc = gpu["steps"][0]["loss"], cpu["steps"][0]["loss"]
     dl = abs(lg - lc) / abs(lc)
-    check(dl <= TRAIN_LOSS_RTOL, f"reduced MusicGen, card vs CPU: loss "
-                                 f"{lg} vs {lc}")
-    check(dp <= TRAIN_PARAM_ATOL, f"reduced MusicGen, card vs CPU: params "
-                                  f"differ by {dp:.3g}")
+    check(dl <= TRAIN_LOSS_RTOL, f"{label}, card vs CPU: loss {lg} vs "
+                                 f"{lc}")
+    check(dp <= TRAIN_PARAM_ATOL, f"{label}, card vs CPU: params differ by "
+                                  f"{dp:.3g}")
     return dp, dl, gpu["steps"][0]["launches"]
 
 
@@ -1790,7 +1824,7 @@ def phase_lm_musicgen(torch):
     launches a step are nodes x layers x 2 forward (the recompute) and
     nodes x layers backward, and the peak stays within TRAIN_PEAK_GIB.
     Then the reduced MusicGen (2 layers, Sk 8, f32, per-layer recompute)
-    one step on the card and on the CPU (_musicgen_card_vs_cpu), whose
+    one step on the card and on the CPU (_steps_card_vs_cpu), whose
     card run must go through the SIMT kernels in both modes."""
     import repro_torch.launch.steps as steps_mod
     from repro_torch import lmpath
@@ -1835,9 +1869,10 @@ def phase_lm_musicgen(torch):
     for i, st in enumerate(steps):
         for name, modes in st["launches"].items():
             for mode, by in modes.items():
-                check(by == {"tc": want[name], "simt": 0},
+                w = 0 if mode == "prefix" else want[name]
+                check(by == {"tc": w, "simt": 0},
                       f"LM-7 step {i}: {name} {mode} launches {by}; the "
-                      f"layer loop implies {want[name]}, all tc")
+                      f"layer loop implies {w}, all tc")
     for name, dims in by_dim.items():
         total = sum(dims.values())
         check(dims[hd] == total == 2 * want[name] * len(steps),
@@ -1845,13 +1880,15 @@ def phase_lm_musicgen(torch):
     check(peak <= TRAIN_PEAK_GIB, f"LM-7: peak memory {peak:.1f} GiB > "
                                   f"{TRAIN_PEAK_GIB} GiB")
     small = cfg.reduced().replace(remat=True)
-    dp, dl, launches = _musicgen_card_vs_cpu(torch, small, tcfg, 40)
+    dp, dl, launches = _steps_card_vs_cpu(torch, "reduced MusicGen", small,
+                                          tcfg, 40)
     ns, ls = tcfg.num_nodes, small.num_layers
     for name, per in (("flash_attention", 2), ("flash_attention_bwd", 1)):
         for mode, by in launches[name].items():
-            check(by == {"tc": 0, "simt": per * ns * ls},
+            w = 0 if mode == "prefix" else per * ns * ls
+            check(by == {"tc": 0, "simt": w},
                   f"reduced MusicGen on the card: {name} {mode} launches "
-                  f"{by}, want {per * ns * ls} simt")
+                  f"{by}, want {w} simt")
     print(f"reduced MusicGen ({small.num_layers} layers, "
           f"{small.num_codebooks} codebooks, Sk {small.cross_attn_len}, f32, "
           f"per-layer recompute), one step on the card and on the CPU with "
@@ -1870,6 +1907,201 @@ def phase_lm_musicgen(torch):
             dims[key] = {hd: launches[key]}
     return dict(steps=steps, peak_gib=peak, launches=launches,
                 variants=variants, by_head_dim=dims)
+
+
+def phase_lm_paligemma_kernels(torch, rows):
+    """LM-1 for PaliGemma-3B: both flash kernels at head_dim 256 with its
+    prefix-LM mask, forward and backward, each held to its plain version
+    by the rules above and timed beside its bound, the plain version and
+    SDPA with the same boolean mask: (a) its training layer (B 2, S 512 =
+    256 patches + 256 text tokens, 8/1 heads x 256, prefix 256), f32 on
+    the SIMT kernels and bf16 on the tensor cores, both variants timed in
+    turns in bf16; (b) the same shape causal without a prefix; (c) a
+    prefix that ends mid-tile with GQA (B 1, S 333, prefix 200, 8/2 x
+    256) and (d) a prefix past the sequence (S 200, prefix 300: every key
+    for every row), both dtypes, both directions, checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.lmpath import PALIGEMMA_TEXT_LEN, PALIGEMMA_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg = get_config("paligemma-3b")
+    P, B = cfg.prefix_lm_prefix, PALIGEMMA_TRAIN.batch_size
+    S = cfg.num_prefix_tokens + PALIGEMMA_TEXT_LEN
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for key in ("prefix", "d256"):
+        rows["flash_attention_" + key] = []
+        rows["flash_attention_bwd_" + key] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for key, p in (("prefix", P), ("d256", 0)):
+            rows["flash_attention_" + key].append(_flash_fwd_row(
+                torch, gen, B, S, H, KVH, D, 0, dtype, "PaliGemma ",
+                prefix=p))
+            rows["flash_attention_bwd_" + key].append(_flash_bwd_row(
+                torch, gen, B, S, H, KVH, D, 0, dtype, "PaliGemma ",
+                prefix=p))
+        for Sc, Pc, kvh in ((333, 200, 2), (200, 300, 1)):
+            q = torch.randn((1, Sc, H, D), generator=gen, device="cuda"
+                            ).to(dtype)
+            k, v = (torch.randn((1, Sc, kvh, D), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            err = _check_flash(torch, q, k, v, 0, f"flash_attention S={Sc} "
+                               f"prefix={Pc} {H}/{kvh} heads x {D} {dtype}",
+                               prefix=Pc)
+            rows["flash_attention_prefix"].append(dict(window=0, err=err))
+            rows["flash_attention_bwd_prefix"].append(_flash_bwd_row(
+                torch, gen, 1, Sc, H, kvh, D, 0, dtype, "", timing=False,
+                prefix=Pc))
+            del q, k, v
+        torch.cuda.empty_cache()
+
+
+def phase_lm_paligemma(torch):
+    """LM-8: PaliGemma-3B's decentralized train step at full width
+    (``lmpath.train_steps``, ``lmpath.PALIGEMMA_TRAIN``: 4 ring nodes, 2
+    sequences of 256 patch embeddings + 256 text tokens, 3 steps, every
+    layer recomputed). Fails unless every loss is finite, every leaf of
+    every node gets a finite gradient that is non-zero somewhere at every
+    step, the params move, every flash launch is a "prefix" launch on the
+    tc kernels at head_dim 256, nodes x layers x 2 forward (the
+    recompute) and nodes x layers backward a step, and the peak stays
+    within TRAIN_PEAK_GIB. Then one prefill (``launch.steps.
+    make_prefill_step``, no grad) on the final params and the first
+    step's batch: (4, 2, 256, 257,216) finite logits from nodes x layers
+    forward launches that write no log-sum-exp. Then the reduced
+    PaliGemma with ``prefix_lm_prefix`` 8 (the 8 patches: both mask
+    regions; f32, per-layer recompute) one step on the card and on the
+    CPU (_steps_card_vs_cpu), whose card run must go through the SIMT
+    kernels in the prefix mode."""
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch import lmpath
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import _zero_counts
+    from repro_torch.models.transformer import DecoderModel
+    cfg, tcfg = get_config("paligemma-3b"), lmpath.PALIGEMMA_TRAIN
+    n, L, hd = tcfg.num_nodes, cfg.num_layers, cfg.resolved_head_dim
+    text = lmpath.PALIGEMMA_TEXT_LEN
+    for f in (flash_attention, flash_attention_bwd):
+        _zero_counts(f)
+    bad = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with _Patch((steps_mod, "make_algorithm", _grad_checked(
+            torch, steps_mod.make_algorithm, bad))):
+        out = lmpath.train_steps(cfg, tcfg, seq_len=text, steps=tcfg.steps,
+                                 device="cuda")
+    wall = time.perf_counter() - t0
+    steps, peak = out["steps"], out["peak_gib"]
+    moved, pairs, params = out["moved"], out["pairs"], out["params"]
+    del out
+    by_dim = {f.__name__: dict(f.launches_by_head_dim)
+              for f in (flash_attention, flash_attention_bwd)}
+    print(f"LM-8: PaliGemma training step ({cfg.name}, {n} ring nodes, {L} "
+          f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads x {hd}, batch "
+          f"{tcfg.batch_size} x ({cfg.num_prefix_tokens} patches + {text} "
+          f"tokens), prefix {cfg.prefix_lm_prefix}, lr {tcfg.lr}): "
+          f"{wall:.1f} s wall with set-up, peak memory {peak:.2f} GiB; "
+          f"{moved} of {pairs} (leaf, node) pairs moved")
+    for i, st in enumerate(steps):
+        print(f"  step {i}: {st['s']:.2f} s, loss {st['loss']:.4f}, flash "
+              f"launches {st['launches']}")
+    check(len(steps) == tcfg.steps and all(
+        math.isfinite(st["loss"]) for st in steps),
+        f"LM-8: losses {[st['loss'] for st in steps]}")
+    check(not bad, f"LM-8: parameter leaves without a finite, non-zero "
+                   f"gradient (step, leaf, per-node norms): {bad[:5]}")
+    check(moved > 0, "LM-8: no parameter moved")
+    want = {"flash_attention": 2 * n * L, "flash_attention_bwd": n * L}
+    for i, st in enumerate(steps):
+        for name, modes in st["launches"].items():
+            for mode, by in modes.items():
+                w = want[name] if mode == "prefix" else 0
+                check(by == {"tc": w, "simt": 0},
+                      f"LM-8 step {i}: {name} {mode} launches {by}; the "
+                      f"layer loop implies {w}, all tc")
+    for name, dims in by_dim.items():
+        total = sum(dims.values())
+        check(dims[hd] == total == want[name] * len(steps),
+              f"LM-8: {name} launches by head_dim {dims}")
+    check(peak <= TRAIN_PEAK_GIB, f"LM-8: peak memory {peak:.1f} GiB > "
+                                  f"{TRAIN_PEAK_GIB} GiB")
+
+    # the prefill on the final params, the first step's batch
+    batch = lmpath.train_batch(cfg, n, tcfg.batch_size, text,
+                               torch.Generator(device="cuda").manual_seed(
+                                   tcfg.seed))
+    del batch["labels"]
+    for f in (flash_attention, flash_attention_bwd):
+        _zero_counts(f)
+    lse_args = []
+    real_launch = flash_ops._launch
+
+    def launch(*a, **kw):
+        lse_args.append(kw.get("lse", a[6] if len(a) > 6 else None))
+        return real_launch(*a, **kw)
+    prefill = steps_mod.make_prefill_step(DecoderModel(cfg))
+    with _Patch((flash_ops, "_launch", launch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    shape = (n, tcfg.batch_size, text, cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"LM-8: prefill (make_prefill_step, no grad) on the final params: "
+          f"{prefill_s:.3f} s, logits {tuple(logits.shape)} "
+          f"{str(logits.dtype)[6:]}, finite {finite}; flash launches "
+          f"{flash_attention.launches_by_mode}, backward "
+          f"{flash_attention_bwd.launches}, lse written by "
+          f"{sum(x is not None for x in lse_args)} of {len(lse_args)}")
+    check(tuple(logits.shape) == shape and finite,
+          f"LM-8 prefill: logits {tuple(logits.shape)} (want {shape}), "
+          f"finite {finite}")
+    check(flash_attention.launches_by_mode["prefix"] == {"tc": n * L,
+                                                         "simt": 0}
+          and flash_attention.launches == n * L
+          and flash_attention_bwd.launches == 0
+          and len(lse_args) == n * L and not any(
+              x is not None for x in lse_args),
+          f"LM-8 prefill: flash launches {flash_attention.launches_by_mode}"
+          f", backward {flash_attention_bwd.launches}; want {n * L} "
+          f"prefix tc launches that write no lse")
+    prefill_launches = dict(flash_attention.launches_by_mode["prefix"])
+    del logits, params, batch
+    torch.cuda.empty_cache()
+
+    small = cfg.reduced().replace(prefix_lm_prefix=8, remat=True)
+    dp, dl, launches = _steps_card_vs_cpu(torch, "reduced PaliGemma", small,
+                                          tcfg, 24)
+    ns, ls = tcfg.num_nodes, small.num_layers
+    for name, per in (("flash_attention", 2), ("flash_attention_bwd", 1)):
+        for mode, by in launches[name].items():
+            w = per * ns * ls if mode == "prefix" else 0
+            check(by == {"tc": 0, "simt": w},
+                  f"reduced PaliGemma on the card: {name} {mode} launches "
+                  f"{by}, want {w} simt")
+    print(f"reduced PaliGemma ({small.num_layers} layers, "
+          f"{small.num_prefix_tokens} patches, prefix "
+          f"{small.prefix_lm_prefix}, {small.num_heads}/{small.num_kv_heads} "
+          f"heads x {small.resolved_head_dim}, f32, per-layer recompute), one "
+          f"step on the card and on the CPU with the same weights and batch: "
+          f"params within {dp:.3g} (tol {TRAIN_PARAM_ATOL}), loss within "
+          f"{dl:.3g} relative (tol {TRAIN_LOSS_RTOL}); card launches "
+          f"{launches}")
+    # the kernels line's entries: the train steps' launches and the
+    # prefill's, under "<name>_prefix"; every launch at hd
+    launches, variants, dims = {}, {}, {}
+    for name in want:
+        key = name + "_prefix"
+        variants[key] = {v: sum(st["launches"][name]["prefix"][v]
+                                for st in steps)
+                         + (prefill_launches[v] if name == "flash_attention"
+                            else 0) for v in ("tc", "simt")}
+        launches[key] = sum(variants[key].values())
+        dims[key] = {hd: launches[key]}
+    return dict(steps=steps, peak_gib=peak, prefill_s=prefill_s,
+                launches=launches, variants=variants, by_head_dim=dims)
 
 
 def kernel_line(kres, lm_rows, paths, variants, head_dims):
@@ -1898,7 +2130,13 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
     their launches are LM-7's cross-attention ones, their times the bf16
     tc kernels' at MusicGen's layer (B 2, Sq 1500, Sk 64); the causal
     entries carry their times at MusicGen's self-attention under
-    ``at_musicgen``."""
+    ``at_musicgen``. ``flash_attention_prefix`` and
+    ``flash_attention_bwd_prefix`` are the prefix-LM mode (PaliGemma's,
+    head_dim 256): their launches are LM-8's (its train steps' and its
+    prefill's), their times the bf16 tc
+    kernels' at PaliGemma's training layer (B 2, S 512, prefix 256, 8/1
+    x 256); the causal entries carry their times at that shape without
+    the prefix under ``at_head_dim_256``."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
     tc = {"head_select", "flash_attention", "flash_attention_bwd"}
@@ -1920,6 +2158,12 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
                  "flash_attention", 69),
              "flash_attention_bwd_cross": (
                  bf16(lm_rows["flash_attention_bwd_cross"], 0),
+                 "flash_attention", 69),
+             "flash_attention_prefix": (
+                 bf16(lm_rows["flash_attention_prefix"], 0),
+                 "flash_attention", 69),
+             "flash_attention_bwd_prefix": (
+                 bf16(lm_rows["flash_attention_bwd_prefix"], 0),
                  "flash_attention", 69)}
     errs = {"head_select": (kres["head_select"] + lm_rows["head_select"]
                             + lm_rows["head_select_dense"]),
@@ -1927,14 +2171,16 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
             "flash_attention": (lm_rows["flash_attention"]
                                 + lm_rows["flash_attention_d96"]
                                 + lm_rows["flash_attention_qwen3"]
-                                + lm_rows["flash_attention_musicgen"]),
+                                + lm_rows["flash_attention_musicgen"]
+                                + lm_rows["flash_attention_d256"]),
             "flash_attention_bwd": (lm_rows["flash_attention_bwd"]
                                     + lm_rows["flash_attention_bwd_d96"]
                                     + lm_rows["flash_attention_bwd_qwen3"]
-                                    + lm_rows["flash_attention_bwd_musicgen"])}
+                                    + lm_rows["flash_attention_bwd_musicgen"]
+                                    + lm_rows["flash_attention_bwd_d256"])}
     line = []
     for name, (row, pallas, at) in picks.items():
-        base = name.removesuffix("_cross")
+        base = name.removesuffix("_cross").removesuffix("_prefix")
         by_path = {path: counts.get(name, 0)
                    for path, counts in paths.items()}
         by_variant = {"tc": 0, "simt": 0} if base in tc else {
@@ -1968,6 +2214,8 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
             entry["at_head_dim_96"] = {k: d96.get(k) for k in timing}
             qwen3 = bf16(lm_rows[name + "_qwen3"], 0)
             entry["at_qwen3"] = {k: qwen3.get(k) for k in timing}
+            d256 = bf16(lm_rows[name + "_d256"], 0)
+            entry["at_head_dim_256"] = {k: d256.get(k) for k in timing}
         if name == "head_select":
             entry["dense_heads"] = [{"shape": r["shape"],
                                      **{k: r.get(k) for k in timing}}
@@ -2010,6 +2258,7 @@ def main() -> int:
     lm_rows = phase_lm_kernels(torch)
     phase_lm_dense_kernels(torch, lm_rows)
     phase_lm_musicgen_kernels(torch, lm_rows)
+    phase_lm_paligemma_kernels(torch, lm_rows)
     lm, lm_launches, lm_variants, lm_dims = phase_lm_round(torch)
     lm_launches["msp_select"], msp_row = phase_lm_oneshot(torch, lm)
     lm_rows["msp_select"] = [msp_row]
@@ -2018,10 +2267,11 @@ def main() -> int:
     train = phase_lm_train(torch)
     qwen3, phi3 = phase_lm_dense(torch)
     musicgen = phase_lm_musicgen(torch)
+    paligemma = phase_lm_paligemma(torch)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
-              "musicgen-train": musicgen}
+              "musicgen-train": musicgen, "paligemma-train": paligemma}
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
         {"resnet_path": launches, "lm_path": lm_launches,

@@ -4,8 +4,9 @@ reference's long-context variants."""
 from __future__ import annotations
 
 from repro_torch.configs import (hymba_1_5b, mamba2_780m, mistral_nemo_12b,
-                                 musicgen_medium, phi3_mini_3_8b,
-                                 qwen1_5_0_5b, qwen3_1_7b, resnet20_cifar)
+                                 musicgen_medium, paligemma_3b,
+                                 phi3_mini_3_8b, qwen1_5_0_5b, qwen3_1_7b,
+                                 resnet20_cifar)
 from repro_torch.configs.base import (IDKDConfig, MLAConfig,  # noqa: F401
                                       ModelConfig, MoEConfig, SSMConfig,
                                       TrainConfig)
@@ -15,6 +16,7 @@ ARCHS = {
     "hymba-1.5b": hymba_1_5b.CONFIG,
     "mistral-nemo-12b": mistral_nemo_12b.CONFIG,
     "musicgen-medium": musicgen_medium.CONFIG,
+    "paligemma-3b": paligemma_3b.CONFIG,
     "phi3-mini-3.8b": phi3_mini_3_8b.CONFIG,
     "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG,
     "qwen3-1.7b": qwen3_1_7b.CONFIG,

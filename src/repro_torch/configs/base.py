@@ -4,8 +4,9 @@ thing on either side.
 
 * :class:`ModelConfig` — one composable description of every supported
   architecture family plus the paper's ResNet20-EvoNorm classifier; this
-  package runs the ResNet and the decoder stacks without MoE, MLA,
-  VLM patches or multi-token prediction (see ROADMAP.md). ``reduced()`` derives the CPU
+  package runs the ResNet and the decoder stacks (PaliGemma's patch
+  prefix and prefix-LM mask included) without MoE, MLA or multi-token
+  prediction (see ROADMAP.md). ``reduced()`` derives the CPU
   test variant of a full config, as the reference's does.
 * :class:`IDKDConfig` — the paper's Algorithm 1 hyper-parameters.
 * :class:`TrainConfig` — one decentralized training run.

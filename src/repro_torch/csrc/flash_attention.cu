@@ -1,22 +1,26 @@
 // flash_attention for Hopper (sm_90a): grouped-query attention with an
-// online softmax, causal with a per-layer sliding window, or bidirectional
-// over a key set of its own length (cross-attention), with ragged tails.
+// online softmax, causal with a per-layer sliding window or the prefix-LM
+// mask, or bidirectional over a key set of its own length
+// (cross-attention), with ragged tails.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas / _flash_kernel in
 // src/repro/kernels/flash_attention/kernel.py, and computes what the
 // model's chunked_attention (src/repro/models/attention.py) computes on
 // the decoder path, which the Pallas kernel alone does not. causal: per
 // q row qp the keys kp with kp <= qp and, when window > 0,
-// qp - window < kp (Sk = Sq). Not causal (the Pallas kernel's
-// causal=False): every key kp < Sk. Keys past Sk and rows past Sq are
-// masked. q (B, Sq, H, D), k/v (B, Sk, KVH, D), float32 or bfloat16; head
+// qp - window < kp (Sk = Sq); with a prefix P > 0 (PaliGemma's prefix-LM
+// mask, flash_mask.cuh) also every kp < P for a row qp < P. Not causal
+// (the Pallas kernel's causal=False): every key kp < Sk. Keys past Sk and
+// rows past Sq are masked. q (B, Sq, H, D), k/v (B, Sk, KVH, D), float32 or bfloat16; head
 // h reads kv head h / (H / KVH) without a copy; math in f32 with q scaled
 // by 1/sqrt(D) first; output in q's dtype.
 //
 // Design. The TPU kernel carries (m, l, acc) in VMEM scratch across a
 // sequential key grid axis. Here one block owns one (b, h, 64-row q tile)
 // and walks the key tiles from the first that the window reaches to the
-// diagonal inside the block (causal) or to the last key (not causal);
+// last key its last row sees (its diagonal, or for a tile that starts in
+// the prefix the prefix's last key if that is farther), or to the last
+// key (not causal);
 // tiles that are masked for every row of the block are never visited (the
 // Pallas kernel's pl.when). Q, K and V tiles
 // sit in shared memory as f32; four threads share a q row: each computes
@@ -25,12 +29,14 @@
 // -inf, as in the reference: a row whose first visited tile is all masked
 // accumulates weight-1 garbage that the first unmasked tile multiplies by
 // exp(-1e30 - m) = 0, exactly as in chunked_attention; every row reaches
-// its diagonal, or (not causal) sees key 0 in its first tile, so every
-// row ends with a real maximum.
+// its diagonal (the prefix only adds keys), or (not causal) sees key 0 in
+// its first tile, so every row ends with a real maximum.
 //
 // Variants. This SIMT kernel serves float32 and bf16 at head_dim 32;
-// bf16 at head_dim 64, 96 and 128 runs flash_attention_tc.cu on the tensor
-// cores. f32 stays here on purpose: its tolerance (2e-5) rules out TF32
+// bf16 at head_dim 64, 96, 128 and 256 runs flash_attention_tc.cu on the
+// tensor cores. At head_dim 256 (PaliGemma) the three f32 tiles and the
+// P rows take fa_smem_bytes<256> = 217,088 bytes of the H100's 232,448 a
+// block, and each thread holds 64 output floats. f32 stays here on purpose: its tolerance (2e-5) rules out TF32
 // tiles, this kernel already beats scaled_dot_product_attention in f32
 // at Hymba's shape (8.6 vs 20.3 ms, PERF.md), and the full-width paths
 // run f32 only in tests and the reduced checks.
@@ -46,6 +52,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_mask.cuh"
 #include "select_common.cuh"
 
 namespace idkd {
@@ -76,7 +83,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int Sq, int Sk, int H,
-                       int KVH, int window, bool causal, float scale) {
+                       int KVH, int window, bool causal, int prefix,
+                       float scale) {
   constexpr int LD = D + 4;       // tile row stride in floats (16-byte rows,
                                   // conflict-free float4 reads)
   constexpr int CH = D / 16;      // float4 output chunks per thread
@@ -94,6 +102,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 2;         // q row in the tile
   const int j = tid & 3;          // keys 4*i + j, output chunks j + 4*i
   const int qp = q0 + r;
+  const int q_seen = fa_last_key(qp, prefix);   // the row's last key
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KVH * D;
@@ -108,12 +117,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // key tiles [t_begin, t_end]: from the first key that the window lets
-  // the tile's first row see, to the tile's last row's diagonal (causal)
-  // or the last key
+  // the tile's first row see, to the last key its last row sees (causal:
+  // the diagonal or the prefix's end) or the last key
   const int q_last = min(q0 + FA_ROWS, Sq) - 1;
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_first / FA_KEYS;
-  const int t_end = (causal ? q_last : Sk - 1) / FA_KEYS;
+  const int t_end = (causal ? fa_last_key(q_last, prefix) : Sk - 1) /
+                    FA_KEYS;
 
   float m_run = NEG, l_run = 0.0f;
   float acc[4 * CH];
@@ -152,7 +162,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int kp = k0 + 4 * i + j;
-      const bool ok = kp < Sk && (!causal || kp <= qp) &&
+      const bool ok = kp < Sk && (!causal || kp <= q_seen) &&
                       (window <= 0 || qp - kp < window);
       sc[i] = ok ? sc[i] : NEG;
       tmax = fmaxf(tmax, sc[i]);
@@ -210,7 +220,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
-                      int window, bool causal, cudaStream_t stream) {
+                      int window, bool causal, int prefix,
+                      cudaStream_t stream) {
   const size_t smem = fa_smem_bytes<D>();
   auto kernel = lse != nullptr ? flash_attention_kernel<T, D, true>
                                : flash_attention_kernel<T, D, false>;
@@ -222,27 +233,31 @@ cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KVH,
-      window, causal, scale);
+      window, causal, prefix, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
                         void* o, float* lse, int B, int Sq, int Sk, int H,
-                        int KVH, int window, bool causal, cudaStream_t s) {
+                        int KVH, int window, bool causal, int prefix,
+                        cudaStream_t s) {
   switch (D) {
     case 32:
       return fa_launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                              causal, s);
+                              causal, prefix, s);
     case 64:
       return fa_launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                              causal, s);
+                              causal, prefix, s);
     case 96:
       return fa_launch<T, 96>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                              causal, s);
+                              causal, prefix, s);
     case 128:
       return fa_launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                               causal, s);
+                               causal, prefix, s);
+    case 256:
+      return fa_launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
+                               causal, prefix, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -250,9 +265,10 @@ cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace idkd
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, Sq, H,
-// D), k/v (B, Sk, KVH, D), contiguous; D in {32, 64, 96, 128}; H % KVH == 0;
-// causal 1: Sk == Sq, window 0 = full causal; causal 0: every key visible
-// (window 0). lse: null, or (B, H, Sq) f32 that receives each row's
+// D), k/v (B, Sk, KVH, D), contiguous; D in {32, 64, 96, 128, 256};
+// H % KVH == 0; causal 1: Sk == Sq, window 0 = full causal, prefix
+// 0 <= P <= Sk (0: none; P > 0 with window 0 only); causal 0: every key
+// visible (window 0, prefix 0). lse: null, or (B, H, Sq) f32 that receives each row's
 // log-sum-exp of its scaled scores (the training forward's; the label
 // round passes null and writes nothing more). Returns cudaGetLastError()
 // after the launch.
@@ -260,18 +276,19 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       void* lse, int B, int Sq, int Sk,
                                       int H, int KVH, int D, int window,
-                                      int causal, void* stream) {
+                                      int causal, int prefix, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
-      (causal && Sk != Sq) || (!causal && window > 0))
+      !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)idkd::fa_dispatch<float>(D, q, k, v, o,
                                          static_cast<float*>(lse), B, Sq, Sk,
-                                         H, KVH, window, causal != 0, s);
+                                         H, KVH, window, causal != 0, prefix,
+                                         s);
   if (dtype == 1)
     return (int)idkd::fa_dispatch<__nv_bfloat16>(
         D, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, window,
-        causal != 0, s);
+        causal != 0, prefix, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,9 +21,11 @@ within one machine:
 
 ``--flash`` times the tensor-core ``flash_attention`` kernels, forward
 as the round calls them (B 8, no log-sum-exp) and backward at the
-training batch (B 2), at the causal shapes the LM paths run (Hymba-1.5B
-global and windowed, Qwen3-1.7B, Phi-3-mini), through the same calls
-for whichever checkout is first on ``PYTHONPATH``, as ``--forward``.
+training batch (B 2), at the shapes the LM paths run (Hymba-1.5B global
+and windowed, Qwen3-1.7B, Phi-3-mini, MusicGen-medium's cross-attention,
+PaliGemma-3B's layer at head_dim 256 causal and with its prefix-LM
+mask), through the same calls for whichever checkout is first on
+``PYTHONPATH``, as ``--forward``.
 
 ``--backward`` splits the two backward calls at Hymba-1.5B's training
 shape into their kernels' device times (the profiler): the tensor-core
@@ -354,8 +356,11 @@ def forward_times(gen):
 
 def flash_times(gen):
     """Device ms of the tc flash forward (B 8, no lse) and backward (B 2)
-    at the LM paths' causal shapes, in turns, through ``_launch`` and
-    ``_bwd_launch`` of the package on the path."""
+    at the LM paths' shapes, in turns, through ``_launch`` and
+    ``_bwd_launch`` of the package on the path: the causal layers of
+    Hymba, Qwen3 and Phi-3, MusicGen's cross-attention, and PaliGemma's
+    layer at head_dim 256 causal and with its prefix-LM mask (skipped for
+    a package whose kernels do not take head_dim 256)."""
     import repro_torch
     from repro_torch.kernels.flash_attention import ops
     print(f"package: {repro_torch.__file__}")
@@ -363,20 +368,29 @@ def flash_times(gen):
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
-    for label, S, H, KVH, D, window in (
-            ("hymba-1.5b global", 2176, 25, 5, 64, 0),
-            ("hymba-1.5b window 1024", 2176, 25, 5, 64, 1024),
-            ("qwen3-1.7b", 2048, 16, 8, 128, 0),
-            ("phi3-mini-3.8b", 2048, 32, 32, 96, 0)):
-        q8, k8, v8 = bf16(8, S, H, D), bf16(8, S, KVH, D), bf16(8, S, KVH, D)
+    for label, S, Sk, H, KVH, D, window, prefix in (
+            ("hymba-1.5b global", 2176, None, 25, 5, 64, 0, 0),
+            ("hymba-1.5b window 1024", 2176, None, 25, 5, 64, 1024, 0),
+            ("qwen3-1.7b", 2048, None, 16, 8, 128, 0, 0),
+            ("phi3-mini-3.8b", 2048, None, 32, 32, 96, 0, 0),
+            ("musicgen-medium cross", 1500, 64, 24, 24, 64, 0, 0),
+            ("paligemma-3b causal", 512, None, 8, 1, 256, 0, 0),
+            ("paligemma-3b prefix 256", 512, None, 8, 1, 256, 0, 256)):
+        if D not in ops.HEAD_DIMS:
+            print(f"flash_attention tc {label}: head_dim {D} not taken by "
+                  f"this package", flush=True)
+            continue
+        causal, Sk = Sk is None, Sk or S
+        kw = {"prefix_len": prefix} if prefix else {}
+        q8, k8, v8 = bf16(8, S, H, D), bf16(8, Sk, KVH, D), bf16(8, Sk, KVH, D)
         q, o, do = bf16(2, S, H, D), bf16(2, S, H, D), bf16(2, S, H, D)
-        k, v = bf16(2, S, KVH, D), bf16(2, S, KVH, D)
+        k, v = bf16(2, Sk, KVH, D), bf16(2, Sk, KVH, D)
         lse = 4 + torch.rand((2, H, S), generator=gen, device="cuda")
         res = _in_turns({
-            "forward B 8": lambda: (ops._launch("tc", q8, k8, v8, window),
-                                    0)[1],
+            "forward B 8": lambda: (ops._launch(
+                "tc", q8, k8, v8, window, causal, **kw), 0)[1],
             "backward B 2": lambda: (ops._bwd_launch(
-                "tc", q, k, v, o, lse, do, window), 0)[1]}, 20)
+                "tc", q, k, v, o, lse, do, window, causal, **kw), 0)[1]}, 20)
         print(f"flash_attention tc {label}: " + "; ".join(
             f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
 

@@ -33,7 +33,8 @@ def make_train_step(model, tcfg: TrainConfig, num_nodes: int,
     ``train_step(params, opt_state, batch, lr) -> (params, opt_state,
     {"loss": loss})`` on node-stacked params and (n, B, S) batches —
     (n, B, S, K) tokens and labels and an (n, B, Sk, d) ``conditioning``
-    for MusicGen, which ride along to ``model.loss`` — with
+    for MusicGen, (n, B, P, d) ``patch_embeddings`` for PaliGemma, which
+    ride along to ``model.loss`` — with
     ``train_step.init_opt``. QG-DSGDm-N updates params and momentum in
     place (the returned dicts hold the tensors passed in)."""
     algo = make_algorithm(tcfg.algorithm, momentum=tcfg.momentum,
@@ -51,7 +52,9 @@ def make_train_step(model, tcfg: TrainConfig, num_nodes: int,
 
 
 def make_prefill_step(model) -> Callable:
-    """params (node-stacked), batch -> logits (L, B, S, V)."""
+    """params (node-stacked), batch -> logits (L, B, S, V); the batch's
+    ``conditioning`` or ``patch_embeddings`` ride along to
+    ``model.forward``."""
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = model.forward(params, batch)

@@ -91,9 +91,21 @@ def _tokens(x, device):
 
 def _refuse_codebooks(cfg: ModelConfig):
     """The reference has no LM data or round path for multi-codebook
-    tokens: its ``run_training`` makes (n, S) token sequences and its
-    round sends such models to a one-shot path that passes 2-D tokens
-    and no conditioning."""
+    tokens or VLM patches: its ``run_training`` makes (n, S) token
+    sequences and its round sends codebook models to a one-shot path
+    that passes 2-D tokens and no conditioning, and calls
+    ``forward_features`` with tokens alone, which a VLM's ``hidden``
+    cannot run without ``patch_embeddings``."""
+    if cfg.arch_type == "vlm":
+        raise ValueError(
+            f"{cfg.name}: a VLM; the reference has no LM data or round "
+            "path for patch embeddings (src/repro/core/labeling.py:230, "
+            "273 call forward_features with tokens alone, and "
+            "make_lm_data makes no patches, so hidden's "
+            "batch['patch_embeddings'] raises, "
+            "src/repro/models/transformer.py:322-325); train it with "
+            "launch.steps.make_train_step (lmpath.train_steps) and run "
+            "launch.steps.make_prefill_step")
     if cfg.num_codebooks > 1:
         raise ValueError(
             f"{cfg.name}: {cfg.num_codebooks} codebooks; the reference has "

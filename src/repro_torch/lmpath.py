@@ -2,8 +2,9 @@
 one homogenization round (``launch.train.idkd_label_round``) of
 Hymba-1.5B nodes on a ring (:func:`setup`), decentralized training
 with IDKD (``launch.train.run_training``) of the same nodes
-(:func:`train`), and MusicGen-medium's decentralized train step
-(``launch.steps.make_train_step``, :func:`train_steps`).
+(:func:`train`), and the decentralized train step
+(``launch.steps.make_train_step``, :func:`train_steps`) of
+MusicGen-medium and PaliGemma-3B.
 
 * Model: Hymba-1.5B as configured (32 layers, d_model 1600, 25 heads /
   5 KV heads × 64, d_ff 5504, SSM 50 heads × 64 with state 16 and chunk
@@ -67,6 +68,27 @@ with IDKD (``launch.train.run_training``) of the same nodes
   2 × 1500 × 1536 × 2 B ≈ 1.8 GB; the f32 logits (2, 1500, 4, 2048)
   0.1 GB a node: a peak of ~45–50 GB.
 
+* :data:`PALIGEMMA_TRAIN`: PaliGemma-3B (``paligemma-3b``: the Gemma-2B
+  backbone, 18 layers, d_model 2048, 8 query heads on 1 KV head × 256,
+  d_ff 16,384 GeGLU, tied embeddings over 257,216 tokens; bf16) on 4
+  ring nodes, QG-DSGDm-N at :data:`TRAIN`'s lr, 2 sequences per node of
+  256 N(0, 1) patch embeddings (the SigLIP tower stubbed, as the
+  reference stubs it in ``launch.input_specs``) before
+  :data:`PALIGEMMA_TEXT_LEN` = 256 text tokens, every layer recomputed;
+  attention runs the prefix-LM mask over the 256 patches at head_dim
+  256. The reference has no round or ``run_training`` for a VLM, so
+  :func:`train_steps` runs ``make_train_step`` on :func:`train_batch`'s
+  batches. Memory, reckoned before the first run on the card: the embed
+  table 257,216 × 2048 = 0.527 B parameters and 18 layers × (9.44 M
+  attention + 100.7 M GeGLU) = 1.98 B, about 2.51 B a node; params,
+  grads and momentum 4 × 2.51 B × 6 B ≈ 60 GB; the f32 and bf16 logits
+  and their gradients, (4, 2, 256, 257,216), ≈ 6 GB; the saved layer
+  inputs 4 × 18 × 2 × 512 × 2048 × 2 B ≈ 0.3 GB: ≈ 62 GiB, under
+  ``chip_smoke.py``'s 72 GiB gate. Cut: the text is 256 tokens where the
+  reference's ``train_4k`` shape has 4096 (the vocabulary-wide logits of
+  4 nodes × 2 × 4096 tokens would not fit beside the state), and depth
+  (a few steps).
+
 ``setup``, ``train`` and ``train_steps`` take the same arguments at any
 size, so the CPU tests drive this module with a reduced config.
 """
@@ -112,6 +134,8 @@ QWEN3_PUB_BATCH = 2
 PHI3_TRAIN = dataclasses.replace(TRAIN, num_nodes=2)
 MUSICGEN_TRAIN = dataclasses.replace(TRAIN, steps=3, idkd=None)
 MUSICGEN_SEQ_LEN = 1500
+PALIGEMMA_TRAIN = dataclasses.replace(TRAIN, steps=3, idkd=None)
+PALIGEMMA_TEXT_LEN = 256
 
 
 @dataclass
@@ -185,8 +209,9 @@ def train_batch(cfg: ModelConfig, num_nodes: int, batch_size: int,
     """One node-stacked batch in ``train_specs``' layout, drawn on
     ``gen``'s device: token streams seq_len + 1 long, tokens = [:S] and
     labels = [1:] ((n, B, S, K) with K codebooks, else (n, B, S)); for
-    a cross-attention model, conditioning (n, B, cross_attn_len, d)
-    from N(0, 1) in ``cfg.dtype``."""
+    a cross-attention model, conditioning (n, B, cross_attn_len, d),
+    for a VLM patch_embeddings (n, B, num_prefix_tokens, d), from
+    N(0, 1) in ``cfg.dtype``."""
     K = cfg.num_codebooks
     shape = (num_nodes, batch_size, seq_len + 1) + ((K,) if K > 1 else ())
     seq = torch.randint(0, cfg.vocab_size, shape, generator=gen,
@@ -195,6 +220,10 @@ def train_batch(cfg: ModelConfig, num_nodes: int, batch_size: int,
     if cfg.cross_attention:
         batch["conditioning"] = torch.randn(
             (num_nodes, batch_size, cfg.cross_attn_len, cfg.d_model),
+            generator=gen, device=gen.device).to(getattr(torch, cfg.dtype))
+    if cfg.arch_type == "vlm":
+        batch["patch_embeddings"] = torch.randn(
+            (num_nodes, batch_size, cfg.num_prefix_tokens, cfg.d_model),
             generator=gen, device=gen.device).to(getattr(torch, cfg.dtype))
     return batch
 

@@ -1,16 +1,16 @@
-"""Decoder attention: GQA with RoPE, qk-norm, qkv-bias and a per-layer
-sliding window, and cross-attention to a conditioning sequence
-(MusicGen's) (``src/repro/models/attention.py``).
+"""Decoder attention: GQA with RoPE, qk-norm, qkv-bias, a per-layer
+sliding window and the prefix-LM mask (PaliGemma's), and cross-attention
+to a conditioning sequence (MusicGen's) (``src/repro/models/attention.py``).
 
 :func:`chunked_attention` is the reference's entry point; on the ported
-path (causal self-attention from position 0, optionally windowed, and
-non-causal attention over a key set of any length) it is the
-``flash_attention`` kernel on the card — through ``FlashAttentionFn``
-when gradients are wanted, whose backward is the hand-written backward
-kernel — and the kernel's plain version — the reference's chunked online
-softmax, differentiated by autograd — on the CPU. Prefix-LM masks and
-MLA (ROADMAP.md item 10c), ``q_offset``, ``kv_valid_len`` and KV-cache
-decode (item 10b) are not ported and raise.
+path (causal self-attention from position 0, optionally windowed or with
+a bidirectional prefix, and non-causal attention over a key set of any
+length) it is the ``flash_attention`` kernel on the card — through
+``FlashAttentionFn`` when gradients are wanted, whose backward is the
+hand-written backward kernel — and the kernel's plain version — the
+reference's chunked online softmax, differentiated by autograd — on the
+CPU. MLA (ROADMAP.md item 10c), ``q_offset``, ``kv_valid_len`` and
+KV-cache decode (item 10b) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -25,18 +25,16 @@ def chunked_attention(q, k, v, *, q_offset=0, causal=True, window=0,
                       prefix_len: int = 0, kv_valid_len=None,
                       chunk: int = 512):
     """q (B, Sq, H, D), k/v (B, Sk, KVH, D) -> (B, Sq, H, D) in q's dtype:
-    causal self-attention (Sk = Sq) or, with ``causal=False``, every key
+    causal self-attention (Sk = Sq), bidirectional over the first
+    ``prefix_len`` positions, or, with ``causal=False``, every key
     visible (cross-attention)."""
-    if prefix_len:
-        raise NotImplementedError(
-            "chunked_attention: the prefix-LM mask (PaliGemma) is not "
-            "ported (ROADMAP.md item 10c)")
     if q_offset or kv_valid_len is not None:
         raise NotImplementedError(
             "chunked_attention: q_offset and kv_valid_len (decode) are not "
             "ported (ROADMAP.md item 10b)")
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           window=int(window), causal=causal, chunk=chunk)
+                           window=int(window), causal=causal,
+                           prefix_len=int(prefix_len), chunk=chunk)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):

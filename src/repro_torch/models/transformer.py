@@ -8,7 +8,8 @@ makes one node's params; node-stacked params (a leading node axis on
 every leaf, as the port's ResNet has) are what :meth:`forward_features`,
 :meth:`logits`, :meth:`forward` and :meth:`head_params` take, with
 tokens (L, B, S), or (L, B, S, K) for K codebooks, and, for a
-cross-attention model, ``batch["conditioning"]`` (L, B, Sk, d). The
+cross-attention model, ``batch["conditioning"]`` (L, B, Sk, d), for a
+VLM ``batch["patch_embeddings"]`` (L, B, P, d). The
 trunk loops over nodes and layers in Python: the kernels launch through
 ctypes, which ``torch.func.vmap`` cannot batch. Node and layer slices are taken with ``torch.unbind``, so autograd
 stacks a leaf's gradient once instead of adding one zero-filled copy
@@ -19,10 +20,12 @@ next-token loss of every node.
 
 Ported: dense and hybrid stacks — attention, SSM and Hymba's parallel
 attention ∥ SSM heads with branch norms, per-layer sliding windows,
-meta tokens — and MusicGen's: summed codebook embeddings, per-codebook
-heads and a cross-attention block per layer over the conditioning. MoE,
-MLA, VLM patches, multi-token prediction (ROADMAP.md item 10c) and
-decode (item 10b) raise ``NotImplementedError``.
+meta tokens —, MusicGen's — summed codebook embeddings, per-codebook
+heads and a cross-attention block per layer over the conditioning — and
+PaliGemma's: patch embeddings before the tokens, attended under the
+prefix-LM mask and stripped after the final norm. MoE, MLA, multi-token
+prediction (ROADMAP.md item 10c) and decode (item 10b) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -135,7 +138,6 @@ class DecoderModel:
     def __init__(self, cfg: ModelConfig):
         missing = [name for name, on in (
             ("MoE", cfg.moe.enabled), ("MLA", cfg.mla.enabled),
-            ("VLM patches", cfg.arch_type == "vlm"),
             ("multi-token prediction", cfg.mtp_depth > 0)) if on]
         if missing:
             raise NotImplementedError(
@@ -184,10 +186,12 @@ class DecoderModel:
         return p
 
     # -- one node -------------------------------------------------------
-    def _hidden_one(self, p: Params, tokens, memory=None):
+    def _hidden_one(self, p: Params, tokens, memory=None, patches=None):
         """One node's post-stack, post-final-norm hidden states (B, S, d)
-        with the meta tokens stripped; ``memory`` (B, Sk, d), the
-        conditioning that every layer's cross-attention reads."""
+        with the meta tokens or patches stripped; ``memory`` (B, Sk, d),
+        the conditioning that every layer's cross-attention reads;
+        ``patches`` (B, P, d), a VLM's patch embeddings, put before the
+        tokens."""
         cfg = self.cfg
         if cfg.num_codebooks > 1:           # tokens (B, S, K): summed
             h = p["embed"][tokens[..., 0]]
@@ -201,6 +205,9 @@ class DecoderModel:
                 (h.shape[0],) + p["meta_tokens"].shape)
             h = torch.cat([meta, h], dim=1)
             n_prefix = cfg.num_prefix_tokens
+        if patches is not None:
+            h = torch.cat([patches, h], dim=1)
+            n_prefix = patches.shape[1]
         layers = {k: torch.unbind(v) for k, v in sub(p, LAYERS).items()}
         remat = _remat(cfg) and torch.is_grad_enabled()
         for li, window in enumerate(self.layer_windows()):
@@ -217,20 +224,30 @@ class DecoderModel:
     def forward_features(self, params: Params, batch):
         """Pre-head activations (L, B, S, d) of every node on its tokens
         (L, B, S[, K]) and, for a cross-attention model, its
-        ``batch["conditioning"]`` (L, B, Sk, d), cast to the params'
-        dtype; returns (h, aux) with aux 0 (no MoE)."""
+        ``batch["conditioning"]`` (L, B, Sk, d), for a VLM its
+        ``batch["patch_embeddings"]`` (L, B, P, d) (a VLM batch without
+        them raises ``KeyError``, as the reference's), each cast to the
+        params' dtype; returns (h, aux) with aux 0 (no MoE)."""
         tokens = torch.as_tensor(batch[self.input_key])
-        dev = params["embed"].device
+        dev, dtype = params["embed"].device, params["embed"].dtype
         tokens = tokens.to(device=dev, dtype=torch.long)
         memory = batch.get("conditioning") if self.cfg.cross_attention \
             else None
         if memory is not None:
-            memory = torch.as_tensor(memory).to(device=dev,
-                                                dtype=params["embed"].dtype)
+            memory = torch.as_tensor(memory).to(device=dev, dtype=dtype)
+        patches = None
+        if self.cfg.arch_type == "vlm":
+            if "patch_embeddings" not in batch:
+                raise KeyError(f"{self.cfg.name}: a VLM batch needs "
+                               f"'patch_embeddings' (L, B, P, d) beside "
+                               f"'{self.input_key}', got {sorted(batch)}")
+            patches = torch.as_tensor(batch["patch_embeddings"]).to(
+                device=dev, dtype=dtype)
         nodes = {k: torch.unbind(v) for k, v in params.items()}
         h = torch.stack([self._hidden_one(
             {k: v[i] for k, v in nodes.items()}, tokens[i],
-            None if memory is None else memory[i])
+            None if memory is None else memory[i],
+            None if patches is None else patches[i])
             for i in range(tokens.shape[0])])
         return h, torch.zeros((), device=dev)
 

@@ -48,7 +48,9 @@ def test_cuda_kernels_match_plain(dtype):
                                               (130, 4, 1, 32, 0),
                                               (200, 2, 2, 128, 64),
                                               (197, 4, 4, 96, 0),
-                                              (300, 4, 2, 96, 100)])
+                                              (300, 4, 2, 96, 100),
+                                              (512, 8, 1, 256, 0),
+                                              (333, 8, 2, 256, 100)])
 def test_cuda_flash_attention_matches_plain(dtype, S, H, KVH, D, window):
     """On the card: flash_attention against its plain version — GQA,
     windows, ragged S, every head_dim the kernel takes (2e-5 in f32, one
@@ -313,21 +315,31 @@ def _max_err(a, r):
     return float((a.float() - r.float()).abs().max())
 
 
-def _sdpa_bwd_grads(q, k, v, do, window, causal=True):
+def _allow(S, window, prefix_len=0):
+    """(S, S) mask of the causal attention's visible pairs: the window's,
+    the prefix-LM's."""
+    pos = torch.arange(S, device="cuda")
+    allow = pos[None, :] <= pos[:, None]
+    if prefix_len:
+        allow |= (pos[:, None] < prefix_len) & (pos[None, :] < prefix_len)
+    if window:
+        allow &= pos[:, None] - pos[None, :] < window
+    return allow
+
+
+def _sdpa_bwd_grads(q, k, v, do, window, causal=True, prefix_len=0):
     """(dq, dk, dv) of scaled_dot_product_attention (enable_gqa, the same
-    causal / window mask, or none) on the same inputs, in their
+    causal / window / prefix mask, or none) on the same inputs, in their
     (B, S, h, D) layout: the yardstick of the tc backward's rules."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     S = q.shape[1]
     mask = None
-    if window:
-        pos = torch.arange(S, device=q.device)
-        mask = ((pos[None, :] <= pos[:, None])
-                & (pos[:, None] - pos[None, :] < window))
+    if window or prefix_len:
+        mask = _allow(S, window, prefix_len)
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                         is_causal=causal and not window,
+                                         is_causal=causal and mask is None,
                                          enable_gqa=True)
     grads = torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
     return [g.transpose(1, 2) for g in grads]
@@ -340,7 +352,7 @@ def _sdpa_bwd_grads(q, k, v, do, window, causal=True):
     (130, 5, 5, 64, 0), (300, 5, 1, 64, 1024), (2176, 25, 5, 64, 0),
     (2176, 25, 5, 64, 1024), (517, 6, 3, 128, 0), (2176, 25, 5, 128, 1024),
     (75, 4, 4, 96, 20), (517, 6, 3, 96, 0), (2048, 32, 32, 96, 0),
-    (300, 4, 2, 96, 1024)])
+    (300, 4, 2, 96, 1024), (512, 8, 1, 256, 0), (333, 8, 2, 256, 100)])
 def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
                                                 window):
     """On the card: the backward kernels against flash_attention_bwd_plain
@@ -372,9 +384,10 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
     _check_bwd(dtype, 2 if S < 2176 else 1, S, S, H, KVH, D, window, True)
 
 
-def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal):
-    """The body of the backward tests: causal (Sk = S) or not, by the
-    rules test_cuda_flash_attention_bwd_matches_plain states."""
+def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal, prefix_len=0):
+    """The body of the backward tests: causal (Sk = S; with a prefix-LM
+    mask of ``prefix_len``) or not, by the rules
+    test_cuda_flash_attention_bwd_matches_plain states."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.flash_attention.ops import _variant
@@ -388,9 +401,10 @@ def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal):
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
     n_var = flash_attention_bwd.launches_by_variant[variant]
-    mode = "causal" if causal else "cross"
+    mode = "prefix" if prefix_len else "causal" if causal else "cross"
     n_mode = flash_attention_bwd.launches_by_mode[mode][variant]
-    out = flash_attention(qr, kr, vr, window=window, causal=causal)
+    kw = dict(window=window, causal=causal, prefix_len=prefix_len)
+    out = flash_attention(qr, kr, vr, **kw)
     assert out.grad_fn is not None and out.dtype == dt
     out.backward(do)
     assert flash_attention.launches == n_fwd + 1
@@ -402,19 +416,14 @@ def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.float().repeat_interleave(G, 2)) / math.sqrt(D)
     if causal:
-        pos = torch.arange(S, device="cuda")
-        allow = pos[None, :] <= pos[:, None]
-        if window:
-            allow &= pos[:, None] - pos[None, :] < window
-        s = s.masked_fill(~allow, -1e30)
+        s = s.masked_fill(~_allow(S, window, prefix_len), -1e30)
     lse_ref = torch.logsumexp(s, -1)
     del s
     _, _, _, o, lse = (x.detach() for x in _saved_lse(q, k, v, window,
-                                                      causal))
+                                                      causal, prefix_len))
     assert torch.equal(o, out.detach())
     assert float((lse - lse_ref).abs().max()) <= 1e-5 * max(
         1.0, float(lse_ref.abs().max()))
-    kw = dict(window=window, causal=causal)
     ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     if variant == "tc":
@@ -423,7 +432,7 @@ def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal):
         moved = [flash_attention_bwd_plain(
             q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
             **kw, operands="bf16") for to in (math.inf, -math.inf)]
-        lib = _sdpa_bwd_grads(q, k, v, do, window, causal)
+        lib = _sdpa_bwd_grads(q, k, v, do, window, causal, prefix_len)
     for i, (name, a, r, viaf) in enumerate(zip("qkv", got, ref,
                                                (qr, kr, vr))):
         assert a.dtype == dt and bool(torch.isfinite(a).all()), name
@@ -447,11 +456,11 @@ def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal):
             assert torch.equal(viaf.grad, a), name
 
 
-def _saved_lse(q, k, v, window, causal=True):
+def _saved_lse(q, k, v, window, causal=True, prefix_len=0):
     """The tensors FlashAttentionFn saves for its backward."""
     from repro_torch.kernels.flash_attention import FlashAttentionFn
     qr = q.clone().requires_grad_(True)
-    out = FlashAttentionFn.apply(qr, k, v, window, causal)
+    out = FlashAttentionFn.apply(qr, k, v, window, causal, prefix_len)
     return out.grad_fn.saved_tensors
 
 
@@ -504,6 +513,59 @@ def test_cuda_flash_attention_cross_bwd_matches_plain(dtype, B, Sq, Sk, H,
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
     _check_bwd(dtype, B, Sq, Sk, H, KVH, D, 0, False)
+
+
+# the prefix-LM mask (PaliGemma's): its training layer (B 2, S 512 = 256
+# patches + 256 tokens, 8/1 heads x 256, the prefix on a tile edge), a
+# prefix ending mid-tile with GQA, a prefix past the sequence (every key
+# for every row), and the other head_dims
+PREFIX = [(2, 512, 256, 8, 1, 256), (1, 333, 200, 8, 2, 256),
+          (1, 200, 300, 8, 1, 256), (2, 75, 30, 4, 2, 64),
+          (1, 130, 64, 4, 1, 32), (2, 200, 77, 4, 4, 96),
+          (1, 300, 129, 4, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,P,H,KVH,D", PREFIX)
+def test_cuda_flash_attention_prefix_matches_plain(dtype, B, S, P, H, KVH,
+                                                   D):
+    """On the card: the prefix-LM forward (the SIMT kernel in f32 and at
+    head_dim 32, the tc kernel in bf16 at 64/96/128/256) against its plain
+    version within 2e-5 in f32 and one bf16 ulp of the output in bf16,
+    counted as a prefix launch of its variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import _variant
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
+    variant = _variant(dt, D)
+    n0 = flash_attention.launches_by_mode["prefix"][variant]
+    out = flash_attention(q, k, v, prefix_len=P)
+    assert flash_attention.launches_by_mode["prefix"][variant] == n0 + 1
+    assert out.dtype == dt and out.shape == q.shape
+    ref = flash_attention_plain(q, k, v, prefix_len=P)
+    atol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,P,H,KVH,D", PREFIX)
+def test_cuda_flash_attention_prefix_bwd_matches_plain(dtype, B, S, P, H,
+                                                       KVH, D):
+    """On the card: the prefix-LM backward kernels against
+    flash_attention_bwd_plain(prefix_len=P), by the rules of
+    test_cuda_flash_attention_bwd_matches_plain (MQA's 8 query heads
+    summed into one KV head's dK and dV at PaliGemma's shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    _check_bwd(dtype, B, S, S, H, KVH, D, 0, True, P)
 
 
 @pytest.mark.cuda

@@ -68,21 +68,24 @@ def test_flash_plain_matches_chunked_attention(window, S, chunk):
 
 
 def test_flash_plain_keeps_bf16_and_unported_masks_raise():
-    """bf16 stays bf16; the prefix-LM mask, q_offset and kv_valid_len
-    raise, naming ROADMAP.md. causal=False, ported with MusicGen's
-    cross-attention, is bidirectional attention against the reference's
-    (tests/test_torch_musicgen.py holds it at Sk != Sq)."""
+    """bf16 stays bf16; q_offset and kv_valid_len raise, naming
+    ROADMAP.md. causal=False, ported with MusicGen's cross-attention, is
+    bidirectional attention against the reference's
+    (tests/test_torch_musicgen.py holds it at Sk != Sq), and so is the
+    prefix-LM mask over a prefix as long as the sequence (ported with
+    PaliGemma, tests/test_torch_paligemma.py)."""
     rng = np.random.default_rng(2)
     q = t(_normal(rng, (1, 20, 2, 32))).bfloat16()
     assert flash_attention(q, q, q, window=4).dtype == torch.bfloat16
-    for kw in ({"prefix_len": 4}, {"q_offset": 3},
-               {"kv_valid_len": torch.ones(1)}):
+    for kw in ({"q_offset": 3}, {"kv_valid_len": torch.ones(1)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             chunked_attention(q, q, q, **kw)
     qf = q.float()
     ref = np.asarray(j_chunked_attention(*(jnp.asarray(qf.numpy()),) * 3,
                                          causal=False, chunk=8))
     out = chunked_attention(qf, qf, qf, causal=False, chunk=8)
+    np.testing.assert_allclose(out.numpy(), ref, atol=FLASH_F32)
+    out = chunked_attention(qf, qf, qf, prefix_len=20, chunk=8)
     np.testing.assert_allclose(out.numpy(), ref, atol=FLASH_F32)
 
 

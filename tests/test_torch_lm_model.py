@@ -278,18 +278,20 @@ def consensus_and_stack(model):
 
 
 def test_unported_decoder_features_raise():
-    """MoE, MLA, multi-token prediction and VLM patches (and decode)
-    raise, naming ROADMAP.md; codebooks and cross-attention, ported with
-    MusicGen, build (tests/test_torch_musicgen.py holds them to the
-    reference)."""
+    """MoE, MLA and multi-token prediction (and decode) raise, naming
+    ROADMAP.md; codebooks and cross-attention, ported with MusicGen, and
+    VLM patches, ported with PaliGemma, build
+    (tests/test_torch_musicgen.py and tests/test_torch_paligemma.py hold
+    them to the reference)."""
     base = t_get_config("hymba-1.5b").reduced()
     for kw in ({"moe": dataclasses.replace(base.moe, num_experts=4)},
                {"mla": dataclasses.replace(base.mla, kv_lora_rank=8)},
-               {"mtp_depth": 1}, {"arch_type": "vlm"}):
+               {"mtp_depth": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderModel(base.replace(**kw))
     for kw in ({"num_codebooks": 2}, {"cross_attention": True,
-                                      "cross_attn_len": 4}):
+                                      "cross_attn_len": 4},
+               {"arch_type": "vlm"}):
         assert DecoderModel(base.replace(**kw)).cfg == base.replace(**kw)
     model = DecoderModel(base)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -149,14 +149,18 @@ def test_cross_plain_fwd_and_bwd_match_chunked_attention(Sk):
 
 def test_chunked_attention_routes_cross_and_names_what_is_left():
     """The port's chunked_attention takes causal=False over another
-    length; the prefix-LM mask names item 10c, q_offset and kv_valid_len
-    item 10b."""
+    length, and the prefix-LM mask (ported with PaliGemma,
+    tests/test_torch_paligemma.py) only beside causal attention;
+    q_offset and kv_valid_len name item 10b."""
     q, k, v, _ = _attn(1, 1, 10, 6, 4, 2, 16)
     out = tattn.chunked_attention(q, k, v, causal=False, chunk=4)
     torch.testing.assert_close(out, flash_attention_plain(
         q, k, v, causal=False), atol=FLASH_ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="10c"):
-        tattn.chunked_attention(q, q, q, prefix_len=4)
+    torch.testing.assert_close(
+        tattn.chunked_attention(q, q, q, prefix_len=4),
+        flash_attention_plain(q, q, q, prefix_len=4), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="prefix"):
+        tattn.chunked_attention(q, k, v, causal=False, prefix_len=4)
     for kw in (dict(q_offset=3), dict(kv_valid_len=torch.ones(1))):
         with pytest.raises(NotImplementedError, match="10b"):
             tattn.chunked_attention(q, q, q, **kw)

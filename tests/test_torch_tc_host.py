@@ -27,11 +27,13 @@ torch.set_num_threads(1)
     (torch.bfloat16, 32, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.float16, 64, TypeError), (torch.bfloat16, 80, ValueError),
-    (torch.float32, 256, ValueError), (torch.bfloat16, 96, "tc"),
-    (torch.float32, 96, "simt")])
+    (torch.float32, 256, "simt"), (torch.bfloat16, 96, "tc"),
+    (torch.float32, 96, "simt"), (torch.bfloat16, 256, "tc"),
+    (torch.bfloat16, 192, ValueError), (torch.float32, 192, ValueError)])
 def test_flash_variant_from_dtype_and_head_dim(dtype, D, want):
-    """bf16 at head_dim 64/96/128 takes the tensor cores, f32 and bf16
-    at 32 the SIMT kernel; anything else raises, never falls back."""
+    """bf16 at head_dim 64/96/128/256 takes the tensor cores, f32 and
+    bf16 at 32 the SIMT kernel; anything else (MLA's 192) raises, never
+    falls back."""
     if isinstance(want, str):
         assert flash_ops._variant(dtype, D) == want
     else:
@@ -106,6 +108,37 @@ def test_flash_checks_take_cross_attention_and_refuse_the_rest(dtype, D,
     empty = torch.zeros((1, 0, 2, D), dtype=dtype)
     with pytest.raises(ValueError):
         flash_ops._check(q, empty, empty, causal=False)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 256, "tc"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 32, "simt")])
+def test_flash_checks_take_the_prefix_and_refuse_the_rest(dtype, D, want):
+    """Both checks take the prefix-LM mask beside causal attention (any
+    prefix_len >= 0, past the sequence too), and refuse it with a window
+    or with causal=False (the reference applies the window beside it and
+    ignores it without causal; nothing calls either) and a negative one;
+    so do the plain versions. The launch arguments clamp a prefix past
+    the keys to Sk, and the mode counted is "prefix"."""
+    q = torch.zeros((1, 9, 4, D), dtype=dtype)
+    k = torch.zeros((1, 9, 2, D), dtype=dtype)
+    lse = torch.zeros((1, 4, 9))
+    for P in (0, 1, 5, 9, 300):
+        assert flash_ops._check(q, k, k, prefix_len=P) == want
+        assert flash_ops._bwd_check(q, k, k, q, lse, q, prefix_len=P) == want
+    assert flash_ops._shape(q, k, 0, True, 300, None)[-2] == 9
+    assert flash_ops._mode(True, 5) == "prefix"
+    assert flash_ops._mode(True, 0) == "causal"
+    assert flash_ops._mode(False, 0) == "cross"
+    for kw in (dict(prefix_len=4, window=3),
+               dict(prefix_len=4, causal=False), dict(prefix_len=-1)):
+        for call in (lambda: flash_ops._check(q, k, k, **kw),
+                     lambda: flash_ops._bwd_check(q, k, k, q, lse, q, **kw),
+                     lambda: flash_ops.flash_attention_plain(q, k, k, **kw),
+                     lambda: flash_ops.flash_attention_bwd_plain(
+                         q, k, k, q, lse, q, **kw)):
+            with pytest.raises(ValueError, match="prefix"):
+                call()
 
 
 @pytest.mark.parametrize("dtype,want", [
