@@ -25,6 +25,16 @@ Phases (any failed check raises and the script exits non-zero):
 4. the one-shot ``fused`` round (``msp_select``) on the final params,
    held against the streaming round;
 5. the quickstart twin, held to an accuracy floor;
+GRID. the paper's method grid at the main path's full width
+   (``mainpath.grid_sim``): centralized SGD, DSGD, RelaySGD on a chain,
+   QG-DSGDm-N with vanilla KD (the streaming round through
+   ``head_select`` with the OoD filter off), D² and gradient tracking,
+   each cut to 120 steps (the round at 60, an eval every 30): ms per
+   step, final accuracy, consensus distance and peak memory per method;
+   every eval finite and the eval NLL falling over each run, centralized
+   SGD's nodes kept together, RelaySGD on a ring refused; then each new
+   algorithm 3 steps of ResNet-8 (f32, 4 nodes) on the card and on the
+   CPU from the same params and draws, to the same params;
 LM-1. the LM kernels against their plain versions on the card at
    Hymba-1.5B's shapes: ``flash_attention`` (global and windowed, f32
    and bf16, timed beside ``scaled_dot_product_attention``),
@@ -119,6 +129,16 @@ LM-8. PaliGemma-3B's decentralized train step and prefill at full width
    mid-tile with GQA (B 1, S 333, prefix 200, 8/2 x 256) and a prefix
    past the sequence (S 200, prefix 300).
 
+LM-9. the LM baselines at full width: ``lmpath.TRAIN``'s Hymba-1.5B
+   setting (4 ring nodes, 2 x 2048 tokens a node, lr 0.1) with
+   centralized SGD, D² and gradient tracking, 2 steps each through
+   ``lmpath.train_steps``: step times, losses and peak memory; every
+   loss finite, the params moved, every flash launch tc, flash and
+   ``ssd_scan`` launched nodes x layers times backward and twice that
+   forward a step, the peak under 72 GiB; then a reduced Hymba trained
+   with each (2 plain steps, the round, 2 KD steps) on the card and on
+   the CPU with the same draws, to the same params and losses.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -196,8 +216,15 @@ SSD_BWD_ATOL = 1e-5          # ssd_scan's backward: the float64 rule above,
 TRAIN_PARAM_ATOL = 1e-5      # reduced Hymba (f32) trained 4 steps on the
 TRAIN_LOSS_RTOL = 1e-5       # card and on the CPU: consensus params and
                              # the loss history (see phase_lm_train)
-TRAIN_PEAK_GIB = 72.0        # LM-4's, LM-5's and LM-6's peak device
-                             # memory budget
+TRAIN_PEAK_GIB = 72.0        # LM-4's to LM-9's peak device memory
+                             # budget
+CONSENSUS_RTOL = 1e-5        # GRID: centralized SGD's nodes, identical at
+                             # init and averaged exactly, stay within this
+                             # share of the params' norm of each other
+GRID_METHODS = ("sgd-centralized", "dsgd", "relay-sgd", "qg-dsgdm-n+kd",
+                "d2", "gradient-tracking")
+GRID_STEPS, GRID_ROUND, GRID_EVAL = 120, 60, 30
+LM_BASELINES = ("centralized", "d2", "gradient-tracking")
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
                                                       # bf16 tensor cores
@@ -499,6 +526,132 @@ def phase_quickstart(torch):
 
 
 # ------------------------------------------------------------- LM phases
+def phase_grid(torch, ops):
+    """GRID: the paper's method grid on the card at the main path's full
+    width (``mainpath.grid_sim``: ResNet-20, 16 nodes, α 0.1, batch 32,
+    8192 images, 2048 aligned public samples; RelaySGD on a chain, the
+    rest on the ring; the grid's lr and weight decay rules), each method
+    cut in depth to GRID_STEPS = 120 steps, evaluated every 30, the KD
+    method's round at step 60 (``qg-idkd`` is phase 3). Per method: ms
+    per step (each step ended by a synchronize; the median after the
+    first), final accuracy, consensus distance and peak memory. Fails
+    unless every eval loss is finite and the eval NLL falls over the
+    run, centralized SGD's nodes stay together (consensus distance
+    within CONSENSUS_RTOL of the params' norm), the KD method launches
+    ``head_select``, and RelaySGD on a ring raises at construction."""
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.data.synthetic import make_classification_data
+    from repro_torch.mainpath import grid_config, grid_sim
+    head_select = ops[0]
+    tcfg, _ = grid_config("relay-sgd", GRID_STEPS)
+    tiny = make_classification_data(image_size=32, n_train=64, n_val=8,
+                                    n_test=8, seed=0)
+    try:
+        DecentralizedSimulator(CONFIG, dataclasses.replace(
+            tcfg, topology="ring"), tiny, device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("GRID: relaysgd on a ring did not raise at construction")
+    print(f"GRID: relaysgd on a ring raises: {refusal}")
+    launches, variants, rows = 0, {"tc": 0, "simt": 0}, {}
+    for method in GRID_METHODS:
+        sim = grid_sim(method, GRID_STEPS, GRID_ROUND, GRID_EVAL, "cuda")
+        secs = []
+
+        def timed_step(real):
+            def step(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                return out
+            return step
+        for phase in list(sim.steps):
+            sim.steps[phase] = timed_step(sim.steps[phase])
+        head_select.launches = 0
+        head_select.launches_by_variant = {"tc": 0, "simt": 0}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        norm = math.sqrt(sum(float(v.float().pow(2).sum())
+                             for v in r.params.values()))
+        cons = r.consensus_history[-1]
+        warm = sorted(secs[1:])
+        ms = 1e3 * warm[len(warm) // 2]
+        nll = r.loss_history
+        rows[method] = dict(ms=ms, acc=r.final_acc, consensus=cons,
+                            peak_gib=peak, nll=nll, wall=wall)
+        print(f"GRID {method} ({sim.tcfg.algorithm}, "
+              f"{sim.gossip_topo.name}, lr {sim.tcfg.lr}, wd "
+              f"{sim.tcfg.weight_decay}, kd {sim.kd_mode}): {len(secs)} "
+              f"steps, {ms:.2f} ms a step (median after the first; first "
+              f"{1e3 * secs[0]:.2f}, mean {1e3 * sum(warm) / len(warm):.2f})"
+              f", final accuracy {r.final_acc:.4f}, eval NLL "
+              f"{[round(x, 4) for x in nll]}, consensus distance "
+              f"{cons:.4g} (params' norm {norm:.4g}), peak "
+              f"{peak:.3f} GiB, {wall:.1f} s wall, head_select launches "
+              f"{head_select.launches}")
+        check(len(secs) == GRID_STEPS,
+              f"GRID {method}: {len(secs)} steps ran")
+        check(all(map(_finite, nll)), f"GRID {method}: eval NLL {nll}")
+        check(nll[-1] < nll[0], f"GRID {method}: eval NLL grew: {nll}")
+        if sim.tcfg.algorithm == "centralized":
+            check(cons <= CONSENSUS_RTOL * norm,
+                  f"GRID {method}: consensus distance {cons:.3g} > "
+                  f"{CONSENSUS_RTOL} x params' norm {norm:.3g}")
+        if sim.kd_mode is not None:
+            check(head_select.launches > 0 and len(r.rounds) == 1,
+                  f"GRID {method}: {len(r.rounds)} rounds, "
+                  f"{head_select.launches} head_select launches")
+        launches += head_select.launches
+        for v, c in head_select.launches_by_variant.items():
+            variants[v] += c
+        del sim, r
+    return ({"head_select": launches}, {"head_select": variants}, rows)
+
+
+def phase_grid_card_vs_cpu(torch):
+    """Each new algorithm (centralized, D², gradient tracking, RelaySGD on
+    a chain) trains ResNet-8 (``SMALL_CONFIG``, 32 × 32, f32) on 4 nodes
+    for 3 steps of the simulator, on the card and on the CPU, from the
+    same params (the init is made on the CPU) and the same index draws
+    (``_same_draws``), under the grid's lr and weight decay: the final
+    node-stacked params within TRAIN_PARAM_ATOL."""
+    from repro_torch.configs.resnet20_cifar import SMALL_CONFIG
+    from repro_torch.core.simulator import DecentralizedSimulator
+    from repro_torch.data.synthetic import make_classification_data
+    from repro_torch.mainpath import grid_config
+    data = make_classification_data(image_size=32, n_train=256, n_val=32,
+                                    n_test=64, noise=1.6, seed=0)
+    for method in ("sgd-centralized", "d2", "gradient-tracking",
+                   "relay-sgd"):
+        tcfg, _ = grid_config(method, steps=3)
+        tcfg = dataclasses.replace(tcfg, num_nodes=4, batch_size=8)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            with _same_draws(torch, 7):
+                runs[device] = DecentralizedSimulator(
+                    SMALL_CONFIG, tcfg, data, eval_every=100,
+                    eval_batches=1, device=device).run()
+        gpu, cpu = runs["cuda"].params, runs["cpu"].params
+        dp = max(float((gpu[k].cpu() - v).abs().max())
+                 for k, v in cpu.items())
+        print(f"{method} ({tcfg.algorithm}, {tcfg.topology}), ResNet-8 f32 "
+              f"on 4 nodes, 3 steps on the card and on the CPU with the "
+              f"same draws: params within {dp:.3g} (tol "
+              f"{TRAIN_PARAM_ATOL}); eval NLL card "
+              f"{runs['cuda'].loss_history} CPU {runs['cpu'].loss_history}")
+        check(dp <= TRAIN_PARAM_ATOL,
+              f"{method}, card vs CPU: params differ by {dp:.3g}")
+
+
 def _flash_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0):
     """(bytes, flops) of one attention call, causal (windowed, or with a
     prefix-LM mask of ``prefix`` positions: the causal triangle and the
@@ -2104,6 +2257,99 @@ def phase_lm_paligemma(torch):
                 launches=launches, variants=variants, by_head_dim=dims)
 
 
+def phase_lm_baselines(torch):
+    """LM-9: the LM baselines at full width. ``lmpath.TRAIN``'s setting
+    (Hymba-1.5B, 4 ring nodes, 2 sequences of 2048 per node, lr 0.1,
+    every layer recomputed) with ``algorithm`` each of LM_BASELINES, 2
+    steps each through ``lmpath.train_steps``: each step's wall time and
+    loss, peak memory. Fails unless every loss is finite, the params
+    moved, every flash launch is a tc launch at head_dim 64 and the
+    launches per step are what the layer loop implies (nodes x layers
+    backward, twice that forward under the recompute, for flash and for
+    ``ssd_scan``), and the peak stays within TRAIN_PEAK_GIB. Then a
+    reduced Hymba (f32) trained with each algorithm on the card and on
+    the CPU (``_train_card_vs_cpu``: 2 plain steps, the round, 2 KD
+    steps, the same draws)."""
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    cfg = lmpath.CONFIG
+    n, L, hd = lmpath.TRAIN.num_nodes, cfg.num_layers, cfg.resolved_head_dim
+    steps = 2
+    flash = {"flash_attention": flash_attention,
+             "flash_attention_bwd": flash_attention_bwd}
+    ssd = {"ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+    launches = dict.fromkeys(list(flash) + list(ssd), 0)
+    variants = {k: {"tc": 0, "simt": 0} for k in flash}
+    rows = {}
+    for algo in LM_BASELINES:
+        tcfg = dataclasses.replace(lmpath.TRAIN, algorithm=algo, idkd=None)
+        for f in ssd.values():
+            f.launches = 0
+        for f in flash.values():
+            f.launches = 0
+            f.launches_by_variant = {"tc": 0, "simt": 0}
+            f.launches_by_head_dim = dict.fromkeys(f.launches_by_head_dim, 0)
+        torch.cuda.empty_cache()
+        out = lmpath.train_steps(cfg, tcfg, seq_len=lmpath.SEQ_LEN,
+                                 steps=steps, device="cuda")
+        losses = [st["loss"] for st in out["steps"]]
+        secs = [st["s"] for st in out["steps"]]
+        peak = out["peak_gib"]
+        rows[algo] = dict(s=secs, loss=losses, peak_gib=peak)
+        print(f"LM-9 {algo}: {cfg.name}, {n} ring nodes, {L} layers, "
+              f"{tcfg.batch_size} x {lmpath.SEQ_LEN} tokens a node, lr "
+              f"{tcfg.lr}: steps {[round(x, 3) for x in secs]} s, losses "
+              f"{losses}, peak {peak:.2f} GiB, {out['moved']} of "
+              f"{out['pairs']} (leaf, node) sums moved, flash launches "
+              f"{[st['launches'] for st in out['steps']]}, ssd_scan "
+              f"{ssd_scan.launches}, ssd_scan_bwd {ssd_scan_bwd.launches}")
+        check(all(math.isfinite(x) for x in losses),
+              f"LM-9 {algo}: losses {losses}")
+        check(out["moved"] > 0, f"LM-9 {algo}: the params did not move")
+        for i, st in enumerate(out["steps"]):
+            for name, want in (("flash_attention", 2 * n * L),
+                               ("flash_attention_bwd", n * L)):
+                by = st["launches"][name]["causal"]
+                check(by == {"tc": want, "simt": 0},
+                      f"LM-9 {algo} step {i}: {name} launches {by}; the "
+                      f"layer loop implies {want}, all tc")
+        for name, f in flash.items():
+            check(f.launches_by_head_dim[hd] == f.launches,
+                  f"LM-9 {algo}: {name} by head_dim "
+                  f"{f.launches_by_head_dim}")
+        for name, want in (("ssd_scan", 2 * n * L * steps),
+                           ("ssd_scan_bwd", n * L * steps)):
+            check(ssd[name].launches == want,
+                  f"LM-9 {algo}: {ssd[name].launches} {name} launches over "
+                  f"{steps} steps; the schedule implies {want}")
+        check(peak <= TRAIN_PEAK_GIB, f"LM-9 {algo}: peak memory "
+                                      f"{peak:.1f} GiB > {TRAIN_PEAK_GIB}")
+        for name, f in {**flash, **ssd}.items():
+            launches[name] += f.launches
+        for name, f in flash.items():
+            for v, c in f.launches_by_variant.items():
+                variants[name][v] += c
+        del out
+        torch.cuda.empty_cache()
+    small = cfg.reduced().replace(num_layers=3, num_kv_heads=2, remat=True)
+    for algo in LM_BASELINES:
+        tcfg = dataclasses.replace(
+            lmpath.TRAIN, algorithm=algo, idkd=dataclasses.replace(
+                lmpath.TRAIN.idkd, stream_microbatch=5))
+        dp, dl = _train_card_vs_cpu(torch, f"reduced Hymba, {algo}", small,
+                                    tcfg, seq_len=120, n_private=256,
+                                    n_public=12)
+        print(f"reduced Hymba, {algo}: 2 plain steps, the round and 2 KD "
+              f"steps on the card and on the CPU with the same draws: "
+              f"consensus params within {dp:.3g} (tol {TRAIN_PARAM_ATOL}), "
+              f"losses within {dl:.3g} relative (tol {TRAIN_LOSS_RTOL})")
+    dims = {k: {hd: launches[k]} for k in flash}
+    return dict(launches=launches, variants=variants, by_head_dim=dims,
+                rows=rows)
+
+
 def kernel_line(kres, lm_rows, paths, variants, head_dims):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
@@ -2254,6 +2500,9 @@ def main() -> int:
     phase_quickstart(torch)
     del sim, result
     torch.cuda.empty_cache()
+    grid_launches, grid_variants, _ = phase_grid(torch, ops)
+    phase_grid_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
 
     lm_rows = phase_lm_kernels(torch)
     phase_lm_dense_kernels(torch, lm_rows)
@@ -2268,15 +2517,19 @@ def main() -> int:
     qwen3, phi3 = phase_lm_dense(torch)
     musicgen = phase_lm_musicgen(torch)
     paligemma = phase_lm_paligemma(torch)
+    baselines = phase_lm_baselines(torch)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
-              "musicgen-train": musicgen, "paligemma-train": paligemma}
+              "musicgen-train": musicgen, "paligemma-train": paligemma,
+              "lm_baselines": baselines}
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
-        {"resnet_path": launches, "lm_path": lm_launches,
+        {"resnet_path": launches, "grid": grid_launches,
+         "lm_path": lm_launches,
          **{k: v["launches"] for k, v in trains.items()}},
-        {"resnet_path": variants, "lm_path": lm_variants,
+        {"resnet_path": variants, "grid": grid_variants,
+         "lm_path": lm_variants,
          **{k: v["variants"] for k, v in trains.items()}},
         {"lm_path": lm_dims,
          **{k: v["by_head_dim"] for k, v in trains.items()}})}))

@@ -212,7 +212,8 @@ class IDKDConfig:
 class TrainConfig:
     """Decentralized training run description."""
 
-    algorithm: str = "qg-dsgdm-n"   # dsgd|dsgdm|qg-dsgdm-n (ported so far)
+    algorithm: str = "qg-dsgdm-n"   # centralized|dsgd|dsgdm|qg-dsgdm-n|d2|
+                                    # gradient-tracking|relaysgd
     topology: str = "ring"
     num_nodes: int = 16
     alpha: float = 0.1              # Dirichlet non-IID skew parameter

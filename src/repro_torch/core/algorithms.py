@@ -1,18 +1,26 @@
 """Decentralized optimizers against an abstract gossip mixer.
 
 Params, grads and optimizer state are flat dicts of node-stacked tensors
-(leading axis = node). Ported: ``dsgd``, ``dsgdm`` and ``qg-dsgdm-n``
-(the paper's base optimizer); the other names of the reference's
-registry raise until they are ported (ROADMAP.md queue 1 item 6).
-Updates run under ``torch.no_grad``; ``dsgd``/``dsgdm`` return new
-tensors, ``qg-dsgdm-n`` writes over the params and momentum passed in.
+(leading axis = node). Every name of the reference's registry is here:
+``centralized`` (exact averaging, the paper's upper bound), ``dsgd``,
+``dsgdm``, ``qg-dsgdm-n`` (the paper's base optimizer), ``d2``,
+``gradient-tracking`` and ``relaysgd`` (on a tree). Updates run under
+``torch.no_grad``. ``dsgd``/``dsgdm`` and ``relaysgd`` return new
+tensors; ``centralized``, ``qg-dsgdm-n``, ``d2`` and
+``gradient-tracking`` work leaf by leaf over :func:`leaf_slices`,
+gossip through ``mix.mix_leaf`` on each slice, and write into the
+buffers they are given (params and state), so that an update holds
+f32 temporaries of one slice and no second copy of a node-stacked tree.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
+
+from repro_torch.core.topology import Topology
 
 Params = Dict[str, torch.Tensor]
 
@@ -36,6 +44,12 @@ def leaf_slices(x: torch.Tensor):
             for a in range(0, x.shape[1], per)]
 
 
+def _decayed(g, p, wd: float):
+    """g + wd·p, added in the grad's dtype (the reference's
+    ``_apply_weight_decay``)."""
+    return g + wd * p.to(g.dtype) if wd else g
+
+
 @dataclass
 class Algorithm:
     """init(params) -> state; step(params, grads, state, lr, mix) -> ..."""
@@ -45,6 +59,31 @@ class Algorithm:
     needs_topology: bool = False
 
 
+def make_centralized(momentum: float = 0.9, weight_decay: float = 0.0,
+                     nesterov: bool = True) -> Algorithm:
+    """SGD on exactly averaged gradients (the paper's upper bound, on the
+    complete graph's uniform mixing): per slice, gossip the grads, add
+    the weight decay, heavy-ball momentum (Nesterov by default), step.
+    Params and momentum are written in place."""
+    def init(params):
+        return {"m": tree_zeros_like(params)}
+
+    @torch.no_grad()
+    def step(params, grads, state, lr, mix):
+        for k, p in params.items():
+            g, m = grads[k], state["m"][k]
+            for sl in leaf_slices(p):
+                gk = _decayed(mix.mix_leaf(g[sl]), p[sl], weight_decay)
+                mk = (momentum * m[sl].float() + gk.float()).to(gk.dtype)
+                upd = ((momentum * mk.float() + gk.float()).to(gk.dtype)
+                       if nesterov else mk)
+                m[sl] = mk
+                p[sl] = (p[sl].float() - lr * upd.float()).to(p.dtype)
+        return params, state
+
+    return Algorithm("centralized", init, step)
+
+
 def make_dsgd(momentum: float = 0.0, weight_decay: float = 0.0) -> Algorithm:
     """DSGD (Lian et al. 2017), with local heavy-ball momentum = DSGDm."""
     def init(params):
@@ -52,9 +91,8 @@ def make_dsgd(momentum: float = 0.0, weight_decay: float = 0.0) -> Algorithm:
 
     @torch.no_grad()
     def step(params, grads, state, lr, mix):
-        if weight_decay:
-            grads = {k: g + weight_decay * params[k].to(g.dtype)
-                     for k, g in grads.items()}
+        grads = {k: _decayed(g, params[k], weight_decay)
+                 for k, g in grads.items()}
         if momentum:
             upd = {k: (momentum * state["m"][k].float() + g.float()
                        ).to(g.dtype) for k, g in grads.items()}
@@ -128,18 +166,153 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
     return Algorithm("qg-dsgdm-n", init, step)
 
 
-def make_algorithm(name: str, *, topology=None, momentum: float = 0.9,
-                   weight_decay: float = 1e-4) -> Algorithm:
-    """The registry."""
+def make_d2(weight_decay: float = 0.0) -> Algorithm:
+    """D² (Tang et al. 2018): x⁺ = W(2x − x_prev − η(g − g_prev)), and
+    x − ηg on the first step; removes DSGD's data-heterogeneity bias.
+
+    The state holds x_prev, g_prev (weight decay added) and the step
+    count ``t`` as a Python int. From the second step the new params are
+    written over x_prev's buffer, slice by slice, each slice read before
+    it is written, and the params passed in become the next x_prev: two
+    node-stacked copies of the params, as the method needs, and none
+    more. The first step, whose x_prev is the params themselves, writes
+    into new tensors. g_prev is written over the old one's buffer, so
+    the grads passed in are left as they are."""
+    def init(params):
+        return {"prev_x": params, "prev_g": tree_zeros_like(params), "t": 0}
+
+    @torch.no_grad()
+    def step(params, grads, state, lr, mix):
+        first = state["t"] == 0
+        new = {}
+        for k, x in params.items():
+            g, px, pg = grads[k], state["prev_x"][k], state["prev_g"][k]
+            out = torch.empty_like(x) if first else px
+            for sl in leaf_slices(x):
+                gk = _decayed(g[sl], x[sl], weight_decay)
+                xf, gf = x[sl].float(), gk.float()
+                if first:
+                    half = xf - lr * gf
+                else:
+                    half = 2.0 * xf - px[sl].float() - lr * (
+                        gf - pg[sl].float())
+                pg[sl] = gk
+                out[sl] = mix.mix_leaf(half.to(x.dtype))
+            new[k] = out
+        return new, {"prev_x": params, "prev_g": state["prev_g"],
+                     "t": state["t"] + 1}
+
+    return Algorithm("d2", init, step)
+
+
+def make_gradient_tracking(weight_decay: float = 0.0) -> Algorithm:
+    """Gradient tracking: a tracker y of the global gradient,
+    y⁺ = W(y + g − g_prev) (the local gradient on the first step), then
+    x⁺ = W(x − ηy⁺) — two gossips a step. The tracker's sum runs in the
+    leaf's dtype, as the reference's. Params, tracker and g_prev are
+    written in place, slice by slice."""
+    def init(params):
+        return {"y": tree_zeros_like(params),
+                "prev_g": tree_zeros_like(params), "t": 0}
+
+    @torch.no_grad()
+    def step(params, grads, state, lr, mix):
+        first = state["t"] == 0
+        for k, x in params.items():
+            g, y, pg = grads[k], state["y"][k], state["prev_g"][k]
+            for sl in leaf_slices(x):
+                gk = _decayed(g[sl], x[sl], weight_decay)
+                ym = mix.mix_leaf(gk if first else y[sl] + gk - pg[sl])
+                y[sl] = ym
+                pg[sl] = gk
+                x[sl] = mix.mix_leaf(
+                    (x[sl].float() - lr * ym.float()).to(x.dtype))
+        return params, {"y": state["y"], "prev_g": state["prev_g"],
+                        "t": state["t"] + 1}
+
+    return Algorithm("gradient-tracking", init, step)
+
+
+def make_relaysgd(topology: Topology, momentum: float = 0.9,
+                  weight_decay: float = 5e-4) -> Algorithm:
+    """RelaySum/Model (Vogels et al. 2021): messages relayed along a
+    spanning tree give every node the exact, delayed, average of all
+    models. The state holds a message per directed edge, ``msg`` leaves
+    (n_src, n_dst, ...) in f32 (zero off the edges), the (n, n) count of
+    models each message sums, and the momentum. It gossips through its
+    own messages: the mixer it is passed is ignored."""
+    if not topology.is_tree():
+        raise ValueError("RelaySGD requires a tree topology (e.g. chain)")
+    n = topology.n
+    adj_np = np.zeros((n, n), bool)
+    for i in range(n):
+        adj_np[i, topology.neighbors(i)] = True
+    adj_on = {}
+
+    def adjacency(device):
+        if device not in adj_on:
+            adj_on[device] = torch.as_tensor(adj_np, device=device)
+        return adj_on[device]
+
+    def init(params):
+        dev = next(iter(params.values())).device
+        return {"msg": {k: torch.zeros((n,) + v.shape, dtype=torch.float32,
+                                       device=v.device)
+                        for k, v in params.items()},
+                "cnt": torch.zeros((n, n), dtype=torch.float32, device=dev),
+                "m": tree_zeros_like(params)}
+
+    def incoming(msg, adj_f):
+        """inc[i] = Σ_k adj[k, i] · msg[k, i]."""
+        return torch.einsum("ki...,ki->i...", msg, adj_f)
+
+    @torch.no_grad()
+    def step(params, grads, state, lr, mix=None):
+        adj = adjacency(state["cnt"].device)
+        adj_f = adj.float()
+        cnt = state["cnt"]
+        new_cnt = torch.where(adj, 1.0 + (cnt * adj_f).sum(0)[:, None]
+                              - cnt.T, 0.0)
+        total = 1.0 + (new_cnt * adj_f).sum(0)                    # (n,)
+        new_params, new_msg, new_m = {}, {}, {}
+        for k, p in params.items():
+            gk = _decayed(grads[k], p, weight_decay)
+            m = (momentum * state["m"][k].float() + gk.float()).to(gk.dtype)
+            xh = (p.float() - lr * m.float()).to(p.dtype)
+            msg = state["msg"][k]
+            # msg'[i, j] = xhat_i + Σ_{k ∈ N(i) \ {j}} msg[k, i]
+            relay = (xh.float()[:, None] + incoming(msg, adj_f)[:, None]
+                     - msg.transpose(0, 1))
+            mask = adj.reshape((n, n) + (1,) * (msg.dim() - 2))
+            msg = torch.where(mask, relay, 0.0)
+            shape = (n,) + (1,) * (p.dim() - 1)
+            new_params[k] = ((xh.float() + incoming(msg, adj_f))
+                             / total.reshape(shape)).to(p.dtype)
+            new_msg[k], new_m[k] = msg, m
+        return new_params, {"msg": new_msg, "cnt": new_cnt, "m": new_m}
+
+    return Algorithm("relaysgd", init, step, needs_topology=True)
+
+
+def make_algorithm(name: str, *, topology: Optional[Topology] = None,
+                   momentum: float = 0.9, weight_decay: float = 1e-4
+                   ) -> Algorithm:
+    """The registry: the reference's names, defaults and errors."""
     name = name.lower()
+    if name == "centralized":
+        return make_centralized(momentum, weight_decay)
     if name == "dsgd":
         return make_dsgd(0.0, weight_decay)
     if name == "dsgdm":
         return make_dsgd(momentum, weight_decay)
     if name in ("qg-dsgdm-n", "qgm"):
         return make_qg_dsgdm_n(momentum, weight_decay)
-    if name in ("centralized", "d2", "gradient-tracking", "gt", "relaysgd"):
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet; see ROADMAP.md queue 1 "
-            "item 6")
+    if name == "d2":
+        return make_d2(weight_decay)
+    if name in ("gradient-tracking", "gt"):
+        return make_gradient_tracking(weight_decay)
+    if name == "relaysgd":
+        if topology is None:
+            raise ValueError("relaysgd needs a topology")
+        return make_relaysgd(topology, momentum, weight_decay)
     raise ValueError(f"unknown algorithm {name!r}")

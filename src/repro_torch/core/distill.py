@@ -31,6 +31,17 @@ def kd_loss(student_logits, teacher_probs, temperature: float):
     return (temperature ** 2) * ce
 
 
+def average_labels(label_stack, mask):
+    """LabelAverage (Algorithm 1, line 14): label_stack (n, P, C) soft
+    labels, mask (n, P) the samples each node kept. Returns the average
+    over the nodes that labelled each sample (P, C) and whether any did
+    (P,)."""
+    m = mask.float()
+    num = torch.einsum("np,npc->pc", m, label_stack.float())
+    cnt = m.sum(dim=0)
+    return num / torch.clamp(cnt, min=1.0)[:, None], cnt > 0
+
+
 class SparseLabels(NamedTuple):
     """Top-k sparse soft labels (values + class indices)."""
     values: torch.Tensor   # (..., k) f32, renormalized

@@ -16,8 +16,10 @@ with ``jax.random``; the two streams differ, so parity tests replay
 index draws instead of reseeding.
 
 **Runner.** :func:`make_host_runner` is a per-step Python loop. The
-reference's ``lax.scan`` runner becomes CUDA-graph capture in a later
-slice (ROADMAP.md).
+reference's ``lax.scan`` runner follows the same trajectory as its host
+runner by its own contract, so the port's ``"scan"`` is that loop too
+(:func:`make_runner`); capturing it in a CUDA graph is speed work
+(ROADMAP.md §2, host dispatch).
 """
 from __future__ import annotations
 
@@ -34,6 +36,22 @@ from repro_torch.runtime import resolve_device
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
 NodeLoss = Callable[[Params, Batch], torch.Tensor]
+
+RUNNER_MODES = ("scan", "host", "auto", "shard")
+
+
+def resolve_runner_mode(mode: str) -> str:
+    """The reference's runner names: ``"auto"`` resolves to ``"scan"``,
+    and ``"scan"`` and ``"host"`` both run the Python step loop. The
+    sharded driver (``"shard"``) is not ported and raises."""
+    if mode not in RUNNER_MODES:
+        raise ValueError(f"unknown driver mode {mode!r}; "
+                         f"expected one of {RUNNER_MODES}")
+    if mode == "shard":
+        raise NotImplementedError(
+            "driver_mode='shard' (the sharded driver) is not ported yet; "
+            "see ROADMAP.md queue 1 item 13")
+    return "scan" if mode == "auto" else mode
 
 
 def _weighted_mean(nll, w):
@@ -333,6 +351,14 @@ def make_host_runner(step_fn, sample_fn, lr_fn) -> Callable:
                                                                device=dev))
 
     return run
+
+
+def make_runner(step_fn, sample_fn, lr_fn, mode: str = "scan"
+                ) -> Callable:
+    """The runner of ``mode`` (:func:`resolve_runner_mode`): the host
+    runner under every name the port takes."""
+    resolve_runner_mode(mode)
+    return make_host_runner(step_fn, sample_fn, lr_fn)
 
 
 def eval_boundaries(steps: int, eval_every: int) -> List[Tuple[int, int]]:

@@ -1,11 +1,24 @@
 """The paper's homogenization diagnostics (Figure 3a): per-node class
 histograms before/after IDKD and the skew metric. The round itself
-lives in :mod:`repro_torch.core.labeling`."""
+lives in :mod:`repro_torch.core.labeling`; :func:`homogenization_round`
+is its paper-named entry point on the dense backend."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import distill
+from repro_torch.configs.base import IDKDConfig
+from repro_torch.core import distill, labeling
+from repro_torch.core.topology import Topology
+
+
+def homogenization_round(public_logits, val_logits, cal_logits,
+                         topology: Topology, cfg: IDKDConfig
+                         ) -> labeling.HomogenizedSet:
+    """One IDKD round on node-stacked logits (dense backend):
+    public_logits (n, P, C) on D_P, val_logits (n, V, C) on each node's
+    private D_V, cal_logits (n, K, C) on D_C, or None for D_C = D_P."""
+    return labeling.label_round(public_logits, val_logits, cal_logits,
+                                topology, cfg, backend="dense")
 
 
 def class_histogram(hard_labels, soft_labels=None, weights=None,

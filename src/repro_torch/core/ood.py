@@ -31,6 +31,12 @@ def confidence(logits, detector: str = "msp", temperature: float = 1.0
     raise ValueError(f"unknown OoD detector {detector!r}")
 
 
+def sequence_confidence(logits, temperature: float = 1.0) -> torch.Tensor:
+    """LM adaptation: a sequence's MSP is the mean over positions of its
+    tokens' max softmax probability. logits (B, S, V) -> (B,)."""
+    return msp_confidence(logits, temperature).mean(dim=-1)
+
+
 def roc_curve(id_scores, ood_scores, num_thresholds: int = 256):
     """Threshold sweep over the trailing axis. Returns (thresholds, TPR,
     FPR), each (..., num_thresholds); score > t ⇒ ID."""
@@ -54,3 +60,18 @@ def calibrate_threshold(id_scores, ood_scores,
     ts, tpr, fpr = roc_curve(id_scores, ood_scores, num_thresholds)
     best = torch.argmax(tpr - fpr, dim=-1, keepdim=True)
     return torch.gather(ts, -1, best)[..., 0]
+
+
+def auroc(id_scores, ood_scores, num_thresholds: int = 512) -> torch.Tensor:
+    """Area under the ROC curve (a diagnostic of detector quality), by
+    the trapezoid rule over the sweep sorted by FPR."""
+    _, tpr, fpr = roc_curve(id_scores, ood_scores, num_thresholds)
+    order = torch.argsort(fpr, dim=-1, stable=True)
+    return torch.trapezoid(tpr.gather(-1, order), fpr.gather(-1, order),
+                           dim=-1)
+
+
+def select_id_subset(confidences, threshold) -> torch.Tensor:
+    """Boolean D_ID mask over the public set: conf > t_opt (Algorithm 1,
+    line 7)."""
+    return confidences > threshold

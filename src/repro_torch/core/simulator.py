@@ -10,8 +10,12 @@ runs the hand-written ``head_select`` (streaming) or ``msp_select``
 (one-shot) kernels.
 
 ``kd_mode``: None (no distillation), "vanilla" (KD without the OoD
-filter) or "idkd" (MSP/energy-filtered — the paper's method). Runs on
-``cuda`` unless ``device="cpu"`` is passed.
+filter) or "idkd" (MSP/energy-filtered — the paper's method). Every
+algorithm of the registry runs here: ``centralized`` gossips on the
+complete graph (its Metropolis matrix is exact uniform averaging) over
+an IID partition, as the paper's upper bound; the rest take the
+Dirichlet partition and the run topology (``relaysgd`` needs a tree).
+Runs on ``cuda`` unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -80,9 +84,9 @@ class _SimFederation(sched.FederationHooks):
     def runner(self, topology: Topology):
         run = self._runners.get(self.phase)
         if run is None:
-            run = driver.make_host_runner(self.sim.steps[self.phase],
-                                          self.samplers[self.phase],
-                                          self.sim.lr_fn)
+            run = driver.make_runner(self.sim.steps[self.phase],
+                                     self.samplers[self.phase],
+                                     self.sim.lr_fn, self.sim.driver_mode)
             self._runners[self.phase] = run
         if self.phase == "plain":
             return run
@@ -132,12 +136,7 @@ class DecentralizedSimulator:
                  eval_batches: int = 4, driver_mode: str = "auto",
                  wire_dtype: str = "float32", model_parallel: int = 1,
                  device="cuda"):
-        if driver_mode not in ("auto", "host"):
-            raise NotImplementedError(
-                f"driver_mode={driver_mode!r} is not ported yet (the host "
-                "runner is; CUDA-graph capture, the scan runner's "
-                "counterpart, is ROADMAP.md queue 1 item 15, and the "
-                "sharded driver item 13)")
+        self.driver_mode = driver.resolve_runner_mode(driver_mode)
         if model_parallel > 1:
             raise NotImplementedError(
                 "model_parallel > 1 is not ported yet; see ROADMAP.md "
@@ -166,7 +165,11 @@ class DecentralizedSimulator:
 
         n = train_cfg.num_nodes
         self.topology = Topology.make(train_cfg.topology, n)
-        self.mixer = make_mixer(self.topology, "dense",
+        # centralized: exact averaging on the complete graph
+        self.gossip_topo = (Topology.make("full", n)
+                            if train_cfg.algorithm == "centralized"
+                            else self.topology)
+        self.mixer = make_mixer(self.gossip_topo, "dense",
                                 wire_dtype=wire_dtype, device=dev)
         self.algo = make_algorithm(train_cfg.algorithm,
                                    topology=self.topology,
@@ -174,8 +177,13 @@ class DecentralizedSimulator:
                                    weight_decay=train_cfg.weight_decay)
         self.model = build_model(model_cfg)
         rng = np.random.default_rng(train_cfg.seed)
-        self.parts = dirichlet_partition(data.train_y, n,
-                                         alpha=train_cfg.alpha, rng=rng)
+        if train_cfg.algorithm == "centralized":
+            # the paper's centralized reference trains on an IID split
+            idx = rng.permutation(len(data.train_y))
+            self.parts = [np.asarray(p) for p in np.array_split(idx, n)]
+        else:
+            self.parts = dirichlet_partition(data.train_y, n,
+                                             alpha=train_cfg.alpha, rng=rng)
         self.lr_fn = step_decay(train_cfg.lr, train_cfg.steps,
                                 train_cfg.lr_decay_milestones,
                                 train_cfg.lr_decay_factor)
@@ -245,11 +253,13 @@ class DecentralizedSimulator:
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         nparams = sum(v[0].numel() for v in params.values())
         ledger = sched.CommLedger(n, meta={
-            "topology": self.topology.name, "wire_dtype": self.wire_dtype,
+            "topology": self.gossip_topo.name,
+            "wire_dtype": self.wire_dtype,
             "param_count": int(nparams), "gossip": schedule.gossip})
         fed = _SimFederation(self, result, idkd_cfg)
         params, opt_state, gen = sched.run_schedule(
-            schedule, fed, params, opt_state, gen, topology=self.topology,
+            schedule, fed, params, opt_state, gen,
+            topology=self.gossip_topo,
             ledger=ledger, param_count=int(nparams),
             elem_bytes=sched.wire_elem_bytes(self.wire_dtype, "float32"))
         result.final_acc = (result.acc_history[-1]

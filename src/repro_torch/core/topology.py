@@ -66,6 +66,20 @@ def exponential_edges(n: int) -> List[Tuple[int, int]]:
     return [t for t in e if t[0] != t[1]]
 
 
+def hierarchical_ring_edges(num_pods: int, nodes_per_pod: int
+                            ) -> List[Tuple[int, int]]:
+    """Ring of rings: a ring inside each pod, and node 0 of each pod on
+    an outer ring."""
+    e = []
+    for p in range(num_pods):
+        base = p * nodes_per_pod
+        e += [(base + i, base + (i + 1) % nodes_per_pod)
+              for i in range(nodes_per_pod)]
+    for p in range(num_pods):
+        e.append((p * nodes_per_pod, ((p + 1) % num_pods) * nodes_per_pod))
+    return [(a, b) for a, b in set(tuple(sorted(t)) for t in e) if a != b]
+
+
 class Topology:
     """Undirected gossip graph with Metropolis–Hastings mixing weights."""
 
@@ -105,6 +119,17 @@ class Topology:
 
     def neighbors(self, i: int) -> List[int]:
         return self.adj[i]
+
+    def edge_key(self) -> Tuple:
+        """Canonical hashable identity: (n, sorted undirected edges), so
+        two graphs with the same wiring share one key."""
+        cached = self._cache.get("edge_key")
+        if cached is None:
+            cached = (self.n, tuple(sorted(
+                (i, j) for i, nbrs in self.adj.items()
+                for j in nbrs if i < j)))
+            self._cache["edge_key"] = cached
+        return cached
 
     def degree(self, i: int) -> int:
         return len(self.adj[i])
@@ -155,3 +180,42 @@ class Topology:
         for i in range(n):
             W[i, i] = 1.0 - W[i].sum()
         return W
+
+    def spectral_gap(self) -> float:
+        """1 − |λ₂| of the mixing matrix: how fast gossip converges."""
+        ev = np.linalg.eigvalsh(self.mixing_matrix())
+        return float(1.0 - np.abs(ev)[::-1][1])
+
+    def is_connected(self) -> bool:
+        seen = {0}
+        stack = [0]
+        while stack:
+            for j in self.adj[stack.pop()]:
+                if j not in seen:
+                    seen.add(j)
+                    stack.append(j)
+        return len(seen) == self.n
+
+    def is_tree(self) -> bool:
+        """Connected with n − 1 edges: the graphs RelaySGD runs on."""
+        m = sum(len(v) for v in self.adj.values()) // 2
+        return self.is_connected() and m == self.n - 1
+
+
+class TimeVaryingTopology:
+    """One-peer time-varying exponential graph: at step t every node
+    talks to its ±2^(t mod ⌈log₂ n⌉) neighbour only."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.num_rounds = max(1, int(np.ceil(np.log2(n))))
+
+    def round_topology(self, t: int) -> Topology:
+        k = 2 ** (t % self.num_rounds)
+        edges = [(i, (i + k) % self.n) for i in range(self.n)]
+        edges = [e for e in set(tuple(sorted(p)) for p in edges)
+                 if e[0] != e[1]]
+        return Topology(self.n, edges, f"onepeer{self.n}@{t}")
+
+    def mixing_matrix(self, t: int) -> np.ndarray:
+        return self.round_topology(t).mixing_matrix()

@@ -35,8 +35,11 @@ def make_train_step(model, tcfg: TrainConfig, num_nodes: int,
     (n, B, S, K) tokens and labels and an (n, B, Sk, d) ``conditioning``
     for MusicGen, (n, B, P, d) ``patch_embeddings`` for PaliGemma, which
     ride along to ``model.loss`` — with
-    ``train_step.init_opt``. QG-DSGDm-N updates params and momentum in
-    place (the returned dicts hold the tensors passed in)."""
+    ``train_step.init_opt``. The algorithm is made without a topology,
+    as the reference makes it (``relaysgd`` raises). QG-DSGDm-N,
+    centralized SGD and gradient tracking update params and state in
+    place (the returned dicts hold the tensors passed in); D² writes the
+    new params over its previous ones."""
     algo = make_algorithm(tcfg.algorithm, momentum=tcfg.momentum,
                           weight_decay=tcfg.weight_decay)
     mixer = make_mixer(Topology.make(tcfg.topology, num_nodes),

@@ -2,10 +2,13 @@
 
 :func:`run_training` runs the reference's pipeline on token data:
 node-stacked decoder params, per-node private shards (Dirichlet over
-topics), QG-DSGDm-N steps with gossip on ``tcfg.topology``, and IDKD
-homogenization rounds whose top-k sparse labels on a public corpus feed
-the sparse-KD steps after them. The step loop is ``core.driver``'s host
-runner (one step per Python iteration);
+topics), ``tcfg.algorithm``'s steps (QG-DSGDm-N by default) with
+gossip on ``tcfg.topology``, and IDKD homogenization rounds whose top-k
+sparse labels on a public corpus feed the sparse-KD steps after them.
+The algorithm is made without a topology, as the reference makes it, so
+``relaysgd`` raises here. The step loop is ``core.driver``'s host
+runner (one step per Python iteration) under both of the reference's
+node-stacked names, ``"scan"`` (the default) and ``"host"``;
 the outer loop is the federation scheduler, whose ledger counts the
 gossip and label bytes.
 
@@ -18,9 +21,8 @@ one-shot branch forms the (n, P, S, V) logits and runs ``msp_select``
 (fused backend). :func:`private_sequences` picks each node's
 calibration sequences as the reference's federation does.
 
-Not ported (raise ``NotImplementedError``): the ``lax.scan`` runner
-(``driver_mode="scan"``, CUDA-graph capture, ROADMAP.md item 15), the
-sharded driver and ``model_parallel`` (item 13), churn, rewire and
+Not ported (raise ``NotImplementedError``): the sharded driver and
+``model_parallel`` (ROADMAP.md item 13), churn, rewire and
 fault events, telemetry and resilience (item 11), compressed and
 delayed gossip (item 12).
 
@@ -156,7 +158,8 @@ class _LMFederation(sched.CompiledFederationHooks):
     def __init__(self, *, model, algo, tcfg: TrainConfig,
                  idkd_cfg: IDKDConfig, cfg: ModelConfig, tokens, parts,
                  public_tokens, seq_len: int, wire_dtype: str,
-                 verbose: bool, device, pub_batch: Optional[int] = None):
+                 verbose: bool, device, pub_batch: Optional[int] = None,
+                 driver_mode: str = "scan"):
         super().__init__()
         self.model = model
         self.algo = algo
@@ -173,6 +176,7 @@ class _LMFederation(sched.CompiledFederationHooks):
                           else pub_batch)
         self.device = device
         self.lr_fn = lambda s: tcfg.lr
+        self.driver_mode = driver_mode
         self.priv_parts = driver.pad_partitions(parts, device)
         self.plain_sampler = driver.make_lm_sampler(
             self.priv_parts, tokens, tcfg.batch_size)
@@ -232,7 +236,7 @@ class _LMFederation(sched.CompiledFederationHooks):
 def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
                  n_seqs: int = 512, n_public: int = 64, log_every: int = 10,
                  use_idkd: bool = False, verbose: bool = True,
-                 wire_dtype: str = "native", driver_mode: str = "host",
+                 wire_dtype: str = "native", driver_mode: str = "scan",
                  events: Sequence = (),
                  schedule: Optional[sched.Schedule] = None,
                  model_parallel: int = 1, telemetry=None, resil=None,
@@ -245,25 +249,20 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     IDKD rounds ``tcfg.idkd`` asks for when ``use_idkd``). Returns the
     consensus params, the loss at each log boundary, the model, the
     topology, the ledger, the schedule and the public sequences per node
-    of a KD step. Only the host runner is ported (``driver_mode="host"``,
-    the default here). QG-DSGDm-N
-    updates in place, so that a full-width federation holds one copy of
-    params, momentum and grads. ``pub_batch``, the public sequences per
+    of a KD step. ``driver_mode`` "scan" (the default, as the
+    reference's) and "host" both run the host runner. QG-DSGDm-N,
+    centralized SGD, D² and gradient tracking update in place, so that a
+    full-width federation holds one copy of params, grads and each state
+    tree. ``pub_batch``, the public sequences per
     node in a KD step, is the reference's ``min(4, n_public)`` when None;
     a full-width run sets it lower where that many vocabulary-wide
     logits would not fit the card (``lmpath.QWEN3_PUB_BATCH``)."""
     _refuse_codebooks(cfg)
-    if driver_mode == "scan":
-        raise NotImplementedError(
-            "driver_mode='scan' (the lax.scan runner; on the card, CUDA-"
-            "graph capture) is not ported (ROADMAP.md queue 1 item 15); "
-            "use driver_mode='host'")
     if driver_mode == "shard" or model_parallel != 1:
         raise NotImplementedError(
             "the sharded driver and model_parallel are not ported "
             "(ROADMAP.md queue 1 item 13)")
-    if driver_mode != "host":
-        raise ValueError(f"unknown driver mode {driver_mode!r}")
+    driver.resolve_runner_mode(driver_mode)
     if telemetry is not None or resil is not None:
         raise NotImplementedError("telemetry and resilience are not ported "
                                   "(ROADMAP.md queue 1 item 11)")
@@ -303,7 +302,8 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
                         idkd_cfg=idkd_cfg, cfg=cfg, tokens=tokens,
                         parts=parts, public_tokens=public_tokens,
                         seq_len=seq_len, wire_dtype=wire_dtype,
-                        verbose=verbose, device=device, pub_batch=pub_batch)
+                        verbose=verbose, device=device, pub_batch=pub_batch,
+                        driver_mode=driver_mode)
     opt_state = algo.init(params)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed + 1)
     nparams = sum(v[0].numel() for v in params.values())
@@ -349,7 +349,7 @@ def main():
                          "into the post-start span)")
     ap.add_argument("--wire-dtype", default="native",
                     choices=["native", "float32"])
-    ap.add_argument("--driver", default="host", choices=["host"])
+    ap.add_argument("--driver", default="scan", choices=["scan", "host"])
     ap.add_argument("--full", action="store_true",
                     help="use the full (non-reduced) config")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -44,8 +44,8 @@ class CompiledFederationHooks(FederationHooks):
     """:class:`FederationHooks` with the steps, mixers and host runners
     cached per (phase, graph), and the round-varying sampler payload in
     ``self.ctx`` passed to the runner of every phase but "plain".
-    Subclasses set ``model``, ``algo`` and ``lr_fn`` and
-    implement ``_make_mixer(topology)``, ``_adapter()`` and
+    Subclasses set ``model``, ``algo``, ``lr_fn`` and ``driver_mode``
+    and implement ``_make_mixer(topology)``, ``_adapter()`` and
     ``_sampler()`` for the current ``phase``; ``on_round`` advances the
     phase and refreshes ``ctx``. Only one graph per run is ported (no
     rewire events), so the graph key is the topology's name and size."""
@@ -53,6 +53,7 @@ class CompiledFederationHooks(FederationHooks):
     model = None
     algo = None
     lr_fn = None
+    driver_mode = "scan"
 
     def __init__(self):
         self.phase = "plain"
@@ -90,8 +91,8 @@ class CompiledFederationHooks(FederationHooks):
         key = (self.phase, topology.name, topology.n)
         run = self._runners.get(key)
         if run is None:
-            run = driver.make_host_runner(self._step(topology),
-                                          self._sampler(), self.lr_fn)
+            run = driver.make_runner(self._step(topology), self._sampler(),
+                                     self.lr_fn, self.driver_mode)
             self._runners[key] = run
         if self.phase == "plain":
             return run

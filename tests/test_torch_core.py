@@ -37,15 +37,67 @@ def _tree(rng, n):
             "fc_w": rng.normal(size=(n, 4, 10)).astype(np.float32)}
 
 
-@pytest.mark.parametrize("algo,topo", [("qg-dsgdm-n", "ring"),
-                                       ("qg-dsgdm-n", "full"),
-                                       ("dsgdm", "ring"), ("dsgd", "full")])
-def test_algorithm_step_with_dense_mixer_matches_reference(algo, topo):
-    """One step from identical params, grads and momentum state."""
+def _ulps(got, want):
+    """|got − want| in units of the bf16 ulp at ``want``."""
+    want = want.astype(np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    return np.abs(got.astype(np.float32) - want) / ulp
+
+
+def _flat_state(state, prefix=""):
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_flat_state(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+# (algo, topology, dtype, slices): bf16 bands in bf16 ulps — 1 where the
+# reference computes in f32 and casts once (D²'s combine), 2 where it
+# sums in the leaf's dtype (centralized's and RelaySGD's momentum, the
+# tracker); on the CPU every case is bitwise equal. "sliced" sets CHUNK
+# small so every leaf is cut into slices
+_ALGO_CASES = [
+    ("qg-dsgdm-n", "ring", "float32", False),
+    ("qg-dsgdm-n", "full", "float32", False),
+    ("dsgdm", "ring", "float32", False), ("dsgd", "full", "float32", False),
+    ("centralized", "full", "float32", False),
+    ("d2", "ring", "float32", False),
+    ("gradient-tracking", "ring", "float32", False),
+    ("relaysgd", "chain", "float32", False),
+    ("centralized", "full", "bfloat16", False),
+    ("d2", "ring", "bfloat16", False),
+    ("gradient-tracking", "ring", "bfloat16", False),
+    ("relaysgd", "chain", "bfloat16", False),
+    ("d2", "ring", "float32", True),
+    ("centralized", "full", "float32", True),
+    ("gradient-tracking", "ring", "float32", True),
+]
+_BF16_ULPS = {"d2": 1, "centralized": 2, "gradient-tracking": 2,
+              "relaysgd": 2}
+
+
+@pytest.mark.parametrize(
+    "algo,topo,dtype,sliced", _ALGO_CASES,
+    ids=[f"{a}-{t}" + ("-bf16" if d == "bfloat16" else "")
+         + ("-sliced" if s else "") for a, t, d, s in _ALGO_CASES])
+def test_algorithm_step_with_dense_mixer_matches_reference(
+        algo, topo, dtype, sliced, monkeypatch):
+    """Three steps from identical params, state and per-step grads
+    (random momentum where the state has one): params and every state
+    leaf after each step, so that D²'s and gradient tracking's first-step
+    branch and D²'s reuse of its previous params' buffers show."""
+    from repro_torch.core import algorithms as talgos
+    if sliced:
+        monkeypatch.setattr(talgos, "CHUNK", 16)
     n = 5
     rng = np.random.default_rng(0)
-    p, g, m = _tree(rng, n), _tree(rng, n), _tree(rng, n)
+    p, m = _tree(rng, n), _tree(rng, n)
     lr = 0.3
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else \
+        (jnp.float32, torch.float32)
     jt, tt = JTopology.make(topo, n), TTopology.make(topo, n)
     ja = j_make_algorithm(algo, topology=jt, momentum=0.9,
                           weight_decay=1e-4)
@@ -53,22 +105,41 @@ def test_algorithm_step_with_dense_mixer_matches_reference(algo, topo):
                           weight_decay=1e-4)
     jmix = j_make_mixer(jt, "dense", wire_dtype="float32")
     tmix = t_make_mixer(tt, "dense", wire_dtype="float32", device="cpu")
-    jstate = ja.init(jax.tree.map(jnp.asarray, p))
-    tstate = ta.init({k: t(v) for k, v in p.items()})
-    if "m" in jstate:
-        jstate = {"m": jax.tree.map(jnp.asarray, m)}
-        tstate = {"m": {k: t(v) for k, v in m.items()}}
-    jp, js = ja.step(jax.tree.map(jnp.asarray, p),
-                     jax.tree.map(jnp.asarray, g), jstate, lr, jmix)
-    tp, ts = ta.step({k: t(v) for k, v in p.items()},
-                     {k: t(v) for k, v in g.items()}, tstate, lr, tmix)
-    for k in p:
-        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
-                                   atol=1e-5, rtol=1e-5, err_msg=k)
-        if "m" in js:
-            np.testing.assert_allclose(ts["m"][k].numpy(),
-                                       np.asarray(js["m"][k]), atol=1e-4,
-                                       rtol=1e-5, err_msg=k)
+
+    def jtree(x):
+        return {k: jnp.asarray(v).astype(jd) for k, v in x.items()}
+
+    def ttree(x):
+        return {k: t(v).to(td) for k, v in x.items()}
+
+    jp, tp = jtree(p), ttree(p)
+    jstate, tstate = ja.init(jp), ta.init(tp)
+    if set(jstate) == {"m"}:
+        jstate, tstate = {"m": jtree(m)}, {"m": ttree(m)}
+
+    def close(got, want, what):
+        got = got.float().numpy()
+        want = np.asarray(want).astype(np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
+                                       err_msg=what)
+        else:
+            worst = float(_ulps(got, want).max())
+            assert worst <= _BF16_ULPS[algo], f"{what}: {worst} bf16 ulps"
+
+    for s in range(3):
+        g = _tree(rng, n)
+        jp, jstate = ja.step(jp, jtree(g), jstate, lr, jmix)
+        tp, tstate = ta.step(tp, ttree(g), tstate, lr, tmix)
+        for k in p:
+            close(tp[k], jp[k], f"step {s} params {k}")
+        jflat, tflat = _flat_state(jstate), _flat_state(tstate)
+        assert set(jflat) == set(tflat)
+        for k, want in jflat.items():
+            if k == "t":
+                assert tflat[k] == int(want) == s + 1
+            else:
+                close(tflat[k], want, f"step {s} state {k}")
     np.testing.assert_allclose(
         float(t_consensus({k: t(v) for k, v in p.items()})),
         float(j_consensus(jax.tree.map(jnp.asarray, p))), rtol=1e-5)
@@ -117,8 +188,6 @@ def test_unported_pieces_raise():
     from repro_torch.sched import compile_schedule, run_schedule
     tt = TTopology.make("ring", 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_make_algorithm("d2", topology=tt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_make_mixer(tt, "gather")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(10, 5, events=("churn",))
@@ -128,7 +197,6 @@ def test_unported_pieces_raise():
     data = make_classification_data(image_size=8, n_train=32, n_val=8,
                                     n_test=8)
     for kw, item in (({"driver_mode": "shard"}, "item 13"),
-                     ({"driver_mode": "scan"}, "item 15"),
                      ({"model_parallel": 2}, "item 13")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             DecentralizedSimulator(SMALL_CONFIG, TrainConfig(num_nodes=4),

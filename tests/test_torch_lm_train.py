@@ -246,11 +246,11 @@ def test_run_training_matches_reference(reference_run, monkeypatch):
 
 
 def test_unported_training_modes_raise():
-    """The scan runner, the sharded driver, telemetry, resilience and
-    compressed gossip raise, naming the ROADMAP item."""
+    """The sharded driver, telemetry, resilience and compressed gossip
+    raise, naming the ROADMAP item."""
     cfg = _cfg("torch")
     tcfg = TTrain(**TRAIN_KW)
-    for kw in ({"driver_mode": "scan"}, {"driver_mode": "shard"},
+    for kw in ({"driver_mode": "shard"},
                {"telemetry": object()}, {"resil": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.run_training(cfg, tcfg, device="cpu", **kw)
