@@ -21,7 +21,7 @@ Phases (any failed check raises and the script exits non-zero):
    120 plain steps, one streaming IDKD round on the sparse backend
    (``head_select``), 120 KD steps; the consensus model must learn (its
    eval NLL falls over the run and over the KD phase, its accuracy
-   clears a floor);
+   clears a floor); its peak device memory is printed;
 4. the one-shot ``fused`` round (``msp_select``) on the final params,
    held against the streaming round;
 5. the quickstart twin, held to an accuracy floor;
@@ -35,6 +35,13 @@ GRID. the paper's method grid at the main path's full width
    SGD's nodes kept together, RelaySGD on a ring refused; then each new
    algorithm 3 steps of ResNet-8 (f32, 4 nodes) on the card and on the
    CPU from the same params and draws, to the same params;
+PAPER. the paper's tables at full width (``repro_torch.paper`` at its
+   ``"full"`` setting, 8 ring nodes, 300 steps a cell, no cache): Table
+   2's five methods at alpha 0.05, Table 4's noise public set for the two
+   KD methods, Table 6 and Figure 3 from those cells, printed as the
+   tables; every eval finite, no method a constant predictor, every KD
+   round through ``head_select``'s SIMT kernel, Table 6's gossip bytes
+   exact, Figure 3's skew dropping;
 LM-1. the LM kernels against their plain versions on the card at
    Hymba-1.5B's shapes: ``flash_attention`` (global and windowed, f32
    and bf16, timed beside ``scaled_dot_product_attention``),
@@ -216,7 +223,12 @@ SSD_BWD_ATOL = 1e-5          # ssd_scan's backward: the float64 rule above,
 TRAIN_PARAM_ATOL = 1e-5      # reduced Hymba (f32) trained 4 steps on the
 TRAIN_LOSS_RTOL = 1e-5       # card and on the CPU: consensus params and
                              # the loss history (see phase_lm_train)
-TRAIN_PEAK_GIB = 72.0        # LM-4's to LM-9's peak device memory
+RELU_TIE = 1e-5              # ResNet-8 card vs CPU: a ReLU input this
+                             # close to 0 may fall on either side of it in
+                             # the two f32 runs (convolutions summed in
+                             # another order); the CPU run takes the card's
+                             # branch there, and fails on any other flip
+TRAIN_PEAK_GIB = 72.0       # LM-4's to LM-9's peak device memory
                              # budget
 CONSENSUS_RTOL = 1e-5        # GRID: centralized SGD's nodes, identical at
                              # init and averaged exactly, stay within this
@@ -224,6 +236,10 @@ CONSENSUS_RTOL = 1e-5        # GRID: centralized SGD's nodes, identical at
 GRID_METHODS = ("sgd-centralized", "dsgd", "relay-sgd", "qg-dsgdm-n+kd",
                 "d2", "gradient-tracking")
 GRID_STEPS, GRID_ROUND, GRID_EVAL = 120, 60, 30
+PAPER_STEPS = 300            # PAPER: each cell's depth (the harness's own)
+PAPER_ALPHA = 0.05           # PAPER: Table 2's most skewed column
+PAPER_NLL_MARGIN = 0.05      # PAPER: a final eval NLL within this of ln 10
+                             # (10 classes) is a constant predictor
 LM_BASELINES = ("centralized", "d2", "gradient-tracking")
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
@@ -431,10 +447,13 @@ def phase_main_path(torch, ops):
     head_select.launches = 0
     head_select.launches_by_variant = {"tc": 0, "simt": 0}
     msp_select.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {"head_select": head_select.launches,
                 "msp_select": msp_select.launches}
     variants = {"head_select": dict(head_select.launches_by_variant)}
@@ -448,7 +467,8 @@ def phase_main_path(torch, ops):
               f"then mean {sum(warm) / len(warm):.2f} ms "
               f"(min {min(warm):.2f}, max {max(warm):.2f})")
     pre, post = skew_metric(result.pre_hist), skew_metric(result.post_hist)
-    print(f"main path: {wall:.1f} s wall, acc {result.acc_history}, "
+    print(f"main path: {wall:.1f} s wall, peak {peak:.3f} GiB (the "
+          f"simulator's data included), acc {result.acc_history}, "
           f"losses {[round(x, 4) for x in result.loss_history]}, "
           f"id_fraction {result.id_fraction:.4f}, skew {pre:.4f} -> "
           f"{post:.4f}, launches {launches}, by variant {variants}")
@@ -623,7 +643,11 @@ def phase_grid_card_vs_cpu(torch):
     for 3 steps of the simulator, on the card and on the CPU, from the
     same params (the init is made on the CPU) and the same index draws
     (``_same_draws``), under the grid's lr and weight decay: the final
-    node-stacked params within TRAIN_PARAM_ATOL."""
+    node-stacked params within TRAIN_PARAM_ATOL. The CPU run takes the
+    card's branch at each ReLU input within RELU_TIE of 0
+    (``_relu_replay``): one such flip passes its whole gradient or none,
+    and moves centralized SGD's params at the grid's lr by more than
+    TRAIN_PARAM_ATOL (``tests/test_torch_relu_tie.py``)."""
     from repro_torch.configs.resnet20_cifar import SMALL_CONFIG
     from repro_torch.core.simulator import DecentralizedSimulator
     from repro_torch.data.synthetic import make_classification_data
@@ -634,22 +658,189 @@ def phase_grid_card_vs_cpu(torch):
                    "relay-sgd"):
         tcfg, _ = grid_config(method, steps=3)
         tcfg = dataclasses.replace(tcfg, num_nodes=4, batch_size=8)
-        runs = {}
-        for device in ("cuda", "cpu"):
-            with _same_draws(torch, 7):
+        runs, masks, flips = {}, [], []
+        for device, relu in (("cuda", _relu_record(masks)),
+                             ("cpu", _relu_replay(torch, masks, flips))):
+            with _same_draws(torch, 7), relu:
                 runs[device] = DecentralizedSimulator(
                     SMALL_CONFIG, tcfg, data, eval_every=100,
                     eval_batches=1, device=device).run()
+        check(len(flips) == len(masks), f"{method}: the CPU run made "
+              f"{len(flips)} ReLU calls, the card's {len(masks)}")
         gpu, cpu = runs["cuda"].params, runs["cpu"].params
         dp = max(float((gpu[k].cpu() - v).abs().max())
                  for k, v in cpu.items())
         print(f"{method} ({tcfg.algorithm}, {tcfg.topology}), ResNet-8 f32 "
               f"on 4 nodes, 3 steps on the card and on the CPU with the "
               f"same draws: params within {dp:.3g} (tol "
-              f"{TRAIN_PARAM_ATOL}); eval NLL card "
-              f"{runs['cuda'].loss_history} CPU {runs['cpu'].loss_history}")
+              f"{TRAIN_PARAM_ATOL}); ReLU inputs within {RELU_TIE} of 0 "
+              f"that took the card's branch on the CPU: {sum(flips)}; eval "
+              f"NLL card {runs['cuda'].loss_history} CPU "
+              f"{runs['cpu'].loss_history}")
         check(dp <= TRAIN_PARAM_ATOL,
               f"{method}, card vs CPU: params differ by {dp:.3g}")
+
+
+def _relu_record(masks):
+    """``F.relu`` that appends each call's branch mask (input > 0), on the
+    host, to ``masks``."""
+    import torch.nn.functional as F
+    relu = F.relu
+
+    def record(x, inplace=False):
+        masks.append((x > 0).cpu())
+        return relu(x, inplace=inplace)
+    return _Patch((F, "relu", record))
+
+
+def _relu_replay(torch, masks, flips):
+    """``F.relu`` that takes, call by call, the branches ``_relu_record``
+    recorded in another run: it fails where this run's input takes the
+    other branch more than RELU_TIE from 0, and appends to ``flips`` the
+    number of elements whose branch it took over."""
+    import torch.nn.functional as F
+
+    def replay(x, inplace=False):
+        i = len(flips)
+        check(i < len(masks) and masks[i].shape == x.shape,
+              f"ReLU call {i} of shape {tuple(x.shape)} was not recorded")
+        m = masks[i].to(x.device)
+        other = (x > 0) != m
+        far = float(x.detach()[other].abs().max()) if bool(other.any()) \
+            else 0.0
+        check(far <= RELU_TIE, f"ReLU call {i}: an input {far:.3g} from 0 "
+              f"takes a different branch than on the card")
+        flips.append(int(other.sum()))
+        return torch.where(m, x, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+    return _Patch((F, "relu", replay))
+
+
+def _consensus_classes(torch, sim, params):
+    """How many classes the consensus model predicts over the test set."""
+    mean_p = {k: v.float().mean(dim=0, keepdim=True).to(v.dtype)
+              for k, v in params.items()}
+    with torch.no_grad():
+        preds = torch.cat([sim.model.forward(mean_p, {"images": xb[None]})
+                           [0][0].argmax(-1)
+                           for xb in sim.test_x.split(256)])
+    return int(torch.unique(preds).numel())
+
+
+def phase_paper(torch, ops):
+    """PAPER: the paper's tables on the card at the ``"full"`` setting
+    (``repro_torch.paper``: ResNet-20 at 32 x 32, 8 ring nodes, 8192
+    images, 2048 public samples, batch 32, the main path's streaming
+    sparse round at T = 10 from 0.65 of the run, ``FULL_WIDTH_LR``), each
+    cell through ``common.run_cell`` with ``use_cache=False``: Table 2's
+    five methods at alpha 0.05, Table 4's ``noise`` public set for the
+    two KD methods, and Table 6 and Figure 3 from those cells. Cut from
+    the whole tables (``python -m repro_torch.paper --setting full``):
+    Table 2's alpha 1.0 and 0.1 columns, Table 4's ``shifted`` column
+    (its ``aligned`` one is Table 2's cells), Tables 3 and 7, Table 6
+    and Figure 3 at alpha 0.05 instead of 0.1; depth PAPER_STEPS. Fails
+    unless every eval loss is finite, no method ends as a constant
+    predictor (final eval NLL below ln 10 - PAPER_NLL_MARGIN, test
+    predictions over more than one class), each KD cell launches
+    ``head_select`` in its round, every launch through ``simt``, Table
+    6's gossip bytes per iteration are ResNet-20's parameter count x 2
+    ring neighbours x 4 bytes, and Figure 3's skew drops. The paper's
+    ordering at alpha 0.05 is printed, not asserted."""
+    from repro_torch.core.idkd import skew_metric
+    from repro_torch.paper import (common, fig3_homogenize, table2_noniid,
+                                   table4_public, table6_comm)
+    head_select = ops[0]
+    done, cells, runs = [], {}, {}
+
+    class Recording(common.DecentralizedSimulator):
+        def run(self, *a, **k):
+            r = super().run(*a, **k)
+            done.append((self, r))
+            return r
+
+    def cell(method, alpha, nodes=8, topology="ring", public_kind="aligned",
+             seed=4, steps=None, use_cache=True, *, setting, device):
+        key = (method, alpha, nodes, topology, public_kind, seed)
+        if key in cells:
+            return cells[key]
+        head_select.launches = 0
+        head_select.launches_by_variant = {"tc": 0, "simt": 0}
+        t0 = time.perf_counter()
+        out = common.run_cell(method, alpha, nodes, topology, public_kind,
+                              seed, PAPER_STEPS, use_cache=False,
+                              setting=setting, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sim, r = done.pop()
+        nll = out["loss_history"]
+        classes = _consensus_classes(torch, sim, r.params)
+        nparams = sum(v[0].numel() for v in r.params.values())
+        launches = head_select.launches
+        variants = dict(head_select.launches_by_variant)
+        tag = f"PAPER {method} alpha {alpha} {public_kind}"
+        print(f"{tag}: lr {sim.tcfg.lr}, {wall:.1f} s wall, final "
+              f"accuracy {out['final_acc']:.4f}, eval NLL "
+              f"{[round(x, 4) for x in nll]}, {classes} classes predicted, "
+              f"id_fraction {out['id_fraction']:.4f}, gossip "
+              f"{out['comm_bytes_per_iter']:.0f} B/iter, labels "
+              f"{out['label_bytes_total']:.0f} B, head_select launches "
+              f"{launches} {variants}", flush=True)
+        check(len(nll) > 0 and all(map(_finite, nll)),
+              f"{tag}: eval NLL {nll}")
+        check(nll[-1] < math.log(10) - PAPER_NLL_MARGIN and classes > 1,
+              f"{tag}: a constant predictor (final eval NLL {nll[-1]:.4f}, "
+              f"{classes} classes predicted)")
+        if sim.kd_mode is not None:
+            check(launches > 0 and variants == {"tc": 0, "simt": launches},
+                  f"{tag}: head_select launches {launches} {variants}")
+        cells[key] = out
+        runs[key] = dict(launches=launches, variants=variants,
+                         nparams=nparams, wall=wall)
+        return out
+
+    t0 = time.perf_counter()
+    kw = dict(setting="full", device="cuda")
+    with _Patch((common, "DecentralizedSimulator", Recording),
+                (table2_noniid, "run_cell", cell),
+                (table2_noniid, "ALPHAS", [PAPER_ALPHA]),
+                (table4_public, "run_cell", cell),
+                (table4_public, "KINDS", ["noise"]),
+                (table6_comm, "run_cell", cell),
+                (fig3_homogenize, "run_cell", cell)):
+        tables = {"table2": table2_noniid.run(**kw),
+                  "table4": table4_public.run(alpha=PAPER_ALPHA, **kw),
+                  "table6": table6_comm.run(alpha=PAPER_ALPHA, **kw),
+                  "fig3": fig3_homogenize.run(alpha=PAPER_ALPHA, **kw)[:2]}
+        for name, (rows, csv) in tables.items():
+            for row in csv:
+                print(",".join(str(x) for x in row))
+            mod = {"table2": table2_noniid, "table4": table4_public,
+                   "table6": table6_comm}.get(name)
+            print(f"PAPER {name}:\n{mod.render(rows) if mod else rows}")
+    ring = (lambda m: cells[(m, PAPER_ALPHA, 8, "ring", "aligned", 4)])
+    for method in ("qg-dsgdm-n", "qg-idkd"):
+        key = (method, PAPER_ALPHA, 8, "ring", "aligned", 4)
+        want = runs[key]["nparams"] * 2 * 4
+        got = cells[key]["comm_bytes_per_iter"]
+        check(got == want, f"PAPER table6 {method}: {got} gossip B/iter, "
+                           f"want {want} (params x 2 x 4 B)")
+    idkd = ring("qg-idkd")
+    pre, post = skew_metric(idkd["pre_hist"]), skew_metric(idkd["post_hist"])
+    check(post < pre, f"PAPER fig3: skew {pre:.4f} -> {post:.4f}")
+    acc = {m: ring(m)["final_acc"] for m in
+           ("qg-idkd", "qg-dsgdm-n+kd", "qg-dsgdm-n", "dsgd")}
+    holds = (acc["qg-idkd"] > acc["qg-dsgdm-n+kd"] >= acc["qg-dsgdm-n"]
+             > acc["dsgd"])
+    print(f"PAPER: table6 gossip {want} B/iter (ResNet-20's "
+          f"{runs[key]['nparams']} params x 2 x 4 B), fig3 skew "
+          f"{pre:.4f} -> {post:.4f}; the paper's ordering IDKD > vanilla "
+          f"KD >= QG-DSGDm-N > DSGD at alpha {PAPER_ALPHA} "
+          f"{'holds' if holds else 'does not hold'}: {acc}; {len(cells)} "
+          f"cells in {time.perf_counter() - t0:.1f} s")
+    launches = sum(r["launches"] for r in runs.values())
+    variants = {v: sum(r["variants"][v] for r in runs.values())
+                for v in ("tc", "simt")}
+    return {"head_select": launches}, {"head_select": variants}
 
 
 def _flash_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0):
@@ -2503,6 +2694,8 @@ def main() -> int:
     grid_launches, grid_variants, _ = phase_grid(torch, ops)
     phase_grid_card_vs_cpu(torch)
     torch.cuda.empty_cache()
+    paper_launches, paper_variants = phase_paper(torch, ops)
+    torch.cuda.empty_cache()
 
     lm_rows = phase_lm_kernels(torch)
     phase_lm_dense_kernels(torch, lm_rows)
@@ -2526,10 +2719,10 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
         {"resnet_path": launches, "grid": grid_launches,
-         "lm_path": lm_launches,
+         "paper": paper_launches, "lm_path": lm_launches,
          **{k: v["launches"] for k, v in trains.items()}},
         {"resnet_path": variants, "grid": grid_variants,
-         "lm_path": lm_variants,
+         "paper": paper_variants, "lm_path": lm_variants,
          **{k: v["variants"] for k, v in trains.items()}},
         {"lm_path": lm_dims,
          **{k: v["by_head_dim"] for k, v in trains.items()}})}))

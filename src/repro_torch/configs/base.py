@@ -10,6 +10,8 @@ thing on either side.
   test variant of a full config, as the reference's does.
 * :class:`IDKDConfig` — the paper's Algorithm 1 hyper-parameters.
 * :class:`TrainConfig` — one decentralized training run.
+* :class:`ShapeConfig` and :data:`SHAPES` — the four assigned input
+  shapes of the reference's registry.
 
 Plain frozen dataclasses: they hash, print and diff cleanly.
 """
@@ -137,6 +139,11 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return self.arch_type == "ssm"
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True when decode state is sub-linear in context (long_500k ok)."""
+        return self.ssm.enabled or self.sliding_window > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -187,6 +194,99 @@ class ModelConfig:
             dtype="float32",
             remat=False,
         )
+
+    def param_count(self) -> int:
+        """Analytic parameter count (Table 6's communication cost), the
+        reference's formula, MoE and MLA terms included."""
+        if self.arch_type == "cnn":
+            # rough resnet count: conv stacks + fc
+            n = 3 * 3 * self.image_channels * self.cnn_width
+            w = self.cnn_width
+            for si, blocks in enumerate(self.cnn_stages):
+                wo = self.cnn_width * (2 ** si)
+                for b in range(blocks):
+                    wi = w if b == 0 else wo
+                    n += 9 * wi * wo + 9 * wo * wo
+                    if wi != wo:
+                        n += wi * wo
+                w = wo
+            n += w * self.num_classes
+            return n
+        d = self.d_model
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        if self.num_codebooks:
+            n += (self.num_codebooks - 1) * self.vocab_size * d
+        per_layer = 0
+        hd = self.resolved_head_dim
+        if self.mla.enabled:
+            m = self.mla
+            qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+            if m.q_lora_rank:
+                per_layer += (d * m.q_lora_rank
+                              + m.q_lora_rank * self.num_heads * qd)
+            else:
+                per_layer += d * self.num_heads * qd
+            per_layer += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            per_layer += (m.kv_lora_rank * self.num_heads
+                          * (m.qk_nope_head_dim + m.v_head_dim))
+            per_layer += self.num_heads * m.v_head_dim * d
+        elif not self.is_attention_free:
+            per_layer += d * hd * (self.num_heads + 2 * self.num_kv_heads)
+            per_layer += self.num_heads * hd * d
+        if self.ssm.enabled:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            conv_dim = d_in + 2 * s.ngroups * s.state_size
+            per_layer += d * (2 * d_in + 2 * s.ngroups * s.state_size
+                              + nheads)
+            per_layer += conv_dim * s.conv_width
+            per_layer += d_in * d + 2 * nheads
+        glu = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        if self.moe.enabled:
+            m = self.moe
+            moe_layers = self.num_layers - m.first_k_dense
+            n += moe_layers * (
+                m.num_experts * glu * d * m.moe_d_ff
+                + m.num_shared_experts * glu * d * m.moe_d_ff
+                + m.dense_residual_ff * glu * d
+                + d * m.num_experts)
+            n += m.first_k_dense * glu * d * self.d_ff
+            return n + self.num_layers * per_layer
+        if self.d_ff:
+            per_layer += glu * d * self.d_ff
+        return n + self.num_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k only)."""
+        if not self.moe.enabled:
+            return self.param_count()
+        m = self.moe
+        glu = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        routed = (self.num_layers - m.first_k_dense) * glu \
+            * self.d_model * m.moe_d_ff
+        return (self.param_count() - routed * m.num_experts
+                + routed * m.num_experts_per_tok)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -10,12 +10,12 @@ the round's labels come from nodes that are past chance, and the KD
 phase lowers the eval NLL further.
 
 :func:`grid_sim` runs the paper's method grid in the same setting: the
-methods and their rules are a copy of the reference benchmark harness's
-(``benchmarks/common.py``: ``_METHODS`` and ``run_cell``'s lr, weight
-decay and chain for RelaySGD), with D² and gradient tracking under the
-rules of the other non-QG methods. The KD methods take the main path's
-round (streaming, sparse, T = 10); ``qg-dsgdm-n+kd`` is that round with
-the OoD filter off (``kd_mode="vanilla"``).
+methods are the paper harness's (:mod:`repro_torch.paper.common`), with
+each method's lr from its ``FULL_WIDTH_LR`` and the harness's weight
+decay and chain for RelaySGD, and D² and gradient tracking under the
+harness's rules of the other non-QG methods. The KD methods take the
+main path's round (streaming, sparse, T = 10); ``qg-dsgdm-n+kd`` is that
+round with the OoD filter off (``kd_mode="vanilla"``).
 """
 from __future__ import annotations
 
@@ -26,34 +26,27 @@ from repro_torch.configs.resnet20_cifar import CONFIG
 from repro_torch.core.simulator import DecentralizedSimulator
 from repro_torch.data.synthetic import (make_classification_data,
                                         make_public_data)
+from repro_torch.paper.common import _METHODS, FULL_WIDTH_LR, harness_rule
 
 STEPS = 240
 ROUND_STEP = 120
 EVAL_EVERY = 60
 
 # method -> (algorithm, kd_mode)
-METHODS = {
-    "dsgd": ("dsgd", None),
-    "relay-sgd": ("relaysgd", None),
-    "qg-dsgdm-n": ("qg-dsgdm-n", None),
-    "qg-dsgdm-n+kd": ("qg-dsgdm-n", "vanilla"),
-    "qg-idkd": ("qg-dsgdm-n", "idkd"),
-    "sgd-centralized": ("centralized", None),
-    "d2": ("d2", None),
-    "gradient-tracking": ("gradient-tracking", None),
-}
+METHODS = {**_METHODS, "d2": ("d2", None),
+           "gradient-tracking": ("gradient-tracking", None)}
 
 
 def grid_config(method: str, steps: int = STEPS,
                 round_step: Optional[int] = None
                 ) -> Tuple[TrainConfig, Optional[str]]:
     """``method``'s TrainConfig at the main path's width and its
-    kd_mode: RelaySGD on a chain, the rest on the ring; lr 0.5 for the
-    QG methods and centralized SGD, else 0.1; weight decay 1e-4 for the
-    QG methods, else 5e-4; the round at ``round_step`` (half the run
-    when None)."""
+    kd_mode: RelaySGD on a chain, the rest on the ring; the lr of
+    ``FULL_WIDTH_LR`` (D² and gradient tracking: the harness's rule,
+    0.1) and the harness's weight decay (1e-4 for the QG methods, else
+    5e-4); the round at ``round_step`` (half the run when None)."""
     algorithm, kd_mode = METHODS[method]
-    qg = "qg" in algorithm
+    lr, wd = harness_rule(algorithm)
     icfg = IDKDConfig(start_step=steps // 2 if round_step is None
                       else round_step, temperature=10.0,
                       label_backend="sparse", stream_labels=True)
@@ -61,8 +54,7 @@ def grid_config(method: str, steps: int = STEPS,
         algorithm=algorithm,
         topology="chain" if algorithm == "relaysgd" else "ring",
         num_nodes=16, alpha=0.1, steps=steps, batch_size=32,
-        lr=0.5 if qg or algorithm == "centralized" else 0.1,
-        weight_decay=1e-4 if qg else 5e-4, idkd=icfg)
+        lr=FULL_WIDTH_LR.get(method, lr), weight_decay=wd, idkd=icfg)
     return tcfg, kd_mode
 
 
