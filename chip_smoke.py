@@ -42,6 +42,30 @@ PAPER. the paper's tables at full width (``repro_torch.paper`` at its
    tables; every eval finite, no method a constant predictor, every KD
    round through ``head_select``'s SIMT kernel, Table 6's gossip bytes
    exact, Figure 3's skew dropping;
+RESIL. checkpoint, telemetry and resilience on the main path at full
+   width (``mainpath.grid_sim``'s qg-idkd cut to 100 steps, the round at
+   50), in deterministic mode (cuDNN's deterministic algorithms and
+   ``torch.use_deterministic_algorithms``; the default mode is not
+   bitwise run to run, which the first, 30-step, pair prints): a schedule
+   that freezes node 5 over [40, 60), across the round, rewires the ring
+   to the exponential graph at 70, drops node 3's payloads over [15, 25),
+   corrupts node 7's with nan (detected) over [85, 95) and crashes at
+   80, after a snapshot; run with telemetry, the guard and snapshots on,
+   then resumed. One line each: (a) the
+   fault-free run twice (the control pair: its largest parameter
+   difference bounds every comparison below, 0 meaning bitwise); (b)
+   telemetry and guard on = off, every segment under
+   ``torch.cuda.set_sync_debug_mode("error")``; (c) crash + resume from
+   the newest valid snapshot (a truncated newer one skipped) = the
+   uninterrupted run; (d) node 5's params and momentum the same bits
+   across its window, its row of the round's selection empty,
+   ``head_select`` launched for the round; (e) a detected-corrupt window
+   = a drop window; (f) nan with validation off trips the guard, node 7
+   quarantined, the segment rolled back, the params finite; (g) the run
+   log and trace valid, each event kind counted as the schedule implies;
+   (h) the consensus checkpoint saved and loaded on the card bitwise;
+   with the card's costs: run wall with telemetry and guard on and off,
+   a snapshot's write, the resume, the phase's peak memory;
 LM-1. the LM kernels against their plain versions on the card at
    Hymba-1.5B's shapes: ``flash_attention`` (global and windowed, f32
    and bf16, timed beside ``scaled_dot_product_attention``),
@@ -240,6 +264,14 @@ PAPER_STEPS = 300            # PAPER: each cell's depth (the harness's own)
 PAPER_ALPHA = 0.05           # PAPER: Table 2's most skewed column
 PAPER_NLL_MARGIN = 0.05      # PAPER: a final eval NLL within this of ln 10
                              # (10 classes) is a constant predictor
+RESIL_STEPS, RESIL_ROUND, RESIL_EVAL = 100, 50, 20   # RESIL: depth, round
+RESIL_CHURN = (5, 40, 60)    # RESIL: node 5 frozen over [40, 60)
+RESIL_REWIRE = (70, "exponential")
+RESIL_DROP = (3, 15, 25)     # RESIL: node 3's payloads dropped over [15, 25)
+RESIL_CRASH = 80             # RESIL: after the snapshot at 80
+RESIL_CORRUPT = (7, 85, 95)  # RESIL: node 7's payloads nan, detected
+RESIL_SHORT = 30             # RESIL: depth of the default-mode pair and
+                             # the drop/corrupt/rollback runs
 LM_BASELINES = ("centralized", "d2", "gradient-tracking")
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
@@ -840,6 +872,323 @@ def phase_paper(torch, ops):
     launches = sum(r["launches"] for r in runs.values())
     variants = {v: sum(r["variants"][v] for r in runs.values())
                 for v in ("tc", "simt")}
+    return {"head_select": launches}, {"head_select": variants}
+
+
+def _max_diff(torch, a, b):
+    """Largest |a - b| over two node-stacked param dicts: 0.0 when they
+    are the same bits, inf where a NaN sits on one side only."""
+    worst = 0.0
+    for k, v in a.items():
+        if not torch.equal(v, b[k]):
+            d = (v.float() - b[k].float()).abs()
+            worst = max(worst, float(d.max()) if bool(d.isfinite().all())
+                        else float("inf"))
+    return worst
+
+
+class _deterministic:
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warning, not failing, where an op has no deterministic kernel) for
+    the length of a ``with`` block."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        self.torch.backends.cudnn.deterministic = True
+        self.torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(False)
+        self.torch.backends.cudnn.deterministic = False
+        if self.cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def _strict_segments(torch, fed):
+    """Run every segment of ``fed`` (the simulator's scheduler hooks)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside
+    a segment raises. Building the runner stays outside."""
+    make = type(fed).runner
+
+    def runner(*a):
+        run = make(fed, *a)
+
+        def strict(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        strict.metrics, strict.guard = run.metrics, run.guard
+        return strict
+    fed.runner = runner
+
+
+def phase_resil(torch, ops):
+    """RESIL: the main path at full width (``mainpath.grid_sim``'s
+    qg-idkd: ResNet-20 on 16 ring nodes, QG-DSGDm-N at lr 0.5, alpha
+    0.1, batch 32, the streaming sparse round over 2048 public samples),
+    cut to RESIL_STEPS with the round at RESIL_ROUND, through the
+    checkpoint, telemetry and resilience layers. The schedule takes node
+    5 out across the round (freeze), rewires the ring to the exponential
+    graph, drops node 3's payloads over a window and corrupts node 7's
+    (nan, detected) over another, and crashes after the snapshot at
+    RESIL_CRASH. Checks, one line each: (a) the fault-free run twice, the
+    control pair: RESIL_SHORT plain steps in the card's default mode
+    (printed: not bitwise on an H100), then the whole run in
+    deterministic mode, which every later run keeps and whose largest
+    parameter difference bounds every later comparison (0 = bitwise); (b) telemetry and guard on = off,
+    their segments under ``set_sync_debug_mode("error")``; (c) crash,
+    a truncated newer snapshot skipped, resume = the uninterrupted run;
+    (d) node 5's params and momentum the same bits across its window
+    (the snapshots at its ends), its ``selected`` row 0 in the round,
+    ``head_select`` launched for the round; (e) a detected-corrupt
+    window = a drop window; (f) nan corruption with validation off
+    trips the guard, the sender is quarantined, the segment rolls back
+    and the params stay finite; (g) ``run.jsonl`` and ``trace.json`` pass
+    the port's validators with each event kind counted as the schedule
+    implies; (h) the consensus checkpoint saved and loaded on the card,
+    bitwise, in the port's layout and the reference's. Prints the card's
+    costs: run wall with telemetry and guard on and off, snapshot write,
+    resume, peak memory."""
+    import shutil
+    import tempfile
+
+    from repro_torch import sched
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.launch.steps import consensus_params
+    from repro_torch.mainpath import grid_sim
+    from repro_torch.models.convert import from_jax_params, to_jax_params
+    from repro_torch.obs import (Telemetry, read_events, validate_runlog,
+                                 validate_trace)
+    from repro_torch.resil import GuardSpec, Resilience, SimulatedCrash
+    head_select = ops[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    tmp = Path(tempfile.mkdtemp(prefix="resil-"))
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = grid_sim("qg-idkd", RESIL_STEPS, RESIL_ROUND, RESIL_EVAL, "cuda")
+    node, down, up = RESIL_CHURN
+    bad, c0, c1 = RESIL_CORRUPT
+
+    def schedule(*extra, steps=RESIL_STEPS, rounds=(RESIL_ROUND,)):
+        return sched.compile_schedule(steps, RESIL_EVAL, round_steps=rounds,
+                                      events=list(extra))
+
+    events = (sched.ChurnEvent(down, down=(node,)),
+              sched.ChurnEvent(up, up=(node,)),
+              sched.RewireEvent(*RESIL_REWIRE),
+              sched.FaultEvent(RESIL_DROP[1], "drop", (RESIL_DROP[0],)),
+              sched.FaultEvent(RESIL_DROP[2], "clear"),
+              sched.FaultEvent(c0, "corrupt", (bad,), "nan"),
+              sched.FaultEvent(c1, "clear"))
+
+    def timed_run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sim.run(*a, **k)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # (a) the control pair: first as the card runs by default (short:
+    # it only shows whether the default is deterministic), then in
+    # deterministic mode, which every later run keeps
+    plain = schedule(steps=RESIL_SHORT, rounds=())
+    r0, w0 = timed_run(plain)
+    r1, w1 = timed_run(plain)
+    d_default = _max_diff(torch, r0.params, r1.params)
+    print(f"RESIL a. control pair by default (cuDNN's own algorithm "
+          f"choice), {RESIL_SHORT} plain steps: largest param difference "
+          f"{d_default:.3g}, eval NLL {r0.loss_history} and "
+          f"{r1.loss_history}; walls {w0:.2f} s and {w1:.2f} s", flush=True)
+    with _deterministic(torch):
+        r0, w0 = timed_run(schedule())
+        r1, w1 = timed_run(schedule())
+        tol = _max_diff(torch, r0.params, r1.params)
+        same = tol == 0.0 and r0.loss_history == r1.loss_history
+        print(f"RESIL a. control pair in deterministic mode (cudnn."
+              f"deterministic, use_deterministic_algorithms): largest param "
+              f"difference {tol:.3g}, eval NLL "
+              f"{'equal' if same else 'differs'} ({r0.loss_history}); every "
+              f"comparison below "
+              f"{'bitwise' if same else f'within {tol:.3g}'}; walls "
+              f"{w0:.2f} s and {w1:.2f} s", flush=True)
+        check(all(map(_finite, r0.loss_history)), "RESIL a: non-finite eval")
+
+        def close(a, b, what, history=True):
+            d = _max_diff(torch, a.params, b.params)
+            check(d <= tol and (not same or not history
+                                or a.loss_history == b.loss_history),
+                  f"RESIL {what}: params {d:.3g} apart, control {tol:.3g}")
+            return d
+
+        # (b) telemetry and guard on = off, no host sync inside a segment
+        _strict_segments(torch, sim._fed)
+        tel = Telemetry(tmp / "b", trace=True)
+        r2, w2 = timed_run(schedule(), telemetry=tel,
+                           resil=Resilience(guard=GuardSpec()))
+        tel.close()
+        d = close(r2, r0, "b (telemetry + guard on vs off)")
+        seg = [e for e in json.load(open(tmp / "b" / "trace.json"))[
+            "traceEvents"] if e["name"] == "segment"]
+        seg_ms = sum(e["dur"] for e in seg) / 1e3 / RESIL_STEPS
+        print(f"RESIL b. telemetry + guard on against off: params {d:.3g} "
+              f"apart, eval NLL equal {r2.loss_history == r0.loss_history}; "
+              f"every segment under set_sync_debug_mode('error'); run wall "
+              f"{w2:.2f} s on against {w1:.2f} s off (+{(w2 - w1) * 1e3 / RESIL_STEPS:.2f}"
+              f" ms a step, rounds and evals included), segments "
+              f"{seg_ms:.2f} ms a step on [{smi}]", flush=True)
+
+        # the schedule with every event, telemetry and resilience on
+        head_select.launches = 0
+        head_select.launches_by_variant = {"tc": 0, "simt": 0}
+        tel = Telemetry(tmp / "u", trace=True)
+        u, wu = timed_run(schedule(*events), telemetry=tel, resil=Resilience(
+            guard=GuardSpec(), snapshot_dir=str(tmp / "u" / "snap"),
+            snapshot_every=0, keep=100))
+        tel.close()
+        launches = head_select.launches
+        variants = dict(head_select.launches_by_variant)
+        check(all(map(_finite, u.loss_history)), f"RESIL: eval {u.loss_history}")
+        print(f"RESIL schedule run ({len(schedule(*events).segments)} "
+              f"segments): {wu:.2f} s wall, eval NLL {u.loss_history}, "
+              f"accuracy {u.final_acc:.4f}, head_select launches {launches} "
+              f"{variants}", flush=True)
+
+        # (d) the churned node is held, the round masks it out
+        dev = next(iter(u.params.values())).device
+        like = {"params": u.params, "opt_state": {"m": u.params},
+                "key": torch.Generator(device=dev).get_state()}
+        snap = {}
+        for s in (down, up):
+            tree = load_checkpoint(str(tmp / "u" / "snap" / f"snap-{s:08d}"),
+                                   like)[0]
+            snap[s] = (tree["params"], tree["opt_state"]["m"])
+        pairs = [(a[k], b[k]) for a, b in zip(snap[down], snap[up]) for k in a]
+        held = all(torch.equal(a[node], b[node]) for a, b in pairs)
+        moved = all(not torch.equal(a[0], b[0]) for a, b in pairs)
+        labels = read_events(tmp / "u" / "run.jsonl", "labels")
+        sel = labels[0]["selected"]
+        check(held and moved, f"RESIL d: over [{down}, {up}) node {node} "
+                              f"held {held}, node 0 moved {moved}")
+        check(sel[node] == 0 and min(sel) == 0 and sum(sel) > 0,
+              f"RESIL d: the round's selected counts {sel}")
+        check(launches > 0 and sum(variants.values()) == launches,
+              f"RESIL d: head_select launches {launches} {variants}")
+        print(f"RESIL d. churn: node {node}'s params and momentum the same "
+              f"bits in the snapshots at {down} and {up}, every other node's "
+              f"moved; the round at {RESIL_ROUND} selected {sel} (node "
+              f"{node}: 0); head_select launched {launches} times "
+              f"{variants}", flush=True)
+
+        # (c) crash after a snapshot, resume = the uninterrupted run
+        res = Resilience(guard=GuardSpec(), snapshot_dir=str(tmp / "c"),
+                         snapshot_every=10)
+        crash = schedule(*events, sched.FaultEvent(RESIL_CRASH, "crash"))
+        try:
+            sim.run(crash, resil=res)
+        except SimulatedCrash as e:
+            check(e.step == RESIL_CRASH, f"RESIL c: crashed at {e.step}")
+        else:
+            fail("RESIL c: the crash did not fire")
+        last = max(int(p.name[5:13]) for p in (tmp / "c").glob("snap-*.npz"))
+        fake = tmp / "c" / f"snap-{last + 5:08d}"
+        raw = (tmp / "c" / f"snap-{last:08d}.npz").read_bytes()
+        Path(str(fake) + ".npz").write_bytes(raw[:len(raw) // 2])
+        shutil.copy(tmp / "c" / f"snap-{last:08d}.meta.json",
+                    str(fake) + ".meta.json")
+        shutil.copy(tmp / "c" / f"snap-{last:08d}.ctx.npz",
+                    str(fake) + ".ctx.npz")
+        tel = Telemetry(tmp / "r", trace=True)
+        r, wr = timed_run(crash, telemetry=tel, resil=res)
+        tel.close()
+        resume = read_events(tmp / "r" / "run.jsonl", "resume")
+        d = close(r, u, "c (crash + resume vs uninterrupted)", history=False)
+        tail = u.loss_history[-len(r.loss_history):]
+        check(resume and resume[0]["step"] == last and r.loss_history == tail
+              if same else resume and resume[0]["step"] == last,
+              f"RESIL c: resumed {resume}, eval {r.loss_history} vs {tail}")
+        print(f"RESIL c. crash at {RESIL_CRASH}, a truncated snapshot at "
+              f"{last + 5} skipped, resumed from {last}: params {d:.3g} from "
+              f"the uninterrupted run, eval NLL {r.loss_history} (uninterrupted "
+              f"{tail}); resume {resume[0]['t'] * 1e3:.1f} ms to the resume "
+              f"event, {wr:.2f} s for the rest of the run [{smi}]", flush=True)
+
+        # (e) a detected-corrupt window = a drop window
+        short = {kind: sim.run(schedule(
+            sched.FaultEvent(10, kind, (bad,), "nan"),
+            sched.FaultEvent(20, "clear"), steps=RESIL_SHORT, rounds=()))
+            for kind in ("corrupt", "drop")}
+        d = close(short["corrupt"], short["drop"], "e (corrupt vs drop)")
+        print(f"RESIL e. node {bad}'s payloads nan (detected) over [10, 20) "
+              f"against dropped over the same window, {RESIL_SHORT} steps: "
+              f"params {d:.3g} apart", flush=True)
+
+        # (f) nan with validation off: guard trip, quarantine, rollback
+        tel = Telemetry(tmp / "f")
+        f = sim.run(schedule(sched.FaultEvent(10, "corrupt", (bad,), "nan"),
+                             steps=RESIL_SHORT, rounds=()), telemetry=tel,
+                    resil=Resilience(guard=GuardSpec(validate_wire=False),
+                                     rollback=True))
+        tel.close()
+        health = read_events(tmp / "f" / "run.jsonl", "health")
+        rolls = read_events(tmp / "f" / "run.jsonl", "rollback")
+        q = [i for i, v in enumerate(health[0]["quarantined"]) if v] \
+            if health else []
+        finite = all(bool(v.isfinite().all()) for v in f.params.values())
+        check(q == [bad] and rolls and finite
+              and all(map(_finite, f.loss_history)),
+              f"RESIL f: quarantined {q}, rollbacks {rolls}, finite {finite}")
+        print(f"RESIL f. node {bad}'s payloads nan with validation off: the "
+              f"guard tripped at {health[0]['step']} (victims "
+              f"{[i for i, v in enumerate(health[0]['tripped']) if v]}), node "
+              f"{bad} quarantined, {len(rolls)} rollback(s), params finite, "
+              f"eval NLL {f.loss_history}", flush=True)
+
+        # (g) the files, each event kind as often as the schedule implies
+        sc = schedule(*events)
+        counts = validate_runlog(tmp / "u" / "run.jsonl")
+        n_trace = validate_trace(tmp / "u" / "trace.json")
+        n_seg = len(sc.segments)
+        n_eval = sum(s.eval_after for s in sc.segments)
+        want = {"schedule": 1, "segment": n_seg, "metrics": n_seg,
+                "topology": 3, "fault": 4, "round": 1, "labels": 1,
+                "comm": n_seg + 1, "snapshot": n_seg, "eval": n_eval,
+                "accuracy": n_eval, "health": 1, "run_end": 1}
+        check(dict(counts) == want, f"RESIL g: event counts {dict(counts)}, "
+                                    f"want {want}")
+        snaps = [e["dur"] / 1e3 for e in json.load(open(
+            tmp / "u" / "trace.json"))["traceEvents"] if e["name"] == "snapshot"]
+        print(f"RESIL g. run.jsonl ({sum(counts.values())} events, counts as "
+              f"the schedule implies: {dict(counts)}) and trace.json "
+              f"({n_trace} spans) valid; a snapshot (params + momentum of "
+              f"{sim.tcfg.num_nodes} nodes) takes {sum(snaps) / len(snaps):.1f} ms to write (mean of "
+              f"{len(snaps)}, max {max(snaps):.1f}) [{smi}]", flush=True)
+
+        # (h) the consensus checkpoint through save and load on the card
+        cons = consensus_params(u.params)
+        save_checkpoint(str(tmp / "h" / "consensus"), cons, step=RESIL_STEPS)
+        back, step = load_checkpoint(str(tmp / "h" / "consensus"), cons)
+        save_checkpoint(str(tmp / "h" / "reference"), to_jax_params(cons))
+        ref = from_jax_params(load_checkpoint(str(tmp / "h" / "reference"),
+                                              to_jax_params(cons))[0], dev)
+        check(step == RESIL_STEPS and all(
+            back[k].device == v.device and torch.equal(back[k], v)
+            and torch.equal(ref[k], v) for k, v in cons.items()),
+            "RESIL h: the checkpoint changed")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"RESIL h. the consensus checkpoint ({len(cons)} leaves) saved "
+              f"and loaded on the card bitwise, in the port's layout and the "
+              f"reference's; RESIL peak {peak:.3f} GiB, "
+              f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
     return {"head_select": launches}, {"head_select": variants}
 
 
@@ -2696,6 +3045,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paper_launches, paper_variants = phase_paper(torch, ops)
     torch.cuda.empty_cache()
+    resil_launches, resil_variants = phase_resil(torch, ops)
+    torch.cuda.empty_cache()
 
     lm_rows = phase_lm_kernels(torch)
     phase_lm_dense_kernels(torch, lm_rows)
@@ -2719,10 +3070,12 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
         {"resnet_path": launches, "grid": grid_launches,
-         "paper": paper_launches, "lm_path": lm_launches,
+         "paper": paper_launches, "resil": resil_launches,
+         "lm_path": lm_launches,
          **{k: v["launches"] for k, v in trains.items()}},
         {"resnet_path": variants, "grid": grid_variants,
-         "paper": paper_variants, "lm_path": lm_variants,
+         "paper": paper_variants, "resil": resil_variants,
+         "lm_path": lm_variants,
          **{k: v["variants"] for k, v in trains.items()}},
         {"lm_path": lm_dims,
          **{k: v["by_head_dim"] for k, v in trains.items()}})}))

@@ -129,10 +129,25 @@ def lm_sparse_kd_adapter(idkd_cfg: IDKDConfig):
 
 
 # ----------------------------------------------------------- step factory
-def make_step(model, algo, mixer, loss_adapter) -> Callable:
+def make_step(model, algo, mixer, loss_adapter, telemetry: bool = False,
+              guard=None) -> Callable:
     """``step(params, opt_state, batch, lr) -> (params, opt_state, loss)``
-    on node-stacked params; ``loss`` is the mean node loss."""
+    on node-stacked params; ``loss`` is the mean node loss.
+
+    ``telemetry=True`` adds the metrics bus (:mod:`repro_torch.obs.
+    metrics`) as a trailing carry, ``step(..., metrics) -> (...,
+    metrics)``, flagged ``step.metrics``; ``guard`` (a
+    ``resil.GuardSpec``) adds the health guard (:mod:`repro_torch.resil.
+    guards`) after it, flagged ``step.guard``. When the mixer injects
+    faults, its ``wire_check`` of the pre-mix params feeds the guard's
+    sender attribution. Both only read the step's values, so the
+    trajectory is bitwise the plain step's."""
     node_loss = loss_adapter(model)
+    if telemetry:
+        from repro_torch.obs import metrics as obs_metrics
+    if guard is not None:
+        from repro_torch.resil import guards as resil_guards
+    wire_check = getattr(mixer, "wire_check", None)
 
     def grad_fn(params, batch):
         keys = list(params)
@@ -141,15 +156,85 @@ def make_step(model, algo, mixer, loss_adapter) -> Callable:
         grads = torch.autograd.grad(losses.sum(), leaves)
         return dict(zip(keys, grads)), losses.detach()
 
-    def step(params, opt_state, batch, lr):
+    def step(params, opt_state, batch, lr, *rest):
+        rest = list(rest)
+        metrics = rest.pop(0) if telemetry else None
+        guard_state = rest.pop(0) if guard is not None else None
+        # sender attribution reads the pre-mix payload: the update below
+        # writes over params, and after the mix propagated corruption has
+        # reached the victims too
+        wire_invalid = (wire_check(params)
+                        if guard is not None and wire_check is not None
+                        else None)
         grads, losses = grad_fn(params, batch)
         new_params, opt_state = algo.step(
             {k: p.detach() for k, p in params.items()}, grads, opt_state,
             lr, mixer)
-        return new_params, opt_state, losses.mean()
+        out = [new_params, opt_state, losses.mean()]
+        if telemetry:
+            out.append(obs_metrics.update(metrics, losses, grads,
+                                          new_params))
+        if guard is not None:
+            out.append(resil_guards.update(guard_state, guard, losses,
+                                           grads, new_params,
+                                           wire_invalid=wire_invalid))
+        return tuple(out)
 
+    step.metrics = telemetry
+    step.guard = guard is not None
     step.init_opt = algo.init
     step.grads = grad_fn           # (grads, node losses) alone, for traces
+    return step
+
+
+def _node_rows(tree, n: int, prefix: str = ""):
+    """(path, tensor) of every leaf of a nested dict / list whose leading
+    axis is the node axis."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _node_rows(v, n, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _node_rows(v, n, f"{prefix}#{i}/")
+    elif isinstance(tree, torch.Tensor) and tree.dim() >= 1 \
+            and tree.shape[0] == n:
+        yield prefix, tree
+
+
+def make_frozen_step(step_fn, active) -> Callable:
+    """Churn wrapper: nodes with ``active[i] == False`` hold their params
+    and node-stacked optimizer state — they neither train nor gossip
+    (pair with a masked mixer, ``make_mixer(..., active=...)``). Leaves
+    without a leading node axis (D²'s step count) pass through. The
+    frozen nodes still draw their batches, so a node that rejoins leaves
+    every other node's trajectory as it was.
+
+    The port's updates write over their inputs, so each frozen node's
+    rows are copied out before the inner step and written back into the
+    step's outputs after it, through views of the node rows (``x[i]``):
+    on the device, never a host round trip, and no index kernel that
+    deterministic mode would refuse. The trailing metrics / guard
+    carries pass through with the inner step's values, as in the
+    reference."""
+    act = np.asarray(active, bool)
+    n = act.shape[0]
+    nodes = [int(i) for i in np.flatnonzero(~act)]
+
+    def step(params, opt_state, batch, lr, *rest):
+        held = {}
+        for which, tree in (("p", params), ("o", opt_state)):
+            for path, x in _node_rows(tree, n):
+                held[which, path] = [x[i].clone() for i in nodes]
+        out = step_fn(params, opt_state, batch, lr, *rest)
+        for which, tree in (("p", out[0]), ("o", out[1])):
+            for path, x in _node_rows(tree, n):
+                for i, row in zip(nodes, held.get((which, path), ())):
+                    x[i].copy_(row)
+        return out
+
+    step.metrics = getattr(step_fn, "metrics", False)
+    step.guard = getattr(step_fn, "guard", False)
+    step.init_opt = step_fn.init_opt
     return step
 
 
@@ -336,20 +421,44 @@ def make_lm_kd_sampler(parts: PaddedParts, tokens, batch_size: int,
 def make_host_runner(step_fn, sample_fn, lr_fn) -> Callable:
     """``run(params, opt_state, gen, step0, num_steps, ctx=None) ->
     (params, opt_state, gen, losses (num_steps,))``: one sampled batch
-    and one train step per iteration of a Python loop."""
-    def run(params, opt_state, gen, step0, num_steps, ctx=None):
+    and one train step per iteration of a Python loop. A step flagged
+    ``metrics`` / ``guard`` makes the runner take and return those
+    carries the same way: ``run(..., metrics=m, guard=g) -> (...,
+    losses, m, g)``, flagged ``run.metrics`` / ``run.guard``."""
+    has_metrics = getattr(step_fn, "metrics", False)
+    has_guard = getattr(step_fn, "guard", False)
+
+    def run(params, opt_state, gen, step0, num_steps, ctx=None,
+            metrics=None, guard=None):
         losses = []
         for t in range(step0, step0 + num_steps):
             batch = (sample_fn(gen, t) if ctx is None
                      else sample_fn(gen, t, ctx))
-            params, opt_state, loss = step_fn(params, opt_state, batch,
-                                              lr_fn(t))
+            args = (params, opt_state, batch, lr_fn(t))
+            if has_metrics:
+                args += (metrics,)
+            if has_guard:
+                args += (guard,)
+            out = step_fn(*args)
+            params, opt_state, loss = out[:3]
+            rest = list(out[3:])
+            if has_metrics:
+                metrics = rest.pop(0)
+            if has_guard:
+                guard = rest.pop(0)
             losses.append(loss)
         dev = next(iter(params.values())).device
-        return (params, opt_state, gen,
-                torch.stack(losses) if losses else torch.zeros((0,),
-                                                               device=dev))
+        out = (params, opt_state, gen,
+               torch.stack(losses) if losses else torch.zeros((0,),
+                                                              device=dev))
+        if has_metrics:
+            out += (metrics,)
+        if has_guard:
+            out += (guard,)
+        return out
 
+    run.metrics = has_metrics
+    run.guard = has_guard
     return run
 
 

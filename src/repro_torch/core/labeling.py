@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import IDKDConfig
@@ -295,3 +296,27 @@ def streaming_label_round(model, params, public_x, val_x,
     if act is not None:
         weights = weights * act[:, None]
     return SparseHomogenizedSet(merged, weights, id_mask, thresholds)
+
+
+def neighbor_topk_overlap(indices, topology: Topology):
+    """Telemetry diagnostic: how much of each node's top-k label index
+    set its graph neighbours share. ``indices`` (n, P[, S], k), a tensor
+    or an array. For each undirected edge (i, j) the overlap is the
+    fraction of node i's entries that also appear in node j's set for
+    the same sample, averaged over samples. Returns ``(mean,
+    per_edge)``, ``per_edge`` mapping ``"i-j"`` to the fraction; mean is
+    0.0 on an edgeless graph. Host numpy, once a round."""
+    idx = (indices.detach().cpu().numpy()
+           if isinstance(indices, torch.Tensor) else np.asarray(indices))
+    n = idx.shape[0]
+    flat = idx.reshape(n, -1, idx.shape[-1])            # (n, M, k)
+    per_edge = {}
+    for i in range(n):
+        for j in topology.neighbors(i):
+            if j <= i:
+                continue
+            a, b = flat[i], flat[j]                      # (M, k) each
+            hit = (a[:, :, None] == b[:, None, :]).any(-1)
+            per_edge[f"{i}-{j}"] = float(hit.mean())
+    mean = float(np.mean(list(per_edge.values()))) if per_edge else 0.0
+    return mean, per_edge

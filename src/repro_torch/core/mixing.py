@@ -3,10 +3,13 @@
 The port has the reference's ``dense`` backend — the (n, n) Metropolis
 matrix applied along the leading node axis, one matmul per leaf — with
 its per-leaf protocol (``mix.mix_leaf``, which QG-DSGDm-N fuses into its
-update) and ``wire_dtype``. The gather/roll backends and the shard-mode
-ppermute backends are still to port (ROADMAP.md queue 1 items 12 and
-13) and raise here; compressed / delayed gossip and churn masks are
-refused where a run is configured (the simulator and the scheduler).
+update) and ``wire_dtype``, the churn mask (``active``: the masked
+Metropolis matrix, identity rows on down nodes) and the resilience
+layer's wire faults (``wire_fault``, wrapped by
+``resil.make_validated_mixer``; a fault-free mixer comes back
+unwrapped). The gather/roll backends, compressed, delayed and straggler
+gossip (ROADMAP.md queue 1 item 12) and the shard-mode ppermute backends
+(item 13) are still to port and raise here.
 """
 from __future__ import annotations
 
@@ -43,14 +46,44 @@ def make_dense_mixer(W: np.ndarray, wire_dtype: str = "native",
 
 
 def make_mixer(topology: Topology, backend: str = "dense",
-               wire_dtype: str = "native", device="cuda") -> Mixer:
+               wire_dtype: str = "native", device="cuda", *, active=None,
+               compression=None, gossip: str = "sync", stale=None,
+               stateful=None, wire_fault=None, wire_guard=None) -> Mixer:
     """The uncompressed node-stacked mixer on the topology's Metropolis
-    matrix."""
+    matrix, masked to the ``active`` nodes when some are down
+    (``Topology.mixing_matrix(active)``: doubly stochastic on the active
+    subgraph, identity on the down nodes). ``wire_fault`` (a
+    ``resil.WireFault``) wraps it in ``resil.make_validated_mixer`` with
+    ``wire_guard``'s (a ``resil.GuardSpec``) bound and validation
+    switch. The mixer carries ``remake(active=..., stale=...)``, which
+    rebuilds it for another availability mask."""
     if backend != "dense":
         raise NotImplementedError(
             f"mixer backend {backend!r} is not ported yet (only 'dense'); "
             "see ROADMAP.md queue 1 items 12 and 13")
-    return make_dense_mixer(topology.mixing_matrix(), wire_dtype, device)
+    if compression is not None or gossip != "sync" or stateful or (
+            stale is not None and np.any(np.asarray(stale, bool))):
+        raise NotImplementedError(
+            "compressed, delayed and straggler (stale) gossip are not "
+            "ported yet; see ROADMAP.md queue 1 item 12")
+    dev = resolve_device(device)
+    if active is not None and np.all(np.asarray(active, bool)):
+        active = None
+    W = topology.mixing_matrix(active)
+    mix = make_dense_mixer(W, wire_dtype, dev)
+    if wire_fault is not None and not wire_fault.is_noop():
+        from repro_torch.resil.faults import (DEFAULT_MAX_ABS,
+                                              make_validated_mixer)
+        mix = make_validated_mixer(
+            mix, W, wire_fault,
+            max_abs=(wire_guard.max_abs if wire_guard is not None
+                     else DEFAULT_MAX_ABS),
+            validate=(wire_guard.validate_wire if wire_guard is not None
+                      else True), device=dev)
+    mix.remake = lambda active=None, stale=None: make_mixer(
+        topology, backend, wire_dtype, dev, active=active, stale=stale,
+        wire_fault=wire_fault, wire_guard=wire_guard)
+    return mix
 
 
 def consensus_distance(stacked: Params) -> torch.Tensor:

@@ -16,6 +16,13 @@ complete graph (its Metropolis matrix is exact uniform averaging) over
 an IID partition, as the paper's upper bound; the rest take the
 Dirichlet partition and the run topology (``relaysgd`` needs a tree).
 Runs on ``cuda`` unless ``device="cpu"`` is passed.
+
+The scheduler's dynamic settings ride :meth:`DecentralizedSimulator.run`:
+churn and rewire events (masked Metropolis mixing, frozen nodes held by
+``driver.make_frozen_step``), wire faults and crashes, mid-run capture
+and resume, telemetry (``repro_torch.obs``) and resilience
+(``repro_torch.resil``: guards, quarantine, rollback, durable snapshots
+with auto-resume).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.core.topology import Topology
 from repro_torch.data.dirichlet import dirichlet_partition, partition_stats
 from repro_torch.data.synthetic import ClassificationData
 from repro_torch.models.resnet import build_model, stack_params
+from repro_torch.obs import log
 from repro_torch.optim.schedules import step_decay
 from repro_torch.runtime import resolve_device
 
@@ -56,20 +64,29 @@ class SimResult:
     rounds: List[Dict] = field(default_factory=list)  # per-round diagnostics
     ledger: Optional[Dict] = None            # sched.CommLedger.as_dict()
     params: Optional[Dict] = None            # final node-stacked params
+    captured: Optional[Dict] = None          # run(capture_at=...) copy
 
 
-class _SimFederation(sched.FederationHooks):
-    """Binds the simulator's samplers, steps and label round to the
-    scheduler loop; ``phase`` is "plain" until the first round, then
-    "kd_dense" or "kd_sparse"."""
+class _SimFederation(sched.CompiledFederationHooks):
+    """Binds the simulator's samplers, steps, mixers and label round to
+    the scheduler loop (the cache machinery is
+    :class:`sched.CompiledFederationHooks`'); ``phase`` is "plain" until
+    the first round, then "kd_dense" or "kd_sparse". The prebuilt steps
+    (``sim.steps``) serve the all-up, fault-free segments on the run's
+    own gossip graph with telemetry and guard off; every other segment
+    builds its step through the cache."""
 
     def __init__(self, sim: "DecentralizedSimulator", result: SimResult,
                  idkd_cfg: IDKDConfig):
+        super().__init__()
         self.sim = sim
+        self.model = sim.model
+        self.algo = sim.algo
+        self.lr_fn = sim.lr_fn
+        self.driver_mode = sim.driver_mode
+        self.device = sim.device
         self.result = result
         self.idkd_cfg = idkd_cfg
-        self.phase = "plain"
-        self.ctx = None
         parts = driver.pad_partitions(sim.parts, sim.device)
         C, B = sim.mcfg.num_classes, sim.tcfg.batch_size
         self.samplers = {
@@ -79,23 +96,63 @@ class _SimFederation(sched.FederationHooks):
             kd = driver.make_homogenized_sampler(
                 parts, sim.train_x, sim.train_y, sim.public_x, C, B)
             self.samplers["kd_dense"] = self.samplers["kd_sparse"] = kd
-        self._runners: Dict = {}
 
-    def runner(self, topology: Topology):
-        run = self._runners.get(self.phase)
-        if run is None:
-            run = driver.make_runner(self.sim.steps[self.phase],
-                                     self.samplers[self.phase],
-                                     self.sim.lr_fn, self.sim.driver_mode)
-            self._runners[self.phase] = run
-        if self.phase == "plain":
-            return run
-        return lambda p, o, g, s0, ns: run(p, o, g, s0, ns, self.ctx)
+    def reset(self, result: SimResult) -> None:
+        """Rebind for a fresh run, keeping the mixer, step and runner
+        caches; each run passes its own telemetry and resilience."""
+        self.result = result
+        self.phase = "plain"
+        self.ctx = None
+        self.telemetry = None
+        self.resil = None
+        self.wire_fault = None
+        self.last_round_stats = None
+
+    def _make_mixer(self, topo: Topology, active, stale=None):
+        sim = self.sim
+        if (active is None and self._fault_key() is None
+                and topo.edge_key() == sim.gossip_topo.edge_key()):
+            return sim.mixer
+        return make_mixer(topo, "dense", wire_dtype=sim.wire_dtype,
+                          device=sim.device, active=active, stale=stale,
+                          **self._mixer_opts())
+
+    def _adapter(self):
+        cfg = self.idkd_cfg
+        return {
+            "plain": driver.classification_adapter,
+            "kd_dense": driver.dense_kd_adapter(cfg.temperature,
+                                                cfg.kd_weight),
+            "kd_sparse": driver.sparse_kd_adapter(cfg.temperature,
+                                                  cfg.kd_weight),
+        }[self.phase]
+
+    def _sampler(self):
+        return self.samplers[self.phase]
+
+    def _base_step(self, topo: Topology, active: np.ndarray,
+                   stale: np.ndarray):
+        sim = self.sim
+        if (active.all() and not self._metrics_on()
+                and self._fault_key() is None
+                and self._guard_spec() is None
+                and topo.edge_key() == sim.gossip_topo.edge_key()):
+            return sim.steps[self.phase]
+        return super()._base_step(topo, active, stale)
+
+    def restore_ctx(self, ctx: Dict, phase: str) -> None:
+        """Mid-phase resume: the KD sampler state straight from the
+        snapshot's flat payload, on the simulator's device."""
+        self.ctx = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in ctx.items()}
+        self.phase = phase
 
     def on_round(self, params, round_index: int, step: int,
-                 topology: Topology) -> np.ndarray:
+                 topology: Topology, active: np.ndarray) -> np.ndarray:
         sim, cfg = self.sim, self.idkd_cfg
-        hom = sim.homogenize(params, cfg, topology)
+        hom = sim.homogenize(params, cfg, topology,
+                             active=None if active.all() else active,
+                             wire_fault=self._fault_key())
         sparse_round = isinstance(hom, labeling.SparseHomogenizedSet)
         payload = ((hom.labels.values, hom.labels.indices) if sparse_round
                    else hom.labels)
@@ -111,21 +168,37 @@ class _SimFederation(sched.FederationHooks):
         res.post_hist = sim._post_histograms(hom)
         k_wire = (min(cfg.label_topk or labeling.DEFAULT_TOPK,
                       sim.mcfg.num_classes) if sparse_round else 0)
+        id_counts = id_masks.sum(axis=1)
         per_node = np.array([distill.label_bytes(int(c),
                                                  sim.mcfg.num_classes,
                                                  k_wire)
-                             for c in id_masks.sum(axis=1)], np.float64)
+                             for c in id_counts], np.float64)
         res.rounds.append({"step": step, "round": round_index,
                            "id_fraction": res.id_fraction,
                            "label_bytes": float(per_node.sum())})
+        stats = {"thresholds": res.thresholds, "selected": id_counts,
+                 "id_fraction": res.id_fraction, "detector": cfg.detector}
+        if sparse_round:
+            mean_ov, per_edge = labeling.neighbor_topk_overlap(
+                hom.labels.indices, topology)
+            stats["topk_overlap"] = mean_ov
+            stats["topk_overlap_per_edge"] = per_edge
+        self.last_round_stats = stats
         return per_node
 
     def on_eval(self, params, step: int, losses) -> None:
         acc, nll = self.sim._eval(params)
         self.result.acc_history.append(acc)
         self.result.loss_history.append(nll)
-        self.result.consensus_history.append(
-            float(consensus_distance(params)))
+        cons = float(consensus_distance(params))
+        self.result.consensus_history.append(cons)
+        tel = self.telemetry
+        if tel is not None:
+            tel.event("accuracy", step=step, acc=acc, nll=nll,
+                      consensus=cons)
+            if not (np.isfinite(nll) and np.isfinite(acc)):
+                tel.event("health", step=step, kind="eval_nonfinite",
+                          acc=acc, nll=nll)
 
 
 class DecentralizedSimulator:
@@ -188,6 +261,7 @@ class DecentralizedSimulator:
                                 train_cfg.lr_decay_milestones,
                                 train_cfg.lr_decay_factor)
         icfg = train_cfg.idkd or IDKDConfig()
+        self._fed: Optional[_SimFederation] = None
         self.steps = {
             "plain": driver.make_step(self.model, self.algo, self.mixer,
                                       driver.classification_adapter),
@@ -234,7 +308,25 @@ class DecentralizedSimulator:
         return (self.kd_mode is not None and self.public_x is not None
                 and idkd_cfg.start_step < self.tcfg.steps)
 
-    def run(self, schedule: Optional[sched.Schedule] = None) -> SimResult:
+    def run(self, schedule: Optional[sched.Schedule] = None,
+            resume: Optional[Dict] = None,
+            capture_at: Optional[int] = None,
+            telemetry=None, resil=None) -> SimResult:
+        """Replay the federation schedule through the scheduler.
+
+        ``resume`` is a ``{"params", "opt_state", "key", "step"}`` state
+        (``result.captured`` of a run with ``capture_at``; ``"key"`` the
+        samplers' generator state) restarting at a legal boundary;
+        ``capture_at`` copies the state at that boundary into
+        ``result.captured``. ``telemetry`` (a
+        :class:`repro_torch.obs.Telemetry`) turns the run log, the
+        metrics bus and trace spans on; the trajectory is bitwise the
+        same with it off. ``resil`` (a :class:`repro_torch.resil.
+        Resilience`) turns the guard, quarantine, rollback and durable
+        snapshots on; a ``crash`` fault raises
+        :class:`repro_torch.resil.SimulatedCrash` out of this method, and
+        calling it again with the same ``resil.snapshot_dir`` resumes
+        from the newest snapshot."""
         t0 = time.time()
         tcfg = self.tcfg
         n = tcfg.num_nodes
@@ -248,20 +340,33 @@ class DecentralizedSimulator:
         result = SimResult(final_acc=0.0)
         result.pre_hist = partition_stats(self.data.train_y, self.parts,
                                           self.mcfg.num_classes)
-        params = self._stacked_init()
-        opt_state = self.algo.init(params)
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        if resume is not None:
+            params, opt_state = resume["params"], resume["opt_state"]
+            key = resume["key"]
+            gen.set_state(key.get_state() if isinstance(
+                key, torch.Generator) else key)
+            resume_step = int(resume["step"])
+        else:
+            params = self._stacked_init()
+            opt_state = self.algo.init(params)
+            resume_step = 0
         nparams = sum(v[0].numel() for v in params.values())
         ledger = sched.CommLedger(n, meta={
             "topology": self.gossip_topo.name,
             "wire_dtype": self.wire_dtype,
             "param_count": int(nparams), "gossip": schedule.gossip})
-        fed = _SimFederation(self, result, idkd_cfg)
-        params, opt_state, gen = sched.run_schedule(
-            schedule, fed, params, opt_state, gen,
+        if self._fed is None:
+            self._fed = _SimFederation(self, result, idkd_cfg)
+        else:
+            self._fed.reset(result)
+        params, opt_state, gen, captured = sched.run_schedule(
+            schedule, self._fed, params, opt_state, gen,
             topology=self.gossip_topo,
             ledger=ledger, param_count=int(nparams),
-            elem_bytes=sched.wire_elem_bytes(self.wire_dtype, "float32"))
+            elem_bytes=sched.wire_elem_bytes(self.wire_dtype, "float32"),
+            resume_step=resume_step, capture_at=capture_at,
+            telemetry=telemetry, resil=resil)
         result.final_acc = (result.acc_history[-1]
                             if result.acc_history else 0.0)
         steps_run = ledger.gossip_steps()
@@ -270,30 +375,74 @@ class DecentralizedSimulator:
         result.label_bytes_total = ledger.label_bytes
         result.ledger = ledger.as_dict()
         result.params = params
+        result.captured = captured
         result.wall_seconds = time.time() - t0
         return result
 
     # ------------------------------------------------------------ IDKD round
     def homogenize(self, params, idkd_cfg: IDKDConfig,
-                   topology: Optional[Topology] = None
-                   ) -> labeling.HomogenizedResult:
+                   topology: Optional[Topology] = None, active=None,
+                   wire_fault=None) -> labeling.HomogenizedResult:
         """One homogenization round from node-stacked ``params``: the
         streaming round (``head_select``) on the fused/sparse backends
         with ``stream_labels``, else the one-shot round on the public
-        logit stack (``msp_select`` on the fused backend)."""
+        logit stack (``msp_select`` on the fused backend). ``active`` is
+        the churn mask (a down node neither gives nor takes labels).
+        Under a ``wire_fault`` the faulted senders' label payloads are
+        lost: the streaming round never forms the logits to corrupt, so
+        both fault kinds drop them; the one-shot round corrupts their
+        logits and drops the payloads that fail validation — merged out
+        through the mask either way, as in the reference."""
         filter_ood = self.kd_mode != "vanilla"
         topo = topology or self.topology
-        if idkd_cfg.stream_labels and idkd_cfg.label_backend != "dense":
+        n = self.tcfg.num_nodes
+        act = (np.ones(n, bool) if active is None
+               else np.asarray(active, bool))
+        streaming = (idkd_cfg.stream_labels
+                     and idkd_cfg.label_backend != "dense")
+        faulted = wire_fault is not None and not wire_fault.is_noop()
+        if streaming:
+            if faulted:
+                lost = np.zeros(n, bool)
+                lost[list(wire_fault.senders)] = True
+                act = act & ~lost
+                if not act.any():
+                    raise RuntimeError("label-round fault leaves no "
+                                       "valid label payloads")
+                log.warning("label_payload_lost",
+                            nodes=np.flatnonzero(lost).tolist())
             return labeling.streaming_label_round(
                 self.model, params, self.public_x,
                 self._per_node_val_inputs(), topo, idkd_cfg,
-                filter_ood=filter_ood)
+                filter_ood=filter_ood,
+                active=None if act.all() else act)
         val_x = self._per_node_val_inputs()
         with torch.no_grad():
             val_logits = self.model.forward(params, {"images": val_x})[0]
+        logits = self.node_logits(params, self.public_x)
+        if faulted:
+            from repro_torch.resil.faults import (DEFAULT_MAX_ABS,
+                                                  corrupt_rows,
+                                                  payload_valid)
+            lost = np.zeros(n, bool)
+            lost[list(wire_fault.drop)] = True
+            if wire_fault.corrupt:
+                rows = np.zeros(n, bool)
+                rows[list(wire_fault.corrupt)] = True
+                logits = corrupt_rows(logits, rows, wire_fault.mode)
+                lost |= ~payload_valid(logits.reshape(n, -1),
+                                       DEFAULT_MAX_ABS).cpu().numpy()
+            act = act & ~lost
+            if not act.any():
+                raise RuntimeError(
+                    "label-round fault leaves no valid label payloads")
+            if lost.any():
+                log.warning("label_payload_invalid",
+                            nodes=np.flatnonzero(lost).tolist())
         return labeling.label_round(
-            self.node_logits(params, self.public_x), val_logits, None, topo,
-            idkd_cfg, backend=idkd_cfg.label_backend, filter_ood=filter_ood)
+            logits, val_logits, None, topo, idkd_cfg,
+            backend=idkd_cfg.label_backend, filter_ood=filter_ood,
+            active=None if act.all() else act)
 
     def _post_histograms(self, hom) -> np.ndarray:
         C = self.mcfg.num_classes

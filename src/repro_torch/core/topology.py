@@ -98,6 +98,20 @@ class Topology:
 
     @staticmethod
     def make(kind: str, n: int) -> "Topology":
+        topo = Topology._make(kind, n)
+        import logging
+
+        from repro_torch.obs import log
+        if log.enabled(logging.DEBUG):
+            # spectral_gap is an eigendecomposition: paid only when the
+            # debug line is shown
+            log.debug("topology.make", kind=kind, n=n, name=topo.name,
+                      edges=sum(len(v) for v in topo.adj.values()) // 2,
+                      spectral_gap=round(topo.spectral_gap(), 4))
+        return topo
+
+    @staticmethod
+    def _make(kind: str, n: int) -> "Topology":
         if kind == "ring":
             return Topology(n, ring_edges(n), f"ring{n}")
         if kind == "chain":

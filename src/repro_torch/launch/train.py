@@ -21,10 +21,12 @@ one-shot branch forms the (n, P, S, V) logits and runs ``msp_select``
 (fused backend). :func:`private_sequences` picks each node's
 calibration sequences as the reference's federation does.
 
-Not ported (raise ``NotImplementedError``): the sharded driver and
-``model_parallel`` (ROADMAP.md item 13), churn, rewire and
-fault events, telemetry and resilience (item 11), compressed and
-delayed gossip (item 12).
+Churn (``freeze`` / ``isolate``), rewire and fault events, telemetry
+(``repro_torch.obs``) and resilience (``repro_torch.resil``) ride the
+scheduler as in the reference. Not ported (raise
+``NotImplementedError``): the sharded driver and ``model_parallel``
+(ROADMAP.md item 13), compressed and delayed gossip and stale
+stragglers (item 12).
 
 Usage (CPU, reduced config; ``--arch`` defaults to the reference's
 ``qwen3-1.7b``):
@@ -62,19 +64,16 @@ def make_gossip_mixer(tcfg: TrainConfig, wire_dtype: str = "native",
                       device="cuda"):
     """The (topology, mixer) pair the launch path gossips params on: the
     dense Metropolis mixer on ``tcfg.topology`` (or ``topology``), the
-    same graph the label exchange uses. Churn masks, stragglers,
-    compressed or delayed gossip and wire faults are not ported."""
-    if active is not None or stale is not None or stateful:
-        raise NotImplementedError("churn masks and stragglers are not "
-                                  "ported (ROADMAP.md queue 1 item 11)")
-    if compression is not None or gossip != "sync":
-        raise NotImplementedError("compressed and delayed gossip are not "
-                                  "ported (ROADMAP.md queue 1 item 12)")
-    if wire_fault is not None or wire_guard is not None:
-        raise NotImplementedError("wire faults and guards are not ported "
-                                  "(ROADMAP.md queue 1 item 11)")
+    same graph the label exchange uses, masked by the churn mask
+    ``active`` and wrapped by the resilience layer's ``wire_fault`` /
+    ``wire_guard``. Stragglers (``stale``), compressed and delayed
+    gossip raise (item 12)."""
     topo = topology or Topology.make(tcfg.topology, tcfg.num_nodes)
-    return topo, make_mixer(topo, wire_dtype=wire_dtype, device=device)
+    return topo, make_mixer(topo, wire_dtype=wire_dtype, device=device,
+                            active=active, stale=stale,
+                            compression=compression, gossip=gossip,
+                            stateful=stateful, wire_fault=wire_fault,
+                            wire_guard=wire_guard)
 
 
 def private_sequences(tokens: np.ndarray, parts: Sequence[np.ndarray],
@@ -183,9 +182,11 @@ class _LMFederation(sched.CompiledFederationHooks):
         self.kd_sampler = None
         self.last_round_stats = None
 
-    def _make_mixer(self, topology: Topology):
+    def _make_mixer(self, topology: Topology, active, stale=None):
         return make_gossip_mixer(self.tcfg, self.wire_dtype,
-                                 topology=topology, device=self.device)[1]
+                                 topology=topology, active=active,
+                                 stale=stale, device=self.device,
+                                 **self._mixer_opts())[1]
 
     def _adapter(self):
         return (driver.lm_adapter if self.phase == "plain"
@@ -195,8 +196,21 @@ class _LMFederation(sched.CompiledFederationHooks):
         return (self.plain_sampler if self.phase == "plain"
                 else self.kd_sampler)
 
+    def restore_ctx(self, ctx: Dict, phase: str) -> None:
+        """Mid-phase resume: the sparse LM-KD payload straight from the
+        snapshot's flat ctx, on the federation's device."""
+        self.ctx = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in ctx.items()}
+        if self.kd_sampler is None:
+            self.kd_sampler = driver.make_lm_kd_sampler(
+                self.priv_parts, self.tokens, self.tcfg.batch_size,
+                self.public_tokens, self.ctx["pub_vals"],
+                self.ctx["pub_idx"], self.ctx["pub_w"],
+                pub_batch=self.pub_batch)
+        self.phase = phase
+
     def on_round(self, params, round_index: int, step: int,
-                 topology: Topology) -> np.ndarray:
+                 topology: Topology, active: np.ndarray) -> np.ndarray:
         cfg = self.idkd_cfg
         priv = private_sequences(self.tokens, self.parts, self.seq_len)
         backend = cfg.label_backend
@@ -208,7 +222,7 @@ class _LMFederation(sched.CompiledFederationHooks):
             backend = "sparse"
         sparse, w, id_mask, thr = idkd_label_round(
             self.model, params, self.public_tokens, priv, cfg, topology,
-            backend=backend)
+            backend=backend, active=None if active.all() else active)
         self.ctx = driver.lm_kd_ctx(sparse.values, sparse.indices, w)
         if self.kd_sampler is None:
             self.kd_sampler = driver.make_lm_kd_sampler(
@@ -223,9 +237,12 @@ class _LMFederation(sched.CompiledFederationHooks):
             print(f"idkd.round step={step} round={round_index} "
                   f"id_fraction={id_fraction:.4f} thresholds="
                   f"{np.round(thr.cpu().double().numpy(), 3).tolist()}")
+        mean_ov, per_edge = labeling.neighbor_topk_overlap(sparse.indices,
+                                                           topology)
         self.last_round_stats = {
             "thresholds": thr.cpu().numpy(), "selected": counts,
-            "id_fraction": id_fraction, "detector": cfg.detector}
+            "id_fraction": id_fraction, "detector": cfg.detector,
+            "topk_overlap": mean_ov, "topk_overlap_per_edge": per_edge}
         k_wire = min(cfg.label_topk or labeling.DEFAULT_TOPK,
                      self.cfg.vocab_size)
         return np.array([distill.label_bytes(int(c) * self.seq_len,
@@ -256,16 +273,20 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     tree. ``pub_batch``, the public sequences per
     node in a KD step, is the reference's ``min(4, n_public)`` when None;
     a full-width run sets it lower where that many vocabulary-wide
-    logits would not fit the card (``lmpath.QWEN3_PUB_BATCH``)."""
+    logits would not fit the card (``lmpath.QWEN3_PUB_BATCH``).
+
+    ``events`` (churn, rewire, faults) feed the compiled schedule;
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) and ``resil``
+    (a :class:`repro_torch.resil.Resilience`) turn those layers on, the
+    trajectory bitwise the same with either off and no fault firing. A
+    ``crash`` fault raises :class:`repro_torch.resil.SimulatedCrash`;
+    rerun with the same ``resil.snapshot_dir`` to resume."""
     _refuse_codebooks(cfg)
     if driver_mode == "shard" or model_parallel != 1:
         raise NotImplementedError(
             "the sharded driver and model_parallel are not ported "
             "(ROADMAP.md queue 1 item 13)")
     driver.resolve_runner_mode(driver_mode)
-    if telemetry is not None or resil is not None:
-        raise NotImplementedError("telemetry and resilience are not ported "
-                                  "(ROADMAP.md queue 1 item 11)")
     if tcfg.compression_spec is not None or tcfg.gossip != "sync":
         raise NotImplementedError("compressed and delayed gossip are not "
                                   "ported (ROADMAP.md queue 1 item 12)")
@@ -322,17 +343,18 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
                   f"elapsed_s={time.time() - t0:.1f}")
 
     fed.on_eval = on_eval
-    params, opt_state, gen = sched.run_schedule(
+    params, opt_state, gen, _ = sched.run_schedule(
         schedule, fed, params, opt_state, gen, topology=topo, ledger=ledger,
         param_count=int(nparams),
-        elem_bytes=sched.wire_elem_bytes(wire_dtype, cfg.dtype))
+        elem_bytes=sched.wire_elem_bytes(wire_dtype, cfg.dtype),
+        telemetry=telemetry, resil=resil)
     return {"params": consensus_params(params), "loss_history": history,
             "model": model, "topology": topo, "ledger": ledger.as_dict(),
             "schedule": schedule, "last_round": fed.last_round_stats,
             "pub_batch": fed.pub_batch}
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Decentralized LM training with IDKD (the ported "
                     "flags of the reference's CLI).")
@@ -347,13 +369,46 @@ def main():
     ap.add_argument("--every-k", type=int, default=0,
                     help="steps between rounds (default: fit them evenly "
                          "into the post-start span)")
+    ap.add_argument("--churn", default="",
+                    help="churn spec node@down-up[,...], e.g. 3@20-30")
+    ap.add_argument("--churn-mode", default="freeze",
+                    choices=list(sched.CHURN_MODES),
+                    help="what --churn means: freeze (hold params) or "
+                         "isolate (train but no gossip); stale is not "
+                         "ported (ROADMAP.md queue 1 item 12)")
     ap.add_argument("--wire-dtype", default="native",
                     choices=["native", "float32"])
     ap.add_argument("--driver", default="scan", choices=["scan", "host"])
     ap.add_argument("--full", action="store_true",
                     help="use the full (non-reduced) config")
+    ap.add_argument("--telemetry", default="", metavar="DIR",
+                    help="write run.jsonl (events and metrics-bus "
+                         "flushes) under DIR; off when empty")
+    ap.add_argument("--trace", action="store_true",
+                    help="also write trace spans to DIR/trace.json "
+                         "(needs --telemetry)")
+    ap.add_argument("--faults", default="", metavar="SPEC",
+                    help="deterministic fault injection: comma-separated "
+                         "kind@step[/nodes][/mode], e.g. "
+                         "'corrupt@8/2/nan,crash@14,clear@16'")
+    ap.add_argument("--guards", action="store_true",
+                    help="on-device health guard; tripped nodes are "
+                         "quarantined at the segment boundary")
+    ap.add_argument("--snapshot-dir", default="", metavar="DIR",
+                    help="durable snapshots under DIR at segment "
+                         "boundaries; a DIR that holds snapshots resumes "
+                         "from the newest valid one")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="min steps between snapshots (0 = every "
+                         "segment boundary)")
+    ap.add_argument("--rollback", action="store_true",
+                    help="on a guard trip, restore the pre-segment state "
+                         "and re-run with the offender quarantined "
+                         "(implies --guards)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.trace and not args.telemetry:
+        ap.error("--trace needs --telemetry DIR for the output location")
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -366,14 +421,50 @@ def main():
                        idkd=IDKDConfig(start_step=start, label_topk=8,
                                        every_k_steps=every_k,
                                        num_rounds=args.rounds))
-    out = run_training(cfg, tcfg, use_idkd=args.idkd,
-                       wire_dtype=args.wire_dtype, driver_mode=args.driver,
-                       device=args.device)
+    events = (sched.parse_churn(args.churn, args.nodes, args.steps,
+                                mode=args.churn_mode)
+              if args.churn else ())
+    if args.faults:
+        events = (*events, *sched.parse_faults(args.faults, args.nodes,
+                                               args.steps))
+    resil = None
+    if args.guards or args.rollback or args.snapshot_dir:
+        from repro_torch.resil import GuardSpec, Resilience
+        resil = Resilience(
+            guard=GuardSpec() if args.guards or args.rollback else None,
+            snapshot_dir=args.snapshot_dir or None,
+            snapshot_every=args.snapshot_every, rollback=args.rollback)
+    telemetry = None
+    if args.telemetry:
+        from repro_torch.obs import Telemetry
+        telemetry = Telemetry(args.telemetry, trace=args.trace,
+                              meta={"arch": args.arch, "steps": args.steps,
+                                    "nodes": args.nodes,
+                                    "topology": args.topology,
+                                    "driver": args.driver,
+                                    "idkd": args.idkd})
+    from repro_torch.resil import SimulatedCrash
+    try:
+        out = run_training(cfg, tcfg, use_idkd=args.idkd,
+                           wire_dtype=args.wire_dtype,
+                           driver_mode=args.driver, events=events,
+                           telemetry=telemetry, resil=resil,
+                           device=args.device)
+    except SimulatedCrash as e:
+        print(f"simulated crash at step {e.step}; re-run with the same "
+              "--snapshot-dir to resume from the last durable snapshot")
+        return
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     print(f"final loss: {out['loss_history'][-1]:.4f}")
     led = out["ledger"]
     print(f"comm ledger: {led['gossip_bytes'] / 1e6:.2f} MB gossip + "
           f"{led['label_bytes'] / 1e6:.3f} MB labels over "
           f"{len(led['per_round'])} round bucket(s)")
+    if args.telemetry:
+        print(f"telemetry: {args.telemetry}/run.jsonl"
+              + (f" + {args.telemetry}/trace.json" if args.trace else ""))
 
 
 if __name__ == "__main__":

@@ -38,6 +38,14 @@ def gossip_bytes_per_step(topology: Topology, active: Optional[np.ndarray],
     return deg * int(param_count) * int(elem_bytes)
 
 
+# per-node traffic status codes of gossip entries (the reference's)
+STATUS_ACTIVE = 0       # training and gossiping
+STATUS_STALE = 1        # straggler with a frozen payload (item 12)
+STATUS_INACTIVE = 2     # churned out (freeze/isolate): no traffic
+STATUS_QUARANTINED = 3  # held out by the resilience layer after a guard
+                        #   trip (params frozen, no traffic)
+
+
 @dataclass
 class LedgerEntry:
     round_index: int
@@ -45,6 +53,7 @@ class LedgerEntry:
     start: int
     stop: int
     per_node: np.ndarray      # (n,) bytes
+    status: Optional[np.ndarray] = None   # (n,) int8 STATUS_* codes
 
     @property
     def total(self) -> float:
@@ -59,11 +68,15 @@ class CommLedger:
     entries: List[LedgerEntry] = field(default_factory=list)
 
     def log_gossip(self, round_index: int, start: int, stop: int,
-                   per_node_bytes_per_step: np.ndarray) -> None:
+                   per_node_bytes_per_step: np.ndarray,
+                   status: Optional[np.ndarray] = None) -> None:
+        """``status``: optional (n,) STATUS_* codes telling a churned-out
+        node's silence from a quarantined one's."""
         per_node = np.asarray(per_node_bytes_per_step,
                               np.float64) * (stop - start)
+        st = np.asarray(status, np.int8) if status is not None else None
         self.entries.append(LedgerEntry(round_index, "gossip", start, stop,
-                                        per_node))
+                                        per_node, st))
 
     def log_labels(self, round_index: int, step: int,
                    per_node_bytes: np.ndarray) -> None:
@@ -92,7 +105,8 @@ class CommLedger:
 
     def per_round(self) -> List[Dict]:
         """One row per round bucket: gossip + label bytes, totals and
-        per-node breakdowns, and the steps the bucket spans."""
+        per-node breakdowns, the steps the bucket spans, and each node's
+        stale, inactive and quarantined steps (from the status codes)."""
         out = []
         for r in sorted({e.round_index for e in self.entries}):
             row = {"round": r}
@@ -104,8 +118,17 @@ class CommLedger:
                 row[f"{kind}_bytes"] = float(np.sum(per_node))
                 row[f"{kind}_per_node"] = np.asarray(
                     per_node, np.float64).tolist()
-            row["steps"] = sum(e.stop - e.start for e in self.entries
-                               if e.round_index == r and e.kind == "gossip")
+            gossip = [e for e in self.entries
+                      if e.round_index == r and e.kind == "gossip"]
+            row["steps"] = sum(e.stop - e.start for e in gossip)
+            for name, code in (("stale", STATUS_STALE),
+                               ("inactive", STATUS_INACTIVE),
+                               ("quarantined", STATUS_QUARANTINED)):
+                steps = np.zeros(self.num_nodes, np.int64)
+                for e in gossip:
+                    if e.status is not None:
+                        steps += (e.stop - e.start) * (e.status == code)
+                row[f"{name}_steps_per_node"] = steps.tolist()
             out.append(row)
         return out
 

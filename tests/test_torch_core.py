@@ -185,15 +185,17 @@ def test_unported_pieces_raise():
     from repro_torch.configs.resnet20_cifar import SMALL_CONFIG
     from repro_torch.core.simulator import DecentralizedSimulator
     from repro_torch.data.synthetic import make_classification_data
-    from repro_torch.sched import compile_schedule, run_schedule
+    from repro_torch.sched import ChurnEvent, compile_schedule
     tt = TTopology.make("ring", 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_make_mixer(tt, "gather")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(10, 5, events=("churn",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_schedule(compile_schedule(10, 5), None, {}, {}, None,
-                     topology=tt, telemetry=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        compile_schedule(10, 5, events=(
+            ChurnEvent(2, down=(1,), mode="stale"),))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        compile_schedule(10, 5, gossip="delayed")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        t_make_mixer(tt, device="cpu", compression=("topk", 0.1))
     data = make_classification_data(image_size=8, n_train=32, n_val=8,
                                     n_test=8)
     for kw, item in (({"driver_mode": "shard"}, "item 13"),

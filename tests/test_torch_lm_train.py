@@ -246,12 +246,13 @@ def test_run_training_matches_reference(reference_run, monkeypatch):
 
 
 def test_unported_training_modes_raise():
-    """The sharded driver, telemetry, resilience and compressed gossip
-    raise, naming the ROADMAP item."""
+    """The sharded driver, stale stragglers and compressed or delayed
+    gossip raise, naming the ROADMAP item."""
+    from repro_torch.sched import ChurnEvent
     cfg = _cfg("torch")
     tcfg = TTrain(**TRAIN_KW)
     for kw in ({"driver_mode": "shard"},
-               {"telemetry": object()}, {"resil": object()}):
+               {"events": [ChurnEvent(1, down=(0,), mode="stale")]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.run_training(cfg, tcfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
