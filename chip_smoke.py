@@ -169,9 +169,31 @@ LM-9. the LM baselines at full width: ``lmpath.TRAIN``'s Hymba-1.5B
    forward a step, the peak under 72 GiB; then a reduced Hymba trained
    with each (2 plain steps, the round, 2 KD steps) on the card and on
    the CPU with the same draws, to the same params and losses.
+LM-10. DeepSeek-V3 at full width (``lmpath.DEEPSEEK_ROUND_CONFIG``:
+   d_model 7168, 128 heads of multi-head latent attention at qk 192 /
+   v 128, all 256 routed experts top-8 with the sigmoid router and a
+   shared expert, vocabulary 129,280; 2 layers, 2 ring nodes, 13.94 B
+   parameters a node filled in place): one homogenization round and one
+   prefill of 1 x 2048 tokens a node; wall times, kept fraction,
+   head_select's launches at D 7168, C 129,280, the flash launches (all
+   tc, MLA mode), the share of MoE assignments dropped past capacity,
+   the peak. LM-1 first holds flash's MLA mode to its plain version
+   (both kernels, forward and backward: bf16 tc at LM-10's layer, B 8 x
+   2048 x 128 heads, timed beside SDPA; f32 SIMT at (192, 128) and
+   (48, 32); a ragged S) and ``head_select`` at DeepSeek's head.
+LM-11. DeepSeek-V3 trained with IDKD (``lmpath.DEEPSEEK_TRAIN``: the
+   same widths with 16 routed experts, the one width cut, and MTP; 2
+   ring nodes, 2 plain steps, the round, 2 KD steps) by LM-4's checks,
+   each step's aux loss printed; then the reduced DeepSeek-V3 (MLA 48 /
+   32, MTP) and Arctic trained the same 4 steps on the card and on the
+   CPU with the same draws, to the same params and losses.
+LM-12. Arctic's prefill at full width (``lmpath.ARCTIC_PREFILL_CONFIG``:
+   128 experts top-2 with the softmax router and the dense residual, 1
+   layer, 14.07 B parameters): 2 x 2048 tokens, its wall time and peak.
 
-It then prints one ``{"kernels": [...]}`` line and, last, one line
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+Each phase prints its seconds. It then prints one ``{"kernels": [...]}``
+line and, last, one line ``{"ok": true, "device": {...}}``. It imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -1192,20 +1214,28 @@ def phase_resil(torch, ops):
     return {"head_select": launches}, {"head_select": variants}
 
 
-def _flash_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0):
-    """(bytes, flops) of one attention call, causal (windowed, or with a
+def _flash_pairs(S, window, Sk=None, prefix=0):
+    """The visible (q, k) pairs of one head: causal (windowed, or with a
     prefix-LM mask of ``prefix`` positions: the causal triangle and the
     prefix square's upper part, P(P - 1)/2 pairs more) or, with ``Sk``,
-    non-causal over Sk keys: q, k, v read and o written once; 4·D flops
-    per visible (q, k) pair and head."""
-    if Sk is None:
-        Sk, pc = S, min(prefix, S)
-        pairs = sum(min(q + 1, window) if window else max(q + 1, pc)
-                    if q < pc else q + 1 for q in range(S))
-    else:
-        pairs = S * Sk
-    return ((2 * B * S * H * D + 2 * B * Sk * KVH * D) * elem,
-            4.0 * D * H * B * pairs)
+    non-causal over Sk keys."""
+    if Sk is not None:
+        return S * Sk
+    pc = min(prefix, S)
+    return sum(min(q + 1, window) if window else max(q + 1, pc)
+               if q < pc else q + 1 for q in range(S))
+
+
+def _flash_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0, Dv=None):
+    """(bytes, flops) of one attention call (:func:`_flash_pairs`'s
+    pairs): q, k, v read and o written once; 2·D flops per visible (q,
+    k) pair and head for the scores and 2·Dv for P·V (Dv = D but in
+    MLA's mode)."""
+    Dv = D if Dv is None else Dv
+    pairs = _flash_pairs(S, window, Sk, prefix)
+    Sk = S if Sk is None else Sk
+    return ((B * S * H * (D + Dv) + B * Sk * KVH * (D + Dv)) * elem,
+            2.0 * (D + Dv) * H * B * pairs)
 
 
 def _ssd_work(B, S, H, P, G, N):
@@ -1283,16 +1313,19 @@ def _check_ssd(torch, xdt, dta, b, c, chunk, what):
     return err
 
 
-def _flash_bwd_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0):
+def _flash_bwd_work(B, S, H, KVH, D, window, elem, Sk=None, prefix=0,
+                    Dv=None):
     """(bytes, flops) of one attention backward: q, o, dO (S rows), k, v
     (Sk, S without ``Sk``) and the f32 lse read, dq, dk, dv written once;
     five products of the (causal, windowed, prefix-LM) score matrix's
-    size (Q·Kᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q), 2.5 times the forward's
-    two."""
-    _, flops = _flash_work(B, S, H, KVH, D, window, elem, Sk, prefix)
+    size, three over D (Q·Kᵀ, dS·K, dSᵀ·Q) and two over Dv (dO·Vᵀ,
+    Pᵀ·dO): 2.5 times the forward's two when Dv = D."""
+    Dv = D if Dv is None else Dv
+    pairs = _flash_pairs(S, window, Sk, prefix)
     Sk = S if Sk is None else Sk
-    return ((4 * B * S * H * D + 4 * B * Sk * KVH * D) * elem
-            + 4 * B * H * S, 2.5 * flops)
+    return ((B * S * H * (2 * D + 2 * Dv) + B * Sk * KVH * (2 * D + 2 * Dv))
+            * elem + 4 * B * H * S,
+            2.0 * (3 * D + 2 * Dv) * H * B * pairs)
 
 
 def _ssd_bwd_work(B, S, H, P, G, N):
@@ -1449,12 +1482,13 @@ def _mode_tag(window, causal, prefix):
 
 
 def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
-                   Sk=None, prefix=0):
+                   Sk=None, prefix=0, Dv=None):
     """One forward case on fresh random q, k, v: the kernel against its
     plain version (FLASH_ATOL), its time beside its bound, the plain
     version's and SDPA's; in bf16 the SIMT and tc variants in turns.
     With ``Sk`` the call is non-causal over Sk keys (cross-attention);
-    ``prefix`` > 0 gives the prefix-LM mask."""
+    ``prefix`` > 0 gives the prefix-LM mask; ``Dv`` v's head dim (MLA's
+    mode), D by default."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1462,15 +1496,17 @@ def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     dname = str(dtype).split(".")[-1]
     causal = Sk is None
     kw = dict(window=window, causal=causal, prefix_len=prefix)
+    Dv = D if Dv is None else Dv
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
                     device=dev).to(dtype)
-    v = torch.randn(k.shape, generator=gen, device=dev).to(dtype)
+    v = torch.randn(k.shape[:-1] + (Dv,), generator=gen,
+                    device=dev).to(dtype)
     tag = (f"flash_attention {label}S={S}{'' if causal else f' Sk={Sk}'} "
            f"B={B} {_mode_tag(window, causal, prefix)} {dname}")
     err = _check_flash(torch, q, k, v, window, tag, causal, prefix)
     nbytes, flops = _flash_work(B, S, H, KVH, D, window, q.element_size(),
-                                Sk, prefix)
+                                Sk, prefix, Dv)
     bnd, by = bound_ms(nbytes, flops, dname)
     ms = timed(lambda: flash_attention(q, k, v, **kw), 5, torch)
     pms = timed(lambda: flash_attention_plain(q, k, v, **kw), 2, torch)
@@ -1483,8 +1519,9 @@ def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
         print(f"{tag}: scaled_dot_product_attention refused: {exc}")
         lib_err = lms = None
     row = dict(window=window, dtype=dname, err=err, ms=ms, plain_ms=pms,
+               shape=f"B {B} S {S} H {H}/{KVH} D {D}/{Dv}",
                bound_ms=bnd, bound_by=by, library_ms=lms)
-    print(f"{tag}: variant {flash_ops._variant(q.dtype, D)}, "
+    print(f"{tag}: variant {flash_ops._variant(q.dtype, D, Dv)}, "
           f"max_abs_err {err:.3g} (tol {FLASH_ATOL[dname]}); "
           f"{ms:.3f} ms, bound {bnd:.3f} ms ({by}, "
           f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bnd / ms:.2%} of the "
@@ -1502,7 +1539,7 @@ def _flash_fwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
 
 
 def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
-                   timing=True, Sk=None, prefix=0):
+                   timing=True, Sk=None, prefix=0, Dv=None):
     """One backward case on fresh random q, k, v, dO: the training
     forward's o and lse held to their plain versions (_flash_saved), then
     the backward kernel of the forward's variant against the plain
@@ -1510,7 +1547,7 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     _check_flash_bwd_tc's); with ``timing``, its time beside its bound,
     the plain version's and SDPA's backward, and in bf16 both variants
     in turns. With ``Sk`` the call is non-causal over Sk keys; ``prefix``
-    > 0 gives the prefix-LM mask."""
+    > 0 gives the prefix-LM mask; ``Dv`` v's head dim (MLA's mode)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1518,11 +1555,14 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     dname = str(dtype).split(".")[-1]
     causal = Sk is None
     kw = dict(window=window, causal=causal, prefix_len=prefix)
-    q, do = (torch.randn((B, S, H, D), generator=gen,
-                         device=dev).to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
-                        device=dev).to(dtype) for _ in range(2))
-    variant = flash_ops._variant(dtype, D)
+    Dv = D if Dv is None else Dv
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    do = torch.randn((B, S, H, Dv), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S if causal else Sk, KVH, D), generator=gen,
+                    device=dev).to(dtype)
+    v = torch.randn((B, S if causal else Sk, KVH, Dv), generator=gen,
+                    device=dev).to(dtype)
+    variant = flash_ops._variant(dtype, D, Dv)
     tag = (f"flash_attention backward {label}S={S}"
            f"{'' if causal else f' Sk={Sk}'} B={B} "
            f"{_mode_tag(window, causal, prefix)} {dname}")
@@ -1539,12 +1579,13 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     else:
         err = _check_flash_bwd_simt(torch, got, ref, dname, tag)
     del got, ref
-    row = dict(window=window, dtype=dname, err=err)
+    row = dict(window=window, dtype=dname, err=err,
+               shape=f"B {B} S {S} H {H}/{KVH} D {D}/{Dv}")
     if not timing:
         print(f"{tag}: variant {variant}, max_abs_err {err:.3g}")
         return row
     nbytes, flops = _flash_bwd_work(B, S, H, KVH, D, window,
-                                    q.element_size(), Sk, prefix)
+                                    q.element_size(), Sk, prefix, Dv)
     bnd, by = bound_ms(nbytes, flops, dname)
     ms = timed(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 3,
                torch)
@@ -1565,7 +1606,7 @@ def _flash_bwd_row(torch, gen, B, S, H, KVH, D, window, dtype, label,
     # the training forward (the instantiation that writes lse) alone
     buf = torch.empty_like(lse)
     fbnd = bound_ms(*_flash_work(B, S, H, KVH, D, window, q.element_size(),
-                                 Sk, prefix), dname)[0]
+                                 Sk, prefix, Dv), dname)[0]
     row["train_fwd_ms"] = timed(lambda: flash_ops._launch(
         variant, q, k, v, window, causal, buf, prefix), 5, torch)
     row["train_fwd_bound_ms"] = fbnd
@@ -2163,15 +2204,16 @@ class _Patch:
 
 def _same_draws(torch, seed):
     """Patches under which a training run on the card and one on the CPU
-    take the same steps: weights made on the CPU and moved, and every
-    index draw (private rows, public sub-batches) from one CPU generator
-    seeded here (a CUDA and a CPU torch.Generator give different numbers
-    from one seed)."""
+    take the same steps: weights made on the CPU and moved (the pieces
+    that ``DecoderModel.init`` and ``lmpath.node_params`` assemble), and
+    every index draw (private rows, public sub-batches) from one CPU
+    generator seeded here (a CUDA and a CPU torch.Generator give
+    different numbers from one seed)."""
     import repro_torch.core.driver as drv
     from repro_torch.models.transformer import DecoderModel
     gen = torch.Generator().manual_seed(seed)
-    sample, draw, init = drv.sample_partition, drv.draw_public, \
-        DecoderModel.init
+    sample, draw, pieces = drv.sample_partition, drv.draw_public, \
+        DecoderModel.pieces
 
     def sample_partition(parts, _gen, batch_size):
         cpu = drv.PaddedParts(parts.idx.cpu(), parts.size.cpu())
@@ -2180,19 +2222,22 @@ def _same_draws(torch, seed):
     def draw_public(_gen, n, pub_batch, n_public, device):
         return draw(gen, n, pub_batch, n_public, "cpu").to(device)
 
-    def init_on_cpu(self, seed, device="cuda"):
-        return {k: v.to(device) for k, v in init(self, seed, "cpu").items()}
+    def pieces_on_cpu(self, seed, device="cuda"):
+        for path, shape, idx, v in pieces(self, seed, "cpu"):
+            yield path, shape, idx, v.to(device)
 
     return _Patch((drv, "sample_partition", sample_partition),
                   (drv, "draw_public", draw_public),
-                  (DecoderModel, "init", init_on_cpu))
+                  (DecoderModel, "pieces", pieces_on_cpu))
 
 
 def _grad_checked(torch, make_algorithm, bad):
     """``make_algorithm`` whose step first records in ``bad`` each leaf
     of a node without a finite gradient that is non-zero somewhere, as
     (step, leaf, per-node norms), steps counted from 0 over every
-    algorithm it makes."""
+    algorithm it makes. An MoE router bias only ranks the experts and
+    gets a zero gradient, as in the reference; its gradient must be
+    finite."""
     calls = [0]
 
     def checked_algorithm(*a, **kw):
@@ -2203,7 +2248,8 @@ def _grad_checked(torch, make_algorithm, bad):
             for k, g in grads.items():
                 norm = torch.linalg.vector_norm(
                     g.reshape(g.shape[0], -1), dim=1, dtype=torch.float32)
-                ok = torch.isfinite(norm) & (norm > 0)
+                ok = torch.isfinite(norm) & (
+                    (norm > 0) | k.endswith("/router_bias"))
                 if not bool(ok.all()):
                     bad.append((calls[0], k, norm.tolist()))
             calls[0] += 1
@@ -2220,10 +2266,13 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
     every loss is finite, every parameter leaf of every node gets a
     finite gradient that is non-zero somewhere at every step, the
     backward kernels launch nodes x layers times per plain step and twice
-    that per KD step (the KD adapter's second forward), every bf16 flash
-    and head_select launch goes through the tc variant, every flash
-    launch runs at the config's head_dim, and the peak stays within
-    TRAIN_PEAK_GIB. Launches are counted from 0 over this run."""
+    that per KD step (the KD adapter's second forward; with multi-token
+    prediction nodes more a step, its layer's, which is not recomputed),
+    every bf16 flash and head_select launch goes through the tc variant,
+    every flash launch runs at the config's head_dim (MLA's (qk, v)
+    pair), and the peak stays within TRAIN_PEAK_GIB. Launches are counted
+    from 0 over this run. With MoE, each step's aux loss (the node mean)
+    is printed."""
     import repro_torch.core.driver as drv
     import repro_torch.launch.train as train_mod
     from repro_torch import lmpath
@@ -2231,13 +2280,20 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
                                                      flash_attention_bwd)
     from repro_torch.kernels.head_select import head_select
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.models.transformer import DecoderModel
     counters = {"flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd,
                 "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
                 "head_select": head_select}
-    steps, rounds, bad = [], [], []
+    steps, rounds, bad, auxs = [], [], [], []
     make_step, make_algorithm = drv.make_step, train_mod.make_algorithm
     label_round = train_mod.idkd_label_round
+    real_loss = DecoderModel.loss
+
+    def recorded_loss(self, params, batch):
+        loss, metrics = real_loss(self, params, batch)
+        auxs.append(metrics["aux"].detach().float().mean())
+        return loss, metrics
 
     def timed_make_step(*a, **kw):
         real = make_step(*a, **kw)
@@ -2279,7 +2335,8 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
     t0 = time.perf_counter()
     with _Patch((drv, "make_step", timed_make_step),
                 (train_mod, "make_algorithm", checked_algorithm),
-                (train_mod, "idkd_label_round", timed_round)):
+                (train_mod, "idkd_label_round", timed_round),
+                (DecoderModel, "loss", recorded_loss)):
         out = lmpath.train(cfg, tcfg, pub_batch=pub_batch, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2292,15 +2349,26 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
     hist, pub = out["loss_history"], out["pub_batch"]
     del out
     torch.cuda.empty_cache()
-    n, L, hd = tcfg.num_nodes, cfg.num_layers, cfg.resolved_head_dim
-    print(f"{label}: LM training ({cfg.name}, {n} ring nodes, {L} layers, "
-          f"head_dim {hd}, batch {tcfg.batch_size} x 2048 tokens, KD "
+    n, L, mtp = tcfg.num_nodes, cfg.num_layers, cfg.mtp_depth
+    hd = _mla_dims(cfg) if cfg.mla.enabled else cfg.resolved_head_dim
+    print(f"{label}: LM training ({cfg.name}, {n} ring nodes, {L} layers"
+          f"{f', {cfg.moe.num_experts} experts' if cfg.moe.enabled else ''}"
+          f"{f', MTP {mtp}' if mtp else ''}, head_dim {hd}, batch "
+          f"{tcfg.batch_size} x 2048 tokens, KD "
           f"public {pub} x 2048, lr {tcfg.lr}): {wall:.1f} s wall with "
           f"set-up, peak memory {peak:.2f} GiB; round {rounds} s; losses "
           f"{hist}")
+    if cfg.moe.enabled:
+        check(len(auxs) == len(steps) and all(
+            math.isfinite(float(a)) and float(a) > 0 for a in auxs),
+            f"{label}: aux losses {[float(a) for a in auxs]} over "
+            f"{len(steps)} steps")
+        for st, a in zip(steps, auxs):
+            st["aux"] = float(a)
     for i, st in enumerate(steps):
+        aux = f", aux {st['aux']:.4f}" if "aux" in st else ""
         print(f"  step {i} ({st['kind']}): {st['s']:.2f} s, loss "
-              f"{st['loss']:.4f}, launches {st['launches']}")
+              f"{st['loss']:.4f}{aux}, launches {st['launches']}")
     check(len(rounds) == 1, f"{label}: {len(rounds)} label rounds ran, "
                             f"not 1")
     kinds = [st["kind"] for st in steps]
@@ -2315,17 +2383,22 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
         want = n * L * (2 if st["kind"] == "kd" else 1)
         for name in ("flash_attention_bwd", "ssd_scan_bwd"):
             got = st["launches"][name]
-            check(got == (want if ssm or name.startswith("flash") else 0),
+            flash = name.startswith("flash")
+            check(got == (want + n * mtp if flash else want if ssm else 0),
                   f"{label}: {st['kind']} step: {got} {name} launches, the "
                   f"schedule implies {n} nodes x {L} layers"
                   f"{' x 2 (the KD forward)' if st['kind'] == 'kd' else ''}"
-                  f" = {want}{'' if ssm else ' (no SSM: 0 for ssd_scan)'}")
+                  f"{f' + {n} x {mtp} MTP' if mtp and flash else ''}"
+                  f" = {want + n * mtp if flash else want}"
+                  f"{'' if ssm else ' (no SSM: 0 for ssd_scan)'}")
         for name in ("flash_attention", "ssd_scan"):
             got = st["launches"][name]
-            check(got == (2 * want if ssm or name.startswith("flash")
+            flash = name.startswith("flash")
+            check(got == (2 * want + n * mtp if flash else 2 * want if ssm
                           else 0),
                   f"{label}: {st['kind']} step: {got} {name} launches; "
-                  f"with per-layer recompute, {2 * want}")
+                  f"with per-layer recompute, {2 * want}"
+                  f"{f' + {n} x {mtp} MTP' if mtp and flash else ''}")
     check(launches["head_select"] > 0, f"{label}: head_select was not "
                                        f"launched in the training run's "
                                        f"round")
@@ -2647,6 +2720,59 @@ def phase_lm_paligemma_kernels(torch, rows):
         torch.cuda.empty_cache()
 
 
+def phase_lm_mla_kernels(torch, rows):
+    """LM-1 for DeepSeek-V3: flash_attention's MLA mode (qk head dim 192 =
+    128 nope + 64 rope, v head dim 128; 48 and 32 at ``reduced()``), both
+    kernels forward and backward, each held to its plain version by the
+    rules above and timed beside its bound, the plain version and SDPA
+    (which takes v's head dim apart from q's): (a) LM-10's round and
+    prefill layer (B 8, S 2048, 128/128 heads, causal) in bf16 on the
+    tensor cores, both variants in turns; (b) LM-11's training layer (B
+    1, S 2048) in f32 on the SIMT kernels; (c) the reduced config's (48,
+    32), f32 (B 2, S 256, 4/4 heads); (d) a ragged S (333) at (192, 128)
+    in both dtypes, checked; and ``head_select`` (tc, bf16) at
+    DeepSeek-V3's head (D 7168, C 129,280) on LM-10's round microbatch (2
+    nodes x 8 sequences x 2048 tokens), against its plain version."""
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cfg = get_config("deepseek-v3-671b")
+    m = cfg.mla
+    D, Dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    H = cfg.num_heads
+    rows["flash_attention_mla"], rows["flash_attention_bwd_mla"] = [], []
+    for B, dtype in ((8, torch.bfloat16), (1, torch.float32)):
+        rows["flash_attention_mla"].append(_flash_fwd_row(
+            torch, gen, B, 2048, H, H, D, 0, dtype, "MLA ", Dv=Dv))
+        rows["flash_attention_bwd_mla"].append(_flash_bwd_row(
+            torch, gen, B, 2048, H, H, D, 0, dtype, "MLA ", Dv=Dv))
+        torch.cuda.empty_cache()
+    r = cfg.reduced().mla
+    Dr, Dvr = r.qk_nope_head_dim + r.qk_rope_head_dim, r.v_head_dim
+    rows["flash_attention_mla"].append(_flash_fwd_row(
+        torch, gen, 2, 256, 4, 4, Dr, 0, torch.float32, "MLA reduced ",
+        Dv=Dvr))
+    rows["flash_attention_bwd_mla"].append(_flash_bwd_row(
+        torch, gen, 2, 256, 4, 4, Dr, 0, torch.float32, "MLA reduced ",
+        Dv=Dvr))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 333, 8, D), generator=gen, device="cuda"
+                        ).to(dtype)
+        k = torch.randn((1, 333, 8, D), generator=gen, device="cuda"
+                        ).to(dtype)
+        v = torch.randn((1, 333, 8, Dv), generator=gen, device="cuda"
+                        ).to(dtype)
+        err = _check_flash(torch, q, k, v, 0, f"flash_attention MLA S=333 "
+                           f"8/8 heads x ({D}, {Dv}) {dtype}")
+        rows["flash_attention_mla"].append(dict(window=0, err=err))
+        rows["flash_attention_bwd_mla"].append(_flash_bwd_row(
+            torch, gen, 1, 333, 8, 8, D, 0, dtype, "MLA ragged ",
+            timing=False, Dv=Dv))
+    rows["head_select_deepseek"] = [_head_select_row(
+        torch, gen, "deepseek-v3", 2, 8 * 2048, cfg.d_model, cfg.vocab_size,
+        tied=False, turns=False)]
+    torch.cuda.empty_cache()
+
+
 def phase_lm_paligemma(torch):
     """LM-8: PaliGemma-3B's decentralized train step at full width
     (``lmpath.train_steps``, ``lmpath.PALIGEMMA_TRAIN``: 4 ring nodes, 2
@@ -2795,6 +2921,249 @@ def phase_lm_paligemma(torch):
         dims[key] = {hd: launches[key]}
     return dict(steps=steps, peak_gib=peak, prefill_s=prefill_s,
                 launches=launches, variants=variants, by_head_dim=dims)
+
+
+def _zero_flash_counts(*fns):
+    for f in fns:
+        f.launches = 0
+        if hasattr(f, "launches_by_variant"):
+            f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
+        if hasattr(f, "launches_by_head_dim"):
+            f.launches_by_head_dim = dict.fromkeys(f.launches_by_head_dim, 0)
+            f.launches_by_mode = {m: dict.fromkeys(v, 0) for m, v in
+                                  f.launches_by_mode.items()}
+
+
+class _DropCount:
+    """Counts, on the card, the MoE assignments that ``moe.dispatch_slots``
+    sends to the overflow row (dropped past an expert's capacity) and
+    all assignments, while it is entered."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.dispatch_slots
+        self.dropped = torch.zeros((), dtype=torch.long, device="cuda")
+        self.total = 0
+
+    def __enter__(self):
+        def counted(ids, E, cap):
+            dest = self.real(ids, E, cap)
+            self.dropped += (dest == E * cap).sum()
+            self.total += dest.numel()
+            return dest
+        self.moe.dispatch_slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_slots = self.real
+
+    def share(self):
+        return int(self.dropped) / max(1, self.total)
+
+
+def _mla_dims(cfg):
+    m = cfg.mla
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim)
+
+
+def phase_lm_deepseek(torch):
+    """LM-10: DeepSeek-V3 at full width (``lmpath.DEEPSEEK_ROUND_CONFIG``:
+    d_model 7168, 128 MLA heads at qk 192 / v 128, all 256 routed
+    experts top-8 with the sigmoid router and a shared expert, vocabulary
+    129,280, bf16; 2 layers, 2 ring nodes, params filled in place by
+    ``lmpath.node_params``): one homogenization round (``lmpath.setup``'s:
+    64 public and 16 private sequences of 2048 tokens a node, top-8
+    labels, T = 10) and one prefill (``make_prefill_step``, 1 sequence
+    of 2048 tokens a node, every logit). Prints the round's and the
+    prefill's wall times, the kept fraction, head_select's launches at D
+    7168, C 129,280, the flash launches in the MLA mode, the share of
+    MoE assignments dropped past capacity and the peak memory. Fails
+    unless the round's outputs are finite and well formed, the logits
+    (2, 1, 2048, 129,280) finite, every flash launch a tc launch in the
+    MLA mode (nodes x layers in the prefill) and every head_select
+    launch tc."""
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = lmpath.DEEPSEEK_ROUND_CONFIG
+    n, L, dims = lmpath.DEEPSEEK_NODES, cfg.num_layers, _mla_dims(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = lmpath.setup(cfg, num_nodes=n, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(v[0].numel() for v in lm.params.values())
+    print(f"LM-10: DeepSeek-V3 ({L} layers, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.num_experts_per_tok}, MLA {dims}) on {n} ring "
+          f"nodes: {nparams / 1e9:.3f} B parameters a node, set up in "
+          f"{init_s:.1f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB held")
+    _zero_flash_counts(flash_attention, head_select)
+    with _DropCount(torch) as drops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.run()
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+    kept = _check_round(torch, out, cfg.vocab_size, "LM-10 round")
+    rl = {"flash_attention_mla": flash_attention.launches,
+          "head_select": head_select.launches}
+    by_var = {"flash_attention_mla": dict(flash_attention.launches_by_variant),
+              "head_select": dict(head_select.launches_by_variant)}
+    by_dim = dict(flash_attention.launches_by_head_dim)
+    print(f"LM-10 round: {round_s:.2f} s wall, kept fraction {kept:.4f}, "
+          f"thresholds {out[3].tolist()}; head_select {rl['head_select']} "
+          f"launches at D {cfg.d_model}, C {cfg.vocab_size} "
+          f"({by_var['head_select']}); flash {rl['flash_attention_mla']} "
+          f"launches ({by_var['flash_attention_mla']}, at {dims}: "
+          f"{by_dim[dims]}); MoE assignments dropped past capacity "
+          f"{drops.share():.4%} of {drops.total}")
+    check(rl["head_select"] > 0 and by_var["head_select"] == {
+        "tc": rl["head_select"], "simt": 0},
+        f"LM-10 round: head_select launches {by_var['head_select']}")
+    check(rl["flash_attention_mla"] > 0 and by_dim[dims] ==
+          rl["flash_attention_mla"] and by_var["flash_attention_mla"] ==
+          {"tc": rl["flash_attention_mla"], "simt": 0},
+          f"LM-10 round: flash launches {by_var['flash_attention_mla']}, "
+          f"by head dims {by_dim}; all must be tc at {dims}")
+    del out
+    torch.cuda.empty_cache()
+    B = lmpath.DEEPSEEK_PREFILL_BATCH
+    tokens = torch.as_tensor(lm.public[:B]).long().cuda()[None].expand(
+        n, B, -1).contiguous()
+    prefill = make_prefill_step(lm.model)
+    _zero_flash_counts(flash_attention)
+    with _DropCount(torch) as pdrops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(lm.params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    shape = (n, B, tokens.shape[-1], cfg.vocab_size)
+    check(tuple(logits.shape) == shape and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"LM-10 prefill: logits {tuple(logits.shape)} {logits.dtype} (want "
+          f"{shape} bf16, finite)")
+    pl = flash_attention.launches
+    check(pl == n * L and flash_attention.launches_by_head_dim[dims] == pl
+          and flash_attention.launches_by_variant == {"tc": pl, "simt": 0},
+          f"LM-10 prefill: {pl} flash launches "
+          f"{flash_attention.launches_by_variant}; want {n * L}, tc at "
+          f"{dims}")
+    rl["flash_attention_mla"] += pl
+    by_var["flash_attention_mla"]["tc"] += pl
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"LM-10 prefill: {prefill_s:.3f} s wall, logits {shape} bf16 "
+          f"finite, {pl} flash launches (tc, MLA mode); MoE assignments "
+          f"dropped {pdrops.share():.4%} of {pdrops.total}; peak memory of "
+          f"the phase {peak:.2f} GiB")
+    del lm, logits, prefill
+    torch.cuda.empty_cache()
+    return dict(launches=rl, variants=by_var,
+                by_head_dim={"flash_attention_mla": {
+                    dims: rl["flash_attention_mla"]}},
+                round_s=round_s, prefill_s=prefill_s, peak_gib=peak,
+                kept=kept, drop_share=drops.share())
+
+
+def phase_lm_deepseek_train(torch):
+    """LM-11: DeepSeek-V3 trained with IDKD (``lmpath.train`` with
+    ``lmpath.DEEPSEEK_TRAIN_CONFIG``: the published widths but 16 routed
+    experts, MTP on, 2 layers; ``lmpath.DEEPSEEK_TRAIN``: 2 ring nodes,
+    QG-DSGDm-N, batch 1, 2 public sequences a KD step, the round at step
+    2, every layer recomputed), by _train_full's checks, the aux loss of
+    each step printed; then the reduced DeepSeek-V3 and Arctic (f32: 2
+    layers, 4 experts top-2, DeepSeek's MLA at 48 / 32 and its MTP) each
+    trained the same 4 steps on the card and on the CPU from the same
+    params and draws, to the same params and losses
+    (_train_card_vs_cpu)."""
+    from repro_torch import lmpath
+    out = _train_full(torch, "LM-11", lmpath.DEEPSEEK_TRAIN_CONFIG,
+                      lmpath.DEEPSEEK_TRAIN,
+                      pub_batch=lmpath.DEEPSEEK_PUB_BATCH)
+    # the kernels line counts the MLA mode's launches apart
+    for key in ("launches", "variants", "by_head_dim"):
+        for name in ("flash_attention", "flash_attention_bwd"):
+            out[key][name + "_mla"] = out[key].pop(name)
+    tcfg = dataclasses.replace(lmpath.TRAIN, idkd=dataclasses.replace(
+        lmpath.TRAIN.idkd, stream_microbatch=5))
+    from repro_torch.configs import get_config
+    for arch in ("deepseek-v3-671b", "arctic-480b"):
+        small = get_config(arch).reduced().replace(remat=True)
+        t0 = time.perf_counter()
+        dp, dl = _train_card_vs_cpu(torch, f"reduced {arch}", small, tcfg,
+                                    seq_len=120, n_private=256, n_public=12)
+        mla = f", MLA {_mla_dims(small)}" if small.mla.enabled else ""
+        print(f"reduced {arch} (2 layers, {small.moe.num_experts} experts "
+              f"top-{small.moe.num_experts_per_tok}{mla}"
+              f"{', MTP' if small.mtp_depth else ''}, f32, per-layer "
+              f"recompute), 4 steps on the card and on the CPU with the same "
+              f"draws: consensus params within {dp:.3g} (tol "
+              f"{TRAIN_PARAM_ATOL}), losses within {dl:.3g} relative (tol "
+              f"{TRAIN_LOSS_RTOL}), label bytes equal "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def phase_lm_arctic(torch):
+    """LM-12: Arctic's prefill at full width (``lmpath.
+    ARCTIC_PREFILL_CONFIG``: d_model 7168, 56/8 heads x 128, 128 experts
+    top-2 with the softmax router and the dense residual, d_ff 4864,
+    vocabulary 32,000; 1 layer, 1 node, 14.07 B parameters): one
+    ``make_prefill_step`` on 2 sequences of 2048 tokens. Prints its wall
+    time, the share of MoE assignments dropped and the peak; fails unless
+    the logits (1, 2, 2048, 32,000) are finite and the one flash launch
+    is tc at head_dim 128."""
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import DecoderModel
+    cfg = lmpath.ARCTIC_PREFILL_CONFIG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderModel(cfg)
+    t0 = time.perf_counter()
+    params = lmpath.node_params(model, [0], "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(v[0].numel() for v in params.values())
+    B = lmpath.ARCTIC_PREFILL_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, B, 2048), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(model)
+    _zero_flash_counts(flash_attention)
+    with _DropCount(torch) as drops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    shape = (1, B, 2048, cfg.vocab_size)
+    hd = cfg.resolved_head_dim
+    check(tuple(logits.shape) == shape and bool(torch.isfinite(logits).all()),
+          f"LM-12: logits {tuple(logits.shape)} (want {shape}, finite)")
+    check(flash_attention.launches == 1 and
+          flash_attention.launches_by_variant == {"tc": 1, "simt": 0} and
+          flash_attention.launches_by_head_dim[hd] == 1,
+          f"LM-12: flash launches {flash_attention.launches_by_variant}, by "
+          f"head_dim {flash_attention.launches_by_head_dim}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"LM-12: Arctic ({cfg.num_layers} layer, {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.num_experts_per_tok}, dense residual "
+          f"{cfg.moe.dense_residual_ff}): {nparams / 1e9:.3f} B parameters, "
+          f"set up in {init_s:.1f} s; prefill of {B} x 2048 tokens "
+          f"{prefill_s:.3f} s wall, logits {shape} finite, 1 flash launch "
+          f"(tc, head_dim {hd}); MoE assignments dropped {drops.share():.4%}"
+          f" of {drops.total}; peak memory {peak:.2f} GiB")
+    del params, logits
+    torch.cuda.empty_cache()
+    return dict(launches={"flash_attention": 1},
+                variants={"flash_attention": {"tc": 1, "simt": 0}},
+                by_head_dim={"flash_attention": {hd: 1}},
+                prefill_s=prefill_s, peak_gib=peak)
 
 
 def phase_lm_baselines(torch):
@@ -2950,9 +3319,16 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
                  "flash_attention", 69),
              "flash_attention_bwd_prefix": (
                  bf16(lm_rows["flash_attention_bwd_prefix"], 0),
+                 "flash_attention", 69),
+             "flash_attention_mla": (
+                 bf16(lm_rows["flash_attention_mla"], 0),
+                 "flash_attention", 69),
+             "flash_attention_bwd_mla": (
+                 bf16(lm_rows["flash_attention_bwd_mla"], 0),
                  "flash_attention", 69)}
     errs = {"head_select": (kres["head_select"] + lm_rows["head_select"]
-                            + lm_rows["head_select_dense"]),
+                            + lm_rows["head_select_dense"]
+                            + lm_rows["head_select_deepseek"]),
             "msp_select": kres["msp_select"] + lm_rows["msp_select"],
             "flash_attention": (lm_rows["flash_attention"]
                                 + lm_rows["flash_attention_d96"]
@@ -2966,7 +3342,8 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
                                     + lm_rows["flash_attention_bwd_d256"])}
     line = []
     for name, (row, pallas, at) in picks.items():
-        base = name.removesuffix("_cross").removesuffix("_prefix")
+        base = name.removesuffix("_cross").removesuffix(
+            "_prefix").removesuffix("_mla")
         by_path = {path: counts.get(name, 0)
                    for path, counts in paths.items()}
         by_variant = {"tc": 0, "simt": 0} if base in tc else {
@@ -2989,8 +3366,14 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
             by_dim = {}
             for path in head_dims.values():
                 for d, n in path.get(name, {}).items():
+                    d = d if isinstance(d, int) else "x".join(map(str, d))
                     by_dim[d] = by_dim.get(d, 0) + n
             entry["launches_by_head_dim"] = by_dim
+            if name.endswith("_mla"):
+                entry["f32_simt"] = [
+                    {"shape": r["shape"], **{k: r.get(k) for k in timing}}
+                    for r in lm_rows[name] if r.get("dtype") == "float32"
+                    and "ms" in r]
             if name != base:
                 line.append(entry)
                 continue
@@ -3006,6 +3389,8 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
             entry["dense_heads"] = [{"shape": r["shape"],
                                      **{k: r.get(k) for k in timing}}
                                     for r in lm_rows["head_select_dense"]]
+            ds = lm_rows["head_select_deepseek"][0]
+            entry["deepseek_head"] = {k: ds.get(k) for k in timing}
         line.append(entry)
     return line
 
@@ -3033,40 +3418,51 @@ def main() -> int:
     from repro_torch.kernels.msp_select import msp_select, msp_select_plain
 
     ops = (head_select, head_select_plain, msp_select, msp_select_plain)
-    phase_device(torch, build)
-    kres = phase_kernels(torch, ops)
-    sim, result, launches, variants = phase_main_path(torch, ops)
-    launches["msp_select"] = phase_fused_round(torch, sim, result, ops)
-    phase_quickstart(torch)
-    del sim, result
-    torch.cuda.empty_cache()
-    grid_launches, grid_variants, _ = phase_grid(torch, ops)
-    phase_grid_card_vs_cpu(torch)
-    torch.cuda.empty_cache()
-    paper_launches, paper_variants = phase_paper(torch, ops)
-    torch.cuda.empty_cache()
-    resil_launches, resil_variants = phase_resil(torch, ops)
-    torch.cuda.empty_cache()
 
-    lm_rows = phase_lm_kernels(torch)
-    phase_lm_dense_kernels(torch, lm_rows)
-    phase_lm_musicgen_kernels(torch, lm_rows)
-    phase_lm_paligemma_kernels(torch, lm_rows)
-    lm, lm_launches, lm_variants, lm_dims = phase_lm_round(torch)
-    lm_launches["msp_select"], msp_row = phase_lm_oneshot(torch, lm)
+    def run(name, fn, *args):
+        """One phase, its seconds printed after it."""
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        torch.cuda.empty_cache()
+        print(f"chip_smoke: phase {name} took "
+              f"{time.perf_counter() - t0:.1f} s")
+        return out
+
+    run("device", phase_device, build)
+    kres = run("kernels", phase_kernels, ops)
+    sim, result, launches, variants = run("main path", phase_main_path, ops)
+    launches["msp_select"] = run("fused round", phase_fused_round, sim,
+                                 result, ops)
+    run("quickstart", phase_quickstart)
+    del sim, result
+    grid_launches, grid_variants, _ = run("GRID", phase_grid, ops)
+    run("GRID card vs CPU", phase_grid_card_vs_cpu)
+    paper_launches, paper_variants = run("PAPER", phase_paper, ops)
+    resil_launches, resil_variants = run("RESIL", phase_resil, ops)
+
+    lm_rows = run("LM-1", phase_lm_kernels)
+    run("LM-1 dense", phase_lm_dense_kernels, lm_rows)
+    run("LM-1 MusicGen", phase_lm_musicgen_kernels, lm_rows)
+    run("LM-1 PaliGemma", phase_lm_paligemma_kernels, lm_rows)
+    run("LM-1 MLA", phase_lm_mla_kernels, lm_rows)
+    lm, lm_launches, lm_variants, lm_dims = run("LM-2", phase_lm_round)
+    lm_launches["msp_select"], msp_row = run("LM-3", phase_lm_oneshot, lm)
     lm_rows["msp_select"] = [msp_row]
     del lm
-    torch.cuda.empty_cache()
-    train = phase_lm_train(torch)
-    qwen3, phi3 = phase_lm_dense(torch)
-    musicgen = phase_lm_musicgen(torch)
-    paligemma = phase_lm_paligemma(torch)
-    baselines = phase_lm_baselines(torch)
+    train = run("LM-4", phase_lm_train)
+    qwen3, phi3 = run("LM-5, LM-6", phase_lm_dense)
+    musicgen = run("LM-7", phase_lm_musicgen)
+    paligemma = run("LM-8", phase_lm_paligemma)
+    baselines = run("LM-9", phase_lm_baselines)
+    deepseek = run("LM-10", phase_lm_deepseek)
+    deepseek_train = run("LM-11", phase_lm_deepseek_train)
+    arctic = run("LM-12", phase_lm_arctic)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
               "musicgen-train": musicgen, "paligemma-train": paligemma,
-              "lm_baselines": baselines}
+              "lm_baselines": baselines, "deepseek-round": deepseek,
+              "deepseek-train": deepseek_train, "arctic-prefill": arctic}
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
         {"resnet_path": launches, "grid": grid_launches,

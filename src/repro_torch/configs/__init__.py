@@ -1,9 +1,10 @@
-"""Config registry: ``get_config(arch_id, shape)`` over the architectures
-this package runs (the reference's registry, cut to them), with the
-reference's long-context variants and its assigned shape table."""
+"""Config registry: ``get_config(arch_id, shape)`` over the reference's
+architectures, with its long-context variants and its assigned shape
+table."""
 from __future__ import annotations
 
-from repro_torch.configs import (hymba_1_5b, mamba2_780m, mistral_nemo_12b,
+from repro_torch.configs import (arctic_480b, deepseek_v3_671b, hymba_1_5b,
+                                 mamba2_780m, mistral_nemo_12b,
                                  musicgen_medium, paligemma_3b,
                                  phi3_mini_3_8b, qwen1_5_0_5b, qwen3_1_7b,
                                  resnet20_cifar)
@@ -11,13 +12,14 @@ from repro_torch.configs.base import (SHAPES, IDKDConfig,  # noqa: F401
                                       MLAConfig, ModelConfig, MoEConfig,
                                       ShapeConfig, SSMConfig, TrainConfig)
 
-# in the reference's order, without Arctic and DeepSeek-V3 (ROADMAP.md
-# item 10c)
+# in the reference's order
 ARCHS = {
     "mamba2-780m": mamba2_780m.CONFIG,
     "hymba-1.5b": hymba_1_5b.CONFIG,
     "musicgen-medium": musicgen_medium.CONFIG,
     "paligemma-3b": paligemma_3b.CONFIG,
+    "arctic-480b": arctic_480b.CONFIG,
+    "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
     "mistral-nemo-12b": mistral_nemo_12b.CONFIG,
     "phi3-mini-3.8b": phi3_mini_3_8b.CONFIG,
     "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG,

@@ -4,10 +4,10 @@ thing on either side.
 
 * :class:`ModelConfig` — one composable description of every supported
   architecture family plus the paper's ResNet20-EvoNorm classifier; this
-  package runs the ResNet and the decoder stacks (PaliGemma's patch
-  prefix and prefix-LM mask included) without MoE, MLA or multi-token
-  prediction (see ROADMAP.md). ``reduced()`` derives the CPU
-  test variant of a full config, as the reference's does.
+  package runs the ResNet and every decoder stack (PaliGemma's patch
+  prefix and prefix-LM mask, MoE, MLA and multi-token prediction
+  included). ``reduced()`` derives the CPU test variant of a full
+  config, as the reference's does.
 * :class:`IDKDConfig` — the paper's Algorithm 1 hyper-parameters.
 * :class:`TrainConfig` — one decentralized training run.
 * :class:`ShapeConfig` and :data:`SHAPES` — the four assigned input

@@ -153,7 +153,10 @@ def make_step(model, algo, mixer, loss_adapter, telemetry: bool = False,
         keys = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in keys]
         losses = node_loss(dict(zip(keys, leaves)), batch)
-        grads = torch.autograd.grad(losses.sum(), leaves)
+        # a leaf the loss does not read (an MoE router bias, which only
+        # ranks the experts) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True,
+                                    materialize_grads=True)
         return dict(zip(keys, grads)), losses.detach()
 
     def step(params, opt_state, batch, lr, *rest):

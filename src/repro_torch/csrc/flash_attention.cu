@@ -11,9 +11,13 @@
 // qp - window < kp (Sk = Sq); with a prefix P > 0 (PaliGemma's prefix-LM
 // mask, flash_mask.cuh) also every kp < P for a row qp < P. Not causal
 // (the Pallas kernel's causal=False): every key kp < Sk. Keys past Sk and
-// rows past Sq are masked. q (B, Sq, H, D), k/v (B, Sk, KVH, D), float32 or bfloat16; head
-// h reads kv head h / (H / KVH) without a copy; math in f32 with q scaled
-// by 1/sqrt(D) first; output in q's dtype.
+// rows past Sq are masked. q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk,
+// KVH, DV), float32 or bfloat16; DV = D except in MLA's mode (DeepSeek-V3's
+// multi-head latent attention: q and k carry D = 192 = 128 + 64 rope dims,
+// v DV = 128; 48 and 32 in its reduced config), where the scores run over
+// D and the output over DV; head h reads kv head h / (H / KVH) without a
+// copy; math in f32 with q scaled by 1/sqrt(D) first; output (B, Sq, H,
+// DV) in q's dtype.
 //
 // Design. The TPU kernel carries (m, l, acc) in VMEM scratch across a
 // sequential key grid axis. Here one block owns one (b, h, 64-row q tile)
@@ -35,8 +39,9 @@
 // Variants. This SIMT kernel serves float32 and bf16 at head_dim 32;
 // bf16 at head_dim 64, 96, 128 and 256 runs flash_attention_tc.cu on the
 // tensor cores. At head_dim 256 (PaliGemma) the three f32 tiles and the
-// P rows take fa_smem_bytes<256> = 217,088 bytes of the H100's 232,448 a
-// block, and each thread holds 64 output floats. f32 stays here on purpose: its tolerance (2e-5) rules out TF32
+// P rows take fa_smem_bytes<256, 256> = 217,088 bytes of the H100's
+// 232,448 a block, and each thread holds 64 output floats; MLA's (192,
+// 128) takes 151,552 bytes and 32 output floats a thread. f32 stays here on purpose: its tolerance (2e-5) rules out TF32
 // tiles, this kernel already beats scaled_dot_product_attention in f32
 // at Hymba's shape (8.6 vs 20.3 ms, PERF.md), and the full-width paths
 // run f32 only in tests and the reduced checks.
@@ -62,9 +67,11 @@ constexpr int FA_KEYS = 64;      // keys per tile
 constexpr int FA_THREADS = 256;  // four threads per q row
 constexpr int FA_LP = FA_KEYS + 4;
 
-template <int D>
+// Q and K tiles of D dims, V of DV, and the P rows.
+template <int D, int DV>
 constexpr size_t fa_smem_bytes() {
-  return sizeof(float) * (3 * FA_ROWS * (D + 4) + FA_ROWS * FA_LP);
+  return sizeof(float) *
+         (2 * FA_ROWS * (D + 4) + FA_ROWS * (DV + 4) + FA_ROWS * FA_LP);
 }
 
 template <typename T>
@@ -78,7 +85,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 
 // LSE: write each row's log-sum-exp to lse (the training forward's); a
 // template parameter, so the round's kernel is compiled without the store
-template <typename T, int D, bool LSE>
+template <typename T, int D, int DV, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -87,12 +94,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float scale) {
   constexpr int LD = D + 4;       // tile row stride in floats (16-byte rows,
                                   // conflict-free float4 reads)
-  constexpr int CH = D / 16;      // float4 output chunks per thread
+  constexpr int LV = DV + 4;      // V's
+  constexpr int CH = DV / 16;     // float4 output chunks per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + FA_ROWS * LD;
   float* Vs = Ks + FA_KEYS * LD;
-  float* Ps = Vs + FA_KEYS * LD;
+  float* Ps = Vs + FA_KEYS * LV;
 
   const int q0 = blockIdx.x * FA_ROWS;
   const int h = blockIdx.y;
@@ -106,9 +114,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KVH * D;
+  const size_t v_stride = (size_t)KVH * DV;
   const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * D;
   const T* kb = k + (size_t)b * Sk * kv_stride + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * Sk * kv_stride + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * Sk * v_stride + (size_t)kvh * DV;
 
   for (int e = tid; e < FA_ROWS * D; e += FA_THREADS) {
     const int rr = e / D, d = e % D, s = q0 + rr;
@@ -135,9 +144,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's K/V reads are done
     for (int e = tid; e < FA_KEYS * D; e += FA_THREADS) {
       const int kk = e / D, d = e % D, s = k0 + kk;
-      const bool in = s < Sk;
-      Ks[kk * LD + d] = in ? to_f(kb[(size_t)s * kv_stride + d]) : 0.0f;
-      Vs[kk * LD + d] = in ? to_f(vb[(size_t)s * kv_stride + d]) : 0.0f;
+      Ks[kk * LD + d] = s < Sk ? to_f(kb[(size_t)s * kv_stride + d]) : 0.0f;
+    }
+    for (int e = tid; e < FA_KEYS * DV; e += FA_THREADS) {
+      const int kk = e / DV, d = e % DV, s = k0 + kk;
+      Vs[kk * LV + d] = s < Sk ? to_f(vb[(size_t)s * v_stride + d]) : 0.0f;
     }
     __syncthreads();
 
@@ -192,7 +203,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&Vs[kk * LD + 4 * (j + 4 * c)]);
+            *reinterpret_cast<const float4*>(&Vs[kk * LV + 4 * (j + 4 * c)]);
         acc[4 * c + 0] = fmaf(p, vv.x, acc[4 * c + 0]);
         acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
         acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
@@ -203,7 +214,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qp < Sq) {
     const float inv = 1.0f / fmaxf(l_run, 1e-30f);
-    T* ob = o + ((size_t)b * Sq + qp) * q_stride + (size_t)h * D;
+    T* ob = o + ((size_t)b * Sq + qp) * H * DV + (size_t)h * DV;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int d = 4 * (j + 4 * c);
@@ -217,14 +228,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
                       int window, bool causal, int prefix,
                       cudaStream_t stream) {
-  const size_t smem = fa_smem_bytes<D>();
-  auto kernel = lse != nullptr ? flash_attention_kernel<T, D, true>
-                               : flash_attention_kernel<T, D, false>;
+  const size_t smem = fa_smem_bytes<D, DV>();
+  auto kernel = lse != nullptr ? flash_attention_kernel<T, D, DV, true>
+                               : flash_attention_kernel<T, D, DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -238,10 +249,18 @@ cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
-                        void* o, float* lse, int B, int Sq, int Sk, int H,
-                        int KVH, int window, bool causal, int prefix,
-                        cudaStream_t s) {
+cudaError_t fa_dispatch(int D, int DV, const void* q, const void* k,
+                        const void* v, void* o, float* lse, int B, int Sq,
+                        int Sk, int H, int KVH, int window, bool causal,
+                        int prefix, cudaStream_t s) {
+  // MLA's mode: qk head dim D, v head dim DV
+  if (D == 48 && DV == 32)
+    return fa_launch<T, 48, 32>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
+                                causal, prefix, s);
+  if (D == 192 && DV == 128)
+    return fa_launch<T, 192, 128>(q, k, v, o, lse, B, Sq, Sk, H, KVH,
+                                  window, causal, prefix, s);
+  if (DV != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32:
       return fa_launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
@@ -264,8 +283,9 @@ cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace idkd
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q/o (B, Sq, H,
-// D), k/v (B, Sk, KVH, D), contiguous; D in {32, 64, 96, 128, 256};
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). q (B, Sq, H, D),
+// k (B, Sk, KVH, D), v (B, Sk, KVH, DV), o (B, Sq, H, DV), contiguous;
+// DV = D in {32, 64, 96, 128, 256}, or (D, DV) in {(48, 32), (192, 128)};
 // H % KVH == 0; causal 1: Sk == Sq, window 0 = full causal, prefix
 // 0 <= P <= Sk (0: none; P > 0 with window 0 only); causal 0: every key
 // visible (window 0, prefix 0). lse: null, or (B, H, Sq) f32 that receives each row's
@@ -275,20 +295,21 @@ cudaError_t fa_dispatch(int D, const void* q, const void* k, const void* v,
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       void* lse, int B, int Sq, int Sk,
-                                      int H, int KVH, int D, int window,
-                                      int causal, int prefix, void* stream) {
+                                      int H, int KVH, int D, int DV,
+                                      int window, int causal, int prefix,
+                                      void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
       !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)idkd::fa_dispatch<float>(D, q, k, v, o,
+    return (int)idkd::fa_dispatch<float>(D, DV, q, k, v, o,
                                          static_cast<float*>(lse), B, Sq, Sk,
                                          H, KVH, window, causal != 0, prefix,
                                          s);
   if (dtype == 1)
     return (int)idkd::fa_dispatch<__nv_bfloat16>(
-        D, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, window,
+        D, DV, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, window,
         causal != 0, prefix, s);
   return (int)cudaErrorInvalidValue;
 }

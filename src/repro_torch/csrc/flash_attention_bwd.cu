@@ -16,7 +16,10 @@
 //   dV    = P^T dO,  dS = P o (dO V^T - D)
 //   dK    = dS^T Q * scale, summed over the group's query heads (fab_dkdv)
 //   dQ    = dS K * scale                                  (fab_dq)
-// q/o/dO (B, Sq, H, D), k/v (B, Sk, KVH, D), float32 or bfloat16; head h
+// q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, DV), o/dO (B, Sq, H,
+// DV), float32 or bfloat16, DV = D except in MLA's mode (DeepSeek-V3's
+// multi-head latent attention: (D, DV) = (192, 128), (48, 32) reduced),
+// where Q K^T and dS K run over D and dO V^T, P^T dO over DV; head h
 // reads kv head h / (H / KVH); causal (Sk = Sq): key kp is visible to row
 // qp iff kp <= qp and, when window > 0, qp - window < kp, and with a
 // prefix P > 0 also iff qp, kp < P (flash_mask.cuh); not causal: every key
@@ -66,9 +69,10 @@ namespace idkd {
 constexpr int FB_ROWS = 64;      // query rows (fab_dq) or keys (fab_dkdv)
 constexpr int FB_THREADS = 256;  // four threads per row / key
 
-// The walked side's tile: query rows (fab_dkdv) or keys (fab_dq).
-template <int D>
-__host__ __device__ constexpr int fb_walk() { return D > 128 ? 32 : 64; }
+// The walked side's tile: query rows (fab_dkdv) or keys (fab_dq); 32 when
+// 64 would pass the H100's shared memory (D = DV = 256).
+template <int D, int DV>
+__host__ __device__ constexpr int fb_walk() { return D + DV > 320 ? 32 : 64; }
 
 template <typename T>
 __device__ __forceinline__ T fb_from_f(float x);
@@ -79,12 +83,13 @@ __device__ __forceinline__ __nv_bfloat16 fb_from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Two owned 64-row tiles, two walked tiles, the (64, walk) P and dS rows
-// padded by 4, and the walked query rows' lse and D.
-template <int D>
+// Two owned 64-row tiles, two walked tiles (one of each D dims, the other
+// DV), the (64, walk) P and dS rows padded by 4, and the walked query
+// rows' lse and D. MLA's (192, 128) takes 203,264 bytes.
+template <int D, int DV>
 constexpr size_t fb_smem_bytes() {
-  constexpr int W = fb_walk<D>();
-  return sizeof(float) * (2 * FB_ROWS * (D + 4) + 2 * W * (D + 4) +
+  constexpr int W = fb_walk<D, DV>();
+  return sizeof(float) * ((FB_ROWS + W) * (D + 4 + DV + 4) +
                           2 * FB_ROWS * (W + 4) + 2 * W);
 }
 
@@ -180,23 +185,23 @@ fab_delta(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // dK, dV of one (b, kv head, 64-key tile).
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(FB_THREADS)
 fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ delta,
          T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
          int KVH, int window, bool causal, int prefix, float scale) {
-  constexpr int LD = D + 4;
-  constexpr int CH = D / 16;
-  constexpr int W = fb_walk<D>();       // query rows per walked tile
+  constexpr int LD = D + 4, LV = DV + 4;
+  constexpr int CH = D / 16, CV = DV / 16;
+  constexpr int W = fb_walk<D, DV>();   // query rows per walked tile
   constexpr int LP = W + 4;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + FB_ROWS * LD;
-  float* Qs = Vs + FB_ROWS * LD;
+  float* Qs = Vs + FB_ROWS * LV;
   float* Os = Qs + W * LD;              // dO tile
-  float* Ps = Os + W * LD;              // P[key][row]
+  float* Ps = Os + W * LV;              // P[key][row]
   float* Ds = Ps + FB_ROWS * LP;        // dS[key][row]
   float* Ls = Ds + FB_ROWS * LP;        // the q tile's lse
   float* Es = Ls + W;                   // and its D
@@ -211,7 +216,7 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int kp = k0 + r;
 
   fb_load<T, D, FB_ROWS>(Ks, k, b, k0, kvh, Sk, KVH);
-  fb_load<T, D, FB_ROWS>(Vs, v, b, k0, kvh, Sk, KVH);
+  fb_load<T, DV, FB_ROWS>(Vs, v, b, k0, kvh, Sk, KVH);
 
   // query tiles that see a key of this tile: from the first row that sees
   // its first key (causal: the diagonal, or row 0 for a tile that starts
@@ -222,9 +227,11 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int t_begin = causal ? fa_first_row(k0, prefix) / W : 0;
   const int t_end = q_last / W;
 
-  float dka[4 * CH], dva[4 * CH];
+  float dka[4 * CH], dva[4 * CV];
 #pragma unroll
-  for (int i = 0; i < 4 * CH; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < 4 * CH; ++i) dka[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4 * CV; ++i) dva[i] = 0.0f;
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -234,7 +241,7 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       const int q0 = t * W;
       __syncthreads();  // the previous tile's reads are done
       fb_load<T, D, W>(Qs, q, b, q0, h, Sq, H);
-      fb_load<T, D, W>(Os, dout, b, q0, h, Sq, H);
+      fb_load<T, DV, W>(Os, dout, b, q0, h, Sq, H);
       if (tid < W) {
         const int s = q0 + tid;
         Ls[tid] = s < Sq ? lrow[s] : 0.0f;
@@ -244,7 +251,7 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
       float sc[W / 4], dp[W / 4];
       fb_dots<D, W>(sc, Ks, r, Qs, j);
-      fb_dots<D, W>(dp, Vs, r, Os, j);
+      fb_dots<DV, W>(dp, Vs, r, Os, j);
 #pragma unroll
       for (int i = 0; i < W / 4; ++i) {
         const int row = 4 * i + j;
@@ -255,43 +262,48 @@ fab_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         Ds[r * LP + row] = p * (dp[i] - Es[row]);
       }
       __syncwarp();  // the key's four threads share their P and dS rows
-      fb_accumulate<D, W>(dva, Ps, r, Os, j);
+      fb_accumulate<DV, W>(dva, Ps, r, Os, j);
       fb_accumulate<D, W>(dka, Ds, r, Qs, j);
     }
   }
 
   if (kp < Sk) {
-    const size_t off = (((size_t)b * Sk + kp) * KVH + kvh) * D;
+    const size_t row = ((size_t)b * Sk + kp) * KVH + kvh;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int d = 4 * (j + 4 * c);
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        dk[off + d + x] = fb_from_f<T>(dka[4 * c + x] * scale);
-        dv[off + d + x] = fb_from_f<T>(dva[4 * c + x]);
-      }
+      for (int x = 0; x < 4; ++x)
+        dk[row * D + d + x] = fb_from_f<T>(dka[4 * c + x] * scale);
+    }
+#pragma unroll
+    for (int c = 0; c < CV; ++c) {
+      const int d = 4 * (j + 4 * c);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        dv[row * DV + d + x] = fb_from_f<T>(dva[4 * c + x]);
     }
   }
 }
 
 // dQ of one (b, h, 64-row query tile).
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(FB_THREADS)
 fab_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ delta,
        T* __restrict__ dq, int Sq, int Sk, int H, int KVH, int window,
        bool causal, int prefix, float scale) {
-  constexpr int LD = D + 4;
+  constexpr int LD = D + 4, LV = DV + 4;
   constexpr int CH = D / 16;
-  constexpr int W = fb_walk<D>();       // keys per walked tile
+  constexpr int W = fb_walk<D, DV>();   // keys per walked tile
   constexpr int LP = W + 4;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Os = Qs + FB_ROWS * LD;
-  float* Ks = Os + FB_ROWS * LD;
+  float* Ks = Os + FB_ROWS * LV;
   float* Vs = Ks + W * LD;
-  float* Ds = Vs + W * LD;              // dS[row][key]
+  float* Ds = Vs + W * LV;              // dS[row][key]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FB_ROWS;  // longest first
   const int h = blockIdx.y;
@@ -303,7 +315,7 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int qp = q0 + r;
 
   fb_load<T, D, FB_ROWS>(Qs, q, b, q0, h, Sq, H);
-  fb_load<T, D, FB_ROWS>(Os, dout, b, q0, h, Sq, H);
+  fb_load<T, DV, FB_ROWS>(Os, dout, b, q0, h, Sq, H);
   const float l_r = qp < Sq ? lse[((size_t)b * H + h) * Sq + qp] : 0.0f;
   const float e_r = qp < Sq ? delta[((size_t)b * H + h) * Sq + qp] : 0.0f;
 
@@ -321,12 +333,12 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * W;
     __syncthreads();
     fb_load<T, D, W>(Ks, k, b, k0, kvh, Sk, KVH);
-    fb_load<T, D, W>(Vs, v, b, k0, kvh, Sk, KVH);
+    fb_load<T, DV, W>(Vs, v, b, k0, kvh, Sk, KVH);
     __syncthreads();
 
     float sc[W / 4], dp[W / 4];
     fb_dots<D, W>(sc, Qs, r, Ks, j);
-    fb_dots<D, W>(dp, Os, r, Vs, j);
+    fb_dots<DV, W>(dp, Os, r, Vs, j);
 #pragma unroll
     for (int i = 0; i < W / 4; ++i) {
       const int key = 4 * i + j;
@@ -351,18 +363,18 @@ fab_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 cudaError_t fab_launch(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv, int B,
                        int Sq, int Sk, int H, int KVH, int window,
                        bool causal, int prefix, cudaStream_t stream) {
-  const size_t smem = fb_smem_bytes<D>();
+  const size_t smem = fb_smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      fab_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fab_dkdv<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fab_dq<T, D>,
+  err = cudaFuncSetAttribute(fab_dq<T, D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
@@ -370,11 +382,11 @@ cudaError_t fab_launch(const void* q, const void* k, const void* v,
   const long long rows = (long long)B * Sq * H;
   fab_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, Sq, H,
-      D);
+      DV);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int k_tiles = (Sk + FB_ROWS - 1) / FB_ROWS;
-  fab_dkdv<T, D><<<dim3(k_tiles, KVH, B), FB_THREADS, smem, stream>>>(
+  fab_dkdv<T, D, DV><<<dim3(k_tiles, KVH, B), FB_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, window,
@@ -382,7 +394,7 @@ cudaError_t fab_launch(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int q_tiles = (Sq + FB_ROWS - 1) / FB_ROWS;
-  fab_dq<T, D><<<dim3(q_tiles, H, B), FB_THREADS, smem, stream>>>(
+  fab_dq<T, D, DV><<<dim3(q_tiles, H, B), FB_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), Sq, Sk, H, KVH, window, causal, prefix, scale);
@@ -390,7 +402,7 @@ cudaError_t fab_launch(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
+cudaError_t fab_dispatch(int D, int DV, const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
                          float* delta, void* dq, void* dk, void* dv, int B,
                          int Sq, int Sk, int H, int KVH, int window,
@@ -399,6 +411,15 @@ cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
   case DIM:                                                               \
     return fab_launch<T, DIM>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, \
                               Sq, Sk, H, KVH, window, causal, prefix, s);
+  // MLA's mode: qk head dim D, v head dim DV
+  if (D == 48 && DV == 32)
+    return fab_launch<T, 48, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                 Sq, Sk, H, KVH, window, causal, prefix, s);
+  if (D == 192 && DV == 128)
+    return fab_launch<T, 192, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, Sq, Sk, H, KVH, window, causal, prefix,
+                                   s);
+  if (DV != D) return cudaErrorInvalidValue;
   switch (D) {
     FAB_CASE(32)
     FAB_CASE(64)
@@ -414,9 +435,10 @@ cudaError_t fab_dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace idkd
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
-// q/o/dout/dq (B, Sq, H, D), k/v/dk/dv (B, Sk, KVH, D), contiguous; lse
-// (B, H, Sq) f32 from the forward; delta (B, H, Sq) f32 scratch; D in
-// {32, 64, 96, 128, 256}; H % KVH == 0; causal 1: Sk == Sq, window 0 =
+// q/dq (B, Sq, H, D), o/dout (B, Sq, H, DV), k/dk (B, Sk, KVH, D), v/dv
+// (B, Sk, KVH, DV), contiguous; lse (B, H, Sq) f32 from the forward; delta
+// (B, H, Sq) f32 scratch; DV = D in {32, 64, 96, 128, 256}, or (D, DV) in
+// {(48, 32), (192, 128)}; H % KVH == 0; causal 1: Sk == Sq, window 0 =
 // full causal, prefix 0 <= P <= Sk (0: none; P > 0 with window 0 only);
 // causal 0: every key visible (window 0, prefix 0). Three launches;
 // returns cudaGetLastError() after them.
@@ -426,8 +448,8 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q,
                                           const void* lse, void* delta,
                                           void* dq, void* dk, void* dv,
                                           int B, int Sq, int Sk, int H,
-                                          int KVH, int D, int window,
-                                          int causal, int prefix,
+                                          int KVH, int D, int DV,
+                                          int window, int causal, int prefix,
                                           void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
       !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
@@ -437,11 +459,11 @@ extern "C" int flash_attention_bwd_launch(int dtype, const void* q,
   float* e = static_cast<float*>(delta);
   const bool c = causal != 0;
   if (dtype == 0)
-    return (int)idkd::fab_dispatch<float>(D, q, k, v, o, dout, l, e, dq, dk,
+    return (int)idkd::fab_dispatch<float>(D, DV, q, k, v, o, dout, l, e, dq, dk,
                                           dv, B, Sq, Sk, H, KVH, window, c,
                                           prefix, s);
   if (dtype == 1)
-    return (int)idkd::fab_dispatch<__nv_bfloat16>(D, q, k, v, o, dout, l, e,
+    return (int)idkd::fab_dispatch<__nv_bfloat16>(D, DV, q, k, v, o, dout, l, e,
                                                   dq, dk, dv, B, Sq, Sk, H,
                                                   KVH, window, c, prefix, s);
   return (int)cudaErrorInvalidValue;

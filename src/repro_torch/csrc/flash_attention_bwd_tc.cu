@@ -17,8 +17,9 @@
 //   D  = rowsum(dO o O),  P = exp(Q K^T * scale - lse) under the mask
 //   dV = P^T dO,  dS = P o (dO V^T - D),  dK = dS^T Q * scale,
 //   dQ = dS K * scale
-// q/o/dO (B, Sq, H, D), k/v (B, Sk, KVH, D) bf16; head h reads kv head
-// h / (H / KVH); causal (Sk = Sq): key kp is visible to row qp iff
+// q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, DV), o/dO (B, Sq, H,
+// DV) bf16, DV = D except in MLA's mode (D = 192, DV = 128, below); head
+// h reads kv head h / (H / KVH); causal (Sk = Sq): key kp is visible to row qp iff
 // kp <= qp and, when window > 0, qp - window < kp; prefix-LM (PaliGemma's,
 // flash_mask.cuh): also iff qp, kp < P; not causal: every key kp < Sk;
 // lse (B, H, Sq) f32; gradients bf16.
@@ -117,6 +118,15 @@
 //    consumers (232), as head_select_tc.cu does.
 // MQA (PaliGemma's 8 query heads on one KV head) needs nothing more: the
 // partials of the group's G heads are summed in fbt_finish.
+//
+// MLA's mode (DeepSeek-V3: D = 192 for q and k, 128 nope + 64 rope dims,
+// DV = 128 for v, o and dO) runs fbt_main<192, 128>: S^T over three
+// 64-dim column blocks, dP^T over two; D = rowsum(dO o O) over DV; dV
+// (two blocks) and dK, dQ (three) as above. Shared memory: K 24 KB, V
+// 16 KB, 2 stages of Q (24 KB) and dO (16 KB), dS^T 8 KB, the dQ rows
+// 51 KB (FbtSmem<192, 128>::BYTES = 184,360). The dK and dV fragments take
+// 160 f32 registers a thread over the walk, beside the 64 of S^T and
+// dP^T; ptxas's report says whether it spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,14 +142,17 @@ constexpr int FBT_THREADS = 160;    // 1 consumer warpgroup + 1 producer warp
 constexpr int FBT_CONSUMERS = 128;
 constexpr float FBT_LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV = D>
 struct FbtSmem {
   static constexpr int NB = (D + 63) / 64;          // 64-dim column blocks
+  static constexpr int NBV = (DV + 63) / 64;        // of V, dO
   static constexpr int TILE = NB * FBT_TILE * 128;  // a 64-row bf16 tile
+  static constexpr int TILE_V = NBV * FBT_TILE * 128;   // of V or dO
+  static constexpr int STAGE = TILE + TILE_V;       // Q, then dO
   static constexpr int K = 0;
   static constexpr int V = TILE;
-  static constexpr int STAGES = 2 * TILE;   // stage s: Q, then dO
-  static constexpr int DS = STAGES + FBT_STAGES * 2 * TILE;  // dS^T bf16
+  static constexpr int STAGES = V + TILE_V;        // the Q / dO ring
+  static constexpr int DS = STAGES + FBT_STAGES * STAGE;    // dS^T bf16
   static constexpr int DQS = D + 8;         // dQ row stride (floats); only
                                             // columns < D are written
   static constexpr int DQ = DS + FBT_TILE * 128;
@@ -151,8 +164,9 @@ struct FbtSmem {
 };
 
 // D and lse * log2(e) per (b, h, row), rows padded to Sp; the dQ
-// accumulator's rows zeroed. One warp per row.
-template <int D>
+// accumulator's rows zeroed. One warp per row. O and dO rows are DV long,
+// dQ's D.
+template <int D, int DV = D>
 __global__ void __launch_bounds__(256)
 fbt_prep(const __nv_bfloat16* __restrict__ o,
          const __nv_bfloat16* __restrict__ dout,
@@ -167,9 +181,9 @@ fbt_prep(const __nv_bfloat16* __restrict__ o,
   const long long b = bh / H;
   float acc = 0.0f;
   if (s < Sq) {
-    const size_t off = (((size_t)b * Sq + s) * H + h) * D;
+    const size_t off = (((size_t)b * Sq + s) * H + h) * DV;
 #pragma unroll
-    for (int d = 2 * lane; d < D; d += 64) {
+    for (int d = 2 * lane; d < DV; d += 64) {
       const float2 ov = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(o + off + d));
       const float2 gv = __bfloat1622float2(
@@ -189,7 +203,7 @@ fbt_prep(const __nv_bfloat16* __restrict__ o,
 }
 
 // One wgmma per 16 head dims: acc (64 x 64) = A B^T with A, B the 64-row
-// K-major tiles (keys against query rows).
+// K-major tiles (keys against query rows), D dims deep.
 template <int D>
 __device__ __forceinline__ void fbt_scores(float (&acc)[32], const uint8_t* A,
                                            const uint8_t* Bt) {
@@ -204,13 +218,13 @@ __device__ __forceinline__ void fbt_scores(float (&acc)[32], const uint8_t* A,
 }
 
 // acc[nb] (64 keys x 64 dims) += A (64 keys x 64 rows, registers) . T
-// (64 rows x D, MN-major from a TMA tile)
-template <int D>
-__device__ __forceinline__ void fbt_accumulate(
-    float (&acc)[FbtSmem<D>::NB][32], const uint32_t (&a)[4][4],
-    const uint8_t* T) {
+// (64 rows x NB column blocks, MN-major from a TMA tile)
+template <int NB>
+__device__ __forceinline__ void fbt_accumulate(float (&acc)[NB][32],
+                                               const uint32_t (&a)[4][4],
+                                               const uint8_t* T) {
 #pragma unroll
-  for (int nb = 0; nb < FbtSmem<D>::NB; ++nb)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_m64n64k16_rs_tb(
@@ -246,7 +260,7 @@ __device__ __forceinline__ void fbt_accumulate(
 // that the causal kernel's mask and register use stay the self-attention
 // kernel's (as a runtime flag it made fbt_main<64> spill and run slower,
 // PERF.md)
-template <int D, int MODE>
+template <int D, int DV, int MODE>
 __global__ void __launch_bounds__(FBT_THREADS, D == 64 ? 2 : 1)
 fbt_main(const __grid_constant__ CUtensorMap tq,
          const __grid_constant__ CUtensorMap tdo,
@@ -256,8 +270,8 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
          float* __restrict__ dk_part, float* __restrict__ dv_part, int Sq,
          int Sk, int Sp, int H, int KVH, int window, float scale_log2,
          int prefix) {
-  using L = FbtSmem<D>;
-  constexpr int NB = L::NB;
+  using L = FbtSmem<D, DV>;
+  constexpr int NB = L::NB, NBV = L::NBV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -288,25 +302,25 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
   if (warp == 4) {
     // ------------------------------------------------ producer warp
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * L::TILE);
-      for (int nb = 0; nb < NB; ++nb) {
+      mbar_expect_tx(kv_full, L::TILE + L::TILE_V);
+      for (int nb = 0; nb < NB; ++nb)
         tma_load_4d(smem + L::K + nb * FBT_TILE * 128, &tk, kv_full, nb * 64,
                     kvh, k0, b);
+      for (int nb = 0; nb < NBV; ++nb)
         tma_load_4d(smem + L::V + nb * FBT_TILE * 128, &tv, kv_full, nb * 64,
                     kvh, k0, b);
-      }
       const float2* ld_bh = ld + ((size_t)b * H + h) * Sp;
       for (int t = t_begin, i = 0; t <= t_end; ++t, ++i) {
         const int s = i % FBT_STAGES;
         mbar_wait(&empty[s], ((i / FBT_STAGES) & 1) ^ 1);
-        uint8_t* Qs = smem + L::STAGES + s * 2 * L::TILE;
-        mbar_expect_tx(&full[s], 2 * L::TILE + FBT_TILE * 8);
-        for (int nb = 0; nb < NB; ++nb) {
+        uint8_t* Qs = smem + L::STAGES + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::STAGE + FBT_TILE * 8);
+        for (int nb = 0; nb < NB; ++nb)
           tma_load_4d(Qs + nb * FBT_TILE * 128, &tq, &full[s], nb * 64, h,
                       t * FBT_TILE, b);
+        for (int nb = 0; nb < NBV; ++nb)
           tma_load_4d(Qs + L::TILE + nb * FBT_TILE * 128, &tdo, &full[s],
                       nb * 64, h, t * FBT_TILE, b);
-        }
         bulk_load(smem + L::LD + s * FBT_TILE * 8, ld_bh + t * FBT_TILE,
                   FBT_TILE * 8, &full[s]);
       }
@@ -323,17 +337,21 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
   uint8_t* dST = smem + L::DS;
   float* dQs = reinterpret_cast<float*>(smem + L::DQ);
 
-  float dk[NB][32], dv[NB][32];
+  float dk[NB][32], dv[NBV][32];
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.0f;
+    for (int i = 0; i < 32; ++i) dk[nb][i] = 0.0f;
+#pragma unroll
+  for (int nb = 0; nb < NBV; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv[nb][i] = 0.0f;
 
   mbar_wait(kv_full, 0);
   for (int t = t_begin, i = 0; t <= t_end; ++t, ++i) {
     const int s = i % FBT_STAGES;
     mbar_wait(&full[s], (i / FBT_STAGES) & 1);
-    const uint8_t* Qs = smem + L::STAGES + s * 2 * L::TILE;
+    const uint8_t* Qs = smem + L::STAGES + s * L::STAGE;
     const uint8_t* dOs = Qs + L::TILE;
     const float2* lds =
         reinterpret_cast<const float2*>(smem + L::LD + s * FBT_TILE * 8);
@@ -343,7 +361,7 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
     float sc[32], dp[32];
     wgmma_fence();
     fbt_scores<D>(sc, Ks, Qs);
-    fbt_scores<D>(dp, Vs, dOs);
+    fbt_scores<DV>(dp, Vs, dOs);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -377,13 +395,12 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
 
     // dV += P^T dO, dK += dS^T Q
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      fence_regs(dv[nb]);
-      fence_regs(dk[nb]);
-    }
+    for (int nb = 0; nb < NBV; ++nb) fence_regs(dv[nb]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(dk[nb]);
     wgmma_fence();
-    fbt_accumulate<D>(dv, pa, dOs);
-    fbt_accumulate<D>(dk, da, Qs);
+    fbt_accumulate<NBV>(dv, pa, dOs);
+    fbt_accumulate<NB>(dk, da, Qs);
     wgmma_commit();
 
     // dS^T into shared memory, bf16 with the 128-byte swizzle (rows =
@@ -404,10 +421,9 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
     named_barrier(1, FBT_CONSUMERS);
     wgmma_wait<0>();   // dV and dK done: pa, da and their tiles are free
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      fence_regs(dv[nb]);
-      fence_regs(dk[nb]);
-    }
+    for (int nb = 0; nb < NBV; ++nb) fence_regs(dv[nb]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(dk[nb]);
     mbar_arrive(&empty[s]);   // Q, dO and the (lse, D) rows are read
 
     // dQ (64 rows x D) = dS K, one 64-column half at a time
@@ -445,28 +461,35 @@ fbt_main(const __grid_constant__ CUtensorMap tq,
   }
   if (warp == 0) bulk_wait<0>();
 
-  // the block's dK (unscaled) and dV into the per-query-head partials
-  const size_t row_stride = (size_t)H * D;
-  const size_t off_a = ((size_t)b * Sk + kp_a) * row_stride + (size_t)h * D;
-  const size_t off_b = off_a + 8 * row_stride;
+  // the block's dK (unscaled) and dV into the per-query-head partials,
+  // (B, Sk, H, D) and (B, Sk, H, DV)
+  const size_t ka = ((size_t)b * Sk + kp_a) * H + h;
+  const size_t kb = ka + 8 * (size_t)H;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + c2;
       if (d >= D) continue;
-      if (kp_a < Sk) {
-        *reinterpret_cast<float2*>(dk_part + off_a + d) =
+      if (kp_a < Sk)
+        *reinterpret_cast<float2*>(dk_part + ka * D + d) =
             make_float2(dk[nb][4 * j], dk[nb][4 * j + 1]);
-        *reinterpret_cast<float2*>(dv_part + off_a + d) =
-            make_float2(dv[nb][4 * j], dv[nb][4 * j + 1]);
-      }
-      if (kp_b < Sk) {
-        *reinterpret_cast<float2*>(dk_part + off_b + d) =
+      if (kp_b < Sk)
+        *reinterpret_cast<float2*>(dk_part + kb * D + d) =
             make_float2(dk[nb][4 * j + 2], dk[nb][4 * j + 3]);
-        *reinterpret_cast<float2*>(dv_part + off_b + d) =
+    }
+#pragma unroll
+  for (int nb = 0; nb < NBV; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = nb * 64 + 8 * j + c2;
+      if (d >= DV) continue;
+      if (kp_a < Sk)
+        *reinterpret_cast<float2*>(dv_part + ka * DV + d) =
+            make_float2(dv[nb][4 * j], dv[nb][4 * j + 1]);
+      if (kp_b < Sk)
+        *reinterpret_cast<float2*>(dv_part + kb * DV + d) =
             make_float2(dv[nb][4 * j + 2], dv[nb][4 * j + 3]);
-      }
     }
 }
 
@@ -750,20 +773,21 @@ __device__ __forceinline__ void fbt_store4(__nv_bfloat16* dst, float4 v,
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// dq (B, Sq, H, D) from the accumulator (B, H, Sp, D); dk, dv
-// (B, Sk, KVH, D) from the partials (B, Sk, H, D), each group's G heads
-// summed in order. Four dims a thread.
-template <int D>
+// dq (B, Sq, H, D) from the accumulator (B, H, Sp, D); dk (B, Sk, KVH, D)
+// and dv (B, Sk, KVH, DV) from the partials (B, Sk, H, D) and (B, Sk, H,
+// DV), each group's G heads summed in order. Four dims a thread.
+template <int D, int DV = D>
 __global__ void __launch_bounds__(256)
 fbt_finish(const float* __restrict__ dq_acc,
            const float* __restrict__ dk_part,
            const float* __restrict__ dv_part, __nv_bfloat16* __restrict__ dq,
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-           long long nq4, long long nk4, int Sq, int Sp, int H, int KVH,
-           float scale) {
+           long long nq4, long long nk4, long long nv4, int Sq, int Sp,
+           int H, int KVH, float scale) {
   constexpr int D4 = D / 4;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int d = 4 * (int)(e % D4);
+  const int G = H / KVH;
   if (e < nq4) {
     const long long r = e / D4;            // (b, s, h)
     const int h = (int)(r % H);
@@ -778,22 +802,31 @@ fbt_finish(const float* __restrict__ dq_acc,
     const long long r = e / D4;            // (b, s < Sk, kvh)
     const int kvh = (int)(r % KVH);
     const long long bs = r / KVH;
-    const int G = H / KVH;
     const float* pk = dk_part + ((size_t)bs * H + (size_t)kvh * G) * D + d;
-    const float* pv = dv_part + ((size_t)bs * H + (size_t)kvh * G) * D + d;
-    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int g = 0; g < G; ++g) {
       const float4 a = *reinterpret_cast<const float4*>(pk + (size_t)g * D);
-      const float4 c = *reinterpret_cast<const float4*>(pv + (size_t)g * D);
       sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
-      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
     }
     fbt_store4(dk + (size_t)r * D + d, sk, scale);
-    fbt_store4(dv + (size_t)r * D + d, sv, 1.0f);
+  }
+  if (e < nv4) {
+    constexpr int DV4 = DV / 4;
+    const long long r = e / DV4;
+    const int dd = 4 * (int)(e % DV4);
+    const int kvh = (int)(r % KVH);
+    const long long bs = r / KVH;
+    const float* pv = dv_part + ((size_t)bs * H + (size_t)kvh * G) * DV + dd;
+    float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < G; ++g) {
+      const float4 c = *reinterpret_cast<const float4*>(pv + (size_t)g * DV);
+      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    }
+    fbt_store4(dv + (size_t)r * DV + dd, sv, 1.0f);
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t fbt_launch(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float2* ld, float* dq_acc, float* dk_part,
@@ -811,21 +844,29 @@ cudaError_t fbt_launch(const void* q, const void* k, const void* v,
                                  (cuuint64_t)Sk, (cuuint64_t)B};
   const cuuint64_t sk[3] = {(cuuint64_t)D * 2, (cuuint64_t)KVH * D * 2,
                             (cuuint64_t)Sk * KVH * D * 2};
+  const cuuint64_t do_dims[4] = {(cuuint64_t)DV, (cuuint64_t)H,
+                                 (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t sdo[3] = {(cuuint64_t)DV * 2, (cuuint64_t)H * DV * 2,
+                             (cuuint64_t)Sq * H * DV * 2};
+  const cuuint64_t dv_dims[4] = {(cuuint64_t)DV, (cuuint64_t)KVH,
+                                 (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t sv[3] = {(cuuint64_t)DV * 2, (cuuint64_t)KVH * DV * 2,
+                            (cuuint64_t)Sk * KVH * DV * 2};
   const cuuint32_t box[4] = {64, 1, FBT_TILE, 1};
   if (!make_map_bf16(&mq, q, 4, dq_dims, sq, box) ||
-      !make_map_bf16(&mdo, dout, 4, dq_dims, sq, box) ||
+      !make_map_bf16(&mdo, dout, 4, do_dims, sdo, box) ||
       !make_map_bf16(&mk, k, 4, dk_dims, sk, box) ||
-      !make_map_bf16(&mv, v, 4, dk_dims, sk, box))
+      !make_map_bf16(&mv, v, 4, dv_dims, sv, box))
     return cudaErrorInvalidValue;
   const long long rows = (long long)B * H * Sp;
-  fbt_prep<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+  fbt_prep<D, DV><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, ld, dq_acc, rows, Sq, Sp,
       H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int smem, threads;
-  decltype(&fbt_main<64, FA_CAUSAL>) main_kernel;
+  decltype(&fbt_main<64, 64, FA_CAUSAL>) main_kernel;
   if constexpr (D == 256) {
     smem = Fbt256::BYTES;
     threads = Fbt256::THREADS;
@@ -833,11 +874,11 @@ cudaError_t fbt_launch(const void* q, const void* k, const void* v,
                   : mode == FA_CROSS ? fbt_main256<FA_CROSS>
                                      : fbt_main256<FA_CAUSAL>;
   } else {
-    smem = FbtSmem<D>::BYTES;
+    smem = FbtSmem<D, DV>::BYTES;
     threads = FBT_THREADS;
-    main_kernel = mode == FA_PREFIX  ? fbt_main<D, FA_PREFIX>
-                  : mode == FA_CROSS ? fbt_main<D, FA_CROSS>
-                                     : fbt_main<D, FA_CAUSAL>;
+    main_kernel = mode == FA_PREFIX  ? fbt_main<D, DV, FA_PREFIX>
+                  : mode == FA_CROSS ? fbt_main<D, DV, FA_CROSS>
+                                     : fbt_main<D, DV, FA_CAUSAL>;
   }
   err = cudaFuncSetAttribute(main_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -850,20 +891,22 @@ cudaError_t fbt_launch(const void* q, const void* k, const void* v,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long nq4 = (long long)B * Sq * H * (D / 4);
   const long long nk4 = (long long)B * Sk * KVH * (D / 4);
+  const long long nv4 = (long long)B * Sk * KVH * (DV / 4);
   const long long n4 = nq4 > nk4 ? nq4 : nk4;
-  fbt_finish<D><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+  fbt_finish<D, DV><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
       dq_acc, dk_part, dv_part, static_cast<__nv_bfloat16*>(dq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), nq4,
-      nk4, Sq, Sp, H, KVH, scale);
+      nk4, nv4, Sq, Sp, H, KVH, scale);
   return cudaGetLastError();
 }
 
 }  // namespace idkd
 
-// bf16 q/o/dout/dq (B, Sq, H, D), k/v/dk/dv (B, Sk, KVH, D), contiguous,
-// 16-byte aligned; lse (B, H, Sq) f32 from the forward. Scratch (f32):
-// ld (B, H, Sp, 2), dq_acc (B, H, Sp, D) with Sp = Sq rounded up to 64,
-// dk_part and dv_part (B, Sk, H, D). D in {64, 96, 128, 256};
+// bf16 q/dq (B, Sq, H, D), o/dout (B, Sq, H, DV), k/dk (B, Sk, KVH, D),
+// v/dv (B, Sk, KVH, DV), contiguous, 16-byte aligned; lse (B, H, Sq) f32
+// from the forward. Scratch (f32): ld (B, H, Sp, 2), dq_acc (B, H, Sp, D)
+// with Sp = Sq rounded up to 64, dk_part (B, Sk, H, D) and dv_part (B,
+// Sk, H, DV). DV = D in {64, 96, 128, 256}, or (D, DV) = (192, 128);
 // H % KVH == 0; causal 1: Sk == Sq, window 0 = full causal, prefix
 // 0 <= P <= Sk (0: none; P > 0 with window 0 only); causal 0: every key
 // visible (window 0, prefix 0). Three launches; returns cudaGetLastError()
@@ -873,7 +916,7 @@ extern "C" int flash_attention_bwd_tc_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ld, void* dq_acc, void* dk_part,
     void* dv_part, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-    int H, int KVH, int D, int window, int causal, int prefix,
+    int H, int KVH, int D, int DV, int window, int causal, int prefix,
     void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 || H > 65535 ||
       B > 65535 || !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
@@ -891,6 +934,11 @@ extern "C" int flash_attention_bwd_tc_launch(
     return (int)idkd::fbt_launch<DIM>(q, k, v, o, dout, l, ldp, acc, pk,  \
                                       pv, dq, dk, dv, B, Sq, Sk, H, KVH,  \
                                       window, m, prefix, s);
+  if (D == 192 && DV == 128)
+    return (int)idkd::fbt_launch<192, 128>(q, k, v, o, dout, l, ldp, acc, pk,
+                                           pv, dq, dk, dv, B, Sq, Sk, H, KVH,
+                                           window, m, prefix, s);
+  if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     FBT_CASE(64)
     FBT_CASE(96)

@@ -12,10 +12,11 @@
 // causal, per q row qp the keys kp with kp <= qp and, when window > 0,
 // qp - window < kp (Sk = Sq); prefix-LM (PaliGemma's, flash_mask.cuh),
 // also every kp < P for a row qp < P; not causal, every key kp < Sk; keys
-// past Sk and rows past Sq masked; q (B, Sq, H, D), k/v (B, Sk, KVH, D)
-// bf16, head h reading kv head h / (H / KVH) in place; scores scaled by
-// 1/sqrt(D); softmax statistics in f32; output bf16; D in {64, 96, 128,
-// 256}.
+// past Sk and rows past Sq masked; q (B, Sq, H, D), k (B, Sk, KVH, D),
+// v (B, Sk, KVH, DV) bf16, head h reading kv head h / (H / KVH) in place;
+// scores scaled by 1/sqrt(D); softmax statistics in f32; output (B, Sq,
+// H, DV) bf16; DV = D in {64, 96, 128, 256}, or MLA's mode (DeepSeek-V3's
+// multi-head latent attention) D = 192 (128 + 64 rope dims), DV = 128.
 //
 // Bound on the H100. At Hymba's shape (B 8, S 2176, 25/5 heads x 64) a
 // call is 0.12 TFLOP (global) / 0.09 TFLOP (window 1024) against 55 MB
@@ -56,6 +57,12 @@
 //    so at D = 256 the producer is a warpgroup and setmaxnreg moves
 //    registers from it (40) to the consumers (232), as head_select_tc.cu
 //    does; ptxas's report is in build/kernels/libflash_attention_tc-*.log.
+//  * MLA's (D, DV) = (192, 128): Q and K are three column blocks, V two.
+//    128-key tiles in 2 stages (Q 48 KB + 2 x (48 + 32) KB = 208 KB,
+//    FtSmem<192, 128>::BYTES = 214,056 bytes); the scores and O take the
+//    registers they take at D = 128 (64 + 64 f32 a thread), so a producer
+//    warp still serves. The expect-tx counts are the boxes' bytes: three
+//    64-dim K boxes and two V boxes a stage.
 //  * Scores: S = Q.K^T is a wgmma m64n128k16 (m64n64k16 at D = 256) per
 //    16 head dims, Q (A) and K (B) both K-major from shared memory, f32
 //    accumulators.
@@ -107,17 +114,19 @@ namespace idkd {
 constexpr int FT_ROWS = 128;     // q rows per block (2 consumer warpgroups)
 constexpr int FT_ROW_BYTES = 128;  // one 64-dim row of bf16
 
-template <int D>
+template <int D, int DV = D>
 struct FtSmem {
-  static constexpr int NB = (D + 63) / 64;                 // column blocks
-  static constexpr int KEYS = D > 128 ? 64 : 128;          // keys per tile
+  static constexpr int NB = (D + 63) / 64;                 // Q, K blocks
+  static constexpr int NBV = (DV + 63) / 64;               // V, O blocks
+  static constexpr int KEYS = D > 192 ? 64 : 128;          // keys per tile
   static constexpr int STAGES = D > 128 ? 2 : 3;           // K/V ring depth
   // 2 consumer warpgroups and a producer warp, or at D = 256 a producer
   // warpgroup whose registers setmaxnreg hands to the consumers
-  static constexpr int THREADS = D > 128 ? 384 : 288;
+  static constexpr int THREADS = D > 192 ? 384 : 288;
   static constexpr int Q_BYTES = NB * FT_ROWS * FT_ROW_BYTES;
-  static constexpr int KV_BYTES = NB * KEYS * FT_ROW_BYTES;  // K or V
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int K_BYTES = NB * KEYS * FT_ROW_BYTES;
+  static constexpr int V_BYTES = NBV * KEYS * FT_ROW_BYTES;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
   static_assert(BYTES <= 232448, "past the H100's shared memory a block");
@@ -141,11 +150,11 @@ __device__ __forceinline__ int ft_last(int qp, int prefix) {
 
 // Issue S = Q K^T for one KEYS-key tile: 64 x KEYS f32 scores of the
 // warpgroup's rows, one wgmma per 16 head dims (no commit).
-template <int D>
-__device__ __forceinline__ void ft_scores(float (&sc)[FtSmem<D>::KEYS / 2],
-                                          const uint8_t* Qw,
-                                          const uint8_t* Ks) {
-  constexpr int KEYS = FtSmem<D>::KEYS;
+template <int D, int DV>
+__device__ __forceinline__ void ft_scores(
+    float (&sc)[FtSmem<D, DV>::KEYS / 2], const uint8_t* Qw,
+    const uint8_t* Ks) {
+  constexpr int KEYS = FtSmem<D, DV>::KEYS;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int nb = kk / 4, off = (kk % 4) * 32;
@@ -160,13 +169,13 @@ __device__ __forceinline__ void ft_scores(float (&sc)[FtSmem<D>::KEYS / 2],
 }
 
 // Issue O += P V for one tile, P from registers (no commit).
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void ft_pv(
-    float (&oacc)[FtSmem<D>::NB][32],
-    const uint32_t (&pa)[FtSmem<D>::KEYS / 16][4], const uint8_t* Vs) {
-  constexpr int KEYS = FtSmem<D>::KEYS;
+    float (&oacc)[FtSmem<D, DV>::NBV][32],
+    const uint32_t (&pa)[FtSmem<D, DV>::KEYS / 16][4], const uint8_t* Vs) {
+  constexpr int KEYS = FtSmem<D, DV>::KEYS;
 #pragma unroll
-  for (int nb = 0; nb < FtSmem<D>::NB; ++nb)
+  for (int nb = 0; nb < FtSmem<D, DV>::NBV; ++nb)
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk) {
       const uint64_t db = sw128_desc(
@@ -259,8 +268,8 @@ __device__ __forceinline__ void ft_pack(const float (&sc)[KEYS / 2],
 // (a runtime test of the pointer cost 2.5% there, PERF.md). MODE
 // (FA_CAUSAL, FA_CROSS, FA_PREFIX): the mask, a template parameter too,
 // so that the causal kernel stays the self-attention kernel it was.
-template <int D, bool LSE, int MODE>
-__global__ void __launch_bounds__(FtSmem<D>::THREADS, 1)
+template <int D, int DV, bool LSE, int MODE>
+__global__ void __launch_bounds__(FtSmem<D, DV>::THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -268,8 +277,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           float* __restrict__ lse, int Sq, int Sk, int H,
                           int KVH, int window, float scale_log2,
                           int prefix) {
-  using L = FtSmem<D>;
+  using L = FtSmem<D, DV>;
   constexpr int NB = L::NB;
+  constexpr int NBV = L::NBV;
   constexpr int KEYS = L::KEYS;
   constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -315,14 +325,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         uint8_t* Ks = smem + L::Q_BYTES + s * L::STAGE_BYTES;
-        uint8_t* Vs = Ks + L::KV_BYTES;
+        uint8_t* Vs = Ks + L::K_BYTES;
         mbar_expect_tx(&full[s], L::STAGE_BYTES);
-        for (int nb = 0; nb < NB; ++nb) {
+        for (int nb = 0; nb < NB; ++nb)
           tma_load_4d(Ks + nb * KEYS * FT_ROW_BYTES, &tk, &full[s],
                       nb * 64, kvh, t * KEYS, b);
+        for (int nb = 0; nb < NBV; ++nb)
           tma_load_4d(Vs + nb * KEYS * FT_ROW_BYTES, &tv, &full[s],
                       nb * 64, kvh, t * KEYS, b);
-        }
       }
     }
     return;
@@ -360,9 +370,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     return smem + L::Q_BYTES + stage(t) * L::STAGE_BYTES;
   };
 
-  float oacc[NB][32];
+  float oacc[NBV][32];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
     for (int i = 0; i < 32; ++i) oacc[nb][i] = 0.0f;
   float m_a = NEG, m_b = NEG, l_a = 0.0f, l_b = 0.0f, al_a, al_b;
@@ -374,14 +384,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&full[stage(t)], parity(t));
     if (ta <= t && t <= tb) {
       wgmma_fence();
-      ft_scores<D>(sc, Qw, kv(t));
+      ft_scores<D, DV>(sc, Qw, kv(t));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       ft_softmax<MODE, KEYS>(sc, r, t * KEYS, m_a, m_b, l_a, l_b, al_a,
                              al_b);
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           oacc[nb][4 * j] *= al_a;
@@ -391,13 +401,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         }
       ft_pack<KEYS>(sc, pa);
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) fence_regs(oacc[nb]);
+      for (int nb = 0; nb < NBV; ++nb) fence_regs(oacc[nb]);
       wgmma_fence();
-      ft_pv<D>(oacc, pa, kv(t) + L::KV_BYTES);
+      ft_pv<D, DV>(oacc, pa, kv(t) + L::K_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) fence_regs(oacc[nb]);
+      for (int nb = 0; nb < NBV; ++nb) fence_regs(oacc[nb]);
     }
     mbar_arrive(&empty[stage(t)]);
   }
@@ -419,15 +429,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (r.b < Sq) lr[r.b] = m_b * scale + logf(l_b);
     }
   }
-  const size_t row_stride = (size_t)H * D;
-  __nv_bfloat16* oa = o + ((size_t)b * Sq + r.a) * row_stride + (size_t)h * D;
+  const size_t row_stride = (size_t)H * DV;
+  __nv_bfloat16* oa = o + ((size_t)b * Sq + r.a) * row_stride + (size_t)h * DV;
   __nv_bfloat16* ob = oa + 8 * row_stride;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NBV; ++nb)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + r.col;
-      if (d >= D) continue;            // D = 96: the zero-filled columns
+      if (d >= DV) continue;           // D = 96: the zero-filled columns
       if (r.a < Sq)
         *reinterpret_cast<uint32_t*>(oa + d) = pack_bf16x2(
             oacc[nb][4 * j] * inv_a, oacc[nb][4 * j + 1] * inv_a);
@@ -437,19 +447,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
-template <int D, bool LSE>
+template <int D, int DV, bool LSE>
 auto ft_kernel(int mode) {
-  return mode == FA_PREFIX  ? flash_attention_tc_kernel<D, LSE, FA_PREFIX>
-         : mode == FA_CROSS ? flash_attention_tc_kernel<D, LSE, FA_CROSS>
-                            : flash_attention_tc_kernel<D, LSE, FA_CAUSAL>;
+  return mode == FA_PREFIX
+             ? flash_attention_tc_kernel<D, DV, LSE, FA_PREFIX>
+         : mode == FA_CROSS
+             ? flash_attention_tc_kernel<D, DV, LSE, FA_CROSS>
+             : flash_attention_tc_kernel<D, DV, LSE, FA_CAUSAL>;
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
                       int window, int mode, int prefix,
                       cudaStream_t stream) {
-  // q (B, Sq, H, D) and k/v (B, Sk, KVH, D) as 4-D maps, innermost first
+  // q (B, Sq, H, D), k (B, Sk, KVH, D) and v (B, Sk, KVH, DV) as 4-D maps,
+  // innermost first
   CUtensorMap mq, mk, mv;
   const cuuint64_t dq[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq,
                             (cuuint64_t)B};
@@ -459,21 +472,25 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
                             (cuuint64_t)B};
   const cuuint64_t sk[3] = {(cuuint64_t)D * 2, (cuuint64_t)KVH * D * 2,
                             (cuuint64_t)Sk * KVH * D * 2};
+  const cuuint64_t dv[4] = {(cuuint64_t)DV, (cuuint64_t)KVH, (cuuint64_t)Sk,
+                            (cuuint64_t)B};
+  const cuuint64_t sv[3] = {(cuuint64_t)DV * 2, (cuuint64_t)KVH * DV * 2,
+                            (cuuint64_t)Sk * KVH * DV * 2};
   const cuuint32_t bq[4] = {64, 1, FT_ROWS, 1};
-  const cuuint32_t bk[4] = {64, 1, FtSmem<D>::KEYS, 1};
+  const cuuint32_t bk[4] = {64, 1, FtSmem<D, DV>::KEYS, 1};
   if (!make_map_bf16(&mq, q, 4, dq, sq, bq) ||
       !make_map_bf16(&mk, k, 4, dk, sk, bk) ||
-      !make_map_bf16(&mv, v, 4, dk, sk, bk))
+      !make_map_bf16(&mv, v, 4, dv, sv, bk))
     return cudaErrorInvalidValue;
-  const int smem = FtSmem<D>::BYTES;
-  auto kernel = lse != nullptr ? ft_kernel<D, true>(mode)
-                               : ft_kernel<D, false>(mode);
+  const int smem = FtSmem<D, DV>::BYTES;
+  auto kernel = lse != nullptr ? ft_kernel<D, DV, true>(mode)
+                               : ft_kernel<D, DV, false>(mode);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + FT_ROWS - 1) / FT_ROWS, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  kernel<<<grid, FtSmem<D>::THREADS, smem, stream>>>(
+  kernel<<<grid, FtSmem<D, DV>::THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KVH,
       window, scale_log2, prefix);
   return cudaGetLastError();
@@ -481,8 +498,9 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace idkd
 
-// bf16 q/o (B, Sq, H, D), k/v (B, Sk, KVH, D), contiguous, 16-byte
-// aligned; D in {64, 96, 128, 256}; H % KVH == 0; causal 1: Sk == Sq,
+// bf16 q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, DV), o (B, Sq,
+// H, DV), contiguous, 16-byte aligned; DV = D in {64, 96, 128, 256}, or
+// (D, DV) = (192, 128) (MLA); H % KVH == 0; causal 1: Sk == Sq,
 // window 0 = full causal, prefix 0 <= P <= Sk (0: none; P > 0 with window
 // 0 only); causal 0: every key visible (window 0, prefix 0); lse null, or
 // (B, H, Sq) f32 for the rows' log-sum-exp (training only). Returns
@@ -491,8 +509,8 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int B, int Sq, int Sk, int H,
-                                         int KVH, int D, int window,
-                                         int causal, int prefix,
+                                         int KVH, int D, int DV,
+                                         int window, int causal, int prefix,
                                          void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
       !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
@@ -501,6 +519,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   const int m = !causal ? idkd::FA_CROSS
                         : prefix > 0 ? idkd::FA_PREFIX : idkd::FA_CAUSAL;
+  if (D == 192 && DV == 128)
+    return (int)idkd::ft_launch<192, 128>(q, k, v, o, l, B, Sq, Sk, H, KVH,
+                                          window, m, prefix, s);
+  if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64:
       return (int)idkd::ft_launch<64>(q, k, v, o, l, B, Sq, Sk, H, KVH,

@@ -4,10 +4,14 @@ or the prefix-LM mask, or bidirectional over a key set of its own length.
 Replaces the Pallas TPU kernel ``flash_attention_pallas`` (body
 ``_flash_kernel``) of ``src/repro/kernels/flash_attention/kernel.py``,
 and computes what the decoder's ``chunked_attention`` computes on its
-path: q (B, Sq, H, D), k/v (B, Sk, KVH, D), head h reading kv head
-h // (H // KVH). Causal (the default, self-attention: Sk = Sq): key kp
-is visible to row qp iff kp <= qp and, for ``window`` > 0,
-qp - window < kp; with ``prefix_len`` P > 0 (PaliGemma's prefix-LM
+path: q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, DV), head h
+reading kv head h // (H // KVH). DV = D, except in MLA's mode
+(DeepSeek-V3's multi-head latent attention), where q and k carry the
+nope and rope dims and v fewer: (D, DV) = (192, 128), and (48, 32) in
+its ``reduced()`` config (:data:`MLA_HEAD_DIMS`); the scores run over D,
+the output (B, Sq, H, DV) over DV. Causal (the default, self-attention:
+Sk = Sq): key kp is visible to row qp iff kp <= qp and, for ``window``
+> 0, qp - window < kp; with ``prefix_len`` P > 0 (PaliGemma's prefix-LM
 mask, ``chunked_attention``'s, not the Pallas kernel's) also iff both
 qp and kp are below P, so the prefix attends bidirectionally and P >= S
 makes every key visible to every row. ``causal=False``
@@ -20,13 +24,15 @@ f32 math, q scaled by 1/sqrt(D) first, output in q's dtype.
 Two CUDA kernels compute it, neither forming the (S, S) scores; their
 header notes give each design and what bounds it on the H100:
 ``csrc/flash_attention_tc.cu`` (``tc``: bf16 at head_dim 64, 96, 128 or
-256, on the tensor cores; 96 runs in two 64-dim column blocks whose
-second half TMA fills with zeros, 256 in 64-key tiles) and
-``csrc/flash_attention.cu`` (``simt``: f32, and bf16 at head_dim 32).
-:func:`_variant` picks one from dtype and head_dim alone;
-:func:`flash_attention` runs it on CUDA tensors and counts the launch in
-``launches``, ``launches_by_variant``, ``launches_by_head_dim`` and
-``launches_by_mode`` ({"causal", "cross", "prefix"} × variant: "cross"
+256 and MLA's (192, 128), on the tensor cores; 96 runs in two 64-dim
+column blocks whose second half TMA fills with zeros, 256 in 64-key
+tiles) and ``csrc/flash_attention.cu`` (``simt``: f32, and bf16 at
+head_dim 32 and MLA's (48, 32)). :func:`_variant` picks one from dtype
+and the head dims alone; :func:`flash_attention` runs it on CUDA tensors
+and counts the launch in ``launches``, ``launches_by_variant``,
+``launches_by_head_dim`` (keyed by D, or by the pair (D, DV) in MLA's
+mode) and ``launches_by_mode`` ({"causal", "cross", "prefix"} ×
+variant: "cross"
 counts every non-causal launch, "prefix" every causal one with
 ``prefix_len`` > 0), and :func:`flash_attention_plain` — the reference's
 chunked online softmax in plain PyTorch — runs on CPU tensors only; a
@@ -42,8 +48,9 @@ more), and its backward is :func:`flash_attention_bwd`
 :func:`flash_attention_bwd_plain` on CPU tensors. The backward has the
 forward's two variants, picked by the same :func:`_variant`:
 ``csrc/flash_attention_bwd_tc.cu`` (``tc``: bf16 at head_dim 64, 96,
-128 or 256, P and dS rounded to bf16 as the tensor cores' operands,
-which ``flash_attention_bwd_plain(..., operands="bf16")`` reproduces)
+128 or 256 and MLA's (192, 128), P and dS rounded to bf16 as the tensor
+cores' operands, which ``flash_attention_bwd_plain(...,
+operands="bf16")`` reproduces)
 and ``csrc/flash_attention_bwd.cu`` (``simt``: f32 math). The JAX
 package has no backward kernel (its training differentiates
 ``chunked_attention``).
@@ -59,6 +66,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128, 256)
 TC_HEAD_DIMS = (64, 96, 128, 256)
+MLA_HEAD_DIMS = ((48, 32), (192, 128))      # MLA's (qk, v) head dims
+TC_MLA_HEAD_DIMS = ((192, 128),)
 MODES = ("causal", "cross", "prefix")
 TC_BWD_TILE = 64       # the tc backward's key and query tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,7 +118,7 @@ def flash_attention_plain(q, k, v, *, window: int = 0, causal: bool = True,
     Sk, KVH = k.shape[1], k.shape[2]
     _check_mode(S, Sk, causal, window, prefix_len)
     G = H // KVH
-    scale = 1.0 / torch.sqrt(torch.tensor(float(D)))
+    scale = 1.0 / torch.sqrt(torch.tensor(float(D)))   # q's D, not v's
     qf = q.reshape(B, S, KVH, G, D).float() * scale
     q_pos = torch.arange(S, device=q.device)
     n_chunks = -(-Sk // chunk)
@@ -134,13 +143,31 @@ def flash_attention_plain(q, k, v, *, window: int = 0, causal: bool = True,
     return out.reshape(B, S, H, -1).to(q.dtype)
 
 
-def _variant(dtype, head_dim: int) -> str:
-    """The kernel that takes (dtype, head_dim): ``"tc"`` (tensor cores)
-    for bf16 at head_dim 64, 96, 128 or 256, ``"simt"`` for f32 and for
-    bf16 at head_dim 32; anything else raises."""
+def _dims(head_dim: int, v_head_dim: int | None = None):
+    """The counters' key of a launch: D, or the pair (D, DV) in MLA's
+    mode."""
+    if v_head_dim is None or v_head_dim == head_dim:
+        return head_dim
+    return (head_dim, v_head_dim)
+
+
+def _variant(dtype, head_dim: int, v_head_dim: int | None = None) -> str:
+    """The kernel that takes (dtype, head_dim[, v_head_dim]): ``"tc"``
+    (tensor cores) for bf16 at head_dim 64, 96, 128 or 256 and at MLA's
+    (192, 128), ``"simt"`` for f32 and for bf16 at head_dim 32 and MLA's
+    (48, 32); anything else raises."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q, k, v, got {dtype}")
+    dims = _dims(head_dim, v_head_dim)
+    if isinstance(dims, tuple):
+        if dims not in MLA_HEAD_DIMS:
+            raise ValueError(
+                f"flash_attention kernel takes (qk, v) head dims in "
+                f"{MLA_HEAD_DIMS} (MLA's mode), got {dims}; other pairs are "
+                f"not ported (ROADMAP.md §2)")
+        return "tc" if dtype == torch.bfloat16 and \
+            dims in TC_MLA_HEAD_DIMS else "simt"
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {head_dim}")
@@ -157,7 +184,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
     lse) under the forward's mask (causal / window / prefix, or none);
     dV = Pᵀ·dO;
     dS = P∘(dO·Vᵀ − D); dQ = dS·K·scale; dK = dSᵀ·Q·scale; dK and dV
-    summed over each KV head's group. ``lse`` (B, H, S) f32 is the
+    summed over each KV head's group. In MLA's mode v, o and dO carry DV
+    dims and q, k D: D and dO·Vᵀ sum over DV, the rest over D, and scale
+    is 1/sqrt(D). ``lse`` (B, H, S) f32 is the
     forward's row log-sum-exp of the scaled scores. Query rows run in
     ``chunk``-long blocks; math in f32 (or float64 inputs' float64),
     gradients in q's dtype. ``operands="bf16"`` rounds P and dS to bf16
@@ -168,14 +197,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
         raise ValueError(f"operands must be 'f32' or 'bf16', got "
                          f"{operands!r}")
     B, S, H, D = q.shape
-    KVH = k.shape[2]
+    KVH, DV = k.shape[2], v.shape[-1]
     _check_mode(S, k.shape[1], causal, window, prefix_len)
     G = H // KVH
     wd = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = 1.0 / float(D) ** 0.5
     qf = q.to(wd).reshape(B, S, KVH, G, D)
     kf, vf = k.to(wd), v.to(wd)
-    dof = do.to(wd).reshape(B, S, KVH, G, D)
+    dof = do.to(wd).reshape(B, S, KVH, G, DV)
     delta = (do.to(wd) * o.to(wd)).sum(-1).reshape(B, S, KVH, G)
     lsef = lse.to(wd).permute(0, 2, 1).reshape(B, S, KVH, G)
     pos = torch.arange(S, device=q.device)
@@ -207,29 +236,31 @@ def _fn(variant: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if variant == "tc":
         fn = build.load("flash_attention_tc").flash_attention_tc_launch
-        args = [p] * 5 + [i] * 9 + [p]
+        args = [p] * 5 + [i] * 10 + [p]
     elif variant == "bwd_simt":
         fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-        args = [i] + [p] * 10 + [i] * 9 + [p]
+        args = [i] + [p] * 10 + [i] * 10 + [p]
     elif variant == "bwd_tc":
         fn = build.load("flash_attention_bwd_tc").flash_attention_bwd_tc_launch
-        args = [p] * 13 + [i] * 9 + [p]
+        args = [p] * 13 + [i] * 10 + [p]
     else:
         fn = build.load("flash_attention").flash_attention_launch
-        args = [i] + [p] * 5 + [i] * 9 + [p]
+        args = [i] + [p] * 5 + [i] * 10 + [p]
     if fn.argtypes is None:
         fn.argtypes = args
         fn.restype = i
     return fn
 
 
-def _shape(q, k, window: int, causal: bool, prefix_len: int, stream):
-    """The kernels' trailing integer arguments and stream; a prefix past
-    the last key is the whole sequence (every key visible to every
-    row)."""
+def _shape(q, k, window: int, causal: bool, prefix_len: int, stream,
+           v=None):
+    """The kernels' trailing integer arguments (D, then v's DV: k's D
+    without ``v``) and stream; a prefix past the last key is the whole
+    sequence (every key visible to every row)."""
     B, S, H, D = q.shape
-    return (B, S, k.shape[1], H, k.shape[2], D, int(window), int(causal),
-            min(int(prefix_len), k.shape[1]), stream)
+    DV = k.shape[-1] if v is None else v.shape[-1]
+    return (B, S, k.shape[1], H, k.shape[2], D, DV, int(window),
+            int(causal), min(int(prefix_len), k.shape[1]), stream)
 
 
 def _mode(causal: bool, prefix_len: int) -> str:
@@ -237,10 +268,10 @@ def _mode(causal: bool, prefix_len: int) -> str:
         "causal" if causal else "cross"
 
 
-def _count(fn, variant: str, D: int, causal: bool, prefix_len: int):
+def _count(fn, variant: str, dims, causal: bool, prefix_len: int):
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
-    fn.launches_by_head_dim[D] += 1
+    fn.launches_by_head_dim[dims] += 1
     fn.launches_by_mode[_mode(causal, prefix_len)][variant] += 1
 
 
@@ -249,11 +280,11 @@ def _launch(variant: str, q, k, v, window: int, causal: bool = True,
     """Run one forward kernel on checked CUDA tensors and count the
     launch; ``lse`` (B, H, Sq) f32, when given, receives the rows'
     log-sum-exp (training only)."""
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:-1] + v.shape[-1:])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
-    shape = _shape(q, k, window, causal, prefix_len, stream)
+    shape = _shape(q, k, window, causal, prefix_len, stream, v)
     with torch.cuda.device(q.device):
         if variant == "tc":
             rc = _fn("tc")(*ptrs, *shape)
@@ -262,7 +293,8 @@ def _launch(variant: str, q, k, v, window: int, causal: bool = True,
     if rc != 0:
         raise RuntimeError(f"flash_attention {variant} kernel launch "
                            f"failed: CUDA error {rc}")
-    _count(flash_attention, variant, q.shape[-1], causal, prefix_len)
+    _count(flash_attention, variant, _dims(q.shape[-1], v.shape[-1]), causal,
+           prefix_len)
     return out
 
 
@@ -270,18 +302,19 @@ def _check(q, k, v, *, causal: bool = True, window: int = 0,
            prefix_len: int = 0):
     """Raise on what the CUDA kernels do not take; returns the variant."""
     B, S, H, D = q.shape
-    Sk, KVH = k.shape[1], k.shape[2]
-    if k.shape != (B, Sk, KVH, D) or v.shape != k.shape or Sk < 1:
+    Sk, KVH, DV = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, Sk, KVH, D) or v.shape != (B, Sk, KVH, DV) or Sk < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: the kernel "
-                         f"takes k, v (B, Sk, KVH, D) with Sk >= 1")
+                         f"takes k (B, Sk, KVH, D), v (B, Sk, KVH, DV) with "
+                         f"Sk >= 1")
     _check_mode(S, Sk, causal, window, prefix_len)
     if KVH < 1 or H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} kv heads")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    variant = _variant(q.dtype, D)
+    variant = _variant(q.dtype, D, DV)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous "
@@ -300,10 +333,10 @@ def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int,
     partials and dQ in an f32 accumulator that the key tiles add into
     (so dQ's summation order varies between runs; dK and dV do not)."""
     B, S, H, D = q.shape
-    Sk = k.shape[1]
+    Sk, DV = k.shape[1], v.shape[-1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape = _shape(q, k, window, causal, prefix_len, stream)
+    shape = _shape(q, k, window, causal, prefix_len, stream, v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
@@ -313,7 +346,7 @@ def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int,
             ld = torch.empty((B, H, sp, 2), device=dev)
             dq_acc = torch.empty((B, H, sp, D), device=dev)
             dk_part = torch.empty((B, Sk, H, D), device=dev)
-            dv_part = torch.empty((B, Sk, H, D), device=dev)
+            dv_part = torch.empty((B, Sk, H, DV), device=dev)
             rc = _fn("bwd_tc")(*ptrs, ld.data_ptr(), dq_acc.data_ptr(),
                                dk_part.data_ptr(), dv_part.data_ptr(),
                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -326,7 +359,7 @@ def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int,
     if rc != 0:
         raise RuntimeError(f"flash_attention backward {variant} kernel "
                            f"launch failed: CUDA error {rc}")
-    _count(flash_attention_bwd, variant, D, causal, prefix_len)
+    _count(flash_attention_bwd, variant, _dims(D, DV), causal, prefix_len)
     return dq, dk, dv
 
 
@@ -337,12 +370,13 @@ def _bwd_check(q, k, v, o, lse, do, *, causal: bool = True,
     variant = _check(q, k, v, causal=causal, window=window,
                      prefix_len=prefix_len)
     B, S, H, D = q.shape
+    o_shape = (B, S, H, v.shape[-1])
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype \
+        if t.shape != o_shape or t.dtype != q.dtype \
                 or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} must be a "
-                             f"contiguous {q.dtype} {tuple(q.shape)} tensor "
-                             f"on {q.device}")
+                             f"contiguous {q.dtype} {o_shape} tensor on "
+                             f"{q.device}")
         if variant == "tc" and t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} must start on a "
                              f"16-byte boundary (TMA)")
@@ -359,8 +393,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: int = 0,
     """(dq, dk, dv) of ``flash_attention`` given its output ``o``, its
     rows' log-sum-exp ``lse`` (B, H, Sq) f32 and dO: on CUDA tensors the
     kernels of the forward's variant (``csrc/flash_attention_bwd_tc.cu``
-    for bf16 at head_dim 64/96/128/256, ``csrc/flash_attention_bwd.cu``
-    otherwise; one launch counted per call), on CPU tensors
+    for bf16 at head_dim 64/96/128/256 and MLA's (192, 128),
+    ``csrc/flash_attention_bwd.cu`` otherwise; one launch counted per
+    call), on CPU tensors
     :func:`flash_attention_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, window=window,
@@ -379,7 +414,7 @@ def _zero_counts(fn):
     """Set a kernel entry's launch counters to zero."""
     fn.launches = 0
     fn.launches_by_variant = {"tc": 0, "simt": 0}
-    fn.launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+    fn.launches_by_head_dim = dict.fromkeys(HEAD_DIMS + MLA_HEAD_DIMS, 0)
     fn.launches_by_mode = {m: {"tc": 0, "simt": 0} for m in MODES}
 
 
@@ -397,8 +432,8 @@ class FlashAttentionFn(torch.autograd.Function):
                 prefix_len: int = 0):
         B, S, H, _ = q.shape
         lse = torch.empty((B, H, S), device=q.device)
-        out = _launch(_variant(q.dtype, q.shape[-1]), q, k, v, window,
-                      causal, lse, prefix_len)
+        out = _launch(_variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
+                      window, causal, lse, prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.causal, ctx.prefix_len = window, causal, prefix_len
         return out
@@ -417,8 +452,9 @@ def flash_attention(q, k, v, *, window: int = 0, causal: bool = True,
                     prefix_len: int = 0, chunk: int = 512):
     """GQA attention: causal with a per-layer ``window`` (0 = full) or a
     bidirectional prefix of ``prefix_len`` positions (the prefix-LM
-    mask), or with ``causal=False`` every key of k, v (B, Sk, KVH, D)
-    visible to every row (cross-attention). ``chunk`` is the plain
+    mask), or with ``causal=False`` every key of k (B, Sk, KVH, D), v (B,
+    Sk, KVH, DV) visible to every row (cross-attention); the output is
+    (B, Sq, H, DV). ``chunk`` is the plain
     version's key block; the kernels tile keys by 64 (``simt``, and
     ``tc`` at head_dim 256) or 128 (``tc``). With grad enabled and an
     input that requires grad the call goes through

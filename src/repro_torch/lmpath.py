@@ -4,7 +4,9 @@ Hymba-1.5B nodes on a ring (:func:`setup`), decentralized training
 with IDKD (``launch.train.run_training``) of the same nodes
 (:func:`train`), and the decentralized train step
 (``launch.steps.make_train_step``, :func:`train_steps`) of
-MusicGen-medium and PaliGemma-3B.
+MusicGen-medium and PaliGemma-3B, and the MoE family's round, training
+and prefill (``launch.steps.make_prefill_step``) of DeepSeek-V3 and
+Arctic.
 
 * Model: Hymba-1.5B as configured (32 layers, d_model 1600, 25 heads /
   5 KV heads × 64, d_ff 5504, SSM 50 heads × 64 with state 16 and chunk
@@ -89,6 +91,49 @@ MusicGen-medium and PaliGemma-3B.
   4 nodes × 2 × 4096 tokens would not fit beside the state), and depth
   (a few steps).
 
+* The MoE family at full width. Widths and expert counts are the
+  published ones but where a cut is named; depth is cut, and the node
+  count. Parameters (bf16) counted as the port's ``init`` makes them.
+
+  - :data:`DEEPSEEK_ROUND_CONFIG`: DeepSeek-V3 (``deepseek-v3-671b``:
+    d_model 7168, 128 heads of multi-head latent attention — q_lora
+    1536, kv_lora 512, qk head dim 128 nope + 64 rope, v 128 —, dense
+    d_ff 18,432, all 256 routed experts top-8 with the sigmoid router
+    and 1 shared expert, d_ff 2048 each, vocabulary 129,280), depth cut
+    to 2 layers (``first_k_dense`` 1 + 1 MoE layer) and ``mtp_depth`` 0
+    (neither the round nor prefill reads the MTP leaves), on
+    :data:`DEEPSEEK_NODES` = 2 ring nodes: the embedding and head 2 ×
+    129,280 × 7168 = 1.853 B, the dense layer 0.583 B (MLA 0.187 B,
+    GLU 0.396 B), the MoE layer 11.507 B (256 × 3 × 7168 × 2048 =
+    11.274 B of experts, the shared expert 0.044 B, the router, MLA):
+    13.94 B a node, 27.9 GB in bf16, 55.8 GB for two, filled in place
+    by :func:`node_params` one leaf, or one expert of a bank, at a
+    time (a node built whole and then copied would peak at 3 nodes,
+    84 GB). The round is :func:`setup`'s at seq_len 2048 (top-8 sparse
+    labels, T = 10, 8 public sequences a microbatch); the prefill
+    (``make_prefill_step``) takes :data:`DEEPSEEK_PREFILL_BATCH` = 1
+    sequence of 2048 tokens a node and returns every logit, (2, 1,
+    2048, 129,280) bf16 = 1.06 GB.
+  - :data:`DEEPSEEK_TRAIN_CONFIG`, :data:`DEEPSEEK_TRAIN`: the same
+    model with ``mtp_depth`` 1 and **16 routed experts** (top-8 kept),
+    the one width cut: two nodes' params, grads and momentum with 256
+    experts would take 2 × 11.3 B × 6 B ≈ 135 GB for the MoE layer
+    alone. With 16 a node holds the embedding and head 1.853 B, the
+    dense layer 0.583 B, the MoE layer 0.936 B and the MTP block
+    (``mtp_proj`` and an MoE layer) 1.039 B: 4.41 B, ≈ 53 GB of state
+    for two ring nodes, trained with :data:`TRAIN`'s schedule (2 plain
+    steps, the round at step 2, 2 sparse-KD steps; every layer
+    recomputed) at batch 1 and :data:`DEEPSEEK_PUB_BATCH` = 2 public
+    sequences a KD step, as :data:`QWEN3_TRAIN`.
+  - :data:`ARCTIC_PREFILL_CONFIG`: Arctic (``arctic-480b``: d_model
+    7168, 56/8 heads × 128, 128 experts top-2 with the softmax router,
+    expert and dense-residual d_ff 4864, vocabulary 32,000), depth cut
+    to 1 layer, 1 node: 14.07 B parameters (13.39 B of experts), 28.1
+    GB; a prefill of :data:`ARCTIC_PREFILL_BATCH` = 2 sequences of 2048
+    tokens. It runs the softmax router and the dense residual at full
+    width; Arctic's round and training at full width are not run
+    (ROADMAP.md).
+
 ``setup``, ``train`` and ``train_steps`` take the same arguments at any
 size, so the CPU tests drive this module with a reduced config.
 """
@@ -136,6 +181,20 @@ MUSICGEN_TRAIN = dataclasses.replace(TRAIN, steps=3, idkd=None)
 MUSICGEN_SEQ_LEN = 1500
 PALIGEMMA_TRAIN = dataclasses.replace(TRAIN, steps=3, idkd=None)
 PALIGEMMA_TEXT_LEN = 256
+_DEEPSEEK = get_config("deepseek-v3-671b")
+DEEPSEEK_ROUND_CONFIG = _DEEPSEEK.replace(
+    num_layers=2, mtp_depth=0,
+    moe=dataclasses.replace(_DEEPSEEK.moe, first_k_dense=1))
+DEEPSEEK_NODES = 2
+DEEPSEEK_PREFILL_BATCH = 1
+DEEPSEEK_TRAIN_CONFIG = DEEPSEEK_ROUND_CONFIG.replace(
+    mtp_depth=1, moe=dataclasses.replace(DEEPSEEK_ROUND_CONFIG.moe,
+                                         num_experts=16))
+DEEPSEEK_TRAIN = dataclasses.replace(TRAIN, num_nodes=DEEPSEEK_NODES,
+                                     batch_size=1)
+DEEPSEEK_PUB_BATCH = 2
+ARCTIC_PREFILL_CONFIG = get_config("arctic-480b").replace(num_layers=1)
+ARCTIC_PREFILL_BATCH = 2
 
 
 @dataclass
@@ -158,17 +217,18 @@ class LMRound:
 
 @torch.no_grad()
 def node_params(model: DecoderModel, seeds: Sequence[int], device):
-    """Node-stacked params, node i drawn from ``seeds[i]``; each node is
-    copied into the stack as it is made, so the peak is one node over."""
-    stacked = None
+    """Node-stacked params, node i drawn from ``seeds[i]``: each piece of
+    ``model.pieces`` (a whole leaf, or one expert of an expert bank) is
+    written into its place in the stack as it is drawn, so the peak is
+    the stack and one piece over it (the same values as ``model.init``
+    stacked)."""
+    stacked = {}
     for i, seed in enumerate(seeds):
-        p = model.init(seed, device)
-        if stacked is None:
-            stacked = {k: torch.empty((len(seeds),) + v.shape, dtype=v.dtype,
-                                      device=v.device) for k, v in p.items()}
-        for k, v in p.items():
-            stacked[k][i].copy_(v)
-        del p
+        for path, shape, idx, piece in model.pieces(seed, device):
+            if path not in stacked:
+                stacked[path] = piece.new_empty((len(seeds),) + shape)
+            stacked[path][(i,) + idx].copy_(piece)
+            del piece
     return stacked
 
 

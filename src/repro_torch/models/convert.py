@@ -12,8 +12,11 @@ QG-DSGDm-N trains params in place.
   kw)``; EvoNorm vectors and ``fc_w``/``fc_b`` carry across unchanged.
 * Decoder (:func:`from_jax_lm_params`, :func:`to_jax_lm_params`): every
   leaf keeps its shape and its dtype — Hymba's bf16 weights stay bf16
-  and its f32 ``a_log``/``dt_bias``/``d_skip`` stay f32; nothing is
-  transposed (``ssm/conv_w`` is a ``(W, C)`` table, not a conv kernel).
+  and its f32 ``a_log``/``dt_bias``/``d_skip`` stay f32, as do an MoE
+  layer's f32 ``router_bias`` beside its (layer, E, d, dff) expert
+  banks; nothing is transposed (``ssm/conv_w`` is a ``(W, C)`` table,
+  not a conv kernel). Every segment (``layers_0``, ``layers_1``) and the
+  MLA and ``mtp_*`` leaves cross as they are.
   bf16 crosses as f32 and is cast back, which is exact: numpy's
   bfloat16 (``ml_dtypes``) is not a type ``torch.from_numpy`` takes.
 """

@@ -59,6 +59,13 @@ def init_evonorm(c: int, dtype=torch.float32):
 
 
 # ------------------------------------------------------------ decoder init
+def sub(params, prefix: str):
+    """The leaves of a flat params dict under ``prefix``, keyed by the rest
+    of their path."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float | None = None):
     """Truncated-normal fan-in init: N(0, 1) cut at ±3, times 1/sqrt(d_in)
@@ -100,6 +107,13 @@ def apply_norm(params, x, cfg: ModelConfig):
         ms = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * params["scale"].float()
     return y.to(x.dtype)
+
+
+def rms_norm_f32(x, scale, eps: float):
+    """RMS norm over the last axis in f32, cast back to x's dtype."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
 def rms_head_norm(x, scale, eps: float = 1e-6):

@@ -3,7 +3,9 @@
 Parameters are a flat dict of tensors keyed by the reference's pytree
 paths joined with ``/`` (``"embed"``, ``"head"``, ``"meta_tokens"``,
 ``"layers_0/attn/wq"``, ``"layers_0/ssm/w_in"``, ``"ln_f/scale"``, ...);
-layer leaves carry the reference's leading layer axis. :meth:`init`
+layer leaves carry the reference's leading layer axis, one ``layers_<i>``
+per segment (:attr:`DecoderModel.segments`: DeepSeek-V3's leading dense
+layers then its MoE layers, each segment its own stack). :meth:`init`
 makes one node's params; node-stacked params (a leading node axis on
 every leaf, as the port's ResNet has) are what :meth:`forward_features`,
 :meth:`logits`, :meth:`forward` and :meth:`head_params` take, with
@@ -23,46 +25,49 @@ attention ∥ SSM heads with branch norms, per-layer sliding windows,
 meta tokens —, MusicGen's — summed codebook embeddings, per-codebook
 heads and a cross-attention block per layer over the conditioning — and
 PaliGemma's: patch embeddings before the tokens, attended under the
-prefix-LM mask and stripped after the final norm. MoE, MLA, multi-token
-prediction (ROADMAP.md item 10c) and decode (item 10b) raise
+prefix-LM mask and stripped after the final norm —, and the MoE family's:
+mixture-of-experts FFNs (``models/moe.py``; their aux loss summed over
+layers into :meth:`forward_features`' aux and weighted by
+``router_aux_coef`` in :meth:`loss`), DeepSeek-V3's multi-head latent
+attention and its multi-token prediction (``mtp_proj``, ``mtp_layer``,
+``mtp_ln``; one extra layer predicting the token after next, 0.1 of
+its loss added). Decode (ROADMAP.md item 10b) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.convert import _flatten
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm,
-                                       normal_init)
+                                       normal_init, rms_norm_f32, sub)
 from repro_torch.runtime import resolve_device
 
 Params = Dict[str, torch.Tensor]
-LAYERS = "layers_0/"
 
 
-def sub(params: Params, prefix: str) -> Params:
-    """The leaves under ``prefix``, keyed by the rest of their path."""
-    n = len(prefix)
-    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+class Segment(NamedTuple):
+    kind: str        # 'dense' | 'moe'
+    num_layers: int
 
 
-def _rms(x, scale, eps: float):
-    xf = x.float()
-    ms = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
-
-
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype):
+    """One layer's leaves as ``(key, shape, index, piece)``, as
+    ``moe.init_moe`` yields them (an expert bank one expert at a time;
+    every other leaf whole, ``index`` ())."""
     dev = gen.device
     p = {"ln1": init_norm(cfg, cfg.d_model, dtype, dev)}
-    if not cfg.is_attention_free:
+    if cfg.mla.enabled:
+        p["attn"] = attn.init_mla(gen, cfg, dtype)
+    elif not cfg.is_attention_free:
         p["attn"] = attn.init_attention(gen, cfg, dtype)
     if cfg.ssm.enabled:
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype)
@@ -74,10 +79,15 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
     if cfg.cross_attention:
         p["ln_cross"] = init_norm(cfg, cfg.d_model, dtype, dev)
         p["cross"] = attn.init_cross_attention(gen, cfg, dtype)
-    if cfg.d_ff:
+    if cfg.d_ff or kind == "moe":
         p["ln2"] = init_norm(cfg, cfg.d_model, dtype, dev)
-        p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
-    return dict(_flatten(p))
+        if kind != "moe":
+            p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
+    for k, v in _flatten(p):
+        yield k, tuple(v.shape), (), v
+    if kind == "moe":
+        for k, shape, idx, v in moe_mod.init_moe(gen, cfg, dtype):
+            yield "moe/" + k, shape, idx, v
 
 
 def _mix_forward(p: Params, h, cfg: ModelConfig, window: int):
@@ -86,28 +96,36 @@ def _mix_forward(p: Params, h, cfg: ModelConfig, window: int):
         a = attn.attention_forward(sub(p, "attn/"), h, cfg,
                                    layer_window=window)
         s = ssm_mod.ssm_forward(sub(p, "ssm/"), h, cfg)
-        return 0.5 * (_rms(a, p["attn_branch_norm"], cfg.norm_eps)
-                      + _rms(s, p["ssm_branch_norm"], cfg.norm_eps))
+        return 0.5 * (rms_norm_f32(a, p["attn_branch_norm"], cfg.norm_eps)
+                      + rms_norm_f32(s, p["ssm_branch_norm"], cfg.norm_eps))
     if cfg.ssm.enabled:
         return ssm_mod.ssm_forward(sub(p, "ssm/"), h, cfg)
+    if cfg.mla.enabled:
+        return attn.mla_forward(sub(p, "attn/"), h, cfg)
     return attn.attention_forward(sub(p, "attn/"), h, cfg,
                                   layer_window=window)
 
 
-def _layer_forward(p: Params, x, cfg: ModelConfig, window: int,
+def _layer_forward(p: Params, x, cfg: ModelConfig, kind: str, window: int,
                    memory=None):
-    """One layer; the cross-attention block runs only with a ``memory``
-    (a batch without conditioning skips it, as the reference's)."""
+    """One layer -> (x, its MoE aux loss, 0 for a dense FFN); the
+    cross-attention block runs only with a ``memory`` (a batch without
+    conditioning skips it, as the reference's)."""
     h = apply_norm(sub(p, "ln1/"), x, cfg)
     x = x + _mix_forward(p, h, cfg, window)
+    aux = torch.zeros((), device=x.device)
     if memory is not None:
         h = apply_norm(sub(p, "ln_cross/"), x, cfg)
         x = x + attn.cross_attention_forward(sub(p, "cross/"), h, memory,
                                              cfg)
     if "ln2/scale" in p:
         h = apply_norm(sub(p, "ln2/"), x, cfg)
-        x = x + apply_mlp(sub(p, "mlp/"), h, cfg)
-    return x
+        if kind == "moe":
+            y, aux = moe_mod.moe_forward(sub(p, "moe/"), h, cfg)
+        else:
+            y = apply_mlp(sub(p, "mlp/"), h, cfg)
+        x = x + y
+    return x, aux
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -136,14 +154,15 @@ class DecoderModel:
     input_key = "tokens"
 
     def __init__(self, cfg: ModelConfig):
-        missing = [name for name, on in (
-            ("MoE", cfg.moe.enabled), ("MLA", cfg.mla.enabled),
-            ("multi-token prediction", cfg.mtp_depth > 0)) if on]
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} not ported (ROADMAP.md "
-                "item 10c)")
         self.cfg = cfg
+        if cfg.moe.enabled and cfg.moe.first_k_dense:
+            self.segments = [Segment("dense", cfg.moe.first_k_dense),
+                             Segment("moe", cfg.num_layers
+                                     - cfg.moe.first_k_dense)]
+        elif cfg.moe.enabled:
+            self.segments = [Segment("moe", cfg.num_layers)]
+        else:
+            self.segments = [Segment("dense", cfg.num_layers)]
 
     def layer_windows(self) -> List[int]:
         """Per-layer sliding window (0 = global): Hymba's pattern keeps
@@ -156,49 +175,94 @@ class DecoderModel:
             i % cfg.global_attn_every == 0 or i == L - 1)
             else cfg.sliding_window for i in range(L)]
 
+    def _segment_windows(self) -> List[List[int]]:
+        w = self.layer_windows()
+        out, off = [], 0
+        for seg in self.segments:
+            out.append(w[off:off + seg.num_layers])
+            off += seg.num_layers
+        return out
+
     # -- init -----------------------------------------------------------
+    @torch.no_grad()
+    def pieces(self, seed: int, device="cuda"):
+        """One node's params drawn on ``device`` from ``seed``, yielded as
+        ``(path, shape, index, piece)``: leaf ``path`` of ``shape`` gets
+        ``piece`` at ``index`` (a layer, or a layer and an expert, or ()
+        for a whole leaf). :meth:`init` assembles them; ``lmpath.
+        node_params`` writes them straight into a node-stacked leaf, so a
+        full-width model is never held twice."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
+
+        def whole(path, t):
+            return path, tuple(t.shape), (), t
+        yield whole("embed", embed_init(gen, V, d, dtype))
+        if K > 1:                           # (K - 1, V, d), stacked
+            for i in range(K - 1):
+                yield "embed_cb", (K - 1, V, d), (i,), \
+                    embed_init(gen, V, d, dtype)
+        if not cfg.tie_embeddings:          # (K, d, V) for K codebooks
+            if K > 1:
+                for i in range(K):
+                    yield "head", (K, d, V), (i,), dense_init(gen, d, V,
+                                                              dtype)
+            else:
+                yield whole("head", dense_init(gen, d, V, dtype))
+        if cfg.num_prefix_tokens and cfg.arch_type == "hybrid":
+            yield whole("meta_tokens", normal_init(
+                gen, (cfg.num_prefix_tokens, cfg.d_model), 0.02, dtype))
+        for si, seg in enumerate(self.segments):
+            for li in range(seg.num_layers):
+                for k, shape, idx, v in _init_layer(gen, cfg, seg.kind,
+                                                    dtype):
+                    yield (f"layers_{si}/{k}", (seg.num_layers,) + shape,
+                           (li,) + idx, v)
+        for k, v in init_norm(cfg, cfg.d_model, dtype, gen.device).items():
+            yield whole(f"ln_f/{k}", v)
+        if cfg.mtp_depth:
+            yield whole("mtp_proj", dense_init(gen, 2 * d, d, dtype))
+            for k, shape, idx, v in _init_layer(gen, cfg,
+                                                self.segments[-1].kind,
+                                                dtype):
+                yield "mtp_layer/" + k, shape, idx, v
+            for k, v in init_norm(cfg, d, dtype, gen.device).items():
+                yield whole(f"mtp_ln/{k}", v)
+
     @torch.no_grad()
     def init(self, seed: int, device="cuda") -> Params:
         """One node's params, drawn on ``device`` from ``seed`` (a
         ``torch.Generator``: not the reference's threefry numbers, the
         same distributions and dtypes)."""
-        cfg = self.cfg
-        dtype = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
-        p: Params = {"embed": embed_init(gen, V, d, dtype)}
-        if K > 1:                           # (K - 1, V, d), stacked
-            p["embed_cb"] = torch.stack([embed_init(gen, V, d, dtype)
-                                         for _ in range(K - 1)])
-        if not cfg.tie_embeddings:          # (K, d, V) for K codebooks
-            p["head"] = torch.stack([dense_init(gen, d, V, dtype)
-                                     for _ in range(K)]) if K > 1 else \
-                dense_init(gen, d, V, dtype)
-        if cfg.num_prefix_tokens and cfg.arch_type == "hybrid":
-            p["meta_tokens"] = normal_init(
-                gen, (cfg.num_prefix_tokens, cfg.d_model), 0.02, dtype)
-        layers = [_init_layer(gen, cfg, dtype) for _ in range(cfg.num_layers)]
-        for k in layers[0]:
-            p[LAYERS + k] = torch.stack([lp[k] for lp in layers])
-        del layers
-        p.update({f"ln_f/{k}": v for k, v in
-                  init_norm(cfg, cfg.d_model, dtype, gen.device).items()})
+        p: Params = {}
+        for path, shape, idx, piece in self.pieces(seed, device):
+            if not idx:
+                p[path] = piece
+                continue
+            if path not in p:
+                p[path] = piece.new_empty(shape)
+            p[path][idx] = piece
         return p
 
     # -- one node -------------------------------------------------------
-    def _hidden_one(self, p: Params, tokens, memory=None, patches=None):
-        """One node's post-stack, post-final-norm hidden states (B, S, d)
-        with the meta tokens or patches stripped; ``memory`` (B, Sk, d),
-        the conditioning that every layer's cross-attention reads;
-        ``patches`` (B, P, d), a VLM's patch embeddings, put before the
-        tokens."""
-        cfg = self.cfg
-        if cfg.num_codebooks > 1:           # tokens (B, S, K): summed
+    def _embed(self, p: Params, tokens):
+        if self.cfg.num_codebooks > 1:      # tokens (B, S, K): summed
             h = p["embed"][tokens[..., 0]]
             for i, table in enumerate(torch.unbind(p["embed_cb"])):
                 h = h + table[tokens[..., i + 1]]
-        else:
-            h = p["embed"][tokens]
+            return h
+        return p["embed"][tokens]
+
+    def _hidden_one(self, p: Params, tokens, memory=None, patches=None):
+        """One node's post-stack, post-final-norm hidden states (B, S, d)
+        with the meta tokens or patches stripped, and the sum of its MoE
+        layers' aux losses; ``memory`` (B, Sk, d), the conditioning that
+        every layer's cross-attention reads; ``patches`` (B, P, d), a
+        VLM's patch embeddings, put before the tokens."""
+        cfg = self.cfg
+        h = self._embed(p, tokens)
         n_prefix = 0
         if cfg.arch_type == "hybrid" and cfg.num_prefix_tokens:
             meta = p["meta_tokens"][None].expand(
@@ -208,17 +272,23 @@ class DecoderModel:
         if patches is not None:
             h = torch.cat([patches, h], dim=1)
             n_prefix = patches.shape[1]
-        layers = {k: torch.unbind(v) for k, v in sub(p, LAYERS).items()}
         remat = _remat(cfg) and torch.is_grad_enabled()
-        for li, window in enumerate(self.layer_windows()):
-            lp = {k: v[li] for k, v in layers.items()}
-            if remat:
-                h = checkpoint(_layer_forward, lp, h, cfg, window, memory,
-                               use_reentrant=False)
-            else:
-                h = _layer_forward(lp, h, cfg, window, memory)
+        aux = torch.zeros((), device=h.device)
+        for si, (seg, windows) in enumerate(zip(self.segments,
+                                                self._segment_windows())):
+            layers = {k: torch.unbind(v)
+                      for k, v in sub(p, f"layers_{si}/").items()}
+            for li, window in enumerate(windows):
+                lp = {k: v[li] for k, v in layers.items()}
+                if remat:
+                    h, a = checkpoint(_layer_forward, lp, h, cfg, seg.kind,
+                                      window, memory, use_reentrant=False)
+                else:
+                    h, a = _layer_forward(lp, h, cfg, seg.kind, window,
+                                          memory)
+                aux = aux + a
         h = apply_norm(sub(p, "ln_f/"), h, cfg)
-        return h[:, n_prefix:] if n_prefix else h
+        return (h[:, n_prefix:] if n_prefix else h), aux
 
     # -- node-stacked ---------------------------------------------------
     def forward_features(self, params: Params, batch):
@@ -227,7 +297,8 @@ class DecoderModel:
         ``batch["conditioning"]`` (L, B, Sk, d), for a VLM its
         ``batch["patch_embeddings"]`` (L, B, P, d) (a VLM batch without
         them raises ``KeyError``, as the reference's), each cast to the
-        params' dtype; returns (h, aux) with aux 0 (no MoE)."""
+        params' dtype; returns (h, aux): aux (L,) f32, each node's MoE
+        aux loss summed over its layers, or 0 without MoE."""
         tokens = torch.as_tensor(batch[self.input_key])
         dev, dtype = params["embed"].device, params["embed"].dtype
         tokens = tokens.to(device=dev, dtype=torch.long)
@@ -244,12 +315,14 @@ class DecoderModel:
             patches = torch.as_tensor(batch["patch_embeddings"]).to(
                 device=dev, dtype=dtype)
         nodes = {k: torch.unbind(v) for k, v in params.items()}
-        h = torch.stack([self._hidden_one(
+        hs, auxs = zip(*(self._hidden_one(
             {k: v[i] for k, v in nodes.items()}, tokens[i],
             None if memory is None else memory[i],
             None if patches is None else patches[i])
-            for i in range(tokens.shape[0])])
-        return h, torch.zeros((), device=dev)
+            for i in range(tokens.shape[0])))
+        aux = torch.stack(auxs) if self.cfg.moe.enabled \
+            else torch.zeros((), device=dev)
+        return torch.stack(hs), aux
 
     def head_params(self, params: Params):
         """(unembedding (L, d, V), bias None) — the matrix head_select
@@ -286,8 +359,12 @@ class DecoderModel:
         """Next-token loss of every node: ``(loss (L,), metrics)``, the
         f32 log-sum-exp of the logits minus the gold logit, averaged over
         ``batch["loss_mask"]`` (all positions when absent; over (B, S, K)
-        with K codebooks), as the reference's ``loss``. MTP and MoE terms
-        are not ported (the constructor refuses those configs)."""
+        with K codebooks), plus, as the reference's ``loss``, the
+        multi-token-prediction loss (:meth:`_mtp_loss`) with
+        ``mtp_depth`` and ``router_aux_coef`` times the MoE aux loss;
+        ``metrics`` holds the next-token loss alone (``"nll"``) and the
+        aux loss (``"aux"``)."""
+        cfg = self.cfg
         h, aux = self.forward_features(params, batch)
         logits = self.logits(params, h).float()
         labels = torch.as_tensor(batch["labels"]).to(device=logits.device,
@@ -305,7 +382,42 @@ class DecoderModel:
                     ).expand(nll.shape)
         dims = tuple(range(1, nll.dim()))
         loss = (nll * mask).sum(dims) / torch.clamp(mask.sum(dims), min=1.0)
-        return loss, {"nll": loss, "aux": aux}
+        metrics = {"nll": loss, "aux": aux}
+        if cfg.mtp_depth:
+            loss = loss + self._mtp_loss(params, batch, h, labels)
+        if cfg.moe.enabled:
+            loss = loss + cfg.moe.router_aux_coef * aux
+        return loss, metrics
+
+    def _mtp_loss(self, params: Params, batch, h, labels):
+        """DeepSeek-V3's multi-token prediction, per node: [mtp_ln(h_t) ;
+        emb(token t+1)] through ``mtp_proj`` and one extra layer of the
+        last segment's kind (its aux dropped), the shared head predicting
+        token t+2 (labels rolled by one); the wrapped last position
+        masked; 0.1 times the mean."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch[self.input_key]).to(
+            device=h.device, dtype=torch.long)
+        kind = self.segments[-1].kind
+        nodes = {k: torch.unbind(v) for k, v in params.items()
+                 if k.startswith(("mtp_", "embed"))}
+        out = []
+        for i, hi in enumerate(torch.unbind(h)):
+            p = {k: v[i] for k, v in nodes.items()}
+            x = apply_norm(sub(p, "mtp_ln/"), hi, cfg)
+            emb = self._embed(p, torch.roll(tokens[i], -1, dims=1))
+            x = torch.cat([x, emb], dim=-1) @ p["mtp_proj"]
+            x, _ = _layer_forward(sub(p, "mtp_layer/"), x, cfg, kind, 0)
+            out.append(x)
+        logits = self.logits(params, torch.stack(out)).float()
+        lab = torch.roll(labels, -1, dims=2)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        S = tokens.shape[2]
+        mask = (torch.arange(S, device=h.device) < S - 1).float()
+        mask = mask.expand(lse.shape)
+        return 0.1 * ((lse - gold) * mask).sum((1, 2)) / torch.clamp(
+            mask.sum((1, 2)), min=1.0)
 
     def init_decode_state(self, batch: int, context: int):
         raise NotImplementedError("decode (KV cache, SSM state) is not "

@@ -21,11 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.runtime import resolve_device
+
 METRIC_FIELDS = ("loss_sum", "grad_sq_sum", "consensus_sq", "ef_sq")
 
 
-def init_node_metrics(n: int, device="cpu"):
-    """Zeroed metrics dict for ``n`` nodes on ``device``."""
+def init_node_metrics(n: int, device="cuda"):
+    """Zeroed metrics dict for ``n`` nodes on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     z = torch.zeros((n,), dtype=torch.float32, device=device)
     return {"steps": torch.zeros((), dtype=torch.int32, device=device),
             "loss_sum": z, "grad_sq_sum": z.clone(),

@@ -26,6 +26,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.runtime import resolve_device
+
 from repro_torch.resil.faults import DEFAULT_MAX_ABS
 
 GUARD_COUNTERS = ("nonfinite_loss", "nonfinite_grad", "nonfinite_param",
@@ -55,8 +57,10 @@ class GuardSpec:
     validate_wire: bool = True
 
 
-def init_node_guard(n: int, device="cpu"):
-    """Zeroed guard dict for ``n`` nodes on ``device``."""
+def init_node_guard(n: int, device="cuda"):
+    """Zeroed guard dict for ``n`` nodes on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     g = {"steps": torch.zeros((), dtype=torch.int32, device=device),
          "loss_ema": torch.zeros((n,), dtype=torch.float32, device=device)}
     for k in GUARD_COUNTERS:

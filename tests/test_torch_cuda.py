@@ -384,20 +384,23 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, S, H, KVH, D,
     _check_bwd(dtype, 2 if S < 2176 else 1, S, S, H, KVH, D, window, True)
 
 
-def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal, prefix_len=0):
+def _check_bwd(dtype, B, S, Sk, H, KVH, D, window, causal, prefix_len=0,
+               Dv=None):
     """The body of the backward tests: causal (Sk = S; with a prefix-LM
     mask of ``prefix_len``) or not, by the rules
-    test_cuda_flash_attention_bwd_matches_plain states."""
+    test_cuda_flash_attention_bwd_matches_plain states; ``Dv``, v's head
+    dim in MLA's mode (D by default)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.flash_attention.ops import _variant
     g = torch.Generator(device="cuda").manual_seed(3)
     dt = getattr(torch, dtype)
-    variant = _variant(dt, D)
+    Dv = D if Dv is None else Dv
+    variant = _variant(dt, D, Dv)
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
     k = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
-    v = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
-    do = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Sk, KVH, Dv), generator=g, device="cuda").to(dt)
+    do = torch.randn((B, S, H, Dv), generator=g, device="cuda").to(dt)
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
     n_var = flash_attention_bwd.launches_by_variant[variant]
@@ -566,6 +569,40 @@ def test_cuda_flash_attention_prefix_bwd_matches_plain(dtype, B, S, P, H,
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
     _check_bwd(dtype, B, S, S, H, KVH, D, 0, True, P)
+
+
+# MLA's mode (qk head dim D, v head dim Dv): DeepSeek-V3's (192, 128) on
+# both variants, its reduced (48, 32) on the SIMT kernels; ragged S, GQA
+MLA = [(2, 75, 4, 4, 48, 32), (2, 200, 4, 1, 48, 32),
+       (1, 333, 8, 8, 192, 128), (1, 130, 4, 2, 192, 128),
+       (1, 2048, 16, 16, 192, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KVH,D,Dv", MLA)
+def test_cuda_flash_attention_mla_matches_plain(dtype, B, S, H, KVH, D, Dv):
+    """On the card: MLA's mode, forward (2e-5 in f32, one bf16 ulp of the
+    output in bf16; (B, S, H, Dv) out, counted under the (D, Dv) pair)
+    and backward (the rules of
+    test_cuda_flash_attention_bwd_matches_plain)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, S, KVH, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, S, KVH, Dv), generator=g, device="cuda").to(dt)
+    n0 = flash_attention.launches_by_head_dim[(D, Dv)]
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches_by_head_dim[(D, Dv)] == n0 + 1
+    assert out.dtype == dt and out.shape == (B, S, H, Dv)
+    ref = flash_attention_plain(q, k, v)
+    atol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    _check_bwd(dtype, B, S, S, H, KVH, D, 0, True, Dv=Dv)
 
 
 @pytest.mark.cuda

@@ -41,11 +41,12 @@ N, STEPS, EVAL = 4, 12, 3
 SIDES = {
     "ref": dict(sched=jsched, Topology=JTopology, obs=jobs,
                 metrics=jmetrics, guards=jguards, Guard=JGuardSpec,
-                Resil=JResilience, Crash=JCrash, arr=jnp.asarray),
+                Resil=JResilience, Crash=JCrash, arr=jnp.asarray, dev={}),
     "port": dict(sched=tsched, Topology=TTopology, obs=tobs,
                  metrics=tmetrics, guards=tguards, Guard=TGuardSpec,
                  Resil=TResilience, Crash=TCrash,
-                 arr=lambda a: torch.as_tensor(np.asarray(a))),
+                 arr=lambda a: torch.as_tensor(np.asarray(a)),
+                 dev={"device": "cpu"}),
 }
 
 
@@ -177,12 +178,12 @@ class StubHooks:
 
     def init_metrics(self, params, topology):
         self.calls.append(("init_metrics",))
-        return self.s["metrics"].init_node_metrics(N) if self._metrics \
-            else None
+        return (self.s["metrics"].init_node_metrics(N, **self.s["dev"])
+                if self._metrics else None)
 
     def init_guard(self, params, topology):
         self.calls.append(("init_guard",))
-        return (self.s["guards"].init_node_guard(N)
+        return (self.s["guards"].init_node_guard(N, **self.s["dev"])
                 if self._guard is not None else None)
 
     def restore_ctx(self, ctx, phase):

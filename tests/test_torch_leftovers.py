@@ -73,8 +73,8 @@ def test_shapes_and_registry_match_reference():
     assert long is tconfigs.LONG_CONTEXT_VARIANTS["mistral-nemo-12b"]
     assert long != tconfigs.get_config("mistral-nemo-12b")
     assert tconfigs.shape_supported(long, tbase.SHAPES["long_500k"])
-    with pytest.raises(KeyError):
-        tconfigs.get_config("deepseek-v3-671b")
+    assert list(tconfigs.ARCHS) == list(jconfigs.ARCHS)
+    assert tconfigs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
 
 
 # ------------------------------------------------------------------ optim

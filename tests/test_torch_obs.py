@@ -108,7 +108,8 @@ def test_torch_profiler_hand_off(tmp_path):
 def test_metrics_match_reference_and_consensus_distance():
     rng = np.random.default_rng(0)
     n = 4
-    jm, tm = jmetrics.init_node_metrics(n), metrics.init_node_metrics(n)
+    jm = jmetrics.init_node_metrics(n)
+    tm = metrics.init_node_metrics(n, device="cpu")
     for _ in range(3):
         params = {"a": rng.normal(size=(n, 3, 2)).astype(np.float32),
                   "b": rng.normal(size=(n, 5)).astype(np.float32)}

@@ -262,7 +262,8 @@ def test_frozen_step_matches_reference(algo):
 def test_guard_update_and_summarize_match_reference():
     spec_kw = dict(loss_spike_factor=3.0, warmup_steps=2, consensus_max=5.0)
     js, ts = JGuardSpec(**spec_kw), GuardSpec(**spec_kw)
-    jg, tg = jguards.init_node_guard(N), guards.init_node_guard(N)
+    jg, tg = jguards.init_node_guard(N), guards.init_node_guard(N,
+                                                              device="cpu")
     rng = np.random.default_rng(4)
     for step in range(7):
         losses = np.full(N, 1.0 + 0.1 * step, np.float32)
