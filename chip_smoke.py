@@ -190,10 +190,30 @@ LM-11. DeepSeek-V3 trained with IDKD (``lmpath.DEEPSEEK_TRAIN``: the
 LM-12. Arctic's prefill at full width (``lmpath.ARCTIC_PREFILL_CONFIG``:
    128 experts top-2 with the softmax router and the dense residual, 1
    layer, 14.07 B parameters): 2 x 2048 tokens, its wall time and peak.
+SHARD (after RESIL). the sharded driver (``driver_mode="shard"``) on 4
+   ranks that share the card (gloo, CUDA tensors staged through the
+   host): the main path at full width cut to 60 plain steps, the round,
+   60 KD steps, (a) on the 1-D node mesh (and on the complete graph, 10
+   + 10 steps) and (b) on the 2 x 2 federation mesh (``model_parallel``
+   2, the vocab-sharded round through ``head_select``'s SIMT raw_stats
+   mode), against the node-stacked run from the same params and draws,
+   both in deterministic mode: params at the round and at the end,
+   accuracy, and the sharded round against the node-stacked round on
+   the same params; RelaySGD, churn and wire faults refused first; wall
+   time a step, each rank's peak;
+LM-13. the LM round at Hymba-1.5B's width with ``model_parallel`` 2 on 2
+   ranks (every ``head_select`` launch the tensor-core raw_stats mode)
+   against the unsharded round on the same params; phase 2 and LM-1
+   also hold both raw modes to their plain versions.
 
 Each phase prints its seconds. It then prints one ``{"kernels": [...]}``
 line and, last, one line ``{"ok": true, "device": {...}}``. It imports
 nothing of JAX.
+
+``python3 chip_smoke.py --shard-norm-fault`` runs the device phase and
+then only SHARD (b), sound and with a planted fault (QG-DSGDm-N's norm
+counting each model-replicated leaf twice), and prints how far each run
+lies from the node-stacked one; SHARD's bounds sit between the two.
 """
 from __future__ import annotations
 
@@ -295,6 +315,38 @@ RESIL_CORRUPT = (7, 85, 95)  # RESIL: node 7's payloads nan, detected
 RESIL_SHORT = 30             # RESIL: depth of the default-mode pair and
                              # the drop/corrupt/rollback runs
 LM_BASELINES = ("centralized", "d2", "gradient-tracking")
+SHARD_RANKS = 4              # SHARD: ranks sharing the card (gloo)
+SHARD_STEPS, SHARD_ROUND = 120, 60   # SHARD: 60 plain steps, the round,
+                             # 60 KD steps (ring, 1-D and 2 x 2)
+SHARD_FULL_STEPS, SHARD_FULL_ROUND = 20, 10   # SHARD on the complete
+                             # graph (the all_gather exchange), cut deeper
+SHARD_CASES = (("a ring 1-D", "ring", 1, SHARD_STEPS, SHARD_ROUND),
+               ("a complete 1-D", "full", 1, SHARD_FULL_STEPS,
+                SHARD_FULL_ROUND),
+               ("b ring 2x2", "ring", 2, SHARD_STEPS, SHARD_ROUND))
+SHARD_PARAM_ATOL = 1e-2      # SHARD vs the node-stacked run, both in
+                             # deterministic mode: the sharded mix and the
+                             # global sums add in another order (~1e-7 a
+                             # step), which 120 steps at lr 0.5 grow to
+                             # ~2e-3 (measured on one H100), not bitwise;
+                             # this end-of-run bound catches gross faults
+                             # only: a norm counting the replicated leaves
+                             # twice ended 2.55e-3 away, the sound 2 x 2
+                             # run 2.77e-3 (--shard-norm-fault)
+SHARD_CAP_ATOL = 2e-4        # ... params at the round, after the plain
+                             # steps: sound runs 1.2e-6 to 3.68e-5, the
+                             # planted norm fault 1.14e-3 (one H100,
+                             # --shard-norm-fault); the bound near the
+                             # geometric mean, ~5x from each
+SHARD_ACC_ATOL = 0.03        # ... and the consensus accuracy at each eval
+                             # (1024 test images; 0.0146 apart at the end
+                             # when measured on one H100)
+LM13_PUBLIC = 16             # LM-13: public sequences (LM-2 takes 64)
+RAW_Z_RTOL = 1e-4            # head_select raw_stats: z, the sum of exp
+                             # over a slice (16,001 columns at Hymba's),
+                             # relative: the tc kernel takes ex2.approx
+                             # and sums in its own order (at the finalized
+                             # conf = 1/z that is far inside ATOL)
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
                                                       # bf16 tensor cores
@@ -469,7 +521,78 @@ def phase_kernels(torch, ops):
                       f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms")
             del h, w, b, logits, x, xf
             torch.cuda.empty_cache()
+    # the raw_stats mode at SHARD (b)'s head pass: 8 local nodes x 256
+    # rows, one 5-wide slice of C = 10 (k_loc 5; 1 for the val pass),
+    # and an all-padding slice
+    results["head_select_raw_simt"] = [
+        _raw_row(torch, gen, "resnet slice", 8, 256, 64, 5, 5,
+                 torch.float32, 100),
+        _raw_row(torch, gen, "resnet slice k=1", 8, 256, 64, 5, 1,
+                 torch.float32, 100),
+        _raw_row(torch, gen, "all-padding slice", 8, 256, 64, 5, 5,
+                 torch.float32, 20, pad=5)]
     return results
+
+
+def _raw_row(torch, gen, label, L, N, D, C, k, dtype, reps, *, pad=0):
+    """head_select's raw_stats mode (the vocab-sharded round's per-slice
+    carry) against head_select_stats_plain on one vocabulary slice of C
+    columns whose last ``pad`` are zero weights with a NEG bias (as the
+    round pads C; ``pad == C`` is an all-padding slice, where m is NEG
+    and z the slice's width): m and the top-k logits within ATOL +
+    RTOL|ref|, z within RAW_Z_RTOL relative, indices equal except near-ties within IDX_TIE and the
+    padding slots (which never win the merge). Timed beside the bound
+    and the plain version; no one PyTorch call computes the carry."""
+    from repro_torch.kernels.head_select import (head_select,
+                                                 head_select_stats_plain)
+    dev, dname = "cuda", str(dtype).split(".")[-1]
+    h = torch.randn((L, N, D), generator=gen, device=dev).to(dtype)
+    w = torch.randn((L, D, C), generator=gen, device=dev) / D ** 0.5
+    b = 0.1 * torch.randn((L, C), generator=gen, device=dev)
+    if pad:
+        w[..., C - pad:] = 0.0
+        b[..., C - pad:] = -1e30
+    w = w.to(dtype)
+    out = head_select(h, w, b, k=k, raw_stats=True)
+    ref = head_select_stats_plain(h, w, b, k=k)
+    tag = f"head_select raw {label} L={L} rows={L * N} D={D} C={C} {dname} k={k}"
+    err = 0.0
+    for name, a, r in zip(("m", "z", "tv"), out[:3], ref[:3]):
+        d = (a - r).abs()
+        tol = RAW_Z_RTOL * r.abs() if name == "z" else ATOL + RTOL * r.abs()
+        check(bool((d <= tol).all()),
+              f"{tag}: {name} max error {float(d.max()):.3g} over tolerance")
+        err = max(err, float(d.max()))
+    zrel = float(((out[1] - ref[1]).abs() / ref[1]).max())
+    real = ref[2] > -1e29
+    diff = (out[3] != ref[3]) & real
+    ties = int(diff.sum())
+    if ties:
+        logits = torch.matmul(h.float(), w.float()) + b[:, None, :]
+        gap = (torch.gather(logits, -1, out[3].long())
+               - torch.gather(logits, -1, ref[3].long())).abs()[diff]
+        check(float(gap.max()) <= IDX_TIE, f"{tag}: {ties} indices differ "
+                                           f"with logit gap {float(gap.max()):.3g}")
+        del logits
+    if pad == C:
+        check(bool((out[0] == -1e30).all() and (out[1] == C).all()),
+              f"{tag}: the all-padding slice's m / z are not NEG / {C}")
+    hb = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (L * N * D + L * D * C) * hb + L * C * 4 + L * N * (8 + 8 * k)
+    bnd, by = bound_ms(nbytes, 2.0 * L * N * D * C, dname)
+    ms = timed(lambda: head_select(h, w, b, k=k, raw_stats=True), reps,
+               torch)
+    pms = timed(lambda: head_select_stats_plain(h, w, b, k=k),
+                max(1, reps // 2), torch)
+    print(f"{tag}{f' (last {pad} columns padding)' if pad else ''}: "
+          f"max_abs_err {err:.3g} (tol {ATOL}+{RTOL}|ref|; z {zrel:.3g} "
+          f"relative, tol {RAW_Z_RTOL}), idx near-ties "
+          f"{ties}; {ms:.4f} ms, bound {bnd:.4f} ms ({by}, {bnd / ms:.2%} "
+          f"of it), plain {pms:.4f} ms")
+    del h, w, b, out, ref
+    torch.cuda.empty_cache()
+    return dict(shape=label, dtype=dname, k=k, err=err, ties=ties, ms=ms,
+                plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None)
 
 
 def phase_main_path(torch, ops):
@@ -1809,6 +1932,17 @@ def phase_lm_kernels(torch):
     rows["head_select"].append(_head_select_row(
         torch, gen, "hymba", 4, 8 * 2048, cfg.d_model, cfg.vocab_size,
         tied=False, turns=True))
+    # the raw_stats mode at LM-13's head pass: one of two vocabulary
+    # slices of Hymba's head (32,001 -> 2 x 16,001, the second with one
+    # padded column), and a ragged and an all-padding slice
+    w_sh = -(-cfg.vocab_size // 2)
+    rows["head_select_raw_tc"] = [
+        _raw_row(torch, gen, "hymba slice", 4, 8 * 2048, cfg.d_model, w_sh,
+                 8, torch.bfloat16, 5, pad=w_sh * 2 - cfg.vocab_size),
+        _raw_row(torch, gen, "ragged slice", 2, 300, cfg.d_model, 700, 8,
+                 torch.bfloat16, 5, pad=300),
+        _raw_row(torch, gen, "all-padding slice", 2, 300, cfg.d_model, 512,
+                 8, torch.bfloat16, 5, pad=512)]
     torch.cuda.empty_cache()
     phase_lm_backward(torch, rows)
     return rows
@@ -3259,6 +3393,447 @@ def phase_lm_baselines(torch):
                 rows=rows)
 
 
+# ----------------------------------------------------- the sharded driver
+def _shard_sim(case, driver_mode="shard"):
+    """SHARD's simulator for ``case`` (a row of SHARD_CASES): the main
+    path (``mainpath.grid_sim``'s qg-idkd: ResNet-20, 16 nodes,
+    QG-DSGDm-N, the streaming sparse round) cut to the case's depth, an
+    eval at 0, at the round and at the end."""
+    from repro_torch.mainpath import grid_sim
+    _, topo, mp, steps, rnd = case
+    return grid_sim("qg-idkd", steps, rnd, rnd, "cuda", topology=topo,
+                    driver_mode=driver_mode,
+                    model_parallel=mp if driver_mode == "shard" else 1)
+
+
+def _recorded_run(torch, sim, case):
+    """Run ``sim`` with the round's inputs captured (``capture_at`` the
+    round step) and its output recorded, the head_select counts set to 0
+    before and read after; returns what SHARD compares."""
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.launch.sharding import gather_nodes
+    rounds = []
+    homogenize = sim.homogenize
+
+    def record(*a, **kw):
+        hom = homogenize(*a, **kw)
+        rounds.append(gather_nodes(tuple(hom), sim.node_mesh)
+                      if sim.driver_mode == "shard" else tuple(hom))
+        return hom
+    sim.homogenize = record
+    head_select.launches = 0
+    head_select.launches_by_variant = dict.fromkeys(
+        head_select.launches_by_variant, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sim.run(capture_at=case[4])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sim.homogenize = homogenize
+    glob = sim.global_params
+    return dict(wall_s=wall, steps=case[3],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=head_select.launches,
+                variants=dict(head_select.launches_by_variant),
+                acc=list(res.acc_history), nll=list(res.loss_history),
+                params={k: v.cpu() for k, v in glob(res.params).items()},
+                captured={k: v.cpu() for k, v in
+                          glob(res.captured["params"]).items()},
+                id_masks=rounds[0][2].cpu(), thresholds=rounds[0][3].cpu())
+
+
+def shard_rank(rank, world, cases):
+    """One rank of SHARD: every case's sharded run, in deterministic
+    mode (the parent's node-stacked runs too), TF32 off."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    for case in cases:
+        got = _recorded_run(torch, _shard_sim(case), case)
+        if rank != 0:                      # rank 0 returns the tensors
+            for k in ("params", "captured", "id_masks", "thresholds"):
+                got.pop(k)
+        out[case[0]] = got
+    return out
+
+
+def phase_shard(torch):
+    """SHARD: the sharded driver on SHARD_RANKS ranks sharing the card
+    (gloo; CUDA tensors staged through the host, so no wire numbers):
+    the main path at full width (16 ring nodes, QG-DSGDm-N, the
+    streaming sparse round, KD) cut to SHARD_STEPS steps, the round at
+    SHARD_ROUND, (a) on a 1-D node mesh (4 nodes a rank; and on the
+    complete graph, the all_gather exchange, cut to SHARD_FULL_STEPS)
+    and (b) on the 2 x 2 federation mesh (model_parallel 2: the model
+    shards gathered for the forward, the vocab-sharded round through
+    head_select's SIMT raw_stats mode), each against the node-stacked
+    run on the card from the same params and draws, both in
+    deterministic mode: params at the round within SHARD_CAP_ATOL, final
+    params within SHARD_PARAM_ATOL, the consensus accuracy within
+    SHARD_ACC_ATOL at every eval, and the
+    sharded round held to the node-stacked round on the same (captured)
+    params: thresholds within THRESH_ATOL, D_ID masks equal outside
+    MASK_BAND. Every head_select launch of (b) is a SIMT raw launch, of
+    (a) a SIMT one. RelaySGD, churn and wire faults refused before any
+    run. Prints each run's wall time per step and each rank's peak."""
+    from repro_torch import sched
+    from repro_torch.core import driver, labeling
+    from repro_torch.core.algorithms import make_algorithm
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch import dist
+    from repro_torch.launch.mesh import make_node_mesh
+    from repro_torch.models.resnet import build_model
+    from repro_torch.mainpath import CONFIG
+    n = 16
+    # refusals, before any training (one rank: the parent)
+    try:
+        driver.make_shard_step(
+            build_model(CONFIG), make_algorithm(
+                "relaysgd", topology=Topology.make("chain", n)),
+            driver.classification_adapter, mesh=make_node_mesh(n),
+            topology=Topology.make("ring", n))
+        fail("SHARD: RelaySGD was not refused by make_shard_step")
+    except ValueError as e:
+        check("per-edge state" in str(e), f"SHARD: RelaySGD refused with {e}")
+    ring = SHARD_CASES[0]
+    at = ring[4] // 2
+    for ev, what in ((sched.ChurnEvent(at, down=(3,)), "churn"),
+                     (sched.FaultEvent(at, "corrupt", (3,), "nan"),
+                      "wire fault")):
+        sim = _shard_sim(ring)
+        try:
+            sim.run(sched.compile_schedule(ring[3], ring[4],
+                                           round_steps=(ring[4],),
+                                           events=(ev,)))
+            fail(f"SHARD: a schedule with {what} was not refused")
+        except ValueError as e:
+            check(what in str(e), f"SHARD: {what} refused with {e}")
+    print("SHARD: RelaySGD, churn and wire faults refused before the run")
+
+    with _deterministic(torch):
+        refs, sims = {}, {}
+        for case in (SHARD_CASES[0], SHARD_CASES[1]):
+            sims[case[1]] = _shard_sim(case, "auto")
+            refs[case[1]] = _recorded_run(torch, sims[case[1]], case)
+            r = refs[case[1]]
+            print(f"SHARD node-stacked {case[1]} reference: "
+                  f"{r['wall_s']:.2f} s, {r['wall_s'] / case[3] * 1e3:.1f} "
+                  f"ms a step, acc {r['acc']}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = dist.spawn(shard_rank, SHARD_RANKS, SHARD_CASES,
+                           device="cuda")
+        print(f"SHARD: {SHARD_RANKS} ranks spawned and joined in "
+              f"{time.perf_counter() - t0:.1f} s")
+    launches, variants = {}, {}
+    for case in SHARD_CASES:
+        name, topo, mp, steps, rnd = case
+        got, ref = ranks[0][name], refs[topo]
+        walls = [r[name]["wall_s"] for r in ranks]
+        peaks = [r[name]["peak_gib"] for r in ranks]
+        dp = _max_diff(torch, got["params"], ref["params"])
+        dcap = _max_diff(torch, got["captured"], ref["captured"])
+        dacc = max(abs(a - b) for a, b in zip(got["acc"], ref["acc"]))
+        check(dcap <= SHARD_CAP_ATOL,
+              f"SHARD {name}: params at the round differ from the "
+              f"node-stacked run by {dcap:.3g} > {SHARD_CAP_ATOL}")
+        check(dp <= SHARD_PARAM_ATOL,
+              f"SHARD {name}: params differ from the node-stacked run by "
+              f"{dp:.3g} > {SHARD_PARAM_ATOL}")
+        check(len(got["acc"]) == len(ref["acc"]) and dacc <= SHARD_ACC_ATOL,
+              f"SHARD {name}: accuracy {got['acc']} vs {ref['acc']}")
+        # the round on the same params: the node-stacked streaming round
+        # on the sharded run's captured params
+        sim = sims[topo]
+        p = {k: v.cuda() for k, v in got["captured"].items()}
+        icfg = sim.tcfg.idkd
+        chunks, P, _ = labeling._chunk_public(sim.public_x,
+                                              icfg.stream_microbatch)
+        conf = labeling._stream_public(sim.model, p, chunks, P, icfg, 8)[0]
+        hom = labeling.streaming_label_round(
+            sim.model, p, sim.public_x, sim._per_node_val_inputs(),
+            sim.topology, icfg)
+        conf, thr_ref = conf.cpu(), hom.thresholds.cpu()
+        dthr = float((got["thresholds"] - thr_ref).abs().max())
+        check(dthr <= THRESH_ATOL, f"SHARD {name}: round thresholds differ "
+                                   f"by {dthr:.3g} > {THRESH_ATOL}")
+        band = (conf - thr_ref[:, None]).abs() <= MASK_BAND
+        off = (got["id_masks"] != hom.id_masks.cpu()) & ~band
+        check(not bool(off.any()), f"SHARD {name}: {int(off.sum())} D_ID "
+                                   f"mask entries differ outside the band")
+        del p, hom
+        lc = sum(r[name]["launches"] for r in ranks)
+        by = {}
+        for r in ranks:
+            for v, c in r[name]["variants"].items():
+                by[v] = by.get(v, 0) + c
+        want = "simt_raw" if mp > 1 else "simt"
+        check(lc > 0 and by.get(want, 0) == lc,
+              f"SHARD {name}: head_select launches {by} of {lc}; all must "
+              f"be {want}")
+        key = "head_select_raw_simt" if mp > 1 else "head_select"
+        launches[key] = launches.get(key, 0) + lc
+        variants.setdefault("head_select", {})
+        for v, c in by.items():
+            variants["head_select"][v] = variants["head_select"].get(v, 0) + c
+        print(f"SHARD {name} ({SHARD_RANKS} ranks, {n // (SHARD_RANKS // mp)}"
+              f" nodes a rank{', model_parallel ' + str(mp) if mp > 1 else ''}"
+              f"; {steps} steps, the round at {rnd}): wall "
+              f"{max(walls):.2f} s, {max(walls) / steps * 1e3:.1f} ms a step "
+              f"(node-stacked {ref['wall_s'] / steps * 1e3:.1f}); peak per "
+              f"rank {[round(x, 3) for x in peaks]} GiB (node-stacked "
+              f"{ref['peak_gib']:.3f}); params within {dp:.3g} of the "
+              f"node-stacked run (tol {SHARD_PARAM_ATOL}; {dcap:.3g} at the "
+              f"round, tol {SHARD_CAP_ATOL}), accuracy "
+              f"{got['acc']} vs {ref['acc']} (within {dacc:.3g}); round "
+              f"thresholds within {dthr:.3g}, masks equal outside the band "
+              f"({int(band.sum())} entries within {MASK_BAND}); head_select "
+              f"launches {by}")
+    return launches, variants
+
+
+def shard_fault_rank(rank, world, case):
+    """One rank of ``--shard-norm-fault``: SHARD's run of ``case`` as it
+    is, then again with a planted fault in QG-DSGDm-N's global norm:
+    every leaf summed over the model group too, so each model-replicated
+    leaf counts model_size times (the split ``ShardReduce.tree_sum``
+    exists to avoid)."""
+    import torch
+    from repro_torch.launch import dist, sharding
+    sound = shard_rank(rank, world, (case,))[case[0]]
+
+    def double_count(self, sq):
+        total = torch.stack([sq[k] for k in sorted(sq)]).sum()
+        return dist.all_reduce(dist.all_reduce(total, self.mesh.node),
+                               self.mesh.model)
+    sharding.ShardReduce.tree_sum = double_count
+    return {"sound": sound,
+            "fault": shard_rank(rank, world, (case,))[case[0]]}
+
+
+def phase_shard_fault(torch):
+    """``--shard-norm-fault``: how far SHARD (b)'s checks see a norm that
+    double-counts the replicated leaves. The node-stacked run, then on
+    SHARD_RANKS ranks the sharded run sound and with the fault planted
+    (:func:`shard_fault_rank`), all in deterministic mode; prints each
+    one's distance from the node-stacked run (params at the round, at
+    the end, accuracy) and fails unless the sound run passes SHARD's
+    bounds and the faulted one breaks at least one of them."""
+    from repro_torch.launch import dist
+    case = SHARD_CASES[2]
+    with _deterministic(torch):
+        ref = _recorded_run(torch, _shard_sim(case, "auto"), case)
+        torch.cuda.empty_cache()
+        ranks = dist.spawn(shard_fault_rank, SHARD_RANKS, case,
+                           device="cuda")
+    out = {}
+    for which in ("sound", "fault"):
+        got = ranks[0][which]
+        out[which] = {
+            "round": _max_diff(torch, got["captured"], ref["captured"]),
+            "params": _max_diff(torch, got["params"], ref["params"]),
+            "acc": max(abs(a - b) for a, b in zip(got["acc"], ref["acc"]))}
+    print(f"SHARD {case[0]} against the node-stacked run, sound and with "
+          f"the replicated leaves double-counted in the norm: "
+          f"{json.dumps(out)}")
+
+    def broken(d):
+        return [name for name, key, tol in (
+            ("SHARD_CAP_ATOL", "round", SHARD_CAP_ATOL),
+            ("SHARD_PARAM_ATOL", "params", SHARD_PARAM_ATOL),
+            ("SHARD_ACC_ATOL", "acc", SHARD_ACC_ATOL)) if d[key] > tol]
+    check(not broken(out["sound"]),
+          f"SHARD norm fault: the sound run breaks {broken(out['sound'])}")
+    check(bool(broken(out["fault"])),
+          "SHARD norm fault: the planted fault passes every SHARD bound")
+    print(f"SHARD norm fault caught by {broken(out['fault'])}")
+    return out
+
+
+def lm_shard_rank(rank, world):
+    """One rank of LM-13: Hymba-1.5B's 4 nodes, this rank's model shard
+    of each leaf, the vocab-sharded round."""
+    import torch
+
+    import repro_torch.core.labeling as lab
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.mesh import make_federation_mesh
+    from repro_torch.launch.sharding import federation_specs, local_block
+    from repro_torch.launch.train import idkd_label_round
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lm = lmpath.setup(n_public=LM13_PUBLIC, device="cuda")
+    n = lm.private.shape[0]
+    mesh = make_federation_mesh(n, 2)
+    specs = federation_specs(lm.params, n, mesh)
+    local = local_block(lm.params, specs, mesh)
+    lm.params = None
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    confs = []
+    stream = lab._stream_public
+
+    def record(*a, **kw):
+        out = stream(*a, **kw)
+        confs.append(out[0])
+        return out
+    lab._stream_public = record
+    counters = (flash_attention, ssd_scan, head_select)
+    for f in counters:
+        f.launches = 0
+    for f in (flash_attention, head_select):
+        f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
+    flash_attention.launches_by_head_dim = dict.fromkeys(
+        flash_attention.launches_by_head_dim, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = idkd_label_round(lm.model, local, lm.public, lm.private, lm.icfg,
+                           lm.topology, backend=lm.icfg.label_backend,
+                           mesh=mesh, specs=specs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lab._stream_public = stream
+    labels, w, mask, thr = out
+    return dict(wall_s=wall, setup_s=setup_s,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches={f.__name__: f.launches for f in counters},
+                variants=dict(head_select.launches_by_variant),
+                flash_variants=dict(flash_attention.launches_by_variant),
+                flash_dims={d: c for d, c in
+                            flash_attention.launches_by_head_dim.items()
+                            if c},
+                local_gib=sum(v.numel() * v.element_size()
+                              for v in local.values()) / 2 ** 30,
+                out=None if rank else (labels.values.cpu(),
+                                       labels.indices.cpu(), w.cpu(),
+                                       mask.cpu(), thr.cpu(),
+                                       confs[0].cpu()))
+
+
+def phase_lm_shard(torch):
+    """LM-13: the LM round at Hymba-1.5B's width (``lmpath.setup``: 4
+    ring nodes, 2048-token sequences, the public set cut to LM13_PUBLIC
+    sequences) with model_parallel 2 on 2 ranks sharing the card (gloo):
+    each rank holds one model shard of every node's weights, gathers its
+    nodes to full width for the forward, and scores one of the two
+    vocabulary slices with head_select's tensor-core raw_stats mode; the
+    slices' carries merge across the ranks. Held to the unsharded round
+    on the same params: public confidences within ATOL + RTOL|ref|,
+    thresholds within THRESH_ATOL, D_ID masks equal outside MASK_BAND,
+    weights equal, merged labels within ATOL + RTOL|ref| with indices
+    equal except near-ties (values within IDX_TIE). Every head_select
+    launch is a tc raw launch. Prints wall time, launches and each
+    rank's peak."""
+    import repro_torch.core.labeling as lab
+    from repro_torch import lmpath
+    from repro_torch.launch import dist
+    t0 = time.perf_counter()
+    lm = lmpath.setup(n_public=LM13_PUBLIC, device="cuda")
+    confs = []
+    stream = lab._stream_public
+
+    def record(*a, **kw):
+        out = stream(*a, **kw)
+        confs.append(out[0])
+        return out
+    lab._stream_public = record
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    labels, w, mask, thr = lm.run()
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t1
+    lab._stream_public = stream
+    ref = (labels.values.cpu(), labels.indices.cpu(), w.cpu(), mask.cpu(),
+           thr.cpu(), confs[0].cpu())
+    vocab = lm.model.cfg.vocab_size
+    del lm, labels, w, mask, thr, confs
+    torch.cuda.empty_cache()
+    print(f"LM-13 unsharded reference round: {ref_wall:.2f} s "
+          f"({time.perf_counter() - t0:.1f} s with its setup)")
+    t0 = time.perf_counter()
+    ranks = dist.spawn(lm_shard_rank, 2, device="cuda")
+    spawn_s = time.perf_counter() - t0
+    wire = dist.choose_backend("cuda", 2)
+    wire += " through the host" if wire == "gloo" else ""
+    got = ranks[0]["out"]
+    for r in ranks:
+        check(r["launches"]["head_select"] > 0 and r["variants"].get(
+            "tc_raw", 0) == r["launches"]["head_select"],
+              f"LM-13: head_select launches {r['variants']}; all must be "
+              f"tc_raw")
+    v, i, wt, m, th, conf = got
+    vr, ir, wr, mr, thr_r, conf_r = ref
+    # the sharded payload's contributor blocks come self, prev, next; the
+    # node-stacked round's self, then the neighbours in adjacency order:
+    # the same blocks, permuted along k
+    from repro_torch.core.topology import Topology
+    n = v.shape[0]
+    nbr = Topology.make("ring", n).neighbor_arrays()[0]
+    kb = v.shape[-1] // 3
+    order = [[[i, (i - 1) % n, (i + 1) % n].index(int(j)) for j in nbr[i]]
+             for i in range(n)]
+    v = torch.stack([torch.cat([v[a, ..., b * kb:(b + 1) * kb]
+                                for b in order[a]], -1) for a in range(n)])
+    i = torch.stack([torch.cat([i[a, ..., b * kb:(b + 1) * kb]
+                                for b in order[a]], -1) for a in range(n)])
+    dconf = (conf - conf_r).abs()
+    check(bool((dconf <= ATOL + RTOL * conf_r.abs()).all()),
+          f"LM-13: public confidences differ by {float(dconf.max()):.3g}")
+    dthr = float((th - thr_r).abs().max())
+    check(dthr <= THRESH_ATOL, f"LM-13: thresholds differ by {dthr:.3g}")
+    band = (conf_r - thr_r[:, None]).abs() <= MASK_BAND
+    check(not bool(((m != mr) & ~band).any()),
+          "LM-13: D_ID masks differ outside the band")
+    agree = (m == mr).all(0)                    # samples every node agrees on
+    check(bool((wt[:, agree] == wr[:, agree]).all()),
+          "LM-13: weights differ where the masks agree")
+    dv = (v[:, agree] - vr[:, agree]).abs()
+    check(bool((dv <= ATOL + RTOL * vr[:, agree].abs()).all()),
+          f"LM-13: merged labels differ by {float(dv.max()):.3g}")
+    swap = i[:, agree] != ir[:, agree]
+    check(bool((~swap | (dv <= IDX_TIE)).all()),
+          "LM-13: label indices differ outside near-ties")
+    check(bool(((i >= 0) & (i < vocab)).all()), "LM-13: indices outside "
+                                                 "the vocabulary")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    print(f"LM-13 (Hymba-1.5B x 4 nodes, {LM13_PUBLIC} public x 2048 "
+          f"tokens, model_parallel 2 on 2 ranks, {wire}): "
+          f"round {max(r['wall_s'] for r in ranks):.2f} s wall (unsharded "
+          f"{ref_wall:.2f} s), rank setup "
+          f"{max(r['setup_s'] for r in ranks):.1f} s, spawn to join "
+          f"{spawn_s:.1f} s; peak per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (shards "
+          f"{ranks[0]['local_gib']:.2f} GiB a rank); launches {launches}, "
+          f"head_select by variant {[r['variants'] for r in ranks]}; conf "
+          f"within {float(dconf.max()):.3g}, thresholds within {dthr:.3g}, "
+          f"masks equal outside the band ({int((m != mr).sum())} differ, "
+          f"{int(band.sum())} entries within {MASK_BAND}), labels within "
+          f"{float(dv.max()):.3g}, {int(swap.sum())} near-tie index swaps; "
+          f"kept {float(m.float().mean()):.4f}")
+    flash_by, dims = {}, {}
+    for r in ranks:
+        for v, c in r["flash_variants"].items():
+            flash_by[v] = flash_by.get(v, 0) + c
+        for d, c in r["flash_dims"].items():
+            dims[d] = dims.get(d, 0) + c
+    return ({"head_select_raw_tc": launches["head_select"],
+             "flash_attention": launches["flash_attention"],
+             "ssd_scan": launches["ssd_scan"]},
+            {"head_select": {"tc_raw": launches["head_select"]},
+             "flash_attention": flash_by},
+            {"flash_attention": dims})
+
+
 def kernel_line(kres, lm_rows, paths, variants, head_dims):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
@@ -3352,7 +3927,8 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
         if base in tc:
             for path in variants.values():
                 for v, n in path.get(name, {}).items():
-                    by_variant[v] += n
+                    if not v.endswith("_raw"):
+                        by_variant[v] += n
         entry = {"name": name, "route": "cuda",
                  "source": src.format(base + ("_tc" if base in tc else "")),
                  "replaces": ref.format(pallas, at),
@@ -3392,6 +3968,22 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
             ds = lm_rows["head_select_deepseek"][0]
             entry["deepseek_head"] = {k: ds.get(k) for k in timing}
         line.append(entry)
+    # head_select's raw_stats mode (the vocab-sharded round's per-slice
+    # carry): SIMT at SHARD (b)'s slice, tc at LM-13's
+    for name, rows, source in (
+            ("head_select_raw_simt", kres["head_select_raw_simt"],
+             "head_select"),
+            ("head_select_raw_tc", lm_rows["head_select_raw_tc"],
+             "head_select_tc")):
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in paths.items()}
+        line.append({"name": name, "route": "cuda",
+                     "source": src.format(source),
+                     "replaces": ref.format("head_select", 131),
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": max(r["err"] for r in rows),
+                     **{k: rows[0].get(k) for k in timing}})
     return line
 
 
@@ -3407,6 +3999,10 @@ def main() -> int:
     # unusable and run out of memory; growable segments do not fragment
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    args = sys.argv[1:]
+    if args not in ([], ["--shard-norm-fault"]):
+        print("usage: chip_smoke.py [--shard-norm-fault]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3429,6 +4025,9 @@ def main() -> int:
         return out
 
     run("device", phase_device, build)
+    if args:
+        run("SHARD norm fault", phase_shard_fault)
+        return 0
     kres = run("kernels", phase_kernels, ops)
     sim, result, launches, variants = run("main path", phase_main_path, ops)
     launches["msp_select"] = run("fused round", phase_fused_round, sim,
@@ -3439,6 +4038,7 @@ def main() -> int:
     run("GRID card vs CPU", phase_grid_card_vs_cpu)
     paper_launches, paper_variants = run("PAPER", phase_paper, ops)
     resil_launches, resil_variants = run("RESIL", phase_resil, ops)
+    shard_launches, shard_variants = run("SHARD", phase_shard)
 
     lm_rows = run("LM-1", phase_lm_kernels)
     run("LM-1 dense", phase_lm_dense_kernels, lm_rows)
@@ -3457,6 +4057,8 @@ def main() -> int:
     deepseek = run("LM-10", phase_lm_deepseek)
     deepseek_train = run("LM-11", phase_lm_deepseek_train)
     arctic = run("LM-12", phase_lm_arctic)
+    lm_shard_launches, lm_shard_variants, lm_shard_dims = run(
+        "LM-13", phase_lm_shard)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
@@ -3467,13 +4069,15 @@ def main() -> int:
         kres, lm_rows,
         {"resnet_path": launches, "grid": grid_launches,
          "paper": paper_launches, "resil": resil_launches,
-         "lm_path": lm_launches,
+         "shard": shard_launches, "lm_path": lm_launches,
+         "lm_shard": lm_shard_launches,
          **{k: v["launches"] for k, v in trains.items()}},
         {"resnet_path": variants, "grid": grid_variants,
          "paper": paper_variants, "resil": resil_variants,
+         "shard": shard_variants, "lm_shard": lm_shard_variants,
          "lm_path": lm_variants,
          **{k: v["variants"] for k, v in trains.items()}},
-        {"lm_path": lm_dims,
+        {"lm_path": lm_dims, "lm_shard": lm_shard_dims,
          **{k: v["by_head_dim"] for k, v in trains.items()}})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -131,13 +131,20 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
     def step(params, grads, state, lr, mix):
         wd = weight_decay
         if normalize:
-            total = 0.0
+            sq = {}
             for k in sorted(grads):            # the reference's leaf order
+                leaf = 0.0
                 for sl in leaf_slices(grads[k]):
                     gf = grads[k][sl].float()
                     if wd:
                         gf = gf + wd * params[k][sl].float()
-                    total = total + torch.sum(gf ** 2)
+                    leaf = leaf + torch.sum(gf ** 2)
+                sq[k] = leaf
+            # the norm spans every node; a sharded mixer holds one block
+            # of them and completes the sum over the ranks (its
+            # reduce_tree_sum, as the reference's mixer hook)
+            reduce = getattr(mix, "reduce_tree_sum", None)
+            total = reduce(sq) if reduce is not None else sum(sq.values())
             scale = 1.0 / (torch.sqrt(total) + eps)
         else:
             scale = 1.0
@@ -154,6 +161,20 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
             d = (p.float() - y.float()) * inv_lr
             return (momentum * m.float() + (1 - momentum) * d).to(m.dtype)
 
+        mix_leaves = getattr(mix, "mix_leaves", None)
+        if mix_leaves is not None:
+            # a sharded mixer: every slice's half-step, then one gossip
+            # collective for all of them, then the EMA (the same values)
+            items = [(k, sl) for k, p in params.items()
+                     for sl in leaf_slices(p)]
+            ys = mix_leaves([half_step(params[k][sl], grads[k][sl],
+                                       state["m"][k][sl])
+                             for k, sl in items])
+            for (k, sl), y in zip(items, ys):
+                m, p = state["m"][k], params[k]
+                m[sl] = ema(m[sl], p[sl], y)
+                p[sl] = y
+            return params, state
         # per leaf and per slice: half-step, gossip mix, displacement EMA
         for k, p in params.items():
             g, m = grads[k], state["m"][k]

@@ -20,6 +20,17 @@ reference's ``lax.scan`` runner follows the same trajectory as its host
 runner by its own contract, so the port's ``"scan"`` is that loop too
 (:func:`make_runner`); capturing it in a CUDA graph is speed work
 (ROADMAP.md §2, host dispatch).
+
+**Sharded execution** (``driver_mode="shard"``). :func:`make_shard_step`
+runs the train step SPMD, one process per mesh device
+(:mod:`repro_torch.launch.dist`, :mod:`~repro_torch.launch.mesh`): each
+rank holds a contiguous block of nodes and, on the 2-D federation mesh,
+one model shard of each weight leaf (:mod:`~repro_torch.launch.
+sharding`). Gossip exchanges boundary rows on rings and averages over
+the node group on complete graphs. Every rank draws the whole
+federation's batch from the same generator and keeps its own block, so
+the draws are the node-stacked run's and the trajectories match it to
+float tolerance.
 """
 from __future__ import annotations
 
@@ -42,15 +53,13 @@ RUNNER_MODES = ("scan", "host", "auto", "shard")
 
 def resolve_runner_mode(mode: str) -> str:
     """The reference's runner names: ``"auto"`` resolves to ``"scan"``,
-    and ``"scan"`` and ``"host"`` both run the Python step loop. The
-    sharded driver (``"shard"``) is not ported and raises."""
+    and ``"scan"`` and ``"host"`` both run the Python step loop on
+    node-stacked params. ``"shard"`` stays ``"shard"``: the same loop
+    drives :func:`make_shard_step` on this rank's node block, one
+    process per mesh device."""
     if mode not in RUNNER_MODES:
         raise ValueError(f"unknown driver mode {mode!r}; "
                          f"expected one of {RUNNER_MODES}")
-    if mode == "shard":
-        raise NotImplementedError(
-            "driver_mode='shard' (the sharded driver) is not ported yet; "
-            "see ROADMAP.md queue 1 item 13")
     return "scan" if mode == "auto" else mode
 
 
@@ -187,6 +196,116 @@ def make_step(model, algo, mixer, loss_adapter, telemetry: bool = False,
     step.guard = guard is not None
     step.init_opt = algo.init
     step.grads = grad_fn           # (grads, node losses) alone, for traces
+    return step
+
+
+def make_shard_step(model, algo, loss_adapter, *, mesh, topology,
+                    specs=None, compression=None, gossip: str = "sync",
+                    telemetry: bool = False, guard=None) -> Callable:
+    """The train step of one rank of the sharded driver — the
+    ``driver_mode="shard"`` twin of :func:`make_step` (the reference's
+    ``make_shard_step``, which runs under ``shard_map``).
+
+    ``step(params, opt_state, batch, lr, *carries)``: ``params`` and
+    ``opt_state`` are this rank's block (:func:`launch.sharding.
+    local_block`), ``batch`` is the whole federation's (every rank draws
+    it from the same generator) and the step keeps the block's rows;
+    returns the updated block, the mean loss over all n nodes (summed
+    over the node group) and the carries. Gossip is
+    ``mixing.make_shard_mixer``'s: boundary rows on rings, exact
+    averaging on complete graphs, over the mesh's node group only.
+
+    On the 2-D federation mesh (``mesh.model.size > 1``) ``specs`` (the
+    params' :class:`launch.sharding.Spec` s from ``federation_specs``
+    of the global params) says which dim of each leaf is cut over the
+    model group: the step all-gathers those leaves to full width for the
+    forward and backward, slices the grads back to the shard, and runs
+    the update and the gossip on the shards — elementwise updates and
+    the node-axis mix commute with the cut, so the 2-D trajectory is the
+    1-D one. QG-DSGDm-N's grad norm sums model-sharded leaves over both
+    groups and replicated leaves over the node group only.
+
+    ``telemetry`` and ``guard`` add the metrics and guard carries of
+    this rank's block (the scheduler gathers them at a flush), with the
+    same reduction split. Eager errors, as the reference's: the node
+    count must divide by the node group, the topology must be a ring or
+    a complete graph, and per-edge-state algorithms (RelaySGD) are
+    refused; compressed and delayed gossip raise (item 12)."""
+    from repro_torch.core.mixing import make_shard_mixer
+    from repro_torch.launch import dist
+    from repro_torch.launch.sharding import (ShardReduce, gather_model_tree,
+                                             like_params, slice_model_tree)
+
+    n = topology.n
+    size = mesh.node.size
+    model_size = mesh.model.size
+    if n % size != 0:
+        raise ValueError(
+            f"shard driver needs the node count ({n}) divisible by the "
+            f"mesh 'node' axis ({size}); build the mesh with "
+            "launch.mesh.make_federation_mesh")
+    if getattr(algo, "needs_topology", False):
+        raise ValueError(
+            f"algorithm {algo.name!r} carries per-edge state and cannot "
+            "run under the sharded driver; use the node-stacked runners "
+            "(driver_mode='scan'/'host')")
+    if model_size > 1 and specs is None:
+        raise ValueError("a 2-D federation mesh needs the params' specs "
+                         "(launch.sharding.federation_specs of the global "
+                         "params)")
+    L = n // size
+    lo = mesh.node.index * L
+    model_dims = ({k: s.model_dim for k, s in specs.items()}
+                  if model_size > 1 else None)
+    shard = ShardReduce(mesh, n, model_dims)
+    mixer = make_shard_mixer(topology, mesh.node, local_nodes=L,
+                             reduce=shard.tree_sum if model_size > 1
+                             else None,
+                             compression=compression, gossip=gossip)
+    node_loss = loss_adapter(model)
+    if telemetry:
+        from repro_torch.obs import metrics as obs_metrics
+    if guard is not None:
+        from repro_torch.resil import guards as resil_guards
+
+    def grad_fn(params, batch):
+        keys = list(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in keys]
+        losses = node_loss(dict(zip(keys, leaves)), batch)
+        grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return dict(zip(keys, grads)), losses.detach()
+
+    def step(params, opt_state, batch, lr, *rest):
+        rest = list(rest)
+        metrics = rest.pop(0) if telemetry else None
+        guard_state = rest.pop(0) if guard is not None else None
+        local = {k: (v[lo:lo + L] if isinstance(v, torch.Tensor)
+                     and v.dim() >= 1 and v.shape[0] == n else v)
+                 for k, v in batch.items()}
+        if model_size > 1:
+            pspecs = like_params(params, specs, L)
+            full = gather_model_tree(params, pspecs, mesh)
+            grads, losses = grad_fn(full, local)
+            grads = slice_model_tree(grads, pspecs, mesh)
+        else:
+            grads, losses = grad_fn(params, local)
+        new_params, opt_state = algo.step(
+            {k: p.detach() for k, p in params.items()}, grads, opt_state,
+            lr, mixer)
+        loss = dist.all_reduce(losses.float().sum(), mesh.node) / n
+        out = [new_params, opt_state, loss]
+        if telemetry:
+            out.append(obs_metrics.update(metrics, losses, grads,
+                                          new_params, shard=shard))
+        if guard is not None:
+            out.append(resil_guards.update(guard_state, guard, losses,
+                                           grads, new_params, shard=shard))
+        return tuple(out)
+
+    step.metrics = telemetry
+    step.guard = guard is not None
+    step.init_opt = algo.init
     return step
 
 

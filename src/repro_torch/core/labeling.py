@@ -18,6 +18,15 @@ one launch per microbatch**: only (conf, top-k) per sample is kept, the
 (n, P, C) logit stack never exists. Sparse payloads are exchanged
 without densifying: the mean over contributors is the concatenation of
 their (values · m_j / cnt, indices) along the k axis.
+
+:func:`shard_label_round` and :func:`shard_streaming_label_round` are the
+sharded driver's rounds (one rank's node block, :mod:`repro_torch.launch.
+dist`): score, calibrate and select stay local, and only the top-k
+payload crosses ranks — boundary rows on rings, an ``all_gather`` on
+complete graphs. On the 2-D federation mesh the streaming round runs
+the vocab-sharded head pass (:func:`_vocab_sharded_head_pass`): each
+model rank scores one vocabulary slice with ``head_select``'s
+``raw_stats`` mode and the slices' carries merge across the model group.
 """
 from __future__ import annotations
 
@@ -29,11 +38,13 @@ import torch
 from repro_torch.configs.base import IDKDConfig
 from repro_torch.core import distill, ood
 from repro_torch.core.topology import Topology
-from repro_torch.kernels.head_select import head_select
+from repro_torch.kernels.head_select import (head_select,
+                                             merge_head_stats_plain)
 from repro_torch.kernels.msp_select import msp_select
 
 BACKENDS = ("dense", "fused", "sparse")
 DEFAULT_TOPK = 8
+NEG_INF = -1e30     # the padded vocabulary columns' bias
 
 
 class HomogenizedSet(NamedTuple):
@@ -176,14 +187,60 @@ def _chunk_public(public_x, microbatch: int):
     return pub.reshape((num_chunks, mb) + pub.shape[1:]), P, mb
 
 
-def _stream_public(model, params, chunks, P: int, cfg: IDKDConfig, k: int):
+def _vocab_sharded_head_pass(model, params, x, cfg: IDKDConfig, k: int,
+                             mesh):
+    """:func:`_head_pass` on the 2-D federation mesh: this model rank runs
+    ``head_select``'s ``raw_stats`` mode over its own vocabulary slice
+    (``O(mb · C / model_size)`` scores, never the full row), and the
+    slices' online-softmax stats (m, z) and top-k raw logits merge across
+    the model group with the kernel's own streaming math
+    (:func:`merge_head_stats_plain`). The finalizer runs only on the
+    merged stats, so the result matches the unsharded pass: indices
+    exactly, conf and vals to float tolerance.
+
+    The slice is cut here, as the reference cuts it: C padded to
+    ``model_size`` equal slices of ``w_sh`` columns, the padded columns
+    zero weights with a ``NEG_INF`` bias, so they self-mask out of z and
+    the top-k; ``k_loc = min(k, w_sh)``; the slice's indices are offset
+    by ``j · w_sh`` before the merge. Only the last slices hold padding,
+    so only they are copied to pad."""
+    from repro_torch.launch import dist
+    feats, _ = model.forward_features(params, {model.input_key: x})
+    w, b = model.head_params(params)                      # (L, D, C)
+    Ln, D, C = w.shape
+    size, j = mesh.model.size, mesh.model.index
+    w_sh = -(-C // size)
+    c0, c1 = min(j * w_sh, C), min((j + 1) * w_sh, C)
+    w_loc = w[..., c0:c1]
+    b_loc = (torch.zeros((Ln, c1 - c0), device=w.device) if b is None
+             else b[..., c0:c1].float())
+    pad = w_sh - (c1 - c0)
+    if pad:
+        w_loc = torch.nn.functional.pad(w_loc, (0, pad))
+        b_loc = torch.nn.functional.pad(b_loc, (0, pad), value=NEG_INF)
+    k_loc = min(k, w_sh)
+    lead = feats.shape[:-1]                                 # (L, mb[, S])
+    m, z, tv, ti = head_select(
+        feats.reshape(lead[0], -1, feats.shape[-1]).contiguous(),
+        w_loc, b_loc.contiguous(), temperature=cfg.temperature, k=k_loc,
+        detector=cfg.detector, raw_stats=True)
+    ti = ti + j * w_sh                                     # global vocab idx
+    conf, vals, idx = merge_head_stats_plain(
+        *dist.all_gather_many([m, z, tv, ti], mesh.model),
+        temperature=cfg.temperature, k=k, detector=cfg.detector)
+    return (_sequence_score(conf.reshape(lead)), vals.reshape(lead + (k,)),
+            idx.reshape(lead + (k,)).to(torch.int32))
+
+
+def _stream_public(model, params, chunks, P: int, cfg: IDKDConfig, k: int,
+                   head_pass=_head_pass):
     """Stream the chunked public set through every node's head pass;
     keep only (conf, vals, idx)."""
     L = next(iter(params.values())).shape[0]
     confs, vals, idxs = [], [], []
     for xc in chunks:
-        c, v, i = _head_pass(model, params,
-                             xc[None].expand((L,) + xc.shape), cfg, k)
+        c, v, i = head_pass(model, params,
+                            xc[None].expand((L,) + xc.shape), cfg, k)
         confs.append(c)
         vals.append(v)
         idxs.append(i)
@@ -192,10 +249,11 @@ def _stream_public(model, params, chunks, P: int, cfg: IDKDConfig, k: int):
                                  torch.cat(idxs, dim=1)[:, :P]))
 
 
-def _stream_val_conf(model, params, val_x, cfg: IDKDConfig):
+def _stream_val_conf(model, params, val_x, cfg: IDKDConfig,
+                     head_pass=_head_pass):
     """Per-node confidence on each node's own val set (n, V, ...) through
     the same head pass; k=1, since only conf is consumed."""
-    return _head_pass(model, params, val_x, cfg, 1)[0]
+    return head_pass(model, params, val_x, cfg, 1)[0]
 
 
 def _select(conf_pub, scores, filter_ood: bool, active):
@@ -296,6 +354,175 @@ def streaming_label_round(model, params, public_x, val_x,
     if act is not None:
         weights = weights * act[:, None]
     return SparseHomogenizedSet(merged, weights, id_mask, thresholds)
+
+
+# ------------------------------------------------------------ sharded round
+def _shard_layout(topology: Topology, local_nodes: int, mesh):
+    """Shared shard-round validation: the node blocks cover the topology
+    and the graph is a ring or complete. Returns (n, ring, full)."""
+    from repro_torch.core import mixing
+
+    n = local_nodes * mesh.node.size
+    if topology.n != n:
+        raise ValueError(f"the node blocks hold {local_nodes} x "
+                         f"{mesh.node.size} = {n} nodes, topology "
+                         f"{topology.name!r} has {topology.n}")
+    ring = mixing._is_ring(topology)
+    full = mixing._is_full(topology)
+    if not (ring or full):
+        raise ValueError(
+            f"sharded label exchange supports ring/complete graphs; "
+            f"topology {topology.name!r} must use the node-stacked "
+            "labeling.label_round (backend='sparse')")
+    return n, ring, full
+
+
+def _local_rows(x, n: int, mesh):
+    """This rank's node rows of a global (n, ...) stack; a tensor that
+    is already a block passes through."""
+    L = n // mesh.node.size
+    if x.shape[0] == n and L != n:
+        return x[mesh.node.index * L:(mesh.node.index + 1) * L]
+    return x
+
+
+def _merge_payloads(parts_v, parts_i, parts_m):
+    """The mean over contributors distributes over the scatter: concat
+    the contributors' payloads along k with m_j / cnt weights."""
+    cnt = sum(parts_m)                                      # (L, P)
+    share = [m / torch.clamp(cnt, min=1.0) for m in parts_m]
+    extra = parts_v[0].dim() - cnt.dim()                    # k (and S)
+    vals = torch.cat([v * s.reshape(s.shape + (1,) * extra)
+                      for v, s in zip(parts_v, share)], dim=-1)
+    idx = torch.cat(parts_i, dim=-1)
+    return vals.float(), idx.to(torch.int32), (cnt > 0).float()
+
+
+def _shard_exchange(sp: distill.SparseLabels, m, *, mesh, n: int,
+                    ring: bool, full: bool):
+    """The label exchange across the node group: only the top-k payload
+    (values, indices, D_ID mask) moves — ring neighbours' boundary rows
+    (``mixing.block_ring_shift``), or every rank's block on a complete
+    graph (``all_gather``)."""
+    from repro_torch.launch import dist
+    if full and not (ring and n <= 3):
+        vals_all = dist.all_gather_cat(sp.values, mesh.node)  # (n, P, k)
+        idx_all = dist.all_gather_cat(sp.indices, mesh.node)
+        m_all = dist.all_gather_cat(m, mesh.node)
+        # every node merges the same contributor set: one merge,
+        # broadcast over the local nodes
+        vals, idx, w = _merge_payloads(list(vals_all), list(idx_all),
+                                       list(m_all))
+        L = m.shape[0]
+        return (vals.expand((L,) + vals.shape), idx.expand((L,) + idx.shape),
+                w.expand((L,) + w.shape))
+    if n == 1:
+        return _merge_payloads([sp.values], [sp.indices], [m])
+    from repro_torch.core.mixing import block_ring_shift
+
+    # the ring neighbours' boundary rows of all three, one collective
+    ts = (sp.values, sp.indices, m)
+    nbs = dist.ring_neighbors_many(list(ts), mesh.node)
+    parts = [[t] + [block_ring_shift(t, mesh.node, s, nb)
+                    for s in ((1, -1) if n > 2 else (1,))]
+             for t, nb in zip(ts, nbs)]
+    return _merge_payloads(*parts)
+
+
+def _shard_select(conf_pub, scores, filter_ood: bool):
+    if filter_ood:
+        thresholds = calibrate(*scores())
+        return thresholds, conf_pub > thresholds[:, None]
+    return (torch.zeros((conf_pub.shape[0],), device=conf_pub.device),
+            torch.ones(conf_pub.shape, dtype=torch.bool,
+                       device=conf_pub.device))
+
+
+@torch.no_grad()
+def shard_label_round(public_logits, val_logits, topology: Topology,
+                      cfg: IDKDConfig, *, mesh, filter_ood: bool = True
+                      ) -> SparseHomogenizedSet:
+    """One homogenization round on this rank's node block — the
+    ``driver_mode="shard"`` twin of :func:`label_round` (the reference's
+    ``shard_label_round``). ``public_logits`` (L, P, C) and
+    ``val_logits`` (L, V, C) are the block's (a global (n, ...) stack is
+    cut to the block).
+
+    Score, calibrate and select are local. Only the exchange crosses the
+    node group, and it moves nothing but top-k payloads. The merged
+    payload equals the node-stacked sparse backend's up to a permutation
+    along k (contributors self/prev/next instead of self/sorted
+    neighbours): every consumer accumulates duplicate indices, and the
+    per-node payload bytes match exactly. Always sparse; churn masks are
+    unsupported; a topology other than a ring or a complete graph
+    raises."""
+    size = mesh.node.size
+    n = topology.n
+    if public_logits.shape[0] == n and size > 1:
+        public_logits = _local_rows(public_logits, n, mesh)
+        val_logits = _local_rows(val_logits, n, mesh)
+    n, ring, full = _shard_layout(topology, public_logits.shape[0], mesh)
+    k = min(cfg.label_topk or DEFAULT_TOPK, public_logits.shape[-1])
+    conf_pub = detector_scores(public_logits, cfg.detector)
+    thresholds, id_mask = _shard_select(
+        conf_pub, lambda: (detector_scores(val_logits, cfg.detector),
+                           conf_pub), filter_ood)
+    sp = distill.sparsify_labels(
+        distill.soft_labels(public_logits, cfg.temperature), k)
+    vals, idx, w = _shard_exchange(sp, id_mask.float(), mesh=mesh, n=n,
+                                   ring=ring, full=full)
+    return SparseHomogenizedSet(distill.SparseLabels(vals, idx), w,
+                                id_mask, thresholds)
+
+
+@torch.no_grad()
+def shard_streaming_label_round(model, params, public_x, val_x,
+                                topology: Topology, cfg: IDKDConfig, *,
+                                mesh, specs=None, filter_ood: bool = True
+                                ) -> SparseHomogenizedSet:
+    """:func:`streaming_label_round` on this rank's node block — the
+    streaming twin of :func:`shard_label_round` (the reference's
+    ``shard_streaming_label_round``). ``params`` is the block
+    (``launch.sharding.local_block``); ``val_x`` the block's (L, V, ...)
+    or the global (n, V, ...) stack; the public set is every rank's.
+
+    Each rank streams the public microbatches through its own nodes —
+    forward to pre-head activations, the fused head pass per chunk —
+    and calibrates locally; only the top-k payload crosses the node
+    group. On the 2-D federation mesh (``specs`` the params' specs) the
+    rank all-gathers its nodes' model-sharded leaves to full width for
+    ``forward_features`` and runs the vocab-sharded head pass; label wire
+    bytes are unchanged by model parallelism."""
+    from repro_torch.launch.sharding import gather_model_tree, like_params
+
+    L = next(iter(params.values())).shape[0]
+    n, ring, full = _shard_layout(topology, L, mesh)
+    if mesh.model.size > 1:
+        if specs is None:
+            raise ValueError("a 2-D federation mesh needs the params' "
+                             "specs (launch.sharding.federation_specs)")
+        params = gather_model_tree(params, like_params(params, specs, L),
+                                   mesh)
+
+        def head_pass(model, p, x, cfg, k):
+            return _vocab_sharded_head_pass(model, p, x, cfg, k, mesh)
+    else:
+        head_pass = _head_pass
+    C = model.head_params(params)[0].shape[-1]
+    k = min(cfg.label_topk or DEFAULT_TOPK, C)
+    val_x = _local_rows(val_x, n, mesh)
+    chunks, P, _ = _chunk_public(public_x, cfg.stream_microbatch)
+    conf_pub, sp = _stream_public(model, params, chunks, P, cfg, k,
+                                  head_pass)
+    thresholds, id_mask = _shard_select(
+        conf_pub, lambda: (_stream_val_conf(model, params, val_x, cfg,
+                                            head_pass), conf_pub),
+        filter_ood)
+    del params
+    vals, idx, w = _shard_exchange(sp, id_mask.float(), mesh=mesh, n=n,
+                                   ring=ring, full=full)
+    return SparseHomogenizedSet(distill.SparseLabels(vals, idx), w,
+                                id_mask, thresholds)
 
 
 def neighbor_topk_overlap(indices, topology: Topology):

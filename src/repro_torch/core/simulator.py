@@ -23,6 +23,15 @@ churn and rewire events (masked Metropolis mixing, frozen nodes held by
 and resume, telemetry (``repro_torch.obs``) and resilience
 (``repro_torch.resil``: guards, quarantine, rollback, durable snapshots
 with auto-resume).
+
+``driver_mode="shard"`` runs the same experiment SPMD, one process per
+mesh device (:mod:`repro_torch.launch.dist`): every rank builds the
+simulator with the same arguments and calls :meth:`run`; each holds its
+block of nodes (and on the 2-D federation mesh, ``model_parallel > 1``,
+one model shard of each weight leaf), steps through
+``driver.make_shard_step`` and runs the sharded label rounds. Evals and
+the round's statistics are the whole federation's on every rank; the
+result's ``params`` and ``captured`` are the rank's block.
 """
 from __future__ import annotations
 
@@ -108,6 +117,10 @@ class _SimFederation(sched.CompiledFederationHooks):
         self.wire_fault = None
         self.last_round_stats = None
 
+    @property
+    def model_parallel(self):
+        return self.sim.model_parallel
+
     def _make_mixer(self, topo: Topology, active, stale=None):
         sim = self.sim
         if (active is None and self._fault_key() is None
@@ -133,7 +146,8 @@ class _SimFederation(sched.CompiledFederationHooks):
     def _base_step(self, topo: Topology, active: np.ndarray,
                    stale: np.ndarray):
         sim = self.sim
-        if (active.all() and not self._metrics_on()
+        if (sim.steps is not None and active.all()
+                and not self._metrics_on()
                 and self._fault_key() is None
                 and self._guard_spec() is None
                 and topo.edge_key() == sim.gossip_topo.edge_key()):
@@ -153,6 +167,12 @@ class _SimFederation(sched.CompiledFederationHooks):
         hom = sim.homogenize(params, cfg, topology,
                              active=None if active.all() else active,
                              wire_fault=self._fault_key())
+        if self.driver_mode == "shard":
+            # the samplers draw the whole federation's batch on every
+            # rank: the round's block gathered to the global node stack
+            from repro_torch.launch.sharding import gather_nodes
+            hom = labeling.SparseHomogenizedSet(
+                *gather_nodes(tuple(hom), self._node_mesh))
         sparse_round = isinstance(hom, labeling.SparseHomogenizedSet)
         payload = ((hom.labels.values, hom.labels.indices) if sparse_round
                    else hom.labels)
@@ -190,7 +210,7 @@ class _SimFederation(sched.CompiledFederationHooks):
         acc, nll = self.sim._eval(params)
         self.result.acc_history.append(acc)
         self.result.loss_history.append(nll)
-        cons = float(consensus_distance(params))
+        cons = float(self.sim.consensus(params))
         self.result.consensus_history.append(cons)
         tel = self.telemetry
         if tel is not None:
@@ -210,10 +230,12 @@ class DecentralizedSimulator:
                  wire_dtype: str = "float32", model_parallel: int = 1,
                  device="cuda"):
         self.driver_mode = driver.resolve_runner_mode(driver_mode)
-        if model_parallel > 1:
-            raise NotImplementedError(
-                "model_parallel > 1 is not ported yet; see ROADMAP.md "
-                "queue 1 item 13")
+        # shard mode only: width of the federation mesh's "model" axis
+        self.model_parallel = model_parallel
+        if model_parallel > 1 and self.driver_mode != "shard":
+            raise ValueError(
+                "model_parallel > 1 shards each replica over the 2-D "
+                "federation mesh and needs driver_mode='shard'")
         if train_cfg.compression_spec is not None or \
                 train_cfg.gossip != "sync":
             raise NotImplementedError(
@@ -262,6 +284,38 @@ class DecentralizedSimulator:
                                 train_cfg.lr_decay_factor)
         icfg = train_cfg.idkd or IDKDConfig()
         self._fed: Optional[_SimFederation] = None
+        self.node_mesh = None
+        self.specs = None
+        self.steps = None
+        if self.driver_mode == "shard":
+            # every shard-mode limitation fails here, at construction
+            from repro_torch.core.mixing import shard_supported_topology
+            from repro_torch.launch.mesh import make_federation_mesh
+            if not shard_supported_topology(self.gossip_topo):
+                raise ValueError(
+                    f"driver_mode='shard' gossips on ring/complete graphs "
+                    f"only; topology {self.gossip_topo.name!r} needs the "
+                    "node-stacked runners (driver_mode='scan' or 'host')")
+            if kd_mode is not None and \
+                    not shard_supported_topology(self.topology):
+                raise ValueError(
+                    f"driver_mode='shard' exchanges labels on "
+                    f"ring/complete graphs only; topology "
+                    f"{self.topology.name!r} needs the node-stacked "
+                    "runners (driver_mode='scan' or 'host')")
+            if kd_mode is not None and icfg.label_backend == "dense":
+                raise ValueError(
+                    "driver_mode='shard' moves only top-k label payloads "
+                    "across the node group; set IDKDConfig.label_backend="
+                    "'sparse' (or 'fused'), or use driver_mode='scan'/"
+                    "'host' for the dense oracle")
+            if getattr(self.algo, "needs_topology", False):
+                raise ValueError(
+                    f"algorithm {self.algo.name!r} carries per-edge state "
+                    "and cannot run under the sharded driver; use "
+                    "driver_mode='scan' or 'host'")
+            self.node_mesh = make_federation_mesh(n, model_parallel)
+            return
         self.steps = {
             "plain": driver.make_step(self.model, self.algo, self.mixer,
                                       driver.classification_adapter),
@@ -278,6 +332,52 @@ class DecentralizedSimulator:
         params = self.model.init(gen)   # identical init on all nodes (paper)
         return {k: v.to(self.device) for k, v in
                 stack_params(params, self.tcfg.num_nodes).items()}
+
+    def _param_count(self) -> int:
+        gen = torch.Generator().manual_seed(0)
+        return sum(v.numel() for v in self.model.init(gen).values())
+
+    # ---------------------------------------------------------- shard mode
+    def _local(self, params):
+        """Shard mode: this rank's block of global node-stacked params;
+        fixes the params' specs on first use."""
+        from repro_torch.launch.sharding import federation_specs, local_block
+        if self.specs is None:
+            self.specs = federation_specs(params, self.tcfg.num_nodes,
+                                          self.node_mesh)
+        return local_block(params, self.specs, self.node_mesh)
+
+    def global_params(self, params):
+        """Shard mode: the global node stack from every rank's block
+        (collective); node-stacked params pass through."""
+        if self.driver_mode != "shard":
+            return params
+        from repro_torch.launch.sharding import global_stack
+        return global_stack(params, self.specs, self.node_mesh)
+
+    def _full_width(self, params):
+        """The rank's nodes with every model-sharded leaf gathered."""
+        if self.driver_mode != "shard" or self.node_mesh.model.size == 1:
+            return params
+        from repro_torch.launch.sharding import gather_model_tree
+        return gather_model_tree(params, self.specs, self.node_mesh)
+
+    def _shard_reduce(self):
+        from repro_torch.launch.sharding import ShardReduce
+        dims = ({k: s.model_dim for k, s in self.specs.items()}
+                if self.node_mesh.model.size > 1 else None)
+        return ShardReduce(self.node_mesh, self.tcfg.num_nodes, dims)
+
+    @torch.no_grad()
+    def consensus(self, params) -> torch.Tensor:
+        """L2 distance of the node params from their average
+        (``mixing.consensus_distance``), over every node in shard mode."""
+        if self.driver_mode != "shard":
+            return consensus_distance(params)
+        from repro_torch.launch import dist
+        from repro_torch.obs.metrics import consensus_rows
+        rows = consensus_rows(params, self._shard_reduce())
+        return torch.sqrt(dist.all_reduce(rows.sum(), self.node_mesh.node))
 
     # -------------------------------------------------------------- inference
     @torch.no_grad()
@@ -347,11 +447,17 @@ class DecentralizedSimulator:
             gen.set_state(key.get_state() if isinstance(
                 key, torch.Generator) else key)
             resume_step = int(resume["step"])
+            nparams = self._param_count()
         else:
             params = self._stacked_init()
+            nparams = sum(v[0].numel() for v in params.values())
+            if self.driver_mode == "shard":
+                params = self._local(params)
             opt_state = self.algo.init(params)
             resume_step = 0
-        nparams = sum(v[0].numel() for v in params.values())
+        if self.driver_mode == "shard":
+            # churn, faults and unsupported rewires fail before training
+            sched.validate_shard_schedule(schedule, n, self.model_parallel)
         ledger = sched.CommLedger(n, meta={
             "topology": self.gossip_topo.name,
             "wire_dtype": self.wire_dtype,
@@ -360,6 +466,8 @@ class DecentralizedSimulator:
             self._fed = _SimFederation(self, result, idkd_cfg)
         else:
             self._fed.reset(result)
+        self._fed.specs = self.specs
+        self._fed._node_mesh = self.node_mesh
         params, opt_state, gen, captured = sched.run_schedule(
             schedule, self._fed, params, opt_state, gen,
             topology=self.gossip_topo,
@@ -396,6 +504,9 @@ class DecentralizedSimulator:
         filter_ood = self.kd_mode != "vanilla"
         topo = topology or self.topology
         n = self.tcfg.num_nodes
+        if self.driver_mode == "shard":
+            return self._shard_homogenize(params, idkd_cfg, topo, active,
+                                          wire_fault, filter_ood)
         act = (np.ones(n, bool) if active is None
                else np.asarray(active, bool))
         streaming = (idkd_cfg.stream_labels
@@ -444,6 +555,39 @@ class DecentralizedSimulator:
             backend=idkd_cfg.label_backend, filter_ood=filter_ood,
             active=None if act.all() else act)
 
+    def _shard_homogenize(self, params, idkd_cfg: IDKDConfig,
+                          topo: Topology, active, wire_fault,
+                          filter_ood: bool) -> labeling.SparseHomogenizedSet:
+        """Shard mode's round on this rank's block: the streaming round
+        (vocab-sharded on the 2-D mesh) or the one-shot round on the
+        block's logits. Churn and label-round faults are refused, as in
+        the reference."""
+        if wire_fault is not None and not wire_fault.is_noop():
+            raise ValueError(
+                "label-round fault injection is unsupported under "
+                "driver_mode='shard' — run fault schedules node-stacked")
+        if active is not None:
+            raise ValueError("sharded label rounds have no churn path; "
+                             "run churn schedules node-stacked")
+        if idkd_cfg.stream_labels and idkd_cfg.label_backend != "dense":
+            return labeling.shard_streaming_label_round(
+                self.model, params, self.public_x,
+                self._per_node_val_inputs(), topo, idkd_cfg,
+                mesh=self.node_mesh, specs=self.specs,
+                filter_ood=filter_ood)
+        full = self._full_width(params)
+        L = next(iter(full.values())).shape[0]
+        lo = self.node_mesh.node.index * L
+        with torch.no_grad():
+            val_logits = self.model.forward(
+                full, {"images": self._per_node_val_inputs()[lo:lo + L]})[0]
+            logits = torch.cat([self.model.forward(
+                full, {"images": xb[None].expand((L,) + xb.shape)})[0]
+                for xb in self.public_x.split(256)], dim=1)
+        return labeling.shard_label_round(
+            logits, val_logits, topo, idkd_cfg, mesh=self.node_mesh,
+            filter_ood=filter_ood)
+
     def _post_histograms(self, hom) -> np.ndarray:
         C = self.mcfg.num_classes
         sparse_round = isinstance(hom, labeling.SparseHomogenizedSet)
@@ -463,9 +607,14 @@ class DecentralizedSimulator:
     @torch.no_grad()
     def _eval(self, params, batch: int = 256):
         """Consensus-model accuracy and NLL over the first
-        ``eval_batches`` contiguous test batches, each sample once."""
-        mean_p = {k: v.float().mean(dim=0, keepdim=True).to(v.dtype)
-                  for k, v in params.items()}
+        ``eval_batches`` contiguous test batches, each sample once (in
+        shard mode the node mean is summed over the node group and the
+        model shards gathered: every rank evaluates the same model)."""
+        if self.driver_mode == "shard":
+            mean_p = self._full_width(self._shard_reduce().node_means(params))
+        else:
+            mean_p = {k: v.float().mean(dim=0, keepdim=True).to(v.dtype)
+                      for k, v in params.items()}
         N = len(self.test_y)
         stop = min(N, self.eval_batches * batch)
         hits = nll = 0.0

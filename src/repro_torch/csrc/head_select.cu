@@ -17,7 +17,9 @@
 // through shared memory in TC-wide tiles, each a ROWS x TC tile of scores
 // built by a D-tiled SIMT f32 product (each thread holds a 4x4 sub-tile).
 // After each tile one thread per row folds the tile into its (m, z) and
-// its register top-k, and finalizes the row after the last tile.
+// its register top-k, and finalizes the row after the last tile; in the
+// raw mode (head_select_pallas(raw_stats=True), the per-slice half of
+// the vocab-sharded round) it writes that carry unfinalized instead.
 //
 // Variants. This SIMT kernel serves float32 (and bf16 only when called
 // as the "simt" variant, to time it); bf16 runs head_select_tc.cu on the
@@ -50,8 +52,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 head_select_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
                    const float* __restrict__ bias, int N, int D, int C, int k,
-                   float temperature, int energy, float* __restrict__ conf,
-                   float* __restrict__ vals, int* __restrict__ idx) {
+                   float temperature, int energy, int raw,
+                   float* __restrict__ conf, float* __restrict__ vals,
+                   int* __restrict__ idx, float* __restrict__ zout) {
   const int l = blockIdx.y;
   const int row0 = blockIdx.x * ROWS;
   const T* H = hidden + (size_t)l * N * D;
@@ -138,43 +141,53 @@ head_select_kernel(const T* __restrict__ hidden, const T* __restrict__ w,
 
   if (tid < ROWS && row0 + tid < N) {
     const size_t row = (size_t)l * N + row0 + tid;
-    finalize_row(m_run, z_run, tv, ti, k, temperature, energy, conf + row,
-                 vals + row * k, idx + row * k);
+    if (raw) {
+      write_raw_row(m_run, z_run, tv, ti, k, conf + row, zout + row,
+                    vals + row * k, idx + row * k);
+    } else {
+      finalize_row(m_run, z_run, tv, ti, k, temperature, energy, conf + row,
+                   vals + row * k, idx + row * k);
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* hidden, const void* w, const void* bias,
                    int L, int N, int D, int C, int k, float temperature,
-                   int energy, void* conf, void* vals, void* idx,
-                   cudaStream_t stream) {
+                   int energy, int raw, void* conf, void* vals, void* idx,
+                   void* z, cudaStream_t stream) {
   const dim3 grid((N + ROWS - 1) / ROWS, L);
   head_select_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(hidden), static_cast<const T*>(w),
-      static_cast<const float*>(bias), N, D, C, k, temperature, energy,
+      static_cast<const float*>(bias), N, D, C, k, temperature, energy, raw,
       static_cast<float*>(conf), static_cast<float*>(vals),
-      static_cast<int*>(idx));
+      static_cast<int*>(idx), static_cast<float*>(z));
   return cudaGetLastError();
 }
 
 }  // namespace idkd
 
 // dtype: 0 = float32, 1 = bfloat16 (hidden and w); bias is float32 or
-// null. Outputs conf (L*N), vals/idx (L*N*k). Returns cudaGetLastError()
+// null. Outputs conf (L*N), vals/idx (L*N*k). With raw != 0 (the
+// raw_stats mode of the vocab-sharded round) the row's carry is written
+// instead of the finalized label: m to conf, z to z (L*N), the top-k raw
+// logits to vals and their indices to idx. Returns cudaGetLastError()
 // after the launch.
 extern "C" int head_select_launch(int dtype, const void* hidden,
                                   const void* w, const void* bias, int L,
                                   int N, int D, int C, int k,
-                                  float temperature, int energy, void* conf,
-                                  void* vals, void* idx, void* stream) {
-  if (k < 1 || k > idkd::KMAX) return (int)cudaErrorInvalidValue;
+                                  float temperature, int energy, int raw,
+                                  void* conf, void* vals, void* idx, void* z,
+                                  void* stream) {
+  if (k < 1 || k > idkd::KMAX || (raw && !z)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)idkd::launch<float>(hidden, w, bias, L, N, D, C, k,
-                                    temperature, energy, conf, vals, idx, s);
+                                    temperature, energy, raw, conf, vals, idx,
+                                    z, s);
   if (dtype == 1)
     return (int)idkd::launch<__nv_bfloat16>(hidden, w, bias, L, N, D, C, k,
-                                            temperature, energy, conf, vals,
-                                            idx, s);
+                                            temperature, energy, raw, conf,
+                                            vals, idx, z, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,7 +48,8 @@
 //    (m, z, top-k logits, indices) to scratch and head_select_merge
 //    combines them as merge_head_stats does (m = max m_i, z = sum
 //    z_i exp(m_i - m), the top-k of the union, ties to the lowest index),
-//    then finalizes. Slices vary fastest in the grid, so the blocks that
+//    then finalizes (or, in the raw_stats mode of the vocab-sharded
+//    round, writes the merged carry unfinalized). Slices vary fastest in the grid, so the blocks that
 //    run together share row tiles: at Hymba's head (512 row tiles) C is
 //    cut in two only so that one wave's hidden tiles, re-read once per
 //    column tile, fit the L2 (kernels/head_select/ops._column_splits).
@@ -108,10 +109,11 @@ head_select_tc_kernel(const __grid_constant__ CUtensorMap th,
                       const __grid_constant__ CUtensorMap tw,
                       const float* __restrict__ bias, int N, int D, int C,
                       int k, int slice_w, int nsplit, float temperature,
-                      int energy, float* __restrict__ conf,
+                      int energy, int raw, float* __restrict__ conf,
                       float* __restrict__ vals, int* __restrict__ idx,
-                      float* __restrict__ pm, float* __restrict__ pz,
-                      float* __restrict__ pv, int* __restrict__ pi) {
+                      float* __restrict__ zout, float* __restrict__ pm,
+                      float* __restrict__ pz, float* __restrict__ pv,
+                      int* __restrict__ pi) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -200,8 +202,12 @@ head_select_tc_kernel(const __grid_constant__ CUtensorMap th,
     fence_regs(acc);
     mbar_arrive(&empty[prev]);
 
-    // epilogue: bias, mask past the slice, (m, z) and the top-k test
+    // epilogue: bias, mask past the slice, (m, z) and the top-k test.
+    // Columns past the slice are -inf, not NEG: a slice whose columns
+    // are all NEG-biased padding (the vocab-sharded round's last slice)
+    // then keeps z = its width, as the reference's carry does.
     const int c0 = c_begin + ct * HT_COLS;
+    const float past = __int_as_float(0xff800000);
 #pragma unroll
     for (int j = 0; j < 32; ++j)
 #pragma unroll
@@ -209,7 +215,7 @@ head_select_tc_kernel(const __grid_constant__ CUtensorMap th,
         const int col = c0 + 8 * j + col_q + (e & 1);
         acc[4 * j + e] = col < c_end
                              ? acc[4 * j + e] + (bl ? __ldg(bl + col) : 0.0f)
-                             : NEG;
+                             : past;
       }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -270,7 +276,10 @@ head_select_tc_kernel(const __grid_constant__ CUtensorMap th,
         topk_insert_ordered(tv, ti, k, my_v[hh][q + j * HT_LIST_STRIDE],
                             my_i[hh][q + j * HT_LIST_STRIDE], thr_v, thr_i);
     const size_t r = (size_t)l * N + row;
-    if (nsplit == 1) {
+    if (nsplit == 1 && raw) {
+      write_raw_row(m_run[hh], z_run[hh], tv, ti, k, conf + r, zout + r,
+                    vals + r * k, idx + r * k);
+    } else if (nsplit == 1) {
       finalize_row(m_run[hh], z_run[hh], tv, ti, k, temperature, energy,
                    conf + r, vals + r * k, idx + r * k);
     } else {
@@ -287,16 +296,18 @@ head_select_tc_kernel(const __grid_constant__ CUtensorMap th,
   }
 }
 
-// One thread per row: merge the slices' (m, z, top-k) and finalize.
+// One thread per row: merge the slices' (m, z, top-k) and finalize, or
+// in the raw mode write the merged carry unfinalized.
 __global__ void head_select_merge_kernel(const float* __restrict__ pm,
                                          const float* __restrict__ pz,
                                          const float* __restrict__ pv,
                                          const int* __restrict__ pi,
                                          int rows, int nsplit, int k,
                                          float temperature, int energy,
-                                         float* __restrict__ conf,
+                                         int raw, float* __restrict__ conf,
                                          float* __restrict__ vals,
-                                         int* __restrict__ idx) {
+                                         int* __restrict__ idx,
+                                         float* __restrict__ zout) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   const size_t p0 = (size_t)r * nsplit;
@@ -317,8 +328,12 @@ __global__ void head_select_merge_kernel(const float* __restrict__ pm,
     for (int j = 0; j < k; ++j)
       topk_insert_ordered(tv, ti, k, pv[(p0 + s) * k + j],
                           pi[(p0 + s) * k + j], thr_v, thr_i);
-  finalize_row(m, z, tv, ti, k, temperature, energy, conf + r,
-               vals + (size_t)r * k, idx + (size_t)r * k);
+  if (raw)
+    write_raw_row(m, z, tv, ti, k, conf + r, zout + r, vals + (size_t)r * k,
+                  idx + (size_t)r * k);
+  else
+    finalize_row(m, z, tv, ti, k, temperature, energy, conf + r,
+                 vals + (size_t)r * k, idx + (size_t)r * k);
 }
 
 }  // namespace idkd
@@ -327,22 +342,24 @@ __global__ void head_select_merge_kernel(const float* __restrict__ pm,
 // multiple of 8; bias f32 (L, C) or null. The vocabulary is cut into
 // nsplit slices of slice_w columns (a multiple of 256); with nsplit > 1
 // the partials pm/pz (L*N*nsplit) and pv/pi (L*N*nsplit*k) are scratch
-// and a second kernel merges them. Outputs conf (L*N), vals/idx (L*N*k).
-// Returns cudaGetLastError() after the launches (cudaErrorInvalidValue
+// and a second kernel merges them. Outputs conf (L*N), vals/idx (L*N*k);
+// with raw != 0 (the raw_stats mode) m goes to conf, z to z (L*N) and the
+// top-k raw logits to vals, unfinalized, whatever nsplit. Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue
 // for arguments the kernel does not take or a refused tensor map).
 extern "C" int head_select_tc_launch(const void* hidden, const void* wt,
                                      const void* bias, int L, int N, int D,
                                      int C, int k, int slice_w, int nsplit,
-                                     float temperature, int energy,
+                                     float temperature, int energy, int raw,
                                      void* conf, void* vals, void* idx,
-                                     void* pm, void* pz, void* pv, void* pi,
-                                     void* stream) {
+                                     void* z, void* pm, void* pz, void* pv,
+                                     void* pi, void* stream) {
   using namespace idkd;
   if (k < 1 || k > KMAX || L < 1 || N < 1 || C < k || D < 1 || D % 8 ||
       slice_w < HT_COLS || slice_w % HT_COLS || nsplit < 1 ||
       (long long)slice_w * nsplit < C ||
       (long long)slice_w * (nsplit - 1) >= C ||
-      (nsplit > 1 && (!pm || !pz || !pv || !pi)))
+      (nsplit > 1 && (!pm || !pz || !pv || !pi)) || (raw && !z))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap mh, mw;
@@ -365,9 +382,10 @@ extern "C" int head_select_tc_launch(const void* hidden, const void* wt,
   const dim3 grid(nsplit, (N + HT_ROWS - 1) / HT_ROWS, L);
   kernel<<<grid, HT_THREADS, smem, s>>>(
       mh, mw, static_cast<const float*>(bias), N, D, C, k, slice_w, nsplit,
-      temperature, energy, static_cast<float*>(conf),
+      temperature, energy, raw, static_cast<float*>(conf),
       static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(pm), static_cast<float*>(pz),
+      static_cast<float*>(z), static_cast<float*>(pm),
+      static_cast<float*>(pz),
       static_cast<float*>(pv), static_cast<int*>(pi));
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
@@ -375,7 +393,8 @@ extern "C" int head_select_tc_launch(const void* hidden, const void* wt,
   head_select_merge_kernel<<<(rows + 127) / 128, 128, 0, s>>>(
       static_cast<const float*>(pm), static_cast<const float*>(pz),
       static_cast<const float*>(pv), static_cast<const int*>(pi), rows,
-      nsplit, k, temperature, energy, static_cast<float*>(conf),
-      static_cast<float*>(vals), static_cast<int*>(idx));
+      nsplit, k, temperature, energy, raw, static_cast<float*>(conf),
+      static_cast<float*>(vals), static_cast<int*>(idx),
+      static_cast<float*>(z));
   return (int)cudaGetLastError();
 }

@@ -112,4 +112,24 @@ __device__ __forceinline__ void finalize_row(float m, float z,
   }
 }
 
+// The raw_stats mode's output: a row's online-softmax carry (m, z) and
+// its top-k raw logits with their indices, unfinalized, for a merge
+// across vocabulary slices (merge_head_stats). Empty slots keep NEG and
+// index 0, as the Pallas kernel's carry does.
+__device__ __forceinline__ void write_raw_row(float m, float z,
+                                              const float (&tv)[KMAX],
+                                              const int (&ti)[KMAX], int k,
+                                              float* m_out, float* z_out,
+                                              float* tv_out, int* ti_out) {
+  *m_out = m;
+  *z_out = z;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) {
+      tv_out[j] = tv[j];
+      ti_out[j] = ti[j];
+    }
+  }
+}
+
 }  // namespace idkd

@@ -1,2 +1,3 @@
-from repro_torch.kernels.head_select.ops import (head_select,  # noqa: F401
-                                                head_select_plain)
+from repro_torch.kernels.head_select.ops import (  # noqa: F401
+    head_select, head_select_plain, head_select_stats_plain,
+    merge_head_stats_plain)

@@ -11,6 +11,18 @@ and ``bias`` (L, C) it returns, per node and row:
   renormalized over the top-k;
 * ``idx`` (L, N, k) int32 — their class indices, ties to the lowest.
 
+``raw_stats=True`` is ``head_select_pallas(raw_stats=True)``: the
+pre-finalizer carry ``(m (L, N), z (L, N), tv (L, N, k), ti (L, N, k))``
+of one vocabulary slice — the online-softmax stats and the top-k raw
+logits with their indices within the slice — which the vocab-sharded
+round (``core.labeling``) merges across slices with
+:func:`merge_head_stats_plain`. Both kernels have this mode; its
+launches are counted under ``"simt_raw"`` / ``"tc_raw"``. Slots the
+slice cannot fill with a real logit (every column NEG-biased padding)
+hold NEG and index 0 in the kernels, as in the Pallas kernel's carry,
+and the slice's first indices in the plain version, as in
+``head_select_stats_ref``; they never win the merge.
+
 Two CUDA kernels compute it, neither writing the (N, C) logits to
 memory, one launch for all L nodes; their header notes give each design
 and what bounds it on the H100: ``csrc/head_select_tc.cu`` (``tc``: bf16,
@@ -145,10 +157,11 @@ def _fn(variant: str):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if variant == "tc":
         fn = build.load("head_select_tc").head_select_tc_launch
-        args = [p, p, p, i, i, i, i, i, i, i, f, i, p, p, p, p, p, p, p, p]
+        args = [p, p, p, i, i, i, i, i, i, i, f, i, i, p, p, p, p, p, p, p,
+                p, p]
     else:
         fn = build.load("head_select").head_select_launch
-        args = [i, p, p, p, i, i, i, i, i, f, i, p, p, p, p]
+        args = [i, p, p, p, i, i, i, i, i, f, i, i, p, p, p, p, p]
     if fn.argtypes is None:
         fn.argtypes = args
         fn.restype = i
@@ -159,18 +172,21 @@ _SMS = {}
 
 
 def _launch(variant: str, hidden, w, bias, *, temperature: float, k: int,
-            detector: str):
+            detector: str, raw: bool = False):
     """Run one kernel on checked CUDA tensors (bias f32 or None) and count
-    the launch."""
+    the launch. ``raw``: write the carry (m into ``conf``, z, the top-k
+    raw logits into ``vals``) instead of the finalized label."""
     L, N, D = hidden.shape
     C = w.shape[-1]
     dev = hidden.device
     conf = torch.empty((L, N), device=dev)
     vals = torch.empty((L, N, k), device=dev)
     idx = torch.empty((L, N, k), device=dev, dtype=torch.int32)
+    z = torch.empty((L, N), device=dev) if raw else None
     energy = int(detector == "energy")
     bptr = None if bias is None else bias.data_ptr()
-    outs = (conf.data_ptr(), vals.data_ptr(), idx.data_ptr())
+    outs = (conf.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            None if z is None else z.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if variant == "tc":
@@ -193,27 +209,32 @@ def _launch(variant: str, hidden, w, bias, *, temperature: float, k: int,
                                 dtype=torch.int32))]
             rc = _fn("tc")(h.data_ptr(), wt.data_ptr(), bptr, L, N,
                            h.shape[-1], C, k, slice_w, nsplit,
-                           float(temperature), energy, *outs, *scratch,
-                           stream)
+                           float(temperature), energy, int(raw), *outs,
+                           *scratch, stream)
         else:
             wc = w.contiguous()
             rc = _fn("simt")(_DTYPES[hidden.dtype], hidden.data_ptr(),
                              wc.data_ptr(), bptr, L, N, D, C, k,
-                             float(temperature), energy, *outs, stream)
+                             float(temperature), energy, int(raw), *outs,
+                             stream)
     if rc != 0:
         raise RuntimeError(f"head_select {variant} kernel launch failed: "
                            f"CUDA error {rc}")
+    tag = f"{variant}_raw" if raw else variant
     head_select.launches += 1
-    head_select.launches_by_variant[variant] += 1
-    return conf, vals, idx
+    head_select.launches_by_variant[tag] = (
+        head_select.launches_by_variant.get(tag, 0) + 1)
+    return (conf, z, vals, idx) if raw else (conf, vals, idx)
 
 
 def head_select(hidden, w, bias=None, *, temperature: float = 10.0,
-                k: int = 8, detector: str = "msp"):
+                k: int = 8, detector: str = "msp", raw_stats: bool = False):
     if detector not in DETECTORS:
         raise ValueError(f"unknown detector {detector!r}")
     forbid_grad("head_select", hidden, w, bias)
     if hidden.device.type == "cpu":
+        if raw_stats:
+            return head_select_stats_plain(hidden, w, bias, k=k)
         return head_select_plain(hidden, w, bias, temperature=temperature,
                                  k=k, detector=detector)
     if hidden.device.type != "cuda":
@@ -243,8 +264,9 @@ def head_select(hidden, w, bias=None, *, temperature: float = 10.0,
             raise ValueError(f"head_select: {name} must be contiguous on "
                              f"{hidden.device}")
     return _launch(variant, hidden, w, bias, temperature=temperature, k=k,
-                   detector=detector)
+                   detector=detector, raw=raw_stats)
 
 
 head_select.launches = 0
-head_select.launches_by_variant = {"tc": 0, "simt": 0}
+head_select.launches_by_variant = {"tc": 0, "simt": 0, "tc_raw": 0,
+                                   "simt_raw": 0}

@@ -1,0 +1,299 @@
+"""Sharding rules of the sharded driver (``src/repro/launch/sharding.py``).
+
+Params are node-stacked flat dicts (leading dim = node axis, keys the
+reference's paths joined with ``/``). On a mesh
+(:mod:`repro_torch.launch.mesh`) each rank holds its contiguous block of
+node rows; on the 2-D federation mesh it also holds one ``"model"``
+shard of each weight leaf: the largest trailing dim divisible by the
+model size (for embedding and LM-head leaves, the vocabulary), an MoE
+expert bank on its expert dim, and nothing of the small leaves (norms,
+biases), which every model peer keeps whole.
+
+Where the reference gives a ``PartitionSpec`` per leaf, the port gives
+a :class:`Spec`: whether the leaf has the node axis, and the dim it
+shards over ``"model"`` (None when replicated over it). The rule is the
+reference's, applied to the port's layouts: a ResNet conv kernel is
+OIHW here and HWIO there, so when two of its dims tie the port shards
+the other one of them; the gathered leaf and the trajectory are the
+same either way.
+
+Specs are computed once from the *global* shapes
+(:func:`federation_specs`); a local block cannot tell which of two
+equal dims was cut. :func:`local_block` cuts a global tree down to this
+rank's block and :func:`global_stack` gathers one back (evals, tests,
+the round's payload); :func:`gather_model_tree` and
+:func:`slice_model_tree` move between a rank's shards and full-width
+leaves inside one replica. ``leaf_spec``'s pod scope,
+``param_shardings``, ``batch_shardings`` and the serving rules wait for
+the dry run and item 10b.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import Mesh
+
+
+class Spec(NamedTuple):
+    """How one leaf is laid out over the mesh."""
+    node: bool                    # leading dim is the node axis
+    model_dim: Optional[int]      # dim cut over "model", None if whole
+
+
+REPLICATED = Spec(False, None)
+
+
+def _divisible(dim: int, size: int) -> bool:
+    return dim % size == 0 and dim >= size
+
+
+def node_leaf_spec(leaf, num_nodes: int) -> Spec:
+    """The 1-D node mesh's spec of one leaf: its leading dim is the node
+    axis when it has ``num_nodes`` rows; scalars, counters and payloads
+    without a node dim replicate."""
+    if isinstance(leaf, torch.Tensor) and leaf.dim() >= 1 \
+            and leaf.shape[0] == num_nodes:
+        return Spec(True, None)
+    return REPLICATED
+
+
+def _map(tree, fn, path: str = ""):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, f"{path}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [_map(v, fn, f"{path}{i}/")
+                               for i, v in enumerate(tree)])
+    return fn(path[:-1], tree)
+
+
+def _rebuild(tree, items):
+    """A list, tuple or NamedTuple of the same type holding ``items``."""
+    return type(tree)(*items) if hasattr(tree, "_fields") \
+        else type(tree)(items)
+
+
+def node_stacked_specs(tree, num_nodes: int):
+    """Per-leaf :class:`Spec` tree of a node-stacked tree on the 1-D
+    node mesh."""
+    return _map(tree, lambda _, leaf: node_leaf_spec(leaf, num_nodes))
+
+
+def _param_skip_dims(path: str, ndim: int) -> int:
+    """Leading dims of a node-stacked param leaf that are NOT shardable
+    weight dims: dim 0 is the node axis; scanned-layer stacking
+    (``layers_*`` subtrees, stacked codebooks) adds one more."""
+    skip = 2 if ("layers_" in path or "embed_cb" in path
+                 or ("head" in path and ndim > 3)) else 1
+    return min(skip, max(ndim - 1, 1))
+
+
+def leaf_model_dim(path: str, shape, model_size: int) -> Optional[int]:
+    """The dim the reference's replica-scope ``leaf_spec`` puts on
+    ``"model"`` for a node-stacked leaf of ``shape``: an expert bank's
+    expert dim, else the largest divisible trailing weight dim; None for
+    leaves with fewer than two trailing dims."""
+    trailing = list(range(_param_skip_dims(path, len(shape)), len(shape)))
+    if len(trailing) < 2:
+        return None
+    if "experts" in path and len(trailing) >= 3:
+        e_dim = trailing[0]
+        return e_dim if _divisible(shape[e_dim], model_size) else None
+    cand = sorted(trailing, key=lambda i: -shape[i])
+    return next((i for i in cand if _divisible(shape[i], model_size)),
+                None)
+
+
+def federation_specs(tree, num_nodes: int, mesh: Mesh):
+    """Per-leaf :class:`Spec` tree for the federation mesh, from the
+    *global* shapes: node-stacked leaves put dim 0 on the node axis and,
+    when the mesh has a model axis wider than 1, cut
+    :func:`leaf_model_dim` over it. On the 1-D node mesh this is
+    :func:`node_stacked_specs`."""
+    model_size = mesh.shape["model"]
+    if model_size <= 1:
+        return node_stacked_specs(tree, num_nodes)
+
+    def one(path, leaf):
+        spec = node_leaf_spec(leaf, num_nodes)
+        if not spec.node:
+            return spec
+        return Spec(True, leaf_model_dim(path, tuple(leaf.shape),
+                                         model_size))
+
+    return _map(tree, one)
+
+
+def like_params(tree, param_specs: Dict[str, Spec], num_local: int):
+    """Specs of a tree that mirrors the params (optimizer state, grads):
+    a leaf under a params key takes that key's spec; any other leaf with
+    ``num_local`` rows is node-stacked and model-replicated."""
+    def one(path, leaf):
+        key = path
+        while key:
+            if key in param_specs:
+                return param_specs[key]
+            key = key.partition("/")[2]
+        return node_leaf_spec(leaf, num_local)
+    return _map(tree, one)
+
+
+def _zip(tree, specs, fn):
+    if isinstance(tree, dict):
+        return {k: _zip(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [_zip(v, s, fn) for v, s in zip(tree, specs)])
+    return fn(tree, specs)
+
+
+GATHER_BYTES = 1 << 28    # shards moved by one all_gather at most
+
+
+def gather_model_tree(tree, specs, mesh: Mesh):
+    """All-gather every model-sharded leaf back to full width along its
+    cut dim over the mesh's model group; model-replicated leaves pass
+    through. The shards move in few collectives, up to GATHER_BYTES of
+    them each, so that a step pays few waits and a full-width model no
+    second copy of itself in flight."""
+    if mesh.model.size == 1:
+        return tree
+    cut = []
+
+    def collect(x, spec):
+        if isinstance(x, torch.Tensor) and spec.model_dim is not None:
+            cut.append((x, spec.model_dim))
+        return x
+    _zip(tree, specs, collect)
+    full, batch, nbytes = [], [], 0
+    for i, (x, _) in enumerate(cut + [(None, None)]):
+        size = 0 if x is None else x.numel() * x.element_size()
+        if batch and (x is None or nbytes + size > GATHER_BYTES):
+            parts = dist.all_gather_many([cut[j][0] for j in batch],
+                                         mesh.model)
+            full += [torch.cat(p, dim=cut[j][1])
+                     for j, p in zip(batch, parts)]
+            batch, nbytes = [], 0
+        batch.append(i)
+        nbytes += size
+    it = iter(full)
+
+    def put(x, spec):
+        if isinstance(x, torch.Tensor) and spec.model_dim is not None:
+            return next(it)
+        return x
+    return _zip(tree, specs, put)
+
+
+def slice_model_tree(tree, specs, mesh: Mesh):
+    """Full-width leaves cut down to this rank's model shard — the
+    inverse of :func:`gather_model_tree`."""
+    size, idx = mesh.model.size, mesh.model.index
+
+    def one(x, spec):
+        if not isinstance(x, torch.Tensor) or spec.model_dim is None:
+            return x
+        width = x.shape[spec.model_dim] // size
+        return x.narrow(spec.model_dim, idx * width, width)
+    return _zip(tree, specs, one)
+
+
+def local_block(tree, specs, mesh: Mesh):
+    """This rank's block of a global tree: its node rows (``node`` leaves)
+    and its model shard (cut leaves), as new contiguous tensors.
+    Replicated leaves pass through."""
+    size, j = mesh.node.size, mesh.node.index
+
+    def nodes(x, spec):
+        if not isinstance(x, torch.Tensor) or not spec.node:
+            return x
+        L = x.shape[0] // size
+        return x[j * L:(j + 1) * L]
+    out = slice_model_tree(_zip(tree, specs, nodes), specs, mesh)
+    return _map(out, lambda _, x: x.contiguous()
+                if isinstance(x, torch.Tensor) else x)
+
+
+def global_stack(tree, specs, mesh: Mesh):
+    """The global tree from every rank's :func:`local_block` (collective
+    over the whole mesh): model shards gathered, then node blocks."""
+    full = gather_model_tree(tree, specs, mesh)
+
+    def nodes(x, spec):
+        if not isinstance(x, torch.Tensor) or not spec.node:
+            return x
+        return dist.all_gather_cat(x, mesh.node, 0)
+    return _zip(full, specs, nodes)
+
+
+def gather_nodes(tree, mesh: Mesh):
+    """Node blocks of a tree whose every tensor leaf has the node axis
+    first and no model cut (a round's payload, a carry) gathered to the
+    global node stack over the node group."""
+    return _map(tree, lambda _, x: dist.all_gather_cat(x, mesh.node, 0)
+                if isinstance(x, torch.Tensor) else x)
+
+
+class ShardReduce:
+    """The replica-wide reductions of a sharded step (the reference's
+    ``reduce_tree_sum`` split): a per-leaf partial sum of a model-sharded
+    leaf completes over the model group too, while a model-replicated
+    leaf, which every model peer holds whole, sums over the node group
+    only (summed over "model" it would count ``model_size`` times)."""
+
+    def __init__(self, mesh: Mesh, num_nodes: int,
+                 model_dims: Optional[Dict[str, Optional[int]]] = None):
+        self.mesh = mesh
+        self.num_nodes = num_nodes
+        self.model_dims = model_dims or {}
+
+    def sharded(self, key: str) -> bool:
+        return self.model_dims.get(key) is not None
+
+    def tree_sum(self, sq: Dict[str, Any]):
+        """Σ over leaves and over every node of the per-leaf sums ``sq``
+        (QG-DSGDm-N's global grad norm)."""
+        keys = sorted(sq)
+        sh = [sq[k] for k in keys if self.sharded(k)]
+        rep = [sq[k] for k in keys if not self.sharded(k)]
+        dev = sq[keys[0]].device
+        total = torch.zeros((), device=dev)
+        if sh and self.mesh.model.size > 1:
+            total = total + dist.all_reduce(
+                dist.all_reduce(torch.stack(sh).sum(), self.mesh.node),
+                self.mesh.model)
+        elif sh:
+            rep = sh + rep
+        if rep:
+            total = total + dist.all_reduce(torch.stack(rep).sum(),
+                                            self.mesh.node)
+        return total
+
+    def rows(self, per_leaf: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(L,) per-node totals of per-leaf (L,) row values, in sorted
+        leaf order: model-sharded leaves' rows completed over the model
+        group."""
+        keys = sorted(per_leaf)
+        rep = [per_leaf[k] for k in keys if not self.sharded(k)]
+        sh = [per_leaf[k] for k in keys if self.sharded(k)]
+        total = sum(rep) if rep else 0
+        if sh:
+            part = sum(sh)
+            if self.mesh.model.size > 1:
+                part = dist.all_reduce(part, self.mesh.model)
+            total = total + part
+        return total
+
+    def node_means(self, tree: Dict[str, torch.Tensor]):
+        """The (1, ...) mean over all ``num_nodes`` nodes of every leaf of
+        this rank's block (the node group's sums), in the leaf's dtype,
+        with one collective."""
+        sums = {k: v.float().sum(dim=0, keepdim=True)
+                for k, v in tree.items()}
+        flat = dist.all_reduce(torch.cat([t.reshape(-1)
+                                          for t in sums.values()]),
+                               self.mesh.node)
+        parts = torch.split(flat, [t.numel() for t in sums.values()])
+        return {k: (p.reshape(sums[k].shape) / self.num_nodes)
+                .to(tree[k].dtype) for k, p in zip(sums, parts)}

@@ -23,15 +23,23 @@ calibration sequences as the reference's federation does.
 
 Churn (``freeze`` / ``isolate``), rewire and fault events, telemetry
 (``repro_torch.obs``) and resilience (``repro_torch.resil``) ride the
-scheduler as in the reference. Not ported (raise
-``NotImplementedError``): the sharded driver and ``model_parallel``
-(ROADMAP.md item 13), compressed and delayed gossip and stale
-stragglers (item 12).
+scheduler as in the reference. ``driver_mode="shard"`` runs the sharded
+driver SPMD, one process per mesh device (:mod:`repro_torch.launch.
+dist`): each rank calls :func:`run_training` with the same arguments and
+holds its block of nodes, and ``model_parallel > 1`` shards each replica
+over the model axis of the 2-D federation mesh with vocab-sharded label
+rounds; the CLI spawns the ranks itself (``--driver shard --ranks R
+--model-parallel M``). Not ported (raise ``NotImplementedError``):
+compressed and delayed gossip and stale stragglers (ROADMAP.md queue 1
+item 12), and durable snapshots under the sharded driver.
 
 Usage (CPU, reduced config; ``--arch`` defaults to the reference's
 ``qwen3-1.7b``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --steps 8 --nodes 4 --idkd --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --steps 8 --nodes 4 --idkd --device cpu --driver shard \
+        --ranks 2 --model-parallel 2
 """
 from __future__ import annotations
 
@@ -119,7 +127,8 @@ def _refuse_codebooks(cfg: ModelConfig):
 @torch.no_grad()
 def idkd_label_round(model, params_stacked, public_tokens, private_tokens,
                      idkd_cfg: IDKDConfig, topology: Topology,
-                     backend: str = "sparse", active=None, mesh=None):
+                     backend: str = "sparse", active=None, mesh=None,
+                     specs=None):
     """One LM IDKD round. ``public_tokens`` (P, S), ``private_tokens``
     (n, V, S), node-stacked ``params_stacked``. Returns (sparse labels
     (n, P, S, k_out), weights (n, P), id_mask (n, P), thresholds (n,)).
@@ -127,18 +136,45 @@ def idkd_label_round(model, params_stacked, public_tokens, private_tokens,
     With ``idkd_cfg.stream_labels`` and the fused or sparse backend the
     round streams the public corpus in ``stream_microbatch`` sequences
     through ``labeling.streaming_label_round``; otherwise it forms the
-    node logits and runs ``labeling.label_round``."""
+    node logits and runs ``labeling.label_round``.
+
+    With ``mesh`` (the sharded driver's federation mesh) the round runs
+    on this rank's block: ``params_stacked`` is the block
+    (``launch.sharding.local_block``; on the 2-D mesh ``specs`` are the
+    params' specs), the results are the block's rows, score and select
+    stay local, and only top-k payloads cross the node group
+    (``labeling.shard_streaming_label_round`` — vocab-sharded through
+    ``head_select``'s ``raw_stats`` mode on the 2-D mesh — or
+    ``labeling.shard_label_round``). Churn masks raise there."""
     _refuse_codebooks(model.cfg)
-    if mesh is not None:
-        raise NotImplementedError("idkd_label_round: sharded rounds "
-                                  "(mesh=) are ROADMAP.md queue 1 item 13")
+    if mesh is not None and active is not None:
+        raise ValueError("sharded label rounds have no churn path; run "
+                         "churn schedules node-stacked")
     dev = next(iter(params_stacked.values())).device
     pub = _tokens(public_tokens, dev)
     priv = _tokens(private_tokens, dev)
     if idkd_cfg.stream_labels and backend in ("fused", "sparse"):
-        out = labeling.streaming_label_round(
-            model, params_stacked, pub, priv, topology, idkd_cfg,
-            active=active)
+        if mesh is not None:
+            out = labeling.shard_streaming_label_round(
+                model, params_stacked, pub, priv, topology, idkd_cfg,
+                mesh=mesh, specs=specs)
+        else:
+            out = labeling.streaming_label_round(
+                model, params_stacked, pub, priv, topology, idkd_cfg,
+                active=active)
+        return out.labels, out.weights, out.id_masks, out.thresholds
+    if mesh is not None:
+        from repro_torch.launch.sharding import gather_model_tree, like_params
+        L = next(iter(params_stacked.values())).shape[0]
+        if mesh.model.size > 1:
+            params_stacked = gather_model_tree(
+                params_stacked, like_params(params_stacked, specs, L), mesh)
+        priv = labeling._local_rows(priv, topology.n, mesh)
+        logits_pub, _ = model.forward(
+            params_stacked, {"tokens": pub[None].expand((L,) + pub.shape)})
+        logits_priv, _ = model.forward(params_stacked, {"tokens": priv})
+        out = labeling.shard_label_round(logits_pub, logits_priv, topology,
+                                         idkd_cfg, mesh=mesh)
         return out.labels, out.weights, out.id_masks, out.thresholds
     n = priv.shape[0]
     logits_pub, _ = model.forward(
@@ -158,8 +194,9 @@ class _LMFederation(sched.CompiledFederationHooks):
                  idkd_cfg: IDKDConfig, cfg: ModelConfig, tokens, parts,
                  public_tokens, seq_len: int, wire_dtype: str,
                  verbose: bool, device, pub_batch: Optional[int] = None,
-                 driver_mode: str = "scan"):
+                 driver_mode: str = "scan", model_parallel: int = 1):
         super().__init__()
+        self.model_parallel = model_parallel
         self.model = model
         self.algo = algo
         self.tcfg = tcfg
@@ -220,9 +257,17 @@ class _LMFederation(sched.CompiledFederationHooks):
             warnings.warn(f"LM label round: backend {backend!r} requested, "
                           "using 'sparse'")
             backend = "sparse"
+        shard = self.driver_mode == "shard"
         sparse, w, id_mask, thr = idkd_label_round(
             self.model, params, self.public_tokens, priv, cfg, topology,
-            backend=backend, active=None if active.all() else active)
+            backend=backend, active=None if active.all() else active,
+            mesh=self._node_mesh if shard else None, specs=self.specs)
+        if shard:
+            # every rank draws the whole federation's KD batch: the
+            # round's block gathered to the global node stack
+            from repro_torch.launch.sharding import gather_nodes
+            sparse, w, id_mask, thr = gather_nodes(
+                (sparse, w, id_mask, thr), self._node_mesh)
         self.ctx = driver.lm_kd_ctx(sparse.values, sparse.indices, w)
         if self.kd_sampler is None:
             self.kd_sampler = driver.make_lm_kd_sampler(
@@ -275,6 +320,14 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     a full-width run sets it lower where that many vocabulary-wide
     logits would not fit the card (``lmpath.QWEN3_PUB_BATCH``).
 
+    ``driver_mode="shard"`` is the sharded driver: call this on every
+    rank of a ``launch.dist`` run with the same arguments; each rank
+    trains its block of nodes (``model_parallel > 1``: one model shard
+    of each weight leaf too) and the returned ``params`` are the
+    consensus of all nodes on every rank. It refuses an f32 wire, a
+    graph other than a ring or a complete graph, churn and wire faults
+    (``sched.validate_shard_schedule``) and durable snapshots.
+
     ``events`` (churn, rewire, faults) feed the compiled schedule;
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) and ``resil``
     (a :class:`repro_torch.resil.Resilience`) turn those layers on, the
@@ -282,11 +335,11 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     ``crash`` fault raises :class:`repro_torch.resil.SimulatedCrash`;
     rerun with the same ``resil.snapshot_dir`` to resume."""
     _refuse_codebooks(cfg)
-    if driver_mode == "shard" or model_parallel != 1:
-        raise NotImplementedError(
-            "the sharded driver and model_parallel are not ported "
-            "(ROADMAP.md queue 1 item 13)")
-    driver.resolve_runner_mode(driver_mode)
+    driver_mode = driver.resolve_runner_mode(driver_mode)
+    if model_parallel != 1 and driver_mode != "shard":
+        raise ValueError("model_parallel > 1 shards each replica over "
+                         "the 2-D federation mesh and needs "
+                         "driver_mode='shard'")
     if tcfg.compression_spec is not None or tcfg.gossip != "sync":
         raise NotImplementedError("compressed and delayed gossip are not "
                                   "ported (ROADMAP.md queue 1 item 12)")
@@ -324,10 +377,33 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
                         parts=parts, public_tokens=public_tokens,
                         seq_len=seq_len, wire_dtype=wire_dtype,
                         verbose=verbose, device=device, pub_batch=pub_batch,
-                        driver_mode=driver_mode)
+                        driver_mode=driver_mode,
+                        model_parallel=model_parallel)
+    nparams = sum(v[0].numel() for v in params.values())
+    if driver_mode == "shard":
+        from repro_torch.launch import dist
+        fed.verbose = verbose = verbose and dist.world()[0] == 0
+        # shard-mode pre-flight: fail before training, not mid-schedule
+        from repro_torch.core.mixing import shard_supported_topology
+        from repro_torch.launch.sharding import federation_specs, local_block
+        if wire_dtype != "native":
+            raise ValueError("driver_mode='shard' moves shards in their "
+                             f"storage dtype; wire_dtype={wire_dtype!r} "
+                             "needs the node-stacked runners")
+        if not shard_supported_topology(topo):
+            raise ValueError(
+                f"driver_mode='shard' gossips on ring/complete graphs "
+                f"only; topology {topo.name!r} needs driver_mode="
+                "'scan' or 'host'")
+        if getattr(algo, "needs_topology", False):
+            raise ValueError(f"algorithm {algo.name!r} cannot run under "
+                             "the sharded driver")
+        sched.validate_shard_schedule(schedule, n, model_parallel)
+        mesh = fed.shard_mesh(n)
+        fed.specs = federation_specs(params, n, mesh)
+        params = local_block(params, fed.specs, mesh)
     opt_state = algo.init(params)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed + 1)
-    nparams = sum(v[0].numel() for v in params.values())
     ledger = sched.CommLedger(n, meta={
         "topology": topo.name, "wire_dtype": wire_dtype,
         "param_count": int(nparams), "compression": "none",
@@ -348,13 +424,27 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
         param_count=int(nparams),
         elem_bytes=sched.wire_elem_bytes(wire_dtype, cfg.dtype),
         telemetry=telemetry, resil=resil)
-    return {"params": consensus_params(params), "loss_history": history,
+    if driver_mode == "shard":
+        from repro_torch.launch.sharding import (ShardReduce,
+                                                 gather_model_tree)
+        mean = ShardReduce(fed._node_mesh, n).node_means(params)
+        if fed._node_mesh.model.size > 1:
+            mean = gather_model_tree(mean, fed.specs, fed._node_mesh)
+        consensus = {k: v[0] for k, v in mean.items()}
+    else:
+        consensus = consensus_params(params)
+    return {"params": consensus, "loss_history": history,
             "model": model, "topology": topo, "ledger": ledger.as_dict(),
             "schedule": schedule, "last_round": fed.last_round_stats,
             "pub_batch": fed.pub_batch}
 
 
-def main(argv=None):
+def _rank_main(rank: int, world: int, argv) -> None:
+    """One rank of ``--driver shard`` (``launch.dist.spawn``'s target)."""
+    main(argv, _rank=rank)
+
+
+def main(argv=None, _rank=None):
     ap = argparse.ArgumentParser(
         description="Decentralized LM training with IDKD (the ported "
                     "flags of the reference's CLI).")
@@ -378,7 +468,17 @@ def main(argv=None):
                          "ported (ROADMAP.md queue 1 item 12)")
     ap.add_argument("--wire-dtype", default="native",
                     choices=["native", "float32"])
-    ap.add_argument("--driver", default="scan", choices=["scan", "host"])
+    ap.add_argument("--driver", default="scan",
+                    choices=["scan", "host", "shard"],
+                    help="shard: the sharded driver, one spawned process "
+                         "per mesh device (--ranks)")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="--driver shard: processes to spawn (ranks "
+                         "share one card through gloo, or take a card "
+                         "each through NCCL when there are enough)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="--driver shard: width of the federation mesh's "
+                         "model axis (2-D mesh when > 1)")
     ap.add_argument("--full", action="store_true",
                     help="use the full (non-reduced) config")
     ap.add_argument("--telemetry", default="", metavar="DIR",
@@ -409,6 +509,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.trace and not args.telemetry:
         ap.error("--trace needs --telemetry DIR for the output location")
+    if args.model_parallel != 1 and args.driver != "shard":
+        ap.error("--model-parallel needs --driver shard")
+    if args.driver == "shard" and _rank is None:
+        import sys
+
+        from repro_torch.launch import dist
+        from repro_torch.runtime import resolve_device
+        if args.device == "cuda":
+            from repro_torch.kernels import build
+            resolve_device("cuda")
+            build.build(["head_select", "head_select_tc", "flash_attention",
+                         "flash_attention_tc", "flash_attention_bwd",
+                         "flash_attention_bwd_tc", "ssd_scan",
+                         "ssd_scan_bwd", "msp_select"])
+        dist.spawn(_rank_main, args.ranks,
+                   sys.argv[1:] if argv is None else list(argv),
+                   device=args.device)
+        return
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -437,7 +555,9 @@ def main(argv=None):
     telemetry = None
     if args.telemetry:
         from repro_torch.obs import Telemetry
-        telemetry = Telemetry(args.telemetry, trace=args.trace,
+        tel_dir = (args.telemetry if _rank in (None, 0)   # a dir a rank
+                   else f"{args.telemetry}/rank{_rank}")
+        telemetry = Telemetry(tel_dir, trace=args.trace,
                               meta={"arch": args.arch, "steps": args.steps,
                                     "nodes": args.nodes,
                                     "topology": args.topology,
@@ -448,6 +568,7 @@ def main(argv=None):
         out = run_training(cfg, tcfg, use_idkd=args.idkd,
                            wire_dtype=args.wire_dtype,
                            driver_mode=args.driver, events=events,
+                           model_parallel=args.model_parallel,
                            telemetry=telemetry, resil=resil,
                            device=args.device)
     except SimulatedCrash as e:
@@ -457,6 +578,8 @@ def main(argv=None):
     finally:
         if telemetry is not None:
             telemetry.close()
+    if _rank not in (None, 0):
+        return
     print(f"final loss: {out['loss_history'][-1]:.4f}")
     led = out["ledger"]
     print(f"comm ledger: {led['gossip_bytes'] / 1e6:.2f} MB gossip + "

@@ -19,6 +19,8 @@ round with the OoD filter off (``kd_mode="vanilla"``).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 from repro_torch.configs.base import IDKDConfig, TrainConfig
@@ -58,19 +60,35 @@ def grid_config(method: str, steps: int = STEPS,
     return tcfg, kd_mode
 
 
-def grid_sim(method: str, steps: int = STEPS,
-             round_step: Optional[int] = None, eval_every: int = EVAL_EVERY,
-             device="cuda") -> DecentralizedSimulator:
-    """One method of the grid (a key of :data:`METHODS`) at full width:
-    8192 training images, and 2048 aligned public samples for the KD
-    methods."""
-    tcfg, kd_mode = grid_config(method, steps, round_step)
+@functools.lru_cache(maxsize=1)
+def grid_data():
+    """The grid's data (made once a process; the simulators copy it):
+    8192 training images and 2048 aligned public samples."""
     data = make_classification_data(image_size=32, n_train=8192, n_val=512,
                                     n_test=1024, noise=1.6, seed=0)
-    public = (make_public_data(data, n_public=2048, kind="aligned", seed=1)
-              if kd_mode else None)
+    return data, make_public_data(data, n_public=2048, kind="aligned",
+                                  seed=1)
+
+
+def grid_sim(method: str, steps: int = STEPS,
+             round_step: Optional[int] = None, eval_every: int = EVAL_EVERY,
+             device="cuda", *, topology: Optional[str] = None,
+             driver_mode: str = "auto",
+             model_parallel: int = 1) -> DecentralizedSimulator:
+    """One method of the grid (a key of :data:`METHODS`) at full width:
+    8192 training images, and 2048 aligned public samples for the KD
+    methods. ``topology`` replaces the method's graph; ``driver_mode``
+    and ``model_parallel`` pass to the simulator (``"shard"``: call this
+    on every rank of a ``launch.dist`` run)."""
+    tcfg, kd_mode = grid_config(method, steps, round_step)
+    if topology is not None:
+        tcfg = dataclasses.replace(tcfg, topology=topology)
+    data, public = grid_data()
+    public = public if kd_mode else None
     return DecentralizedSimulator(CONFIG, tcfg, data, public,
                                   kd_mode=kd_mode, eval_every=eval_every,
+                                  driver_mode=driver_mode,
+                                  model_parallel=model_parallel,
                                   device=device)
 
 

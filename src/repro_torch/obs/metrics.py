@@ -41,18 +41,38 @@ def _rows_sq(x) -> torch.Tensor:
     return torch.sum(xf * xf, dim=1)
 
 
-def update(metrics, losses, grads, params, *, ef_ref=None):
-    """One metrics-bus step on node-stacked dicts; reads only, no host
-    sync. ``ef_ref`` (the mixer's shared estimate x̂, congruent with
-    ``params``) fills ``ef_sq``; None leaves it zero."""
+def consensus_rows(params, shard=None) -> torch.Tensor:
+    """(n,) ‖x_i − x̄‖² per node of node-stacked params. Under the
+    sharded driver (``shard``, a ``launch.sharding.ShardReduce``) the
+    params are one rank's block: the node mean is summed over the node
+    group and model-sharded leaves' rows over the model group."""
     keys = sorted(params)                      # the reference's leaf order
-    grad_sq = sum(_rows_sq(grads[k]) for k in keys)
+    if shard is not None:
+        means = shard.node_means({k: params[k].float() for k in keys})
+        return shard.rows({k: _rows_sq(params[k].float() - means[k])
+                           for k in keys})
     cons = None
     for k in keys:
         xf = params[k].float().reshape(params[k].shape[0], -1)
         d = xf - xf.mean(dim=0, keepdim=True)
         c = torch.sum(d * d, dim=1)
         cons = c if cons is None else cons + c
+    return cons
+
+
+def update(metrics, losses, grads, params, *, ef_ref=None, shard=None):
+    """One metrics-bus step on node-stacked dicts; reads only, no host
+    sync. ``ef_ref`` (the mixer's shared estimate x̂, congruent with
+    ``params``) fills ``ef_sq``; None leaves it zero. ``shard`` (a
+    ``launch.sharding.ShardReduce``): the dicts and the carry are one
+    rank's node block, and the per-node sums are completed over the
+    mesh as the reference's ``model_dims`` split does."""
+    keys = sorted(params)                      # the reference's leaf order
+    if shard is not None:
+        grad_sq = shard.rows({k: _rows_sq(grads[k]) for k in keys})
+    else:
+        grad_sq = sum(_rows_sq(grads[k]) for k in keys)
+    cons = consensus_rows(params, shard)
     if ef_ref is not None:
         ef_sq = sum(_rows_sq(params[k].float() - ef_ref[k].float())
                     for k in keys)

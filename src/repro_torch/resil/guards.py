@@ -73,23 +73,36 @@ def _row_bad(x: torch.Tensor) -> torch.Tensor:
     return (~torch.isfinite(x.reshape(x.shape[0], -1))).any(dim=1)
 
 
+def _bad_rows(tree, keys, shard):
+    """(rows,) bool: any non-finite element in the node's leaves; under
+    the sharded driver a model-sharded leaf's rows are completed over the
+    model group."""
+    if shard is not None:
+        return shard.rows({k: _row_bad(tree[k]).float() for k in keys}) > 0
+    bad = None
+    for k in keys:
+        b = _row_bad(tree[k])
+        bad = b if bad is None else bad | b
+    return bad
+
+
 def update(guard, spec: GuardSpec, losses, grads, params, *,
-           wire_invalid=None):
+           wire_invalid=None, shard=None):
     """One guard step on node-stacked dicts; reads only, no host sync.
     ``wire_invalid`` is the validated mixer's per-sender (n,) bool
-    (None without fault injection)."""
+    (None without fault injection). ``shard`` (a ``launch.sharding.
+    ShardReduce``): the dicts and the carry are one rank's node block,
+    with the reference's model-axis reduction split."""
     keys = sorted(params)                      # the reference's leaf order
     lf = losses.float()
     finite_loss = torch.isfinite(lf)
     none = torch.zeros_like(finite_loss)
     bad_grad = none
     if spec.check_grads:
-        for k in keys:
-            bad_grad = bad_grad | _row_bad(grads[k])
+        bad_grad = none | _bad_rows(grads, keys, shard)
     bad_param = none
     if spec.check_params:
-        for k in keys:
-            bad_param = bad_param | _row_bad(params[k])
+        bad_param = none | _bad_rows(params, keys, shard)
 
     ema = guard["loss_ema"]
     if spec.loss_spike_factor > 0:
@@ -103,12 +116,8 @@ def update(guard, spec: GuardSpec, losses, grads, params, *,
                           _EMA_DECAY * ema + (1.0 - _EMA_DECAY) * safe_lf)
 
     if spec.consensus_max > 0:
-        cons = None
-        for k in keys:
-            xf = params[k].float().reshape(params[k].shape[0], -1)
-            d = xf - xf.mean(dim=0, keepdim=True)
-            c = torch.sum(d * d, dim=1)
-            cons = c if cons is None else cons + c
+        from repro_torch.obs.metrics import consensus_rows
+        cons = consensus_rows(params, shard)
         blowup = cons > np.float32(spec.consensus_max) ** 2
     else:
         blowup = none

@@ -8,4 +8,5 @@ from repro_torch.sched.schedule import (  # noqa: F401
     RewireEvent, Schedule, Segment, compile_schedule, fit_every_k,
     idkd_round_steps, parse_churn, parse_faults)
 from repro_torch.sched.scheduler import (  # noqa: F401
-    CompiledFederationHooks, FederationHooks, run_schedule)
+    CompiledFederationHooks, FederationHooks, run_schedule,
+    validate_shard_schedule)

@@ -103,6 +103,12 @@ class FederationHooks:
     def on_eval(self, params, step: int, losses) -> None:
         """An eval boundary was crossed after ``step``."""
 
+    def global_carry(self, carry):
+        """A metrics or guard carry as the whole federation's, for a flush
+        (the sharded driver's hooks gather the rank's node block; the
+        node-stacked carry is already whole)."""
+        return carry
+
 
 class CompiledFederationHooks(FederationHooks):
     """:class:`FederationHooks` with the mixers, steps and host runners
@@ -111,6 +117,14 @@ class CompiledFederationHooks(FederationHooks):
     payload in ``self.ctx`` passed to the runner of every phase but
     "plain". Graphs are keyed by ``Topology.edge_key()``, so a rewire
     back to an equivalent graph finds its cached mixer.
+
+    ``driver_mode="shard"`` routes step building through
+    ``driver.make_shard_step`` on :meth:`shard_mesh` (the federation mesh
+    of ``model_parallel``): this rank's node block, boundary-row or
+    exact-average gossip, with the params' ``specs`` on the 2-D mesh.
+    The sharded driver has no churn, straggler or wire-fault path;
+    :func:`validate_shard_schedule` refuses such schedules before the
+    run, and the step builder refuses them too.
 
     Subclasses set ``model``, ``algo``, ``lr_fn``, ``driver_mode`` and
     ``device``, and implement ``_make_mixer(topology, active,
@@ -125,6 +139,8 @@ class CompiledFederationHooks(FederationHooks):
     lr_fn = None
     driver_mode = "scan"
     device = "cuda"
+    model_parallel = 1        # shard mode: width of the mesh "model" axis
+    specs = None              # shard mode, 2-D mesh: the params' specs
 
     def __init__(self):
         self.phase = "plain"
@@ -136,6 +152,26 @@ class CompiledFederationHooks(FederationHooks):
         self.resil = None
         self.wire_fault: Optional[WireFault] = None
         self.last_round_stats: Optional[Dict] = None
+        self._node_mesh = None
+
+    def shard_mesh(self, num_nodes: int):
+        """The (cached) federation mesh of the shard-mode steps — the 1-D
+        node mesh at ``model_parallel == 1``, the 2-D ``(node, model)``
+        mesh otherwise."""
+        if self._node_mesh is None:
+            from repro_torch.launch.mesh import make_federation_mesh
+            self._node_mesh = make_federation_mesh(num_nodes,
+                                                   self.model_parallel)
+        return self._node_mesh
+
+    def global_carry(self, carry):
+        if self.driver_mode != "shard" or carry is None:
+            return carry
+        from repro_torch.launch.sharding import gather_nodes
+        out = dict(gather_nodes({k: v for k, v in carry.items()
+                                 if k != "steps"}, self._node_mesh))
+        out["steps"] = carry["steps"]
+        return out
 
     def _metrics_on(self) -> bool:
         return self.telemetry is not None
@@ -155,17 +191,26 @@ class CompiledFederationHooks(FederationHooks):
         return {"wire_fault": self._fault_key(),
                 "wire_guard": self._guard_spec()}
 
+    def _carry_rows(self, topology: Topology) -> int:
+        """Rows of a metrics or guard carry: every node, or under the
+        sharded driver this rank's block of them."""
+        if self.driver_mode == "shard":
+            return topology.n // self.shard_mesh(topology.n).node.size
+        return topology.n
+
     def init_metrics(self, params, topology: Topology) -> Optional[Any]:
         if not self._metrics_on():
             return None
         from repro_torch.obs import metrics as obs_metrics
-        return obs_metrics.init_node_metrics(topology.n, self.device)
+        return obs_metrics.init_node_metrics(self._carry_rows(topology),
+                                             self.device)
 
     def init_guard(self, params, topology: Topology) -> Optional[Any]:
         if self._guard_spec() is None:
             return None
         from repro_torch.resil import guards
-        return guards.init_node_guard(topology.n, self.device)
+        return guards.init_node_guard(self._carry_rows(topology),
+                                      self.device)
 
     def _make_mixer(self, topology: Topology, active,
                     stale=None) -> Callable:
@@ -208,6 +253,29 @@ class CompiledFederationHooks(FederationHooks):
     def _base_step(self, topo: Topology, active: np.ndarray,
                    stale: np.ndarray):
         from repro_torch.core import driver
+        if self.driver_mode == "shard":
+            if not active.all():
+                raise ValueError(
+                    "shard driver cannot apply churn availability masks "
+                    "(freeze/isolate need the node-stacked dense mixer); "
+                    "run churn schedules with driver_mode='scan' or "
+                    "'host'")
+            if stale.any():
+                raise ValueError(
+                    "shard driver cannot apply straggler (stale) masks — "
+                    "run stale-churn schedules with driver_mode='scan' "
+                    "or 'host'")
+            if self._fault_key() is not None:
+                raise ValueError(
+                    "wire-fault injection (drop/corrupt) is unsupported "
+                    "under driver_mode='shard' — the validated mixers are "
+                    "node-stacked; run fault schedules with "
+                    "driver_mode='scan' or 'host'")
+            return driver.make_shard_step(
+                self.model, self.algo, self._adapter(),
+                mesh=self.shard_mesh(topo.n), topology=topo,
+                specs=self.specs, telemetry=self._metrics_on(),
+                guard=self._guard_spec())
         return driver.make_step(
             self.model, self.algo, self._mixer(topo, active),
             self._adapter(), telemetry=self._metrics_on(),
@@ -258,6 +326,48 @@ class CompiledFederationHooks(FederationHooks):
         return phase_run
 
 
+def validate_shard_schedule(schedule: Schedule, num_nodes: int,
+                            model_parallel: int = 1) -> None:
+    """Pre-flight for ``driver_mode="shard"``: the sharded gossip has no
+    churn path and only ring/complete-graph rewire targets, so refuse
+    unsupported schedules *before* the run starts instead of failing
+    mid-schedule when the event fires.
+
+    On the 2-D federation mesh (``model_parallel > 1``) rewires are
+    refused too, as in the reference: run such schedules on the 1-D
+    node mesh (``--model-parallel 1``) or node-stacked."""
+    from repro_torch.core.mixing import shard_supported_topology
+    for seg in schedule.segments:
+        for ev in seg.events:
+            if isinstance(ev, ChurnEvent):
+                raise ValueError(
+                    f"schedule has churn at step {ev.step}; churn "
+                    "(freeze/isolate availability masks) is unsupported "
+                    "under driver_mode='shard' — run it node-stacked "
+                    "with driver_mode='scan' or 'host'")
+            if isinstance(ev, FaultEvent) and ev.kind in ("drop", "corrupt"):
+                raise ValueError(
+                    f"schedule injects a wire fault ({ev.kind}) at step "
+                    f"{ev.step}; wire-fault injection needs the "
+                    "node-stacked validated mixers — run fault schedules "
+                    "with driver_mode='scan' or 'host'. Crash faults are "
+                    "fine under shard.")
+            if isinstance(ev, RewireEvent):
+                if model_parallel > 1:
+                    raise ValueError(
+                        f"rewire at step {ev.step} is unsupported on the "
+                        "2-D (node, model) federation mesh — run this "
+                        "schedule with --model-parallel 1 (the 1-D node "
+                        "mesh) or driver_mode='scan'")
+                topo = _resolve_topology(ev, num_nodes)
+                if not shard_supported_topology(topo):
+                    raise ValueError(
+                        f"rewire at step {ev.step} targets "
+                        f"{topo.name!r}; the shard driver gossips on "
+                        "ring/complete graphs only — use "
+                        "driver_mode='scan' or 'host' for this schedule")
+
+
 def _resolve_topology(ev: RewireEvent, n: int) -> Topology:
     topo = ev.topology
     if isinstance(topo, str):
@@ -298,6 +408,13 @@ def _put(dst, src):
 
 def _key_state(key):
     return key.get_state() if isinstance(key, torch.Generator) else key
+
+
+def _global(hooks, carry):
+    """The whole federation's carry (``hooks.global_carry``; hooks
+    without it hold the node-stacked one)."""
+    fn = getattr(hooks, "global_carry", None)
+    return carry if fn is None else fn(carry)
 
 
 def _mean_loss(losses) -> Optional[float]:
@@ -382,6 +499,11 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
     mgr = None
     resumed_with_ctx = False
     if res is not None and getattr(res, "snapshots_on", False):
+        if getattr(hooks, "driver_mode", None) == "shard":
+            raise NotImplementedError(
+                "durable snapshots under driver_mode='shard' are not "
+                "ported: each rank holds a block of the state (ROADMAP.md "
+                "§1, item 13's row); snapshot node-stacked runs")
         from repro_torch.resil.snapshot import SnapshotManager
         mgr = SnapshotManager(res.snapshot_dir, every=res.snapshot_every,
                               keep=res.keep)
@@ -574,7 +696,7 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
             if new_guard is not None:
                 # one host read per segment, as for the metrics bus
                 from repro_torch.resil import guards
-                summary = guards.summarize(new_guard)
+                summary = guards.summarize(_global(hooks, new_guard))
                 tripped = guards.tripped_nodes(summary) & ~quarantined
                 offenders = guards.wire_offenders(summary) & ~quarantined
                 if tripped.any() or offenders.any():
@@ -643,7 +765,8 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                 and metrics is not None:
             # flush and zero at the boundary: the only host read the
             # metrics bus adds, once a segment
-            tel.flush_metrics(seg.stop, metrics, round=fired,
+            tel.flush_metrics(seg.stop, _global(hooks, metrics),
+                              round=fired,
                               active=eff_active, stale=stale)
             from repro_torch.obs import metrics as obs_metrics
             metrics = obs_metrics.reset(metrics)

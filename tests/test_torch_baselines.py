@@ -443,8 +443,11 @@ def test_scan_and_host_drivers_give_the_same_run():
     assert len(runs[0]["loss_history"]) == 3
     for k, v in runs[0]["params"].items():
         assert torch.equal(v, runs[1]["params"][k]), k
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_training(cfg, tcfg, driver_mode="shard", device="cpu")
+    # the sharded driver runs (tests/test_torch_shard.py) but refuses an
+    # f32 wire before any training, as the reference does
+    with pytest.raises(ValueError, match="storage dtype"):
+        run_training(cfg, tcfg, driver_mode="shard", wire_dtype="float32",
+                     device="cpu")
     with pytest.raises(ValueError, match="unknown driver mode"):
         run_training(cfg, tcfg, driver_mode="graph", device="cpu")
 

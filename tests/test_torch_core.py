@@ -198,10 +198,15 @@ def test_unported_pieces_raise():
         t_make_mixer(tt, device="cpu", compression=("topk", 0.1))
     data = make_classification_data(image_size=8, n_train=32, n_val=8,
                                     n_test=8)
-    for kw, item in (({"driver_mode": "shard"}, "item 13"),
-                     ({"model_parallel": 2}, "item 13")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            DecentralizedSimulator(SMALL_CONFIG, TrainConfig(num_nodes=4),
+    # the sharded driver is ported (tests/test_torch_shard.py); what it
+    # has no path for still raises at construction
+    for kw, tk, msg in (({"driver_mode": "shard"}, {"topology": "torus"},
+                         "ring/complete"),
+                        ({"model_parallel": 2}, {},
+                         "needs driver_mode='shard'")):
+        with pytest.raises(ValueError, match=msg):
+            DecentralizedSimulator(SMALL_CONFIG,
+                                   TrainConfig(num_nodes=4, **tk),
                                    data, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecentralizedSimulator(SMALL_CONFIG,

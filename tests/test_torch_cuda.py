@@ -224,7 +224,7 @@ def _check_head_tc(h, w, b, ks=(1, 8, 16)):
             n0 = dict(head_select.launches_by_variant)
             out = head_select(h, w, b, **kw)
             assert head_select.launches_by_variant == {
-                "tc": n0["tc"] + 1, "simt": n0["simt"]}
+                **n0, "tc": n0["tc"] + 1}
             ref = head_select_plain(h, w, b, **kw)
             for a, r in zip(out[:2], ref[:2]):
                 torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
@@ -673,3 +673,52 @@ def test_cuda_ssd_scan_bwd_matches_plain(B, S, H, P, G, N, steep):
         e_p = float((p_.double() - e_).abs().max())
         assert e_k <= 4 * e_p + 1e-5 * float(e_.abs().max()), (name, e_k,
                                                                 e_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nsplit", [("float32", 1), ("bfloat16", 1),
+                                          ("bfloat16", 3)])
+@pytest.mark.parametrize("pad", [0, 300, "all"])
+def test_cuda_head_select_raw_stats_matches_plain(monkeypatch, dtype,
+                                                  nsplit, pad):
+    """On the card: head_select's raw_stats mode (the vocab-sharded
+    round's per-slice carry) on both kernels — the tc one written by the
+    main kernel (one slice) and by its merge kernel (a forced split) —
+    against head_select_stats_plain, on a slice whose last ``pad``
+    columns are zero weights with a -1e30 bias, as the round pads C
+    ("all": every column padding, where m is -1e30 and z the width).
+    Small-integer inputs make every logit exact in any summation order:
+    m, the top-k logits and the real slots' indices equal, z within
+    1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.head_select import head_select_stats_plain, ops
+    C = 3 * 256 - 20
+    if nsplit > 1:
+        def forced(L, N, C_, D, sms):
+            col_tiles = -(-C_ // ops.TC_COLS)
+            slice_w = -(-col_tiles // nsplit) * ops.TC_COLS
+            return slice_w, -(-C_ // slice_w)
+        monkeypatch.setattr(ops, "_column_splits", forced)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dt = getattr(torch, dtype)
+    h = torch.randint(-2, 3, (2, 150, 40), generator=g, device="cuda").to(dt)
+    w = torch.randint(-1, 2, (2, 40, C), generator=g, device="cuda").float()
+    b = torch.randint(-1, 2, (2, C), generator=g, device="cuda").float()
+    npad = C if pad == "all" else pad
+    if npad:
+        w[..., C - npad:] = 0.0
+        b[..., C - npad:] = -1e30
+    w = w.to(dt)
+    variant = "tc_raw" if dtype == "bfloat16" else "simt_raw"
+    for k in (1, 5, 16):
+        n0 = head_select.launches_by_variant.get(variant, 0)
+        m, z, tv, ti = head_select(h, w, b, k=k, raw_stats=True)
+        assert head_select.launches_by_variant[variant] == n0 + 1
+        mr, zr, tvr, tir = head_select_stats_plain(h, w, b, k=k)
+        assert torch.equal(m, mr) and torch.equal(tv, tvr)
+        torch.testing.assert_close(z, zr, rtol=1e-5, atol=0)
+        real = tvr > -1e29
+        assert torch.equal(ti[real], tir[real])
+        if pad == "all":
+            assert bool((m == -1e30).all()) and bool((z == C).all())

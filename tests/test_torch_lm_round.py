@@ -187,7 +187,10 @@ def test_private_sequences_take_the_smallest_partition():
 
 
 def test_idkd_label_round_mesh_raises(small_round):
+    # the sharded round runs (tests/test_torch_shard.py) but has no churn
+    # path, as in the reference
     r, _, _ = small_round
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no churn path"):
         idkd_label_round(r.model, r.params, r.public, r.private, r.icfg,
-                         r.topology, mesh=object())
+                         r.topology, mesh=object(),
+                         active=np.array([True, False, True, True]))

@@ -245,13 +245,15 @@ def test_run_training_matches_reference(reference_run, monkeypatch):
                                    atol=RUN_PARAM_ATOL, err_msg=k)
 
 
-def test_unported_training_modes_raise():
-    """The sharded driver, stale stragglers and compressed or delayed
-    gossip raise, naming the ROADMAP item."""
+def test_unported_training_modes_raise(tmp_path):
+    """Durable snapshots under the sharded driver, stale stragglers and
+    compressed or delayed gossip raise, naming the ROADMAP item."""
+    from repro_torch.resil import Resilience
     from repro_torch.sched import ChurnEvent
     cfg = _cfg("torch")
     tcfg = TTrain(**TRAIN_KW)
-    for kw in ({"driver_mode": "shard"},
+    for kw in ({"driver_mode": "shard",
+                "resil": Resilience(snapshot_dir=str(tmp_path))},
                {"events": [ChurnEvent(1, down=(0,), mode="stale")]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.run_training(cfg, tcfg, device="cpu", **kw)

@@ -1,0 +1,285 @@
+"""The sharded driver (``driver_mode="shard"``) on gloo ranks of the CPU,
+and ``head_select``'s ``raw_stats`` mode.
+
+One spawn of two ranks (``tests/torch_shard_ranks.py``, through
+``launch.dist.spawn`` with a ``file://`` store under ``tmp_path``) runs
+every sharded case; this process holds the results to the port's
+node-stacked runs on the same params and draws, and the rounds also to
+the reference's ``shard_label_round`` on its one-device mesh. Tolerances:
+the sharded mix and the global sums add in another order than the
+node-stacked ones, so f32 values agree to 1e-5 (the rounds' exchanges
+only concatenate and scale: 1e-6), indices, masks, thresholds and
+payload widths exactly."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import IDKDConfig as JIDKD
+from repro.core import labeling as jlab
+from repro.core.topology import Topology as JTopology
+from repro.kernels.head_select.kernel import head_select_pallas
+from repro.kernels.head_select.ref import (head_select_ref,
+                                           head_select_stats_ref,
+                                           merge_head_stats)
+from repro.launch.mesh import make_node_mesh as j_node_mesh
+from repro_torch.configs.base import IDKDConfig, TrainConfig
+from repro_torch.core import driver, labeling
+from repro_torch.core.algorithms import make_algorithm
+from repro_torch.core.mixing import make_mixer
+from repro_torch.core.simulator import DecentralizedSimulator
+from repro_torch.core.topology import Topology
+from repro_torch.data.synthetic import make_classification_data
+from repro_torch.kernels.head_select import (head_select,
+                                             merge_head_stats_plain)
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import make_node_mesh
+from repro_torch.launch.train import run_training
+from repro_torch.models.resnet import build_model
+from repro_torch.obs.metrics import init_node_metrics
+from repro_torch.resil.guards import init_node_guard
+from repro_torch.sched import (ChurnEvent, FaultEvent, RewireEvent,
+                               compile_schedule, validate_shard_schedule)
+
+import torch_shard_ranks as R
+
+torch.set_num_threads(1)
+NEG = -1e30
+
+
+# ------------------------------------------------- raw_stats (no spawn)
+@pytest.mark.parametrize("C,S,k", [(9, 4, 4)])   # the last slice all padding
+def test_head_select_raw_stats_matches_pallas_and_stats_ref(C, S, k):
+    """Each vocabulary slice's raw carry, cut as the vocab-sharded round
+    cuts it (C padded to S slices, padded columns NEG-biased), against
+    the Pallas kernel's raw_stats mode (interpret) and
+    head_select_stats_ref: m, z and the top-k logits to 1e-5, indices
+    equal wherever the slot holds a real logit (padding slots are
+    unspecified and never win the merge). The port's merge against
+    merge_head_stats and the unsharded head_select_ref."""
+    rng = np.random.default_rng(C * 7 + S)
+    h = rng.normal(size=(12, 16)).astype(np.float32)
+    w = (rng.normal(size=(16, C)) * 0.5).astype(np.float32)
+    b = rng.normal(size=(C,)).astype(np.float32)
+    w_sh = -(-C // S)
+    wp = np.pad(w, ((0, 0), (0, w_sh * S - C)))
+    bp = np.pad(b, (0, w_sh * S - C), constant_values=NEG)
+    k_loc = min(k, w_sh)                           # 3 < k
+    mine, refs = [], []
+    for j in range(S):
+        wl, bl = wp[:, j * w_sh:(j + 1) * w_sh], bp[j * w_sh:(j + 1) * w_sh]
+        m, z, tv, ti = head_select(torch.as_tensor(h)[None],
+                                   torch.as_tensor(wl)[None],
+                                   torch.as_tensor(bl)[None], k=k_loc,
+                                   raw_stats=True)
+        got = [x[0].numpy() for x in (m, z, tv, ti)]
+        pal = head_select_pallas(jnp.asarray(h), jnp.asarray(wl),
+                                 jnp.asarray(bl), temperature=5.0, k=k_loc,
+                                 block_rows=4, block_c=4, interpret=True,
+                                 raw_stats=True)
+        ref = head_select_stats_ref(jnp.asarray(h), jnp.asarray(wl),
+                                    jnp.asarray(bl), k=k_loc)
+        for other in (pal, ref):
+            o = [np.asarray(x) for x in other]
+            np.testing.assert_allclose(got[0], o[0], atol=1e-5)
+            np.testing.assert_allclose(got[1], o[1], rtol=1e-5)
+            np.testing.assert_allclose(got[2], o[2], atol=1e-5)
+            real = o[2] > NEG / 2
+            np.testing.assert_array_equal(got[3][real], o[3][real])
+        if j * w_sh >= C:                      # the all-padding slice
+            np.testing.assert_array_equal(got[0], np.float32(NEG))
+            np.testing.assert_array_equal(got[1], w_sh)
+        got[3] = got[3] + j * w_sh
+        mine.append(got)
+        refs.append([np.asarray(x) for x in ref[:3]]
+                    + [np.asarray(ref[3]) + j * w_sh])
+    conf, vals, idx = merge_head_stats_plain(
+        *[[torch.as_tensor(g[i]) for g in mine] for i in range(4)],
+        temperature=5.0, k=k, detector="msp")
+    rc, rv, ri = merge_head_stats(*[jnp.stack([r[i] for r in refs])
+                                    for i in range(4)],
+                                  temperature=5.0, k=k)
+    uc, uv, ui = head_select_ref(jnp.asarray(h), jnp.asarray(w),
+                                 jnp.asarray(b), temperature=5.0, k=k)
+    for c, v, i in ((rc, rv, ri), (uc, uv, ui)):
+        np.testing.assert_allclose(conf.numpy(), np.asarray(c), atol=1e-5)
+        np.testing.assert_allclose(vals.numpy(), np.asarray(v), atol=1e-5)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(i))
+
+
+# ------------------------------------------------ refusals (no spawn)
+def test_shard_refusals_before_the_run():
+    """validate_shard_schedule, the simulator, make_shard_step and
+    run_training refuse what the sharded driver has no path for, before
+    any training, as the reference does."""
+    n = 4
+    for events, msg in (((ChurnEvent(2, down=(1,)),), "churn"),
+                        ((FaultEvent(2, "drop", (1,)),), "wire fault"),
+                        ((RewireEvent(2, "torus"),), "ring/complete")):
+        with pytest.raises(ValueError, match=msg):
+            validate_shard_schedule(compile_schedule(8, 4, events=events),
+                                    n)
+    validate_shard_schedule(compile_schedule(8, 4, events=(
+        FaultEvent(3, "crash"), RewireEvent(2, "full"))), n)
+    with pytest.raises(ValueError, match="2-D"):
+        validate_shard_schedule(compile_schedule(8, 4, events=(
+            RewireEvent(2, "full"),)), n, model_parallel=2)
+    data = make_classification_data(image_size=8, n_train=32, n_val=8,
+                                    n_test=8)
+    cfg = R.CFG
+    for kw, tk, msg in (
+            ({}, dict(topology="torus"), "ring/complete"),
+            ({"kd_mode": "idkd", "public_x": data.test_x},
+             dict(idkd=IDKDConfig(label_backend="dense")), "top-k"),
+            # a chain of two is a ring (and a tree)
+            ({}, dict(algorithm="relaysgd", topology="chain", num_nodes=2),
+             "per-edge state")):
+        with pytest.raises(ValueError, match=msg):
+            DecentralizedSimulator(cfg, TrainConfig(**{"num_nodes": n, **tk}),
+                                   data, driver_mode="shard", device="cpu",
+                                   **kw)
+    with pytest.raises(ValueError, match="needs driver_mode='shard'"):
+        DecentralizedSimulator(cfg, TrainConfig(num_nodes=n), data,
+                               model_parallel=2, device="cpu")
+    mesh = make_node_mesh(n)
+    model, topo = build_model(cfg), Topology.make("ring", n)
+    with pytest.raises(ValueError, match="per-edge state"):
+        driver.make_shard_step(model, make_algorithm(
+            "relaysgd", topology=Topology.make("chain", n)),
+            driver.classification_adapter, mesh=mesh, topology=topo)
+    with pytest.raises(ValueError, match="ring gossip"):
+        driver.make_shard_step(model, make_algorithm("dsgd"),
+                               driver.classification_adapter, mesh=mesh,
+                               topology=Topology.make("torus", n))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        driver.make_shard_step(model, make_algorithm("dsgd"),
+                               driver.classification_adapter, mesh=mesh,
+                               topology=topo, gossip="delayed")
+    hcfg, tcfg, kw = R.train_args()
+    with pytest.raises(ValueError, match="storage dtype"):
+        run_training(hcfg, tcfg, driver_mode="shard", wire_dtype="float32",
+                     **kw)
+
+
+# ------------------------------------------- the spawn and its checks
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    store = tmp_path_factory.mktemp("shard_store")
+    out = dist.spawn(R.rank_main, 2, device="cpu", store_dir=str(store))
+    return out[0]
+
+
+def _stacked_steps(algo_name, topo_name):
+    model = build_model(R.CFG)
+    topo = Topology.make(topo_name, R.N)
+    algo = make_algorithm(algo_name, weight_decay=1e-4)
+    mixer = make_mixer(topo, "dense", device="cpu")
+    steps = [driver.make_step(model, algo, mixer, a, telemetry=True,
+                              guard=R.GUARD) for a in R.adapters()]
+    p = R.params()
+    opt = algo.init(p)
+    carries = [init_node_metrics(R.N, "cpu"), init_node_guard(R.N, "cpu")]
+    losses = []
+    for s, batch in enumerate(R.batches()):
+        step = steps[0 if s < R.PLAIN_STEPS else 1]
+        p, opt, loss, *carries = step(p, opt, batch, R.LR, *carries)
+        losses.append(float(loss))
+    return p, losses, carries
+
+
+@pytest.mark.parametrize("case", R.STEP_CASES, ids=[c[0] for c in R.STEP_CASES])
+def test_shard_step_matches_node_stacked(ranks, case):
+    """make_shard_step on 2 node ranks, and on 1 node x 2 model ranks
+    (model-sharded convs and head, replicated norms): plain and sparse-KD
+    steps, with the metrics and guard carries, against make_step on the
+    node-stacked params with the same batches."""
+    name, _, algo_name, topo_name = case
+    got = ranks["steps"][name]
+    p, losses, carries = _stacked_steps(algo_name, topo_name)
+    for k, v in p.items():
+        np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-6)
+    for mine, ref in zip(got["carries"], carries):
+        for k, v in mine.items():
+            if v.dtype == torch.int32:
+                np.testing.assert_array_equal(v.numpy(), ref[k].numpy(), k)
+            else:
+                np.testing.assert_allclose(v.numpy(), ref[k].numpy(),
+                                           rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def _hom_arrays(hom, C):
+    labels, w, mask, thr = hom
+    return (labeling.SparseHomogenizedSet(labels, w, mask, thr)
+            .densify(C).numpy(), w.numpy(), mask.numpy(), thr.numpy(),
+            labels.values.shape[-1])
+
+
+@pytest.mark.parametrize("topo_name", ["ring", "full"])
+def test_shard_label_round_matches_reference_and_stacked(ranks, topo_name):
+    """shard_label_round on 2 ranks against the port's node-stacked
+    sparse round and, on the ring, the reference's on its one-device
+    mesh: masks, thresholds and payload widths equal, payloads equal
+    once densified."""
+    inp = R.round_inputs()
+    C = R.CFG.num_classes
+    got = _hom_arrays(ranks["rounds"][f"oneshot-{topo_name}"], C)
+    stacked = labeling.label_round(inp["pub_logits"], inp["val_logits"],
+                                   None, Topology.make(topo_name, R.N),
+                                   R.ROUND_CFG, backend="sparse")
+    others = [_hom_arrays(tuple(stacked), C)]
+    if topo_name == "ring":          # one shard_map compile of the reference
+        ref = jlab.shard_label_round(
+            jnp.asarray(inp["pub_logits"].numpy()),
+            jnp.asarray(inp["val_logits"].numpy()),
+            JTopology.make(topo_name, R.N),
+            JIDKD(temperature=10.0, label_backend="sparse", label_topk=8),
+            mesh=j_node_mesh(R.N))
+        others.append((np.asarray(jlab.SparseHomogenizedSet(*ref)
+                                  .densify(C)),
+                       np.asarray(ref.weights), np.asarray(ref.id_masks),
+                       np.asarray(ref.thresholds),
+                       ref.labels.values.shape[-1]))
+    for other in others:
+        np.testing.assert_allclose(got[0], other[0], atol=1e-6)
+        np.testing.assert_array_equal(got[1], other[1])
+        np.testing.assert_array_equal(got[2], other[2])
+        np.testing.assert_allclose(got[3], other[3], atol=1e-6)
+        assert got[4] == other[4]
+
+
+@pytest.mark.parametrize("mp", [1, 2])
+def test_shard_streaming_round_matches_stacked(ranks, mp):
+    """shard_streaming_label_round on 2 node ranks and, vocab-sharded
+    (head_select raw_stats, C = 9 in two 5-wide slices), on 1 node x 2
+    model ranks, against the node-stacked streaming round."""
+    inp = R.round_inputs()
+    C = R.CFG.num_classes
+    got = _hom_arrays(ranks["rounds"][f"stream-{mp}d"], C)
+    ref = labeling.streaming_label_round(
+        build_model(R.CFG), R.params(), inp["pub_x"], inp["val_x"],
+        Topology.make("ring", R.N), R.ROUND_CFG)
+    ref = _hom_arrays(tuple(ref), C)
+    np.testing.assert_allclose(got[0], ref[0], atol=1e-6)
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[2], ref[2])
+    np.testing.assert_allclose(got[3], ref[3], atol=1e-6)
+    assert got[4] == ref[4]
+
+
+def test_shard_run_training_matches_node_stacked(ranks):
+    """run_training(driver_mode="shard", model_parallel=2) on a reduced
+    f32 Hymba (4 steps, a round at step 2 through the vocab-sharded
+    head pass) against the node-stacked run_training."""
+    cfg, tcfg, kw = R.train_args()
+    ref = run_training(cfg, tcfg, **kw)
+    got = ranks["train"]
+    np.testing.assert_allclose(got["loss_history"], ref["loss_history"],
+                               rtol=1e-5)
+    for k, v in ref["params"].items():
+        np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
+    for k in ("thresholds", "selected"):
+        np.testing.assert_allclose(got["last_round"][k],
+                                   ref["last_round"][k], atol=1e-6)

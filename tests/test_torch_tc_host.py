@@ -157,16 +157,18 @@ def test_cpu_calls_count_no_variant():
     before = (dict(head_select.launches_by_variant),
               dict(flash_attention.launches_by_variant),
               dict(flash_attention_bwd.launches_by_variant))
-    head_select(torch.randn(1, 4, 8).bfloat16(),
-                torch.randn(1, 8, 12).bfloat16(), k=2)
+    for raw in (False, True):
+        head_select(torch.randn(1, 4, 8).bfloat16(),
+                    torch.randn(1, 8, 12).bfloat16(), k=2, raw_stats=raw)
     x = torch.randn(1, 9, 2, 64).bfloat16()
     flash_attention(x, x, x)
     flash_attention_bwd(x, x, x, x, torch.zeros((1, 2, 9)), x)
     assert (head_select.launches_by_variant,
             flash_attention.launches_by_variant,
             flash_attention_bwd.launches_by_variant) == before
-    assert set(before[0]) == set(before[1]) == set(before[2]) == {"tc",
-                                                                 "simt"}
+    assert set(before[1]) == set(before[2]) == {"tc", "simt"}
+    # head_select also counts its raw_stats mode apart
+    assert set(before[0]) == {"tc", "simt", "tc_raw", "simt_raw"}
 
 
 @pytest.mark.parametrize("L,N,D,C", [(2, 5, 48, 300), (1, 7, 50, 301),

@@ -1,0 +1,167 @@
+"""The rank side of ``tests/test_torch_shard.py``: what each gloo rank of
+the sharded driver runs, and the inputs both sides share (made from
+numpy and ``torch.Generator`` seeds). It imports neither JAX nor the
+reference, so that a spawned rank starts in the time torch takes."""
+import numpy as np
+import torch
+
+from repro_torch.configs.base import IDKDConfig, TrainConfig
+from repro_torch.configs.resnet20_cifar import SMALL_CONFIG
+from repro_torch.core import driver, labeling
+from repro_torch.core.algorithms import make_algorithm
+from repro_torch.core.topology import Topology
+from repro_torch.launch.mesh import make_federation_mesh
+from repro_torch.launch.sharding import (federation_specs, gather_nodes,
+                                         global_stack, local_block)
+from repro_torch.models.resnet import build_model, stack_params
+from repro_torch.obs.metrics import init_node_metrics
+from repro_torch.resil.guards import GuardSpec, init_node_guard
+
+# C = 9: at model size 2 the vocab slices are 5 wide, the last with one
+# padded column
+CFG = SMALL_CONFIG.replace(image_size=8, cnn_stages=(1, 1), num_classes=9)
+N, B, K = 4, 3, 3
+P, V, MB = 11, 5, 4
+ROUND_CFG = IDKDConfig(temperature=10.0, label_backend="sparse",
+                       stream_microbatch=MB, label_topk=8)
+# (name, model_parallel, algorithm, topology): QG-DSGDm-N and DSGD, ring
+# and complete graph, on 2 node ranks and on 1 node x 2 model ranks
+STEP_CASES = (("qg-ring-1d", 1, "qg-dsgdm-n", "ring"),
+              ("dsgd-full-1d", 1, "dsgd", "full"),
+              ("qg-ring-2d", 2, "qg-dsgdm-n", "ring"),
+              ("dsgd-full-2d", 2, "dsgd", "full"))
+PLAIN_STEPS, KD_STEPS, LR = 2, 2, 0.1
+GUARD = GuardSpec(loss_spike_factor=1.5, warmup_steps=1, consensus_max=0.5)
+
+
+def params():
+    """Node-stacked f32 ResNet params, every node a little different."""
+    model = build_model(CFG)
+    base = stack_params(model.init(torch.Generator().manual_seed(0)), N)
+    rng = np.random.default_rng(1)
+    return {k: v * torch.as_tensor(1 + 0.05 * rng.normal(
+        size=(N,) + (1,) * (v.dim() - 1)), dtype=torch.float32)
+        for k, v in base.items()}
+
+
+def batches():
+    """PLAIN_STEPS plain batches, then KD_STEPS sparse-KD batches."""
+    rng = np.random.default_rng(2)
+    out = []
+    for s in range(PLAIN_STEPS + KD_STEPS):
+        imgs = torch.as_tensor(rng.normal(size=(N, B, 8, 8, 3)),
+                               dtype=torch.float32)
+        y = torch.as_tensor(rng.integers(0, CFG.num_classes, size=(N, B)))
+        w = torch.as_tensor(rng.uniform(0.5, 1.0, size=(N, B)),
+                            dtype=torch.float32)
+        if s < PLAIN_STEPS:
+            out.append({"images": imgs, "weights": w,
+                        "labels": torch.nn.functional.one_hot(
+                            y, CFG.num_classes).float()})
+            continue
+        vals = torch.as_tensor(rng.dirichlet(np.ones(K), size=(N, B)),
+                               dtype=torch.float32)
+        idx = torch.as_tensor(rng.integers(0, CFG.num_classes,
+                                           size=(N, B, K)), dtype=torch.int32)
+        out.append({"images": imgs, "weights": w, "values": vals,
+                    "indices": idx,
+                    "is_pub": torch.as_tensor(rng.uniform(size=(N, B)) < 0.5)})
+    return out
+
+
+def adapters():
+    return (driver.classification_adapter,
+            driver.sparse_kd_adapter(ROUND_CFG.temperature, 0.7))
+
+
+def round_inputs():
+    """Logits for the one-shot round and images for the streaming one."""
+    rng = np.random.default_rng(3)
+    return {"pub_logits": torch.as_tensor(
+                rng.normal(size=(N, P, CFG.num_classes)) * 2,
+                dtype=torch.float32),
+            "val_logits": torch.as_tensor(
+                rng.normal(size=(N, V, CFG.num_classes)) * 3,
+                dtype=torch.float32),
+            "pub_x": torch.as_tensor(rng.normal(size=(P, 8, 8, 3)) * 1.5,
+                                     dtype=torch.float32),
+            "val_x": torch.as_tensor(rng.normal(size=(N, V, 8, 8, 3)),
+                                     dtype=torch.float32)}
+
+
+def train_args():
+    """run_training's arguments for the reduced Hymba, f32."""
+    from repro_torch.configs import get_config
+    cfg = get_config("hymba-1.5b").reduced().replace(dtype="float32")
+    tcfg = TrainConfig(num_nodes=N, steps=4, lr=0.1, batch_size=2,
+                       idkd=IDKDConfig(start_step=2, label_topk=4,
+                                       num_rounds=1, label_backend="sparse",
+                                       stream_microbatch=3))
+    return cfg, tcfg, dict(seq_len=12, n_seqs=32, n_public=5, log_every=1,
+                           use_idkd=True, verbose=False, device="cpu")
+
+
+def _steps():
+    model = build_model(CFG)
+    out = {}
+    for name, mp, algo_name, topo_name in STEP_CASES:
+        mesh = make_federation_mesh(N, mp)
+        topo = Topology.make(topo_name, N)
+        algo = make_algorithm(algo_name, weight_decay=1e-4)
+        glob = params()
+        specs = federation_specs(glob, N, mesh)
+        p = local_block(glob, specs, mesh)
+        opt = algo.init(p)
+        steps = [driver.make_shard_step(model, algo, a, mesh=mesh,
+                                        topology=topo, specs=specs,
+                                        telemetry=True, guard=GUARD)
+                 for a in adapters()]
+        L = N // mesh.node.size
+        carries = [init_node_metrics(L, "cpu"), init_node_guard(L, "cpu")]
+        losses = []
+        for s, batch in enumerate(batches()):
+            step = steps[0 if s < PLAIN_STEPS else 1]
+            p, opt, loss, *carries = step(p, opt, batch, LR, *carries)
+            losses.append(float(loss))
+        out[name] = {"params": global_stack(p, specs, mesh),
+                     "losses": losses,
+                     "carries": [gather_nodes({k: v for k, v in c.items()
+                                               if k != "steps"}, mesh)
+                                 for c in carries]}
+    return out
+
+
+def _rounds():
+    model = build_model(CFG)
+    inp = round_inputs()
+    out = {}
+    for topo_name in ("ring", "full"):
+        mesh = make_federation_mesh(N, 1)
+        topo = Topology.make(topo_name, N)
+        hom = labeling.shard_label_round(inp["pub_logits"],
+                                         inp["val_logits"], topo, ROUND_CFG,
+                                         mesh=mesh)
+        out[f"oneshot-{topo_name}"] = gather_nodes(tuple(hom), mesh)
+    for mp in (1, 2):
+        mesh = make_federation_mesh(N, mp)
+        glob = params()
+        specs = federation_specs(glob, N, mesh)
+        hom = labeling.shard_streaming_label_round(
+            model, local_block(glob, specs, mesh), inp["pub_x"],
+            inp["val_x"], Topology.make("ring", N), ROUND_CFG, mesh=mesh,
+            specs=specs)
+        out[f"stream-{mp}d"] = gather_nodes(tuple(hom), mesh)
+    return out
+
+
+def _train():
+    from repro_torch.launch.train import run_training
+    cfg, tcfg, kw = train_args()
+    res = run_training(cfg, tcfg, driver_mode="shard", model_parallel=2,
+                       **kw)
+    return {k: res[k] for k in ("params", "loss_history", "last_round")}
+
+
+def rank_main(rank, world):
+    torch.set_num_threads(1)
+    return {"steps": _steps(), "rounds": _rounds(), "train": _train()}
