@@ -327,9 +327,11 @@ class TrainConfig:
     seed: int = 4                   # paper seeds: 4, 34, 5
     idkd: Optional[IDKDConfig] = None
 
-    compression: str = "none"       # only "none" is ported (ROADMAP.md)
-    compression_frac: float = 0.01
-    gossip: str = "sync"            # only "sync" is ported (ROADMAP.md)
+    # compressed and compute-overlapped gossip (core.mixing)
+    compression: str = "none"       # none | topk | randk (sparsified wire
+                                    # with error feedback)
+    compression_frac: float = 0.01  # kept share of each leaf's elements
+    gossip: str = "sync"            # sync | delayed (one-step-stale mixing)
 
     @property
     def compression_spec(self):

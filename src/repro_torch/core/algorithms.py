@@ -11,6 +11,13 @@ tensors; ``centralized``, ``qg-dsgdm-n``, ``d2`` and
 gossip through ``mix.mix_leaf`` on each slice, and write into the
 buffers they are given (params and state), so that an update holds
 f32 temporaries of one slice and no second copy of a node-stacked tree.
+
+A stateful mixer (compressed, delayed or straggler gossip; its bound
+form has ``whole_leaves``) takes whole leaves: a top-k over a slice is
+another compressor, and the mixer pairs its calls with the params'
+leaves. Under it the half-step still runs slice by slice, into a
+leaf-sized buffer in the storage dtype, then one mix of the whole leaf,
+then the slices' updates (:func:`_mixed_slices`).
 """
 from __future__ import annotations
 
@@ -44,6 +51,40 @@ def leaf_slices(x: torch.Tensor):
             for a in range(0, x.shape[1], per)]
 
 
+def _whole(mix) -> bool:
+    return getattr(mix, "whole_leaves", False)
+
+
+def _filled(p, fill):
+    """A whole leaf's pre-mix value, which ``fill(sl)`` gives slice by
+    slice, in a leaf-sized buffer of ``p``'s storage dtype: f32
+    temporaries stay one slice wide until the mixer's. (Hymba-1.5B's
+    largest leaf, layer-stacked, is 4 x 282 M elements: its buffer
+    takes 2.3 GB in bf16, the top-k mixer ~4 GB of f32 transients a
+    node row.)"""
+    buf = torch.empty_like(p)
+    for sl in leaf_slices(p):
+        buf[sl] = fill(sl)
+    return buf
+
+
+def _mixed_slices(mix, p, fill=None):
+    """(sl, y[sl]) over :func:`leaf_slices` of ``p``: y the gossip mix of
+    the leaf's pre-mix value, which ``fill(sl)`` gives slice by slice
+    (``p`` itself when None). A stateless mixer mixes each slice as it
+    is asked for, so the caller may write slice sl before the next one
+    is filled; a stateful one mixes the whole leaf once, formed by
+    :func:`_filled` before the first slice is yielded."""
+    get = fill if fill is not None else p.__getitem__
+    if not _whole(mix):
+        for sl in leaf_slices(p):
+            yield sl, mix.mix_leaf(get(sl))
+        return
+    y = mix.mix_leaf(p if fill is None else _filled(p, fill))
+    for sl in leaf_slices(p):
+        yield sl, y[sl]
+
+
 def _decayed(g, p, wd: float):
     """g + wd·p, added in the grad's dtype (the reference's
     ``_apply_weight_decay``)."""
@@ -71,9 +112,9 @@ def make_centralized(momentum: float = 0.9, weight_decay: float = 0.0,
     @torch.no_grad()
     def step(params, grads, state, lr, mix):
         for k, p in params.items():
-            g, m = grads[k], state["m"][k]
-            for sl in leaf_slices(p):
-                gk = _decayed(mix.mix_leaf(g[sl]), p[sl], weight_decay)
+            m = state["m"][k]
+            for sl, gm in _mixed_slices(mix, grads[k]):
+                gk = _decayed(gm, p[sl], weight_decay)
                 mk = (momentum * m[sl].float() + gk.float()).to(gk.dtype)
                 upd = ((momentum * mk.float() + gk.float()).to(gk.dtype)
                        if nesterov else mk)
@@ -161,15 +202,24 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
             d = (p.float() - y.float()) * inv_lr
             return (momentum * m.float() + (1 - momentum) * d).to(m.dtype)
 
+        whole = _whole(mix)
+
+        def fill(k):
+            return lambda sl: half_step(params[k][sl], grads[k][sl],
+                                        state["m"][k][sl])
+
         mix_leaves = getattr(mix, "mix_leaves", None)
         if mix_leaves is not None:
-            # a sharded mixer: every slice's half-step, then one gossip
-            # collective for all of them, then the EMA (the same values)
+            # a sharded mixer: every slice's (or, stateful, every whole
+            # leaf's) half-step, then one gossip collective for all of
+            # them, then the EMA (the same values)
             items = [(k, sl) for k, p in params.items()
-                     for sl in leaf_slices(p)]
-            ys = mix_leaves([half_step(params[k][sl], grads[k][sl],
-                                       state["m"][k][sl])
-                             for k, sl in items])
+                     for sl in ([(slice(None),)] if whole
+                                else leaf_slices(p))]
+            halves = [_filled(params[k], fill(k)) if whole else fill(k)(sl)
+                      for k, sl in items]
+            ys = mix_leaves(halves)
+            del halves
             for (k, sl), y in zip(items, ys):
                 m, p = state["m"][k], params[k]
                 m[sl] = ema(m[sl], p[sl], y)
@@ -177,9 +227,8 @@ def make_qg_dsgdm_n(momentum: float = 0.9, weight_decay: float = 1e-4,
             return params, state
         # per leaf and per slice: half-step, gossip mix, displacement EMA
         for k, p in params.items():
-            g, m = grads[k], state["m"][k]
-            for sl in leaf_slices(p):
-                y = mix.mix_leaf(half_step(p[sl], g[sl], m[sl]))
+            m = state["m"][k]
+            for sl, y in _mixed_slices(mix, p, fill(k)):
                 m[sl] = ema(m[sl], p[sl], y)
                 p[sl] = y
         return params, state
@@ -209,16 +258,22 @@ def make_d2(weight_decay: float = 0.0) -> Algorithm:
         for k, x in params.items():
             g, px, pg = grads[k], state["prev_x"][k], state["prev_g"][k]
             out = torch.empty_like(x) if first else px
-            for sl in leaf_slices(x):
+
+            def half(sl):
                 gk = _decayed(g[sl], x[sl], weight_decay)
                 xf, gf = x[sl].float(), gk.float()
                 if first:
-                    half = xf - lr * gf
+                    h = xf - lr * gf
                 else:
-                    half = 2.0 * xf - px[sl].float() - lr * (
+                    h = 2.0 * xf - px[sl].float() - lr * (
                         gf - pg[sl].float())
                 pg[sl] = gk
-                out[sl] = mix.mix_leaf(half.to(x.dtype))
+                return h.to(x.dtype)
+
+            # px may be out: each slice's half-step (under a stateful
+            # mixer the whole leaf's) is formed before the mix writes it
+            for sl, y in _mixed_slices(mix, x, half):
+                out[sl] = y
             new[k] = out
         return new, {"prev_x": params, "prev_g": state["prev_g"],
                      "t": state["t"] + 1}
@@ -238,6 +293,9 @@ def make_gradient_tracking(weight_decay: float = 0.0) -> Algorithm:
 
     @torch.no_grad()
     def step(params, grads, state, lr, mix):
+        if _whole(mix):
+            from repro_torch.core.mixing import MIXED_MORE
+            raise ValueError(MIXED_MORE)
         first = state["t"] == 0
         for k, x in params.items():
             g, y, pg = grads[k], state["y"][k], state["prev_g"][k]

@@ -143,20 +143,28 @@ def make_step(model, algo, mixer, loss_adapter, telemetry: bool = False,
     """``step(params, opt_state, batch, lr) -> (params, opt_state, loss)``
     on node-stacked params; ``loss`` is the mean node loss.
 
-    ``telemetry=True`` adds the metrics bus (:mod:`repro_torch.obs.
-    metrics`) as a trailing carry, ``step(..., metrics) -> (...,
-    metrics)``, flagged ``step.metrics``; ``guard`` (a
-    ``resil.GuardSpec``) adds the health guard (:mod:`repro_torch.resil.
-    guards`) after it, flagged ``step.guard``. When the mixer injects
-    faults, its ``wire_check`` of the pre-mix params feeds the guard's
-    sender attribution. Both only read the step's values, so the
-    trajectory is bitwise the plain step's."""
+    A stateful mixer (compressed, delayed or straggler gossip,
+    ``mixing.make_mixer(..., compression=..., gossip=..., stale=...)``)
+    adds its comm state as the first trailing carry: ``step(..., comm)
+    -> (..., comm)``, flagged ``step.comm``, with ``step.init_comm =
+    mixer.init_state`` building it. ``telemetry=True`` adds the metrics
+    bus (:mod:`repro_torch.obs.metrics`) after it, ``step(..., metrics)
+    -> (..., metrics)``, flagged ``step.metrics``, its EF residual from
+    the stateful mixer's ``ef_ref``; ``guard`` (a ``resil.GuardSpec``)
+    adds the health guard (:mod:`repro_torch.resil.guards`) last,
+    flagged ``step.guard``. Trailing carries are ordered (comm, metrics,
+    guard). When the mixer injects faults, its ``wire_check`` of the
+    pre-mix params feeds the guard's sender attribution. Metrics and
+    guard only read the step's values, so the trajectory is bitwise the
+    plain step's."""
     node_loss = loss_adapter(model)
     if telemetry:
         from repro_torch.obs import metrics as obs_metrics
     if guard is not None:
         from repro_torch.resil import guards as resil_guards
     wire_check = getattr(mixer, "wire_check", None)
+    stateful = getattr(mixer, "stateful", False)
+    ef_fn = getattr(mixer, "ef_ref", None) if telemetry else None
 
     def grad_fn(params, batch):
         keys = list(params)
@@ -170,6 +178,7 @@ def make_step(model, algo, mixer, loss_adapter, telemetry: bool = False,
 
     def step(params, opt_state, batch, lr, *rest):
         rest = list(rest)
+        comm = rest.pop(0) if stateful else None
         metrics = rest.pop(0) if telemetry else None
         guard_state = rest.pop(0) if guard is not None else None
         # sender attribution reads the pre-mix payload: the update below
@@ -179,21 +188,30 @@ def make_step(model, algo, mixer, loss_adapter, telemetry: bool = False,
                         if guard is not None and wire_check is not None
                         else None)
         grads, losses = grad_fn(params, batch)
+        mix = mixer.bind(comm) if stateful else mixer
         new_params, opt_state = algo.step(
             {k: p.detach() for k, p in params.items()}, grads, opt_state,
-            lr, mixer)
+            lr, mix)
         out = [new_params, opt_state, losses.mean()]
+        if stateful:
+            comm = mix.finalize()
+            out.append(comm)
         if telemetry:
-            out.append(obs_metrics.update(metrics, losses, grads,
-                                          new_params))
+            out.append(obs_metrics.update(
+                metrics, losses, grads, new_params,
+                ef_ref=(ef_fn(comm) if stateful and ef_fn is not None
+                        else None)))
         if guard is not None:
             out.append(resil_guards.update(guard_state, guard, losses,
                                            grads, new_params,
                                            wire_invalid=wire_invalid))
         return tuple(out)
 
+    step.comm = stateful
     step.metrics = telemetry
     step.guard = guard is not None
+    if stateful:
+        step.init_comm = mixer.init_state
     step.init_opt = algo.init
     step.grads = grad_fn           # (grads, node losses) alone, for traces
     return step
@@ -225,13 +243,25 @@ def make_shard_step(model, algo, loss_adapter, *, mesh, topology,
     1-D one. QG-DSGDm-N's grad norm sums model-sharded leaves over both
     groups and replicated leaves over the node group only.
 
+    ``compression`` / ``gossip="delayed"`` take the stateful sharded
+    mixer (``mixing.make_compressed_ppermute_mixer``: each leaf's
+    (value, index) payload rows cross to the neighbouring ranks, every
+    leaf of a step in one exchange) and :func:`make_step`'s comm carry
+    (``step.comm``; ``step.init_comm`` takes the *global* params, and
+    ``launch.sharding.comm_block`` cuts this rank's block of its
+    result). On the 2-D mesh compressed gossip runs through
+    ``mixing.make_model_sharded_mixer``, so that the payload selection
+    sees full delta rows; its EF residual reads 0, as the reference's.
+
     ``telemetry`` and ``guard`` add the metrics and guard carries of
     this rank's block (the scheduler gathers them at a flush), with the
     same reduction split. Eager errors, as the reference's: the node
     count must divide by the node group, the topology must be a ring or
     a complete graph, and per-edge-state algorithms (RelaySGD) are
-    refused; compressed and delayed gossip raise (item 12)."""
-    from repro_torch.core.mixing import make_shard_mixer
+    refused."""
+    from repro_torch.core.mixing import (make_model_sharded_mixer,
+                                         make_shard_mixer,
+                                         normalize_compression)
     from repro_torch.launch import dist
     from repro_torch.launch.sharding import (ShardReduce, gather_model_tree,
                                              like_params, slice_model_tree)
@@ -262,6 +292,13 @@ def make_shard_step(model, algo, loss_adapter, *, mesh, topology,
                              reduce=shard.tree_sum if model_size > 1
                              else None,
                              compression=compression, gossip=gossip)
+    stateful = getattr(mixer, "stateful", False)
+    if stateful and model_size > 1 and \
+            normalize_compression(compression) is not None:
+        # payload selection sees full delta rows; the uncompressed
+        # delayed mixer is linear per coordinate and runs on the shards
+        mixer = make_model_sharded_mixer(mixer, model_dims, mesh)
+    ef_fn = getattr(mixer, "ef_ref", None) if telemetry else None
     node_loss = loss_adapter(model)
     if telemetry:
         from repro_torch.obs import metrics as obs_metrics
@@ -278,6 +315,7 @@ def make_shard_step(model, algo, loss_adapter, *, mesh, topology,
 
     def step(params, opt_state, batch, lr, *rest):
         rest = list(rest)
+        comm = rest.pop(0) if stateful else None
         metrics = rest.pop(0) if telemetry else None
         guard_state = rest.pop(0) if guard is not None else None
         local = {k: (v[lo:lo + L] if isinstance(v, torch.Tensor)
@@ -290,21 +328,30 @@ def make_shard_step(model, algo, loss_adapter, *, mesh, topology,
             grads = slice_model_tree(grads, pspecs, mesh)
         else:
             grads, losses = grad_fn(params, local)
+        mix = mixer.bind(comm) if stateful else mixer
         new_params, opt_state = algo.step(
             {k: p.detach() for k, p in params.items()}, grads, opt_state,
-            lr, mixer)
+            lr, mix)
         loss = dist.all_reduce(losses.float().sum(), mesh.node) / n
         out = [new_params, opt_state, loss]
+        if stateful:
+            comm = mix.finalize()
+            out.append(comm)
         if telemetry:
-            out.append(obs_metrics.update(metrics, losses, grads,
-                                          new_params, shard=shard))
+            out.append(obs_metrics.update(
+                metrics, losses, grads, new_params, shard=shard,
+                ef_ref=(ef_fn(comm) if stateful and ef_fn is not None
+                        else None)))
         if guard is not None:
             out.append(resil_guards.update(guard_state, guard, losses,
                                            grads, new_params, shard=shard))
         return tuple(out)
 
+    step.comm = stateful
     step.metrics = telemetry
     step.guard = guard is not None
+    if stateful:
+        step.init_comm = mixer.init_state
     step.init_opt = algo.init
     return step
 
@@ -335,9 +382,10 @@ def make_frozen_step(step_fn, active) -> Callable:
     rows are copied out before the inner step and written back into the
     step's outputs after it, through views of the node rows (``x[i]``):
     on the device, never a host round trip, and no index kernel that
-    deterministic mode would refuse. The trailing metrics / guard
+    deterministic mode would refuse. The trailing comm / metrics / guard
     carries pass through with the inner step's values, as in the
-    reference."""
+    reference (a stateful mixer's own freshness mask, active and not
+    stale, already holds the down nodes' estimates)."""
     act = np.asarray(active, bool)
     n = act.shape[0]
     nodes = [int(i) for i in np.flatnonzero(~act)]
@@ -354,8 +402,11 @@ def make_frozen_step(step_fn, active) -> Callable:
                     x[i].copy_(row)
         return out
 
+    step.comm = getattr(step_fn, "comm", False)
     step.metrics = getattr(step_fn, "metrics", False)
     step.guard = getattr(step_fn, "guard", False)
+    if hasattr(step_fn, "init_comm"):
+        step.init_comm = step_fn.init_comm
     step.init_opt = step_fn.init_opt
     return step
 
@@ -544,43 +595,33 @@ def make_host_runner(step_fn, sample_fn, lr_fn) -> Callable:
     """``run(params, opt_state, gen, step0, num_steps, ctx=None) ->
     (params, opt_state, gen, losses (num_steps,))``: one sampled batch
     and one train step per iteration of a Python loop. A step flagged
-    ``metrics`` / ``guard`` makes the runner take and return those
-    carries the same way: ``run(..., metrics=m, guard=g) -> (...,
-    losses, m, g)``, flagged ``run.metrics`` / ``run.guard``."""
-    has_metrics = getattr(step_fn, "metrics", False)
-    has_guard = getattr(step_fn, "guard", False)
+    ``comm`` / ``metrics`` / ``guard`` makes the runner take and return
+    those carries the same way, in that order: ``run(..., comm=c,
+    metrics=m, guard=g) -> (..., losses, c, m, g)``, flagged
+    ``run.comm`` / ``run.metrics`` / ``run.guard``."""
+    flags = [name for name in ("comm", "metrics", "guard")
+             if getattr(step_fn, name, False)]
 
     def run(params, opt_state, gen, step0, num_steps, ctx=None,
-            metrics=None, guard=None):
+            comm=None, metrics=None, guard=None):
+        carries = {"comm": comm, "metrics": metrics, "guard": guard}
         losses = []
         for t in range(step0, step0 + num_steps):
             batch = (sample_fn(gen, t) if ctx is None
                      else sample_fn(gen, t, ctx))
-            args = (params, opt_state, batch, lr_fn(t))
-            if has_metrics:
-                args += (metrics,)
-            if has_guard:
-                args += (guard,)
-            out = step_fn(*args)
+            out = step_fn(params, opt_state, batch, lr_fn(t),
+                          *(carries[f] for f in flags))
             params, opt_state, loss = out[:3]
-            rest = list(out[3:])
-            if has_metrics:
-                metrics = rest.pop(0)
-            if has_guard:
-                guard = rest.pop(0)
+            carries.update(zip(flags, out[3:]))
             losses.append(loss)
         dev = next(iter(params.values())).device
         out = (params, opt_state, gen,
                torch.stack(losses) if losses else torch.zeros((0,),
                                                               device=dev))
-        if has_metrics:
-            out += (metrics,)
-        if has_guard:
-            out += (guard,)
-        return out
+        return out + tuple(carries[f] for f in flags)
 
-    run.metrics = has_metrics
-    run.guard = has_guard
+    for name in ("comm", "metrics", "guard"):
+        setattr(run, name, name in flags)
     return run
 
 

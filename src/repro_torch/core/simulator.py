@@ -47,7 +47,9 @@ from repro_torch import sched
 from repro_torch.configs.base import IDKDConfig, ModelConfig, TrainConfig
 from repro_torch.core import distill, driver, idkd, labeling
 from repro_torch.core.algorithms import make_algorithm
-from repro_torch.core.mixing import consensus_distance, make_mixer
+from repro_torch.core.mixing import (consensus_distance, make_mixer,
+                                     normalize_compression,
+                                     payload_elem_count)
 from repro_torch.core.topology import Topology
 from repro_torch.data.dirichlet import dirichlet_partition, partition_stats
 from repro_torch.data.synthetic import ClassificationData
@@ -82,8 +84,9 @@ class _SimFederation(sched.CompiledFederationHooks):
     :class:`sched.CompiledFederationHooks`'); ``phase`` is "plain" until
     the first round, then "kd_dense" or "kd_sparse". The prebuilt steps
     (``sim.steps``) serve the all-up, fault-free segments on the run's
-    own gossip graph with telemetry and guard off; every other segment
-    builds its step through the cache."""
+    own gossip graph with telemetry and guard off and the run's own
+    statefulness; every other segment builds its step through the
+    cache."""
 
     def __init__(self, sim: "DecentralizedSimulator", result: SimResult,
                  idkd_cfg: IDKDConfig):
@@ -96,6 +99,7 @@ class _SimFederation(sched.CompiledFederationHooks):
         self.device = sim.device
         self.result = result
         self.idkd_cfg = idkd_cfg
+        self.compression = sim.compression
         parts = driver.pad_partitions(sim.parts, sim.device)
         C, B = sim.mcfg.num_classes, sim.tcfg.batch_size
         self.samplers = {
@@ -123,8 +127,11 @@ class _SimFederation(sched.CompiledFederationHooks):
 
     def _make_mixer(self, topo: Topology, active, stale=None):
         sim = self.sim
-        if (active is None and self._fault_key() is None
-                and topo.edge_key() == sim.gossip_topo.edge_key()):
+        # the prebuilt mixer knows no fault, mask or forced statefulness
+        if (active is None and stale is None
+                and self._fault_key() is None
+                and topo.edge_key() == sim.gossip_topo.edge_key()
+                and self._force_state == sim._prebuilt_stateful):
             return sim.mixer
         return make_mixer(topo, "dense", wire_dtype=sim.wire_dtype,
                           device=sim.device, active=active, stale=stale,
@@ -146,11 +153,12 @@ class _SimFederation(sched.CompiledFederationHooks):
     def _base_step(self, topo: Topology, active: np.ndarray,
                    stale: np.ndarray):
         sim = self.sim
-        if (sim.steps is not None and active.all()
+        if (sim.steps is not None and active.all() and not stale.any()
                 and not self._metrics_on()
                 and self._fault_key() is None
                 and self._guard_spec() is None
-                and topo.edge_key() == sim.gossip_topo.edge_key()):
+                and topo.edge_key() == sim.gossip_topo.edge_key()
+                and self._force_state == sim._prebuilt_stateful):
             return sim.steps[self.phase]
         return super()._base_step(topo, active, stale)
 
@@ -236,11 +244,6 @@ class DecentralizedSimulator:
             raise ValueError(
                 "model_parallel > 1 shards each replica over the 2-D "
                 "federation mesh and needs driver_mode='shard'")
-        if train_cfg.compression_spec is not None or \
-                train_cfg.gossip != "sync":
-            raise NotImplementedError(
-                "compressed and delayed gossip are not ported yet; see "
-                "ROADMAP.md queue 1 item 12")
         self.device = resolve_device(device)
         self.mcfg = model_cfg
         self.tcfg = train_cfg
@@ -264,8 +267,18 @@ class DecentralizedSimulator:
         self.gossip_topo = (Topology.make("full", n)
                             if train_cfg.algorithm == "centralized"
                             else self.topology)
+        # the prebuilt mixer and steps bake in the config's compression
+        # and gossip mode; a schedule that needs another statefulness
+        # (stale churn on an uncompressed sync run) rebuilds through the
+        # scheduler's cache
+        self.compression = normalize_compression(train_cfg.compression_spec)
+        self.gossip = train_cfg.gossip
+        self._prebuilt_stateful = bool(self.compression is not None
+                                       or self.gossip == "delayed")
         self.mixer = make_mixer(self.gossip_topo, "dense",
-                                wire_dtype=wire_dtype, device=dev)
+                                wire_dtype=wire_dtype, device=dev,
+                                compression=self.compression,
+                                gossip=self.gossip)
         self.algo = make_algorithm(train_cfg.algorithm,
                                    topology=self.topology,
                                    momentum=train_cfg.momentum,
@@ -337,6 +350,14 @@ class DecentralizedSimulator:
         gen = torch.Generator().manual_seed(0)
         return sum(v.numel() for v in self.model.init(gen).values())
 
+    def _payload_elems(self) -> Optional[int]:
+        """Elements a node's compressed send carries (None: dense)."""
+        if self.compression is None:
+            return None
+        gen = torch.Generator().manual_seed(0)
+        return payload_elem_count(self.model.init(gen), self.compression,
+                                  node_stacked=False)
+
     # ---------------------------------------------------------- shard mode
     def _local(self, params):
         """Shard mode: this rank's block of global node-stacked params;
@@ -402,7 +423,8 @@ class DecentralizedSimulator:
         rounds = (sched.idkd_round_steps(idkd_cfg, self.tcfg.steps)
                   if self._kd_active(idkd_cfg) else ())
         return sched.compile_schedule(self.tcfg.steps, self.eval_every,
-                                      round_steps=rounds)
+                                      round_steps=rounds,
+                                      gossip=self.gossip)
 
     def _kd_active(self, idkd_cfg: IDKDConfig) -> bool:
         return (self.kd_mode is not None and self.public_x is not None
@@ -437,6 +459,13 @@ class DecentralizedSimulator:
             raise ValueError(
                 "schedule contains homogenization rounds but the simulator "
                 "has no kd_mode/public data to run them")
+        if schedule.gossip != self.gossip:
+            raise ValueError(
+                f"schedule compiled with gossip={schedule.gossip!r} but "
+                f"this simulator's TrainConfig.gossip is {self.gossip!r}; "
+                "pass gossip= to sched.compile_schedule (or use "
+                "default_schedule()) so the prebuilt steps and the "
+                "schedule agree")
         result = SimResult(final_acc=0.0)
         result.pre_hist = partition_stats(self.data.train_y, self.parts,
                                           self.mcfg.num_classes)
@@ -458,10 +487,17 @@ class DecentralizedSimulator:
         if self.driver_mode == "shard":
             # churn, faults and unsupported rewires fail before training
             sched.validate_shard_schedule(schedule, n, self.model_parallel)
+        # compressed wires ship (value, int32 index) pairs of the top-k /
+        # random-k payload instead of the dense parameter row
+        comp_kind, comp_frac = (self.compression
+                                if self.compression is not None
+                                else ("none", 0.0))
         ledger = sched.CommLedger(n, meta={
             "topology": self.gossip_topo.name,
             "wire_dtype": self.wire_dtype,
-            "param_count": int(nparams), "gossip": schedule.gossip})
+            "param_count": int(nparams),
+            "compression": comp_kind, "compression_frac": comp_frac,
+            "gossip": schedule.gossip})
         if self._fed is None:
             self._fed = _SimFederation(self, result, idkd_cfg)
         else:
@@ -473,6 +509,8 @@ class DecentralizedSimulator:
             topology=self.gossip_topo,
             ledger=ledger, param_count=int(nparams),
             elem_bytes=sched.wire_elem_bytes(self.wire_dtype, "float32"),
+            payload_elems=self._payload_elems(),
+            index_bytes=4 if self.compression is not None else 0,
             resume_step=resume_step, capture_at=capture_at,
             telemetry=telemetry, resil=resil)
         result.final_acc = (result.acc_history[-1]

@@ -19,7 +19,9 @@ same either way.
 
 Specs are computed once from the *global* shapes
 (:func:`federation_specs`); a local block cannot tell which of two
-equal dims was cut. :func:`local_block` cuts a global tree down to this
+equal dims was cut. :func:`comm_block` cuts a stateful gossip mixer's
+comm state (estimates node-stacked at full width, the uncompressed
+snapshot like the params, sums and generator states replicated). :func:`local_block` cuts a global tree down to this
 rank's block and :func:`global_stack` gathers one back (evals, tests,
 the round's payload); :func:`gather_model_tree` and
 :func:`slice_model_tree` move between a rank's shards and full-width
@@ -225,6 +227,26 @@ def global_stack(tree, specs, mesh: Mesh):
             return x
         return dist.all_gather_cat(x, mesh.node, 0)
     return _zip(full, specs, nodes)
+
+
+def comm_block(comm, param_specs: Dict[str, Spec], mesh: Mesh):
+    """This rank's block of a stateful mixer's comm state built on the
+    global params (``init_comm`` needs no collective): the shared
+    estimates and the neighbours' replicas (``hat``, ``hfwd``, ``hbwd``:
+    (n, flat) rows, full width, replicated over the model group) keep
+    the block's node rows, the uncompressed ``prev`` is cut like the
+    params (node rows and model shard), and the complete graph's sum
+    ``hsum`` and random-k's generator state (``key``) are replicated."""
+    out = {}
+    for name, sub in comm.items():
+        if name == "prev":
+            out[name] = local_block(sub, param_specs, mesh)
+        elif name in ("hat", "hfwd", "hbwd"):
+            out[name] = local_block(sub, {k: Spec(True, None) for k in sub},
+                                    mesh)
+        else:
+            out[name] = sub
+    return out
 
 
 def gather_nodes(tree, mesh: Mesh):

@@ -29,9 +29,12 @@ dist`): each rank calls :func:`run_training` with the same arguments and
 holds its block of nodes, and ``model_parallel > 1`` shards each replica
 over the model axis of the 2-D federation mesh with vocab-sharded label
 rounds; the CLI spawns the ranks itself (``--driver shard --ranks R
---model-parallel M``). Not ported (raise ``NotImplementedError``):
-compressed and delayed gossip and stale stragglers (ROADMAP.md queue 1
-item 12), and durable snapshots under the sharded driver.
+--model-parallel M``). ``tcfg.compression`` / ``compression_frac`` and
+``tcfg.gossip`` select compressed (top-k / random-k with error
+feedback) and delayed gossip on either driver, and ``--churn-mode
+stale`` makes stragglers (node-stacked only, as in the reference). Not
+ported (raises ``NotImplementedError``): durable snapshots under the
+sharded driver.
 
 Usage (CPU, reduced config; ``--arch`` defaults to the reference's
 ``qwen3-1.7b``):
@@ -40,6 +43,9 @@ Usage (CPU, reduced config; ``--arch`` defaults to the reference's
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
         --steps 8 --nodes 4 --idkd --device cpu --driver shard \
         --ranks 2 --model-parallel 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --steps 8 --nodes 4 --idkd --device cpu --compression topk \
+        --compression-frac 0.01 --gossip delayed
 """
 from __future__ import annotations
 
@@ -56,7 +62,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import IDKDConfig, ModelConfig, TrainConfig
 from repro_torch.core import distill, driver, labeling
 from repro_torch.core.algorithms import make_algorithm
-from repro_torch.core.mixing import make_mixer
+from repro_torch.core.mixing import (make_mixer, normalize_compression,
+                                     payload_elem_count)
 from repro_torch.core.topology import Topology
 from repro_torch.data.dirichlet import dirichlet_partition
 from repro_torch.data.synthetic import make_lm_data
@@ -70,12 +77,14 @@ def make_gossip_mixer(tcfg: TrainConfig, wire_dtype: str = "native",
                       stale=None, compression=None, gossip: str = "sync",
                       stateful=None, wire_fault=None, wire_guard=None,
                       device="cuda"):
-    """The (topology, mixer) pair the launch path gossips params on: the
-    dense Metropolis mixer on ``tcfg.topology`` (or ``topology``), the
-    same graph the label exchange uses, masked by the churn mask
-    ``active`` and wrapped by the resilience layer's ``wire_fault`` /
-    ``wire_guard``. Stragglers (``stale``), compressed and delayed
-    gossip raise (item 12)."""
+    """The (topology, mixer) pair the launch path gossips params on:
+    ``make_mixer``'s default backend (``auto``: the roll mixer on a
+    ring, neighbour-gather elsewhere) on ``tcfg.topology`` (or
+    ``topology``), the same graph the label exchange uses, masked by the
+    churn mask ``active``. ``stale`` / ``compression`` / ``gossip`` /
+    ``stateful`` are the compressed-wire controls and ``wire_fault`` /
+    ``wire_guard`` the resilience layer's, all forwarded to
+    ``mixing.make_mixer``."""
     topo = topology or Topology.make(tcfg.topology, tcfg.num_nodes)
     return topo, make_mixer(topo, wire_dtype=wire_dtype, device=device,
                             active=active, stale=stale,
@@ -218,6 +227,9 @@ class _LMFederation(sched.CompiledFederationHooks):
             self.priv_parts, tokens, tcfg.batch_size)
         self.kd_sampler = None
         self.last_round_stats = None
+        # the compressed-wire spec; init_comm sets the gossip mode from
+        # the schedule
+        self.compression = tcfg.compression_spec
 
     def _make_mixer(self, topology: Topology, active, stale=None):
         return make_gossip_mixer(self.tcfg, self.wire_dtype,
@@ -340,9 +352,6 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
         raise ValueError("model_parallel > 1 shards each replica over "
                          "the 2-D federation mesh and needs "
                          "driver_mode='shard'")
-    if tcfg.compression_spec is not None or tcfg.gossip != "sync":
-        raise NotImplementedError("compressed and delayed gossip are not "
-                                  "ported (ROADMAP.md queue 1 item 12)")
     device = resolve_device(device)
     n = tcfg.num_nodes
     model = build_model(cfg)
@@ -368,6 +377,11 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     elif events:
         raise ValueError("pass events to compile_schedule, not alongside "
                          "a prebuilt schedule")
+    if schedule.gossip != tcfg.gossip:
+        raise ValueError(
+            f"schedule gossip mode {schedule.gossip!r} disagrees with "
+            f"TrainConfig.gossip={tcfg.gossip!r}; pass gossip= to "
+            "compile_schedule (or drop the prebuilt schedule)")
     if schedule.round_steps and not use_idkd:
         raise ValueError("schedule contains homogenization rounds but "
                          "use_idkd=False")
@@ -404,10 +418,14 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
         params = local_block(params, fed.specs, mesh)
     opt_state = algo.init(params)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed + 1)
+    comp = normalize_compression(tcfg.compression_spec)
+    payload_elems = (payload_elem_count(params, comp, node_stacked=True)
+                     if comp is not None else None)
+    comp_kind, comp_frac = comp if comp is not None else ("none", 0.0)
     ledger = sched.CommLedger(n, meta={
         "topology": topo.name, "wire_dtype": wire_dtype,
-        "param_count": int(nparams), "compression": "none",
-        "compression_frac": 0.0, "gossip": schedule.gossip})
+        "param_count": int(nparams), "compression": comp_kind,
+        "compression_frac": comp_frac, "gossip": schedule.gossip})
 
     history = []
     t0 = time.time()
@@ -423,6 +441,8 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
         schedule, fed, params, opt_state, gen, topology=topo, ledger=ledger,
         param_count=int(nparams),
         elem_bytes=sched.wire_elem_bytes(wire_dtype, cfg.dtype),
+        payload_elems=payload_elems,
+        index_bytes=4 if comp is not None else 0,
         telemetry=telemetry, resil=resil)
     if driver_mode == "shard":
         from repro_torch.launch.sharding import (ShardReduce,
@@ -463,11 +483,22 @@ def main(argv=None, _rank=None):
                     help="churn spec node@down-up[,...], e.g. 3@20-30")
     ap.add_argument("--churn-mode", default="freeze",
                     choices=list(sched.CHURN_MODES),
-                    help="what --churn means: freeze (hold params) or "
-                         "isolate (train but no gossip); stale is not "
-                         "ported (ROADMAP.md queue 1 item 12)")
+                    help="what --churn means: freeze (hold params), "
+                         "isolate (train but no gossip), or stale "
+                         "(straggler: neighbours mix its last payload)")
     ap.add_argument("--wire-dtype", default="native",
                     choices=["native", "float32"])
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "topk", "randk"],
+                    help="gossip wire compression (top-k / random-k "
+                         "deltas with error feedback)")
+    ap.add_argument("--compression-frac", type=float, default=0.01,
+                    help="share of each leaf kept per send (top-k / "
+                         "random-k)")
+    ap.add_argument("--gossip", default="sync",
+                    choices=list(sched.GOSSIP_MODES),
+                    help="sync mixes this step's params; delayed mixes "
+                         "the previous step's payload (one-step-stale)")
     ap.add_argument("--driver", default="scan",
                     choices=["scan", "host", "shard"],
                     help="shard: the sharded driver, one spawned process "
@@ -536,6 +567,9 @@ def main(argv=None, _rank=None):
     tcfg = TrainConfig(num_nodes=args.nodes, steps=args.steps, lr=0.1,
                        alpha=args.alpha, batch_size=8,
                        topology=args.topology,
+                       compression=args.compression,
+                       compression_frac=args.compression_frac,
+                       gossip=args.gossip,
                        idkd=IDKDConfig(start_step=start, label_topk=8,
                                        every_k_steps=every_k,
                                        num_rounds=args.rounds))

@@ -73,16 +73,22 @@ def grid_data():
 def grid_sim(method: str, steps: int = STEPS,
              round_step: Optional[int] = None, eval_every: int = EVAL_EVERY,
              device="cuda", *, topology: Optional[str] = None,
-             driver_mode: str = "auto",
-             model_parallel: int = 1) -> DecentralizedSimulator:
+             driver_mode: str = "auto", model_parallel: int = 1,
+             compression: Optional[Tuple[str, float]] = None,
+             gossip: str = "sync") -> DecentralizedSimulator:
     """One method of the grid (a key of :data:`METHODS`) at full width:
     8192 training images, and 2048 aligned public samples for the KD
     methods. ``topology`` replaces the method's graph; ``driver_mode``
     and ``model_parallel`` pass to the simulator (``"shard"``: call this
-    on every rank of a ``launch.dist`` run)."""
+    on every rank of a ``launch.dist`` run); ``compression`` (a (kind,
+    frac) pair) and ``gossip`` set the run's gossip wire."""
     tcfg, kd_mode = grid_config(method, steps, round_step)
     if topology is not None:
         tcfg = dataclasses.replace(tcfg, topology=topology)
+    if compression is not None:
+        tcfg = dataclasses.replace(tcfg, compression=compression[0],
+                                   compression_frac=compression[1])
+    tcfg = dataclasses.replace(tcfg, gossip=gossip)
     data, public = grid_data()
     public = public if kd_mode else None
     return DecentralizedSimulator(CONFIG, tcfg, data, public,

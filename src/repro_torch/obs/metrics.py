@@ -10,7 +10,8 @@ reference's ``repro.obs.metrics``, node-stacked):
   ``grad_sq_sum``  (n,) f32   — per-node squared grad-norm sum
   ``consensus_sq`` (n,) f32   — ‖x_i − x̄‖² after the latest update
   ``ef_sq``        (n,) f32   — ‖x_i − x̂_i‖² error-feedback residual
-                                (zeros: compressed gossip is not ported)
+                                of a stateful mixer (``ef_ref``; zeros
+                                without one)
 
 ``consensus_sq`` and ``ef_sq`` are latest-step snapshots; the sums are
 averaged at flush. ``sqrt(sum(consensus_sq))`` equals
@@ -24,6 +25,7 @@ import torch
 from repro_torch.runtime import resolve_device
 
 METRIC_FIELDS = ("loss_sum", "grad_sq_sum", "consensus_sq", "ef_sq")
+CHUNK = 1 << 26   # elements of a leaf whose f32 temporaries live at once
 
 
 def init_node_metrics(n: int, device="cuda"):
@@ -36,9 +38,26 @@ def init_node_metrics(n: int, device="cuda"):
             "consensus_sq": z.clone(), "ef_sq": z.clone()}
 
 
-def _rows_sq(x) -> torch.Tensor:
-    xf = x.float().reshape(x.shape[0], -1)
-    return torch.sum(xf * xf, dim=1)
+def _blocks(x):
+    """Column blocks of a (rows, ...) leaf as (rows, flat) views of at
+    most CHUNK elements each: the sums' f32 temporaries stay that wide
+    (a layer-stacked Hymba-1.5B leaf is 4 x 282 M elements)."""
+    xr = x.reshape(x.shape[0], -1)
+    per = max(1, CHUNK // max(xr.shape[0], 1))
+    return [xr[:, a:a + per] for a in range(0, xr.shape[1], per)]
+
+
+def _rows_sq(x, ref=None) -> torch.Tensor:
+    """(rows,) Σ (x − ref)² per leading row, in f32, block by block
+    (``ref`` row-congruent with ``x``; None: 0)."""
+    total = None
+    pairs = zip(_blocks(x), _blocks(ref) if ref is not None
+                else [None] * len(_blocks(x)))
+    for xb, rb in pairs:
+        d = xb.float() if rb is None else xb.float() - rb.float()
+        part = torch.sum(d * d, dim=1)
+        total = part if total is None else total + part
+    return total
 
 
 def consensus_rows(params, shard=None) -> torch.Tensor:
@@ -53,10 +72,11 @@ def consensus_rows(params, shard=None) -> torch.Tensor:
                            for k in keys})
     cons = None
     for k in keys:
-        xf = params[k].float().reshape(params[k].shape[0], -1)
-        d = xf - xf.mean(dim=0, keepdim=True)
-        c = torch.sum(d * d, dim=1)
-        cons = c if cons is None else cons + c
+        for xb in _blocks(params[k]):
+            xf = xb.float()
+            d = xf - xf.mean(dim=0, keepdim=True)
+            c = torch.sum(d * d, dim=1)
+            cons = c if cons is None else cons + c
     return cons
 
 
@@ -74,8 +94,10 @@ def update(metrics, losses, grads, params, *, ef_ref=None, shard=None):
         grad_sq = sum(_rows_sq(grads[k]) for k in keys)
     cons = consensus_rows(params, shard)
     if ef_ref is not None:
-        ef_sq = sum(_rows_sq(params[k].float() - ef_ref[k].float())
-                    for k in keys)
+        # x̂ leaves are (rows, flat) for compressed wires, params-shaped
+        # for the uncompressed state
+        ef = {k: _rows_sq(params[k], ef_ref[k]) for k in keys}
+        ef_sq = shard.rows(ef) if shard is not None else sum(ef.values())
     else:
         ef_sq = torch.zeros_like(metrics["ef_sq"])
     return {"steps": metrics["steps"] + 1,

@@ -4,6 +4,8 @@ and a checksum, newest-valid auto-resume, and pruning (the reference's
 
 A snapshot holds what a segment boundary needs to continue the run
 exactly: params, optimizer state, the samplers' generator state, the
+stateful gossip mixers' comm state (shared estimates or the previous
+payload, and for random-k the state of its ``torch.Generator``), the
 homogenization context (the KD sampler's flat str→array payload) and
 the phase. State rides :func:`repro_torch.checkpoint.save_checkpoint`;
 the ctx, whose shapes depend on the round, rides a sibling npz whose
@@ -103,7 +105,8 @@ class SnapshotManager:
     def save(self, step: int, state, *, ctx=None, phase: str = "plain",
              fired: int = 0) -> None:
         """Persist one snapshot: ``state`` the checkpointable tree
-        (params / opt_state / key), ``ctx`` the flat str→array
+        (params / opt_state / key, and comm on a stateful-gossip run),
+        ``ctx`` the flat str→array
         homogenization payload (None before the first round)."""
         extra = {"phase": phase, "fired": int(fired), "has_ctx": False}
         if ctx is not None:

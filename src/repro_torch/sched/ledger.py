@@ -1,7 +1,9 @@
 """Per-round communication ledger: gossip and label bytes, per node.
 
 * **gossip** — every training step each active node ships its
-  parameters to each active neighbour, at the wire dtype's width;
+  parameters to each active neighbour, at the wire dtype's width — or,
+  on a compressed wire, its top-k / random-k payload of (value, int32
+  index) pairs; a stale straggler ships nothing new;
 * **labels** — at each homogenization round each node serializes its
   D_ID label payload once (``distill.label_bytes``).
 
@@ -28,19 +30,30 @@ def wire_elem_bytes(wire_dtype: str, param_dtype: str) -> int:
 
 
 def gossip_bytes_per_step(topology: Topology, active: Optional[np.ndarray],
-                          param_count: int, elem_bytes: int) -> np.ndarray:
-    """(n,) bytes each node sends per step: active degree · params ·
-    bytes per element. Down nodes (and links to them) carry nothing."""
+                          param_count: int, elem_bytes: int, *,
+                          payload_elems: Optional[int] = None,
+                          index_bytes: int = 0,
+                          stale: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n,) bytes each node sends per step: active degree · payload
+    elements · (bytes per element + ``index_bytes``). Down nodes (and
+    links to them) carry nothing. ``payload_elems``
+    (``mixing.payload_elem_count``) replaces ``param_count`` on a
+    compressed wire, whose values carry a 4-byte index each
+    (``index_bytes``); ``stale`` senders, whose outgoing payload is
+    frozen, send 0 (they still receive)."""
     n = topology.n
     act = np.ones(n, bool) if active is None else np.asarray(active, bool)
     deg = np.array([sum(act[j] for j in topology.neighbors(i))
                     if act[i] else 0 for i in range(n)], np.int64)
-    return deg * int(param_count) * int(elem_bytes)
+    if stale is not None:
+        deg = np.where(np.asarray(stale, bool), 0, deg)
+    elems = int(param_count) if payload_elems is None else int(payload_elems)
+    return deg * elems * (int(elem_bytes) + int(index_bytes))
 
 
 # per-node traffic status codes of gossip entries (the reference's)
 STATUS_ACTIVE = 0       # training and gossiping
-STATUS_STALE = 1        # straggler with a frozen payload (item 12)
+STATUS_STALE = 1        # straggler: frozen outgoing payload, 0 send bytes
 STATUS_INACTIVE = 2     # churned out (freeze/isolate): no traffic
 STATUS_QUARANTINED = 3  # held out by the resilience layer after a guard
                         #   trip (params frozen, no traffic)

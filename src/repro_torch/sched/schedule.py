@@ -9,11 +9,10 @@ rejoining (:class:`ChurnEvent`), the gossip graph rewired
 (:class:`RewireEvent`), and wire drops, corruption and crashes
 (:class:`FaultEvent`). Topology events at a step fire before the
 homogenization round of that step, so a round always runs on the graph
-that is current at its step.
-
-Still refused (ROADMAP.md queue 1 item 12): churn with ``mode="stale"``
-(stragglers whose outgoing payload freezes) and ``gossip="delayed"``;
-both need the stateful gossip mixers.
+that is current at its step. ``ChurnEvent(mode="stale")`` marks
+stragglers whose outgoing payload freezes, and ``gossip="delayed"``
+mixes the previous step's payload: both run on the stateful gossip
+mixers (``core.mixing``).
 """
 from __future__ import annotations
 
@@ -41,7 +40,12 @@ class ChurnEvent:
     nodes rejoin. ``mode="freeze"``: a down node neither trains nor
     gossips (its params and optimizer state are held);
     ``mode="isolate"``: it keeps training locally but misses every
-    gossip exchange. ``mode="stale"`` is item 12's and raises."""
+    gossip exchange; ``mode="stale"``: a slow node stays in the
+    federation (trains, receives, keeps its Metropolis weights) but its
+    outgoing payload is frozen at the last one it produced, so the
+    neighbours mix a stale snapshot. A schedule with stale nodes runs
+    the stateful gossip mixers from step 0 (the comm state keeps its
+    structure across the run)."""
     step: int
     down: Tuple[int, ...] = ()
     up: Tuple[int, ...] = ()
@@ -97,7 +101,14 @@ class Schedule:
     eval_every: int
     segments: Tuple[Segment, ...] = ()
     round_steps: Tuple[int, ...] = ()
-    gossip: str = "sync"
+    gossip: str = "sync"    # "sync" | "delayed" (one-step-stale mixing)
+
+    @property
+    def has_stale(self) -> bool:
+        """Whether a churn event marks a node a stale straggler: the run
+        then needs the stateful gossip mixers from step 0."""
+        return any(isinstance(ev, ChurnEvent) and ev.mode == "stale"
+                   for seg in self.segments for ev in seg.events)
 
     @property
     def has_faults(self) -> bool:
@@ -174,11 +185,6 @@ def _validate_events(events: Sequence[Event], steps: int) -> List[Event]:
             if ev.mode not in CHURN_MODES:
                 raise ValueError(f"unknown churn mode {ev.mode!r}; "
                                  f"expected one of {CHURN_MODES}")
-            if ev.mode == "stale":
-                raise NotImplementedError(
-                    "churn mode 'stale' (stragglers with frozen outgoing "
-                    "payloads) needs the stateful gossip mixers, not "
-                    "ported yet; see ROADMAP.md queue 1 item 12")
             if not ev.down and not ev.up:
                 raise ValueError(f"churn event at step {ev.step} names no "
                                  "nodes (empty down and up)")
@@ -212,10 +218,6 @@ def compile_schedule(steps: int, eval_every: int, *,
     if gossip not in GOSSIP_MODES:
         raise ValueError(f"unknown gossip mode {gossip!r}; expected one "
                          f"of {GOSSIP_MODES}")
-    if gossip != "sync":
-        raise NotImplementedError(
-            f"gossip={gossip!r} is not ported yet (only 'sync'); see "
-            "ROADMAP.md queue 1 item 12")
     rounds = sorted(set(int(s) for s in round_steps))
     for s in rounds:
         if not 0 <= s < steps:

@@ -13,16 +13,18 @@ The federation state threaded through the loop: ``topology`` (swapped by
 ``RewireEvent``), ``active`` (the availability mask), ``frozen`` (the
 down nodes with ``freeze`` semantics: params and optimizer state held;
 down nodes not in it are ``isolate`` stragglers that train locally but
-miss gossip), ``stale`` (always empty: straggler payloads are item 12),
-``quarantined`` (guard-tripped nodes, frozen and silent), the wire-fault
-state, and the rounds fired so far.
+miss gossip), ``stale`` (active stragglers whose outgoing payload is
+frozen), ``quarantined`` (guard-tripped nodes, frozen and silent), the
+wire-fault state, the stateful gossip mixers' comm state (from
+``hooks.init_comm``, carried through every runner call, captured and
+snapshotted with the params) and the rounds fired so far.
 
 The port's updates write over their inputs, and its sampler state is a
 ``torch.Generator`` that a segment advances. So where the reference
 keeps the pre-segment values by not overwriting them, the port copies
 them: before each segment when rollback is on (params, optimizer state
-and generator state, restored on a retry), and at the ``capture_at``
-boundary. Resume replays the topology and fault events before the
+and generator state, and the comm state, restored on a retry), and at
+the ``capture_at`` boundary. Resume replays the topology and fault events before the
 resume step but skips their training and rounds; the quarantine mask is
 not part of a snapshot, as in the reference.
 """
@@ -48,8 +50,9 @@ class FederationHooks:
 
     def init_comm(self, params, topology: Topology,
                   schedule: Schedule) -> Optional[Any]:
-        """The stateful gossip mixers' comm state; None for synchronous
-        uncompressed gossip, the only kind ported (item 12)."""
+        """The stateful gossip mixers' comm state (compressed, delayed or
+        straggler gossip), carried through every runner call; None for
+        synchronous uncompressed gossip."""
         return None
 
     def init_metrics(self, params, topology: Topology) -> Optional[Any]:
@@ -94,10 +97,10 @@ class FederationHooks:
     def runner(self, topology: Topology, active: np.ndarray,
                frozen: np.ndarray, stale: np.ndarray) -> Callable:
         """A ``run(params, opt_state, gen, step0, num_steps)`` runner for
-        the current phase, graph and masks. One flagged ``run.metrics``
-        / ``run.guard`` takes and returns those carries as keywords:
-        ``run(..., metrics=m, guard=g) -> (params, opt_state, gen,
-        losses, m, g)``."""
+        the current phase, graph and masks. One flagged ``run.comm`` /
+        ``run.metrics`` / ``run.guard`` takes and returns those carries
+        as keywords: ``run(..., comm=c, metrics=m, guard=g) -> (params,
+        opt_state, gen, losses, c, m, g)``."""
         raise NotImplementedError
 
     def on_eval(self, params, step: int, losses) -> None:
@@ -112,8 +115,9 @@ class FederationHooks:
 
 class CompiledFederationHooks(FederationHooks):
     """:class:`FederationHooks` with the mixers, steps and host runners
-    cached per (phase, graph, availability mask, frozen subset, metrics
-    switch, wire fault, guard spec), and the round-varying sampler
+    cached per (phase, graph, availability mask, frozen subset, straggler
+    mask, metrics switch, wire fault, guard spec), and the round-varying
+    sampler
     payload in ``self.ctx`` passed to the runner of every phase but
     "plain". Graphs are keyed by ``Topology.edge_key()``, so a rewire
     back to an equivalent graph finds its cached mixer.
@@ -121,10 +125,18 @@ class CompiledFederationHooks(FederationHooks):
     ``driver_mode="shard"`` routes step building through
     ``driver.make_shard_step`` on :meth:`shard_mesh` (the federation mesh
     of ``model_parallel``): this rank's node block, boundary-row or
-    exact-average gossip, with the params' ``specs`` on the 2-D mesh.
-    The sharded driver has no churn, straggler or wire-fault path;
+    exact-average gossip (compressed or delayed through the stateful
+    sharded mixer), with the params' ``specs`` on the 2-D mesh. The
+    sharded driver has no churn, straggler or wire-fault path;
     :func:`validate_shard_schedule` refuses such schedules before the
     run, and the step builder refuses them too.
+
+    ``compression`` (a spec for ``mixing.normalize_compression``) and
+    ``gossip`` select compressed and delayed gossip; :meth:`init_comm`
+    reads the schedule's gossip mode and, when the run needs state
+    anywhere (compression, delayed gossip, a stale churn event), forces
+    every mixer of the run stateful so the comm state keeps its
+    structure.
 
     Subclasses set ``model``, ``algo``, ``lr_fn``, ``driver_mode`` and
     ``device``, and implement ``_make_mixer(topology, active,
@@ -141,6 +153,8 @@ class CompiledFederationHooks(FederationHooks):
     device = "cuda"
     model_parallel = 1        # shard mode: width of the mesh "model" axis
     specs = None              # shard mode, 2-D mesh: the params' specs
+    compression = None        # the run's compressed-wire spec
+    gossip = "sync"           # set from the schedule by init_comm
 
     def __init__(self):
         self.phase = "plain"
@@ -153,6 +167,7 @@ class CompiledFederationHooks(FederationHooks):
         self.wire_fault: Optional[WireFault] = None
         self.last_round_stats: Optional[Dict] = None
         self._node_mesh = None
+        self._force_state = False
 
     def shard_mesh(self, num_nodes: int):
         """The (cached) federation mesh of the shard-mode steps — the 1-D
@@ -185,11 +200,39 @@ class CompiledFederationHooks(FederationHooks):
 
     def _mixer_opts(self) -> Dict:
         """What ``_make_mixer`` forwards to ``mixing.make_mixer``: the
-        currently injected wire fault and the guard spec (validation
-        bound and switch); both None in a fault-free run, whose mixers
-        come back unwrapped."""
-        return {"wire_fault": self._fault_key(),
+        run's compression spec and gossip mode, ``stateful=True`` once
+        :meth:`init_comm` found that the schedule needs state anywhere,
+        and the currently injected wire fault and the guard spec
+        (validation bound and switch); the last two None in a fault-free
+        run, whose mixers come back unwrapped."""
+        return {"compression": self.compression, "gossip": self.gossip,
+                "stateful": True if self._force_state else None,
+                "wire_fault": self._fault_key(),
                 "wire_guard": self._guard_spec()}
+
+    def init_comm(self, params, topology: Topology,
+                  schedule: Schedule) -> Optional[Any]:
+        """The comm state of a run that needs one: the all-up step's
+        ``init_comm`` of the params. Under the sharded driver it takes
+        the global params (gathered from the ranks' blocks) and keeps
+        this rank's block (``launch.sharding.comm_block``)."""
+        from repro_torch.core import mixing
+        self.gossip = schedule.gossip
+        self._force_state = bool(
+            mixing.normalize_compression(self.compression) is not None
+            or self.gossip == "delayed" or schedule.has_stale)
+        if not self._force_state:
+            return None
+        n = topology.n
+        step = self._step(topology, np.ones(n, bool), np.zeros(n, bool),
+                          np.zeros(n, bool))
+        if self.driver_mode != "shard":
+            return step.init_comm(params)
+        from repro_torch.launch.sharding import comm_block, global_stack
+        mesh = self.shard_mesh(n)
+        return comm_block(step.init_comm(global_stack(params, self.specs,
+                                                       mesh)),
+                          self.specs, mesh)
 
     def _carry_rows(self, topology: Topology) -> int:
         """Rows of a metrics or guard carry: every node, or under the
@@ -230,24 +273,32 @@ class CompiledFederationHooks(FederationHooks):
     def _freeze_key(frozen: np.ndarray):
         return tuple(np.flatnonzero(frozen)) if frozen.any() else None
 
-    def _mixer(self, topo: Topology, active: np.ndarray):
+    @staticmethod
+    def _stale_key(stale: np.ndarray):
+        return tuple(np.flatnonzero(stale)) if stale.any() else None
+
+    def _mixer(self, topo: Topology, active: np.ndarray, stale=None):
         mask = self._mask_key(active)
+        sk = self._stale_key(stale) if stale is not None else None
         fault = self._fault_key()
         # a faulted mixer also depends on the guard's validation switch
         # and bound (the reference's key leaves the guard out, so a run
         # after another with the same fault reuses its mixer)
-        key = (topo.edge_key(), mask, fault,
+        key = (topo.edge_key(), mask, sk, fault,
                None if fault is None else self._guard_spec())
         if key not in self._mixers:
-            if mask is None:
+            if mask is None and sk is None:
                 self._mixers[key] = self._make_mixer(topo, None)
             else:
-                # churn: remake the all-up mixer for the new mask
+                # churn: remake the all-up mixer for the new availability
+                # and straggler masks
                 base = self._mixer(topo, np.ones_like(active))
                 remake = getattr(base, "remake", None)
-                self._mixers[key] = (remake(active=active)
-                                     if remake is not None
-                                     else self._make_mixer(topo, active))
+                self._mixers[key] = (
+                    remake(active=(active if mask is not None else None),
+                           stale=stale)
+                    if remake is not None
+                    else self._make_mixer(topo, active, stale))
         return self._mixers[key]
 
     def _base_step(self, topo: Topology, active: np.ndarray,
@@ -274,23 +325,25 @@ class CompiledFederationHooks(FederationHooks):
             return driver.make_shard_step(
                 self.model, self.algo, self._adapter(),
                 mesh=self.shard_mesh(topo.n), topology=topo,
-                specs=self.specs, telemetry=self._metrics_on(),
+                specs=self.specs, compression=self.compression,
+                gossip=self.gossip, telemetry=self._metrics_on(),
                 guard=self._guard_spec())
         return driver.make_step(
-            self.model, self.algo, self._mixer(topo, active),
+            self.model, self.algo,
+            self._mixer(topo, active, stale if stale.any() else None),
             self._adapter(), telemetry=self._metrics_on(),
             guard=self._guard_spec())
 
     def _cache_key(self, topo: Topology, active: np.ndarray,
-                   frozen: np.ndarray):
+                   frozen: np.ndarray, stale: np.ndarray):
         return (self.phase, topo.edge_key(), self._mask_key(active),
-                self._freeze_key(frozen), self._metrics_on(),
-                self._fault_key(), self._guard_spec())
+                self._freeze_key(frozen), self._stale_key(stale),
+                self._metrics_on(), self._fault_key(), self._guard_spec())
 
     def _step(self, topo: Topology, active: np.ndarray,
               frozen: np.ndarray, stale: np.ndarray):
         from repro_torch.core import driver
-        key = self._cache_key(topo, active, frozen)
+        key = self._cache_key(topo, active, frozen, stale)
         if key not in self._steps:
             step = self._base_step(topo, active, stale)
             if self._freeze_key(frozen) is not None:
@@ -303,26 +356,22 @@ class CompiledFederationHooks(FederationHooks):
     def runner(self, topo: Topology, active: np.ndarray,
                frozen: np.ndarray, stale: np.ndarray) -> Callable:
         from repro_torch.core import driver
-        key = self._cache_key(topo, active, frozen)
+        key = self._cache_key(topo, active, frozen, stale)
         if key not in self._runners:
             self._runners[key] = driver.make_runner(
                 self._step(topo, active, frozen, stale), self._sampler(),
                 self.lr_fn, self.driver_mode)
         run = self._runners[key]
         ctx = None if self.phase == "plain" else self.ctx
-        has_metrics = getattr(run, "metrics", False)
-        has_guard = getattr(run, "guard", False)
+        flags = [f for f in ("comm", "metrics", "guard")
+                 if getattr(run, f, False)]
 
-        def phase_run(p, o, g, s0, ns, metrics=None, guard=None):
-            kw = {}
-            if has_metrics:
-                kw["metrics"] = metrics
-            if has_guard:
-                kw["guard"] = guard
-            return run(p, o, g, s0, ns, ctx, **kw)
+        def phase_run(p, o, g, s0, ns, **carries):
+            return run(p, o, g, s0, ns, ctx,
+                       **{f: carries.get(f) for f in flags})
 
-        phase_run.metrics = has_metrics
-        phase_run.guard = has_guard
+        for f in ("comm", "metrics", "guard"):
+            setattr(phase_run, f, f in flags)
         return phase_run
 
 
@@ -427,18 +476,26 @@ def _mean_loss(losses) -> Optional[float]:
 def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                  opt_state, key, *, topology: Topology,
                  ledger: Optional[CommLedger] = None, param_count: int = 0,
-                 elem_bytes: int = 4, resume_step: int = 0,
+                 elem_bytes: int = 4, payload_elems: Optional[int] = None,
+                 index_bytes: int = 0, resume_step: int = 0,
                  capture_at: Optional[int] = None, telemetry=None,
                  resil=None) -> Tuple[Any, Any, Any, Optional[Dict]]:
     """Drive the whole schedule. Returns ``(params, opt_state, key,
     captured)``: ``key`` the samplers' generator (or whatever key the
     hooks' runners take), ``captured`` the ``{"params", "opt_state",
     "key", "step"}`` copy taken at the ``capture_at`` boundary (None when
-    not asked for; its ``"key"`` is the generator's state).
+    not asked for; its ``"key"`` is the generator's state; plus
+    ``"comm"`` on a stateful-gossip run).
 
     ``resume_step`` must satisfy ``schedule.validate_resume``; segments
     ending at or before it are skipped, their topology and fault events
-    replayed.
+    replayed. A run given ``resume_step`` starts its comm state afresh
+    from the params (x̂ = x); a durable snapshot carries its own.
+
+    ``payload_elems`` / ``index_bytes`` are the ledger's compressed-wire
+    count (``mixing.payload_elem_count`` elements a node, each with a
+    4-byte index); left as they are the charge is the dense
+    ``param_count · elem_bytes``. Stale stragglers are charged 0.
 
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`; None = off)
     turns on the run log, the metrics bus (flushed and zeroed at each
@@ -465,7 +522,7 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
     """
     from repro_torch.obs import log
     from repro_torch.sched.ledger import (STATUS_ACTIVE, STATUS_INACTIVE,
-                                          STATUS_QUARANTINED)
+                                          STATUS_QUARANTINED, STATUS_STALE)
 
     tel = telemetry if telemetry is not None \
         else getattr(hooks, "telemetry", None)
@@ -484,15 +541,11 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
     n = topology.n
     active = np.ones(n, bool)
     frozen = np.zeros(n, bool)    # down nodes with freeze (vs isolate) mode
-    stale = np.zeros(n, bool)     # straggler payloads: item 12, never set
+    stale = np.zeros(n, bool)     # active stragglers, frozen payloads
     quarantined = np.zeros(n, bool)
     fired = 0
     with _span("init_comm", cat="init"):
         comm = hooks.init_comm(params, topology, schedule)
-    if comm is not None:
-        raise NotImplementedError(
-            "stateful gossip (a comm state) is not ported yet; see "
-            "ROADMAP.md queue 1 item 12")
     metrics = hooks.init_metrics(params, topology)
     guard_state = hooks.init_guard(params, topology)
 
@@ -510,6 +563,8 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
         if resume_step == 0 and mgr.steps():
             like = {"params": params, "opt_state": opt_state,
                     "key": _key_state(key)}
+            if comm is not None:
+                like["comm"] = comm
             loaded = mgr.load_latest(like)
             if loaded is not None and loaded["step"] > 0:
                 schedule.validate_resume(
@@ -520,6 +575,8 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                     key.set_state(state["key"])
                 else:
                     key = state["key"]
+                if comm is not None:
+                    comm = state["comm"]
                 if loaded["ctx"] is not None:
                     hooks.restore_ctx(loaded["ctx"], loaded["phase"])
                     resumed_with_ctx = True
@@ -549,8 +606,11 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
     corrupt_mode = "nan"
 
     def _snapshot(step):
-        return _copy({"params": params, "opt_state": opt_state, "key": key,
-                      "step": step})
+        snap = {"params": params, "opt_state": opt_state, "key": key,
+                "step": step}
+        if comm is not None:
+            snap["comm"] = comm
+        return _copy(snap)
 
     if capture_at == 0:
         captured = _snapshot(0)
@@ -561,17 +621,25 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
             if isinstance(ev, ChurnEvent):
                 active = active.copy()
                 frozen = frozen.copy()
+                stale = stale.copy()
                 for i in (*ev.down, *ev.up):
                     if not 0 <= i < n:
                         raise ValueError(
                             f"churn event at step {ev.step} names node "
                             f"{i} outside [0, {n})")
                 for i in ev.down:
-                    active[i] = False
-                    frozen[i] = ev.mode == "freeze"
+                    if ev.mode == "stale":
+                        # the straggler stays active (trains, receives);
+                        # only its outgoing payload freezes
+                        stale[i] = True
+                    else:
+                        active[i] = False
+                        frozen[i] = ev.mode == "freeze"
+                        stale[i] = False
                 for i in ev.up:
                     active[i] = True
                     frozen[i] = False
+                    stale[i] = False
                 if not active.any():
                     raise ValueError(f"churn at step {ev.step} leaves no "
                                      "active nodes")
@@ -660,7 +728,7 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
         # the updates write over params and the generator advances: keep
         # what a rollback restores
         pre = (_copy({"params": params, "opt_state": opt_state,
-                      "key": key})
+                      "key": key, "comm": comm})
                if res is not None and res.rollback else None)
         while True:
             # quarantined nodes are held like freeze-churned ones, in a
@@ -678,6 +746,8 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
             new_runner = (runner_cache is not None
                           and len(runner_cache) > cached_runners)
             run_kwargs = {}
+            if getattr(runner, "comm", False):
+                run_kwargs["comm"] = comm
             if getattr(runner, "metrics", False):
                 run_kwargs["metrics"] = metrics
             if getattr(runner, "guard", False):
@@ -688,6 +758,7 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                              seg.num_steps, **run_kwargs)
             new_params, new_opt, new_key, losses = out[:4]
             rest = list(out[4:])
+            new_comm = rest.pop(0) if "comm" in run_kwargs else comm
             new_metrics = (rest.pop(0) if "metrics" in run_kwargs
                            else metrics)
             new_guard = rest.pop(0) if "guard" in run_kwargs else None
@@ -736,6 +807,8 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                     params = _put(new_params, pre["params"])
                     opt_state = _put(new_opt, pre["opt_state"])
                     key = _put(new_key, pre["key"])
+                    comm = (_put(new_comm, pre["comm"])
+                            if comm is not None else None)
                     _ev("rollback", step=seg.stop, retry=retries,
                         quarantined=quarantined)
                     log.warning(
@@ -744,7 +817,7 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                         quarantined=np.flatnonzero(quarantined).tolist())
                     continue
             params, opt_state, key = new_params, new_opt, new_key
-            metrics = new_metrics
+            comm, metrics = new_comm, new_metrics
             if new_guard is not None:
                 guard_state = new_guard
             break
@@ -753,9 +826,12 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
             status = np.where(
                 eff_frozen & ~frozen, STATUS_QUARANTINED,
                 np.where(~active, STATUS_INACTIVE,
-                         STATUS_ACTIVE)).astype(np.int8)
-            per_step = gossip_bytes_per_step(topology, eff_active,
-                                             param_count, elem_bytes)
+                         np.where(stale, STATUS_STALE,
+                                  STATUS_ACTIVE))).astype(np.int8)
+            per_step = gossip_bytes_per_step(
+                topology, eff_active, param_count, elem_bytes,
+                payload_elems=payload_elems, index_bytes=index_bytes,
+                stale=stale if stale.any() else None)
             ledger.log_gossip(fired, seg.start, seg.stop, per_step,
                               status=status)
             _ev("comm", kind="gossip", round=fired, start=seg.start,
@@ -775,6 +851,8 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
         if mgr is not None and mgr.due(seg.stop):
             state = {"params": params, "opt_state": opt_state,
                      "key": _key_state(key)}
+            if comm is not None:
+                state["comm"] = comm
             with _span("snapshot", cat="resil", step=seg.stop):
                 mgr.save(seg.stop, state, ctx=getattr(hooks, "ctx", None),
                          phase=getattr(hooks, "phase", "plain"),

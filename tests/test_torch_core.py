@@ -179,23 +179,28 @@ def test_public_helpers_default_to_cuda(helper):
 
 
 def test_unported_pieces_raise():
-    """What the slice leaves out raises, naming the queue that holds it,
-    instead of being silently ignored."""
+    """What the port has no path for raises, as the reference does,
+    instead of being silently ignored: the roll mixer off a ring, an
+    unknown backend or gossip mode, the sharded driver on other graphs
+    and the 2-D mesh without it. Compressed, delayed and straggler
+    gossip and the gather/roll/auto backends are ported
+    (tests/test_torch_gossip.py): they build."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.resnet20_cifar import SMALL_CONFIG
     from repro_torch.core.simulator import DecentralizedSimulator
     from repro_torch.data.synthetic import make_classification_data
     from repro_torch.sched import ChurnEvent, compile_schedule
     tt = TTopology.make("ring", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_make_mixer(tt, "gather")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        compile_schedule(10, 5, events=(
-            ChurnEvent(2, down=(1,), mode="stale"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        compile_schedule(10, 5, gossip="delayed")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        t_make_mixer(tt, device="cpu", compression=("topk", 0.1))
+    with pytest.raises(ValueError, match="ring topology"):
+        t_make_mixer(TTopology.make("chain", 4), "roll", device="cpu")
+    with pytest.raises(ValueError, match="unknown mixer backend"):
+        t_make_mixer(tt, "psum", device="cpu")
+    with pytest.raises(ValueError, match="unknown gossip mode"):
+        compile_schedule(10, 5, gossip="async")
+    assert compile_schedule(10, 5, gossip="delayed", events=(
+        ChurnEvent(2, down=(1,), mode="stale"),)).has_stale
+    assert t_make_mixer(tt, "gather", device="cpu").remake is not None
+    assert t_make_mixer(tt, device="cpu", compression=("topk", 0.1)).stateful
     data = make_classification_data(image_size=8, n_train=32, n_val=8,
                                     n_test=8)
     # the sharded driver is ported (tests/test_torch_shard.py); what it
@@ -208,10 +213,10 @@ def test_unported_pieces_raise():
             DecentralizedSimulator(SMALL_CONFIG,
                                    TrainConfig(num_nodes=4, **tk),
                                    data, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecentralizedSimulator(SMALL_CONFIG,
-                               TrainConfig(num_nodes=4, compression="topk"),
-                               data, device="cpu")
+    sim = DecentralizedSimulator(SMALL_CONFIG,
+                                 TrainConfig(num_nodes=4, compression="topk"),
+                                 data, device="cpu")
+    assert sim.mixer.stateful and sim.steps["plain"].comm
 
 
 @pytest.mark.parametrize("det", ["msp", "energy"])

@@ -722,3 +722,70 @@ def test_cuda_head_select_raw_stats_matches_plain(monkeypatch, dtype,
         assert torch.equal(ti[real], tir[real])
         if pad == "all":
             assert bool((m == -1e30).all()) and bool((z == C).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,flat,top", [(4, 1000, 5), (3, 65_537, 40),
+                                           (2, 4_000_000, 1000)])
+def test_cuda_topk_tie_rule_matches_cpu(rows, flat, top):
+    """On the card: the compressed wire's top-k selection
+    (``mixing.topk_indices``) on integer magnitudes with many duplicates
+    across the k-th value, against the same call on the CPU: the indices
+    torch.equal (ties to the lowest index on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.core.mixing import topk_indices
+    g = torch.Generator().manual_seed(rows)
+    a = torch.randint(0, top, (rows, flat), generator=g).float()
+    for k in (1, 7, flat // 100 + 1, flat // 3, flat - 1):
+        cpu = topk_indices(a, k)
+        card = topk_indices(a.cuda(), k)
+        assert torch.equal(card.cpu(), cpu), k
+        kth = a.topk(k, dim=1).values[:, -1:]
+        assert bool(((a.gather(1, cpu) >= kth)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,gossip", [("topk", "sync"),
+                                         ("topk", "delayed"),
+                                         ("none", "delayed")])
+def test_cuda_compressed_mixer_step_matches_cpu(kind, gossip):
+    """On the card: one stateful mixer step (top-k 1% on bf16 leaves, the
+    roll backend on a ring of 4) against the same step on the CPU from
+    identical inputs: the payload indices torch.equal, x̂ within 1e-6 and
+    the mixed leaves within one bf16 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.core import mixing
+    from repro_torch.core.topology import Topology
+    g = torch.Generator().manual_seed(3)
+    x0 = {"a": torch.randn((4, 300, 7), generator=g).bfloat16(),
+          "b": torch.randn((4, 50_000), generator=g).bfloat16()}
+    x1 = {k: (v.float() + 0.01 * torch.randn(v.shape, generator=g))
+          .bfloat16() for k, v in x0.items()}
+    comp = ("topk", 0.01) if kind == "topk" else None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mix = mixing.make_mixer(Topology.make("ring", 4), "auto", device=dev,
+                                compression=comp, gossip=gossip)
+        xs = {k: v.to(dev) for k, v in x1.items()}
+        comm = mix.init_state({k: v.to(dev) for k, v in x0.items()})
+        if comp is not None:
+            out[dev, "idx"] = {k: mixing.topk_indices(
+                (xs[k].float().reshape(4, -1) - comm["hat"][k]).abs(),
+                mixing.payload_k(comm["hat"][k].shape[1], 0.01)).cpu()
+                for k in xs}
+        bound = mix.bind(comm)
+        out[dev, "y"] = {k: v.cpu() for k, v in bound(xs).items()}
+        comm = bound.finalize()
+        name = "hat" if comp is not None else "prev"
+        out[dev, "state"] = {k: v.cpu() for k, v in comm[name].items()}
+    for k in x0:
+        if comp is not None:
+            assert torch.equal(out["cuda", "idx"][k], out["cpu", "idx"][k])
+        torch.testing.assert_close(out["cuda", "state"][k].float(),
+                                   out["cpu", "state"][k].float(),
+                                   atol=1e-6, rtol=0)
+        torch.testing.assert_close(out["cuda", "y"][k].float(),
+                                   out["cpu", "y"][k].float(),
+                                   atol=1e-2, rtol=1e-2)

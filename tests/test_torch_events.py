@@ -145,11 +145,21 @@ def test_event_validation_matches_reference():
 
 
 def test_stale_churn_and_delayed_gossip_raise_naming_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsched.compile_schedule(STEPS, EVAL, events=[
-            tsched.ChurnEvent(2, down=(1,), mode="stale")])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsched.compile_schedule(STEPS, EVAL, gossip="delayed")
+    """Stale churn and delayed gossip were refused until ROADMAP.md's
+    item 12 was ported; they now compile as the reference's do (the
+    runs are in tests/test_torch_gossip.py), and an unknown gossip mode
+    raises as there."""
+    events = [("churn", 2, (1,), (), "stale")]
+    for gossip in ("sync", "delayed"):
+        out = {side: SIDES[side]["sched"].compile_schedule(
+                   STEPS, EVAL, events=_events(side, events), gossip=gossip)
+               for side in SIDES}
+        assert _segments(out["port"]) == _segments(out["ref"])
+        assert out["port"].gossip == gossip and out["port"].has_stale
+    for side in SIDES:
+        with pytest.raises(ValueError, match="unknown gossip mode"):
+            SIDES[side]["sched"].compile_schedule(STEPS, EVAL,
+                                                  gossip="async")
 
 
 # ------------------------------------------------- run_schedule, stubbed

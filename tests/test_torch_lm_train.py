@@ -246,17 +246,32 @@ def test_run_training_matches_reference(reference_run, monkeypatch):
 
 
 def test_unported_training_modes_raise(tmp_path):
-    """Durable snapshots under the sharded driver, stale stragglers and
-    compressed or delayed gossip raise, naming the ROADMAP item."""
+    """Durable snapshots under the sharded driver raise, naming the
+    ROADMAP item. Stale stragglers and compressed or delayed gossip are
+    ported: they train (stale stragglers refused under the sharded
+    driver, as in the reference), and a prebuilt schedule whose gossip
+    mode is not the config's raises."""
+    from repro_torch import sched
     from repro_torch.resil import Resilience
     from repro_torch.sched import ChurnEvent
     cfg = _cfg("torch")
     tcfg = TTrain(**TRAIN_KW)
-    for kw in ({"driver_mode": "shard",
-                "resil": Resilience(snapshot_dir=str(tmp_path))},
-               {"events": [ChurnEvent(1, down=(0,), mode="stale")]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.run_training(cfg, tcfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.run_training(cfg, dataclasses.replace(tcfg, gossip="delayed"),
-                            device="cpu")
+        ttrain.run_training(cfg, tcfg, device="cpu", driver_mode="shard",
+                            resil=Resilience(snapshot_dir=str(tmp_path)))
+    stale = [ChurnEvent(1, down=(0,), mode="stale")]
+    with pytest.raises(ValueError, match="churn"):
+        ttrain.run_training(cfg, tcfg, device="cpu", driver_mode="shard",
+                            events=stale)
+    with pytest.raises(ValueError, match="gossip"):
+        ttrain.run_training(cfg, tcfg, device="cpu",
+                            schedule=sched.compile_schedule(
+                                4, 1, gossip="delayed"))
+    delayed = dataclasses.replace(tcfg, gossip="delayed", compression="topk",
+                                  compression_frac=0.1)
+    for t, kw in ((tcfg, {"events": stale}), (delayed, {})):
+        out = ttrain.run_training(cfg, t, device="cpu", seq_len=SEQ_LEN,
+                                  n_seqs=N_SEQS, n_public=N_PUBLIC,
+                                  log_every=2, verbose=False, **kw)
+        assert all(np.isfinite(out["loss_history"]))
+        assert out["ledger"]["meta"]["gossip"] == t.gossip

@@ -157,7 +157,13 @@ def test_lm_training_telemetry_and_guard_are_observers(tmp_path):
     assert len(labels) == 1 and "topk_overlap" in labels[0]
     assert len(read_events(tmp_path / "run.jsonl", "metrics")) == \
         len(read_events(tmp_path / "run.jsonl", "segment"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_training(cfg, dataclasses.replace(tcfg, steps=4),
-                     events=[sched.ChurnEvent(1, down=(0,), mode="stale")],
-                     **kw)
+    # a stale straggler runs the stateful mixer: its metrics flushes
+    # carry the gap between the params and the snapshot neighbours mix
+    (tmp_path / "stale").mkdir()
+    tel = Telemetry(tmp_path / "stale")
+    run_training(cfg, dataclasses.replace(tcfg, steps=4),
+                 events=[sched.ChurnEvent(1, down=(0,), mode="stale")],
+                 telemetry=tel, **kw)
+    tel.close()
+    flushes = read_events(tmp_path / "stale" / "run.jsonl", "metrics")
+    assert flushes and max(max(f["ef_residual"]) for f in flushes) > 0

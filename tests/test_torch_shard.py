@@ -151,10 +151,19 @@ def test_shard_refusals_before_the_run():
         driver.make_shard_step(model, make_algorithm("dsgd"),
                                driver.classification_adapter, mesh=mesh,
                                topology=Topology.make("torus", n))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # stragglers have no sharded path (a churn event, refused before the
+    # run), nor do compressed wires on other graphs, as in the reference
+    with pytest.raises(ValueError, match="churn"):
+        validate_shard_schedule(compile_schedule(8, 4, events=(
+            ChurnEvent(2, down=(1,), mode="stale"),), gossip="delayed"), n)
+    with pytest.raises(ValueError, match="ring or complete"):
         driver.make_shard_step(model, make_algorithm("dsgd"),
                                driver.classification_adapter, mesh=mesh,
-                               topology=topo, gossip="delayed")
+                               topology=Topology.make("torus", n),
+                               compression="topk")
+    assert driver.make_shard_step(model, make_algorithm("dsgd"),
+                                  driver.classification_adapter, mesh=mesh,
+                                  topology=topo, gossip="delayed").comm
     hcfg, tcfg, kw = R.train_args()
     with pytest.raises(ValueError, match="storage dtype"):
         run_training(hcfg, tcfg, driver_mode="shard", wire_dtype="float32",
@@ -169,33 +178,45 @@ def ranks(tmp_path_factory):
     return out[0]
 
 
-def _stacked_steps(algo_name, topo_name):
+def _stacked_steps(algo_name, topo_name, comp=None, gossip="sync"):
     model = build_model(R.CFG)
     topo = Topology.make(topo_name, R.N)
     algo = make_algorithm(algo_name, weight_decay=1e-4)
-    mixer = make_mixer(topo, "dense", device="cpu")
+    mixer = make_mixer(topo, "dense", device="cpu", compression=comp,
+                       gossip=gossip)
     steps = [driver.make_step(model, algo, mixer, a, telemetry=True,
                               guard=R.GUARD) for a in R.adapters()]
     p = R.params()
     opt = algo.init(p)
     carries = [init_node_metrics(R.N, "cpu"), init_node_guard(R.N, "cpu")]
+    if steps[0].comm:
+        carries.insert(0, steps[0].init_comm(p))
     losses = []
     for s, batch in enumerate(R.batches()):
         step = steps[0 if s < R.PLAIN_STEPS else 1]
         p, opt, loss, *carries = step(p, opt, batch, R.LR, *carries)
         losses.append(float(loss))
-    return p, losses, carries
+    return p, losses, carries[-2:]
 
 
 @pytest.mark.parametrize("case", R.STEP_CASES, ids=[c[0] for c in R.STEP_CASES])
 def test_shard_step_matches_node_stacked(ranks, case):
     """make_shard_step on 2 node ranks, and on 1 node x 2 model ranks
     (model-sharded convs and head, replicated norms): plain and sparse-KD
-    steps, with the metrics and guard carries, against make_step on the
+    steps, with the metrics and guard carries — and with compressed and
+    delayed gossip, whose comm state the ranks cut from the global
+    params' (on 1 x 2 compressed through the model-sharded adapter,
+    whose EF residual reads 0 as the reference's) — against make_step
+    on the
     node-stacked params with the same batches."""
-    name, _, algo_name, topo_name = case
+    name, mp, algo_name, topo_name, comp, gossip = case
     got = ranks["steps"][name]
-    p, losses, carries = _stacked_steps(algo_name, topo_name)
+    p, losses, carries = _stacked_steps(algo_name, topo_name, comp, gossip)
+    if mp > 1 and comp is not None:
+        assert not got["carries"][0]["ef_sq"].any()
+        got["carries"][0]["ef_sq"] = carries[0]["ef_sq"]
+    elif comp is not None or gossip != "sync":
+        assert carries[0]["ef_sq"].any()
     for k, v in p.items():
         np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(),
                                    atol=1e-5, err_msg=k)
@@ -283,3 +304,82 @@ def test_shard_run_training_matches_node_stacked(ranks):
     for k in ("thresholds", "selected"):
         np.testing.assert_allclose(got["last_round"][k],
                                    ref["last_round"][k], atol=1e-6)
+
+
+def _mixer_steps(topo_name, comp, gossip):
+    """The node-stacked stateful mixer's MIXER_STEPS steps (the dense
+    backend) on the trees the ranks mix."""
+    mix = make_mixer(Topology.make(topo_name, R.N), "dense", device="cpu",
+                     compression=comp, gossip=gossip)
+    comm = mix.init_state(R.gossip_tree(1))
+    ys = []
+    for x in R.gossip_inputs():
+        bound = mix.bind(comm)
+        ys.append(bound(x))
+        comm = bound.finalize()
+    return ys, comm["prev" if comp is None else "hat"]
+
+
+def _jax_shard_twin(topo_name, comp, gossip):
+    """The reference's make_compressed_ppermute_mixer under shard_map on
+    its one-device mesh, MIXER_STEPS steps."""
+    import jax
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh
+
+    from repro.core import mixing as jm
+    from repro.launch.sharding import node_stacked_specs
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("node",))
+    mp = jm.make_mixer(JTopology.make(topo_name, R.N), "ppermute",
+                       compression=comp, gossip=gossip, stateful=True,
+                       axis_names=("node",), axis_sizes=(1,),
+                       local_nodes=R.N)
+    tree = {k: jnp.asarray(v.numpy()) for k, v in R.gossip_tree(1).items()}
+    comm = mp.init_state(tree)
+
+    def body(x, c):
+        b = mp.bind(c)
+        return b(x), b.finalize()
+
+    sx = node_stacked_specs(tree, R.N, "node")
+    sc = node_stacked_specs(comm, R.N, "node")
+    f = jax.jit(shard_map(body, mesh=mesh, in_specs=(sx, sc),
+                          out_specs=(sx, sc), check_rep=False))
+    ys = []
+    for x in R.gossip_inputs():
+        y, comm = f({k: jnp.asarray(v.numpy()) for k, v in x.items()},
+                    comm)
+        ys.append(y)
+    return ys, comm["prev" if comp is None else "hat"]
+
+
+# the reference's shard_map twin compiles once a case: two of them
+_JAX_TWIN = {"ring-topk-delayed", "full-topk-sync"}
+
+
+@pytest.mark.parametrize("case", R.MIXER_CASES,
+                         ids=[c[0] for c in R.MIXER_CASES])
+def test_shard_compressed_mixer_matches_stacked_and_reference(ranks, case):
+    """The stateful sharded mixer on 2 node ranks — top-k and random-k,
+    sync and delayed, on the ring (boundary payload rows into the
+    neighbours' replicas) and the complete graph (the payloads gathered
+    into the replicated sum), and uncompressed delayed — against the
+    port's node-stacked stateful mixer over MIXER_STEPS steps (random-k
+    from the same generator state: the ranks draw every node's uniforms
+    and keep their rows) and, for two cases, the reference's
+    make_compressed_ppermute_mixer on its one-device mesh: every step's
+    mixed tree and the final estimates within 1e-5."""
+    name, topo_name, comp, gossip = case
+    got = ranks["mixers"][name]
+    others = [_mixer_steps(topo_name, comp, gossip)]
+    if name in _JAX_TWIN:
+        others.append(_jax_shard_twin(topo_name, comp, gossip))
+    for ys, state in others:
+        for s, (gy, wy) in enumerate(zip(got["ys"], ys)):
+            for k in gy:
+                np.testing.assert_allclose(gy[k].numpy(), np.asarray(wy[k]),
+                                           atol=1e-5, err_msg=f"{s} {k}")
+        for k in state:
+            np.testing.assert_allclose(got["state"][k].numpy(),
+                                       np.asarray(state[k]), atol=1e-5,
+                                       err_msg=k)

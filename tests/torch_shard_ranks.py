@@ -11,8 +11,10 @@ from repro_torch.core import driver, labeling
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.topology import Topology
 from repro_torch.launch.mesh import make_federation_mesh
-from repro_torch.launch.sharding import (federation_specs, gather_nodes,
-                                         global_stack, local_block)
+from repro_torch.core.mixing import make_shard_mixer
+from repro_torch.launch.sharding import (comm_block, federation_specs,
+                                         gather_nodes, global_stack,
+                                         local_block)
 from repro_torch.models.resnet import build_model, stack_params
 from repro_torch.obs.metrics import init_node_metrics
 from repro_torch.resil.guards import GuardSpec, init_node_guard
@@ -24,12 +26,36 @@ N, B, K = 4, 3, 3
 P, V, MB = 11, 5, 4
 ROUND_CFG = IDKDConfig(temperature=10.0, label_backend="sparse",
                        stream_microbatch=MB, label_topk=8)
-# (name, model_parallel, algorithm, topology): QG-DSGDm-N and DSGD, ring
-# and complete graph, on 2 node ranks and on 1 node x 2 model ranks
-STEP_CASES = (("qg-ring-1d", 1, "qg-dsgdm-n", "ring"),
-              ("dsgd-full-1d", 1, "dsgd", "full"),
-              ("qg-ring-2d", 2, "qg-dsgdm-n", "ring"),
-              ("dsgd-full-2d", 2, "dsgd", "full"))
+# (name, model_parallel, algorithm, topology, compression, gossip):
+# QG-DSGDm-N and DSGD, ring and complete graph, on 2 node ranks and on
+# 1 node x 2 model ranks; compressed and delayed gossip through the
+# stateful sharded mixer (on 1 x 2 through the model-sharded adapter).
+# The compressed steps take random-k, whose selection depends on the
+# shared draws only: a top-k of deltas that differ by float rounding
+# between the two runs may take another of two near-equal coordinates
+# (the mixer cases hold top-k on identical inputs)
+STEP_CASES = (("qg-ring-1d", 1, "qg-dsgdm-n", "ring", None, "sync"),
+              ("dsgd-full-1d", 1, "dsgd", "full", None, "sync"),
+              ("qg-ring-2d", 2, "qg-dsgdm-n", "ring", None, "sync"),
+              ("dsgd-full-2d", 2, "dsgd", "full", None, "sync"),
+              ("qg-ring-1d-randk", 1, "qg-dsgdm-n", "ring", ("randk", 0.2),
+               "sync"),
+              ("qg-full-1d-randk-delayed", 1, "qg-dsgdm-n", "full",
+               ("randk", 0.2), "delayed"),
+              ("qg-ring-2d-randk", 2, "qg-dsgdm-n", "ring", ("randk", 0.2),
+               "sync"),
+              ("qg-ring-2d-delayed", 2, "qg-dsgdm-n", "ring", None,
+               "delayed"))
+# (name, topology, compression, gossip) of the sharded mixer alone
+MIXER_CASES = (("ring-topk-sync", "ring", ("topk", 0.2), "sync"),
+               ("ring-topk-delayed", "ring", ("topk", 0.2), "delayed"),
+               ("ring-randk-sync", "ring", ("randk", 0.3), "sync"),
+               ("ring-randk-delayed", "ring", ("randk", 0.3), "delayed"),
+               ("ring-none-delayed", "ring", None, "delayed"),
+               ("full-topk-sync", "full", ("topk", 0.2), "sync"),
+               ("full-topk-delayed", "full", ("topk", 0.2), "delayed"),
+               ("full-none-delayed", "full", None, "delayed"))
+MIXER_STEPS = 3
 PLAIN_STEPS, KD_STEPS, LR = 2, 2, 0.1
 GUARD = GuardSpec(loss_spike_factor=1.5, warmup_steps=1, consensus_max=0.5)
 
@@ -69,6 +95,24 @@ def batches():
     return out
 
 
+def gossip_tree(seed, scale=1.0):
+    """A node-stacked tree of three leaves, sorted keys."""
+    rng = np.random.default_rng(seed)
+    return {"b": torch.as_tensor(rng.normal(size=(N, 5)) * scale,
+                                 dtype=torch.float32),
+            "c": torch.as_tensor(rng.normal(size=(N, 3, 4)) * scale,
+                                 dtype=torch.float32),
+            "w": torch.as_tensor(rng.normal(size=(N, 29)) * scale,
+                                 dtype=torch.float32)}
+
+
+def gossip_inputs():
+    """The MIXER_STEPS trees the sharded mixer cases mix."""
+    base = gossip_tree(1)
+    return [{k: v + (s + 1) * gossip_tree(10 + s, 0.3)[k]
+             for k, v in base.items()} for s in range(MIXER_STEPS)]
+
+
 def adapters():
     return (driver.classification_adapter,
             driver.sparse_kd_adapter(ROUND_CFG.temperature, 0.7))
@@ -104,7 +148,7 @@ def train_args():
 def _steps():
     model = build_model(CFG)
     out = {}
-    for name, mp, algo_name, topo_name in STEP_CASES:
+    for name, mp, algo_name, topo_name, comp, gossip in STEP_CASES:
         mesh = make_federation_mesh(N, mp)
         topo = Topology.make(topo_name, N)
         algo = make_algorithm(algo_name, weight_decay=1e-4)
@@ -114,10 +158,14 @@ def _steps():
         opt = algo.init(p)
         steps = [driver.make_shard_step(model, algo, a, mesh=mesh,
                                         topology=topo, specs=specs,
+                                        compression=comp, gossip=gossip,
                                         telemetry=True, guard=GUARD)
                  for a in adapters()]
         L = N // mesh.node.size
         carries = [init_node_metrics(L, "cpu"), init_node_guard(L, "cpu")]
+        if steps[0].comm:
+            carries.insert(0, comm_block(steps[0].init_comm(glob), specs,
+                                         mesh))
         losses = []
         for s, batch in enumerate(batches()):
             step = steps[0 if s < PLAIN_STEPS else 1]
@@ -127,7 +175,32 @@ def _steps():
                      "losses": losses,
                      "carries": [gather_nodes({k: v for k, v in c.items()
                                                if k != "steps"}, mesh)
-                                 for c in carries]}
+                                 for c in carries[-2:]]}
+    return out
+
+
+def _mixers():
+    """The sharded mixer alone on 2 node ranks, MIXER_STEPS steps from
+    the global trees' comm state: each step's mixed trees and the final
+    estimates (or previous trees), gathered."""
+    out = {}
+    xs = gossip_inputs()
+    for name, topo_name, comp, gossip in MIXER_CASES:
+        mesh = make_federation_mesh(N, 1)
+        topo = Topology.make(topo_name, N)
+        specs = federation_specs(xs[0], N, mesh)
+        L = N // mesh.node.size
+        mix = make_shard_mixer(topo, mesh.node, local_nodes=L,
+                               compression=comp, gossip=gossip)
+        comm = comm_block(mix.init_state(gossip_tree(1)), specs, mesh)
+        ys = []
+        for x in xs:
+            bound = mix.bind(comm)
+            ys.append(global_stack(bound(local_block(x, specs, mesh)),
+                                   specs, mesh))
+            comm = bound.finalize()
+        state = "prev" if comp is None else "hat"
+        out[name] = {"ys": ys, "state": gather_nodes(comm[state], mesh)}
     return out
 
 
@@ -164,4 +237,5 @@ def _train():
 
 def rank_main(rank, world):
     torch.set_num_threads(1)
-    return {"steps": _steps(), "rounds": _rounds(), "train": _train()}
+    return {"steps": _steps(), "rounds": _rounds(), "train": _train(),
+            "mixers": _mixers()}
