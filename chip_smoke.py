@@ -228,6 +228,30 @@ LM-14. Hymba-1.5B x 4 trained with top-k 1% delayed gossip at full
    against the uncompressed bytes, the EF residual, every loss finite;
    then a reduced Hymba with the same wire on the card and on the CPU
    (top-k near-ties replayed), params and losses within 1e-5.
+SERVE (after LM-14). the serving path at full width: (a)
+   ``launch.serve.BatchedServer`` on Qwen3-1.7B in bf16, 8 requests
+   drawn as the reference's CLI draws them on 4 slots, prompts of 64
+   tokens (cut from 128 for time), 64 new tokens, a cache of 256 (2
+   waves of 128 decode steps):
+   every request answered with 64 tokens in the vocabulary, request 0's
+   prompt alone twice the same tokens; decode ms a step beside a step's
+   bytes bound, tokens/s, peak; (b) ``decode_step`` against ``forward``
+   in f32, token by token (steps 2 to S replayed from a CUDA graph of
+   the step), at the reference test's tolerances (2e-2 dense, 5e-2 MLA,
+   SSM, MusicGen): Qwen3-1.7B, Mamba-2-780M (each layer's decode SSM
+   state against the forward's ``ssd_scan`` final state), MusicGen-medium
+   (4 codebooks, a memory), DeepSeek-V3 (2 layers, 256 experts, capacity
+   factor E / k: no drops; a routing near-tie left out), Mistral-Nemo-12B
+   sw4096 cut to 1 layer over 4160 tokens (the ring wraps) and Hymba-1.5B
+   with no meta tokens over 1032 (past its window), each error printed;
+   (c) ``flash_attention``'s offset mode (q_offset, kv_valid_len)
+   against its plain version (Qwen3's chunked prefill of 512 at 1536 over
+   2048, a decode-shaped call with valid lengths 1 to 2048, Hymba's
+   windowed layer at 1100) in bf16 and f32, timed beside its bound, the
+   plain version and SDPA with the same boolean mask, and against
+   ``attention_decode`` on (a)'s caches; (d) ``ssd_scan``'s initial /
+   final state mode at Hymba's and Mamba-2's shapes, y, h_T and the
+   continuation over a split, by the float64 rule, timed.
 
 Each phase prints its seconds. It then prints one ``{"kernels": [...]}``
 line and, last, one line ``{"ok": true, "device": {...}}``. It imports
@@ -428,6 +452,29 @@ RAW_Z_RTOL = 1e-4            # head_select raw_stats: z, the sum of exp
                              # relative: the tc kernel takes ex2.approx
                              # and sums in its own order (at the finalized
                              # conf = 1/z that is far inside ATOL)
+SERVE_REQUESTS, SERVE_SLOTS = 8, 4   # SERVE (a): the reference CLI's
+                             # default requests and slots
+# The serving phase's time cuts, in the order the budget (SERVE at most
+# 90 s, the whole script at most 1050 s) allows them: the whole script
+# took 1070.5 s with SERVE at 89.0 s (one H100, 700 W), so all three are
+# made: Hymba's S 1040 -> 1032, Mistral's depth 2 -> 1, (a)'s prompt
+# 128 -> 64.
+SERVE_PROMPT, SERVE_NEW, SERVE_CONTEXT = 64, 64, 256   # SERVE (a)
+SERVE_MISTRAL_LAYERS = 1     # SERVE (b): Mistral-Nemo sw4096's depth cut
+SERVE_MISTRAL_S = 4160       # ... 64 positions past its 4096 window
+SERVE_HYMBA_S = 1032         # SERVE (b): Hymba, 8 past its 1024 window
+SERVE_STATE_RTOL = 1e-3      # SERVE (b): Mamba-2's decode SSM state after
+                             # S tokens against the forward's ssd_scan final
+                             # state, each layer, of max(1, max |h|): both
+                             # f32, but each layer's input carries the
+                             # earlier layers' decode-vs-forward differences
+SERVE_DEEPSEEK_CF = 256 / 8  # SERVE (b), DeepSeek-V3: capacity factor
+                             # E / k, capacity int(cf * T * k / E) + 1 =
+                             # T + 1, so
+                             # the forward drops no assignment (decode, a
+                             # token at a time, drops none; the reference
+                             # test's precondition). At its 8, 32 tokens
+                             # dropped 5.47% at full width (one H100)
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units;
                                                       # bf16 tensor cores
@@ -2171,6 +2218,7 @@ def phase_lm_round(torch):
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
         f.launches = 0
+    _zero_serve_modes(flash_attention, ssd_scan)
     for f in (flash_attention, head_select):
         f.launches_by_variant = {"tc": 0, "simt": 0}
     flash_attention.launches_by_head_dim = dict.fromkeys(
@@ -2184,6 +2232,8 @@ def phase_lm_round(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
+    ssd_modes = dict(ssd_scan.launches_by_mode)
+    modes = _serve_mode_counts(flash_attention, ssd_scan)
     variants = {k: dict(counters[k].launches_by_variant)
                 for k in ("flash_attention", "head_select")}
     dims = {"flash_attention": dict(flash_attention.launches_by_head_dim)}
@@ -2210,6 +2260,9 @@ def phase_lm_round(torch):
     check(launches["ssd_scan"] == ssd_calls,
           f"ssd_scan: {launches['ssd_scan']} kernel launches for "
           f"{ssd_calls} calls in the LM round; every call must launch")
+    check(ssd_modes == {"y": ssd_calls, "state": 0},
+          f"ssd_scan launches by mode {ssd_modes}: ssm_forward asks for no "
+          f"final state")
     print(f"ssd_scan: all {ssd_calls} calls of the round launched the "
           f"three-pass tensor-core kernels, {per_kernel['ssd_scan']:.1f} "
           f"device ms ({per_kernel['ssd_scan'] / ssd_calls:.3f} ms a call)")
@@ -2321,6 +2374,7 @@ def phase_lm_round(torch):
           f"{float(mask.float().mean()):.4f}")
     lm.stats = dict(wall_s=wall, device_ms=dev_ms, kernel_ms=per_kernel,
                     peak_gib=peak, kept=kept)
+    launches.update(modes)
     return lm, launches, variants, dims
 
 
@@ -2543,6 +2597,7 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
 
     for f in counters.values():
         f.launches = 0
+    _zero_serve_modes(flash_attention, ssd_scan)
     with_variants = ("flash_attention", "flash_attention_bwd", "head_select")
     for name in with_variants:
         counters[name].launches_by_variant = {"tc": 0, "simt": 0}
@@ -2559,6 +2614,7 @@ def _train_full(torch, label, cfg, tcfg, pub_batch=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
+    launches.update(_serve_mode_counts(flash_attention, ssd_scan))
     variants = {k: dict(counters[k].launches_by_variant)
                 for k in with_variants}
     by_dim = {k: dict(counters[k].launches_by_head_dim)
@@ -2870,7 +2926,7 @@ def phase_lm_musicgen(torch):
     for i, st in enumerate(steps):
         for name, modes in st["launches"].items():
             for mode, by in modes.items():
-                w = 0 if mode == "prefix" else want[name]
+                w = 0 if mode in ("prefix", "offset") else want[name]
                 check(by == {"tc": w, "simt": 0},
                       f"LM-7 step {i}: {name} {mode} launches {by}; the "
                       f"layer loop implies {w}, all tc")
@@ -2886,7 +2942,7 @@ def phase_lm_musicgen(torch):
     ns, ls = tcfg.num_nodes, small.num_layers
     for name, per in (("flash_attention", 2), ("flash_attention_bwd", 1)):
         for mode, by in launches[name].items():
-            w = 0 if mode == "prefix" else per * ns * ls
+            w = 0 if mode in ("prefix", "offset") else per * ns * ls
             check(by == {"tc": 0, "simt": w},
                   f"reduced MusicGen on the card: {name} {mode} launches "
                   f"{by}, want {w} simt")
@@ -2906,6 +2962,7 @@ def phase_lm_musicgen(torch):
                                     for st in steps) for v in ("tc", "simt")}
             launches[key] = sum(variants[key].values())
             dims[key] = {hd: launches[key]}
+    launches["flash_attention_offset"] = _step_offset_launches(steps)
     return dict(steps=steps, peak_gib=peak, launches=launches,
                 variants=variants, by_head_dim=dims)
 
@@ -3154,19 +3211,45 @@ def phase_lm_paligemma(torch):
                             else 0) for v in ("tc", "simt")}
         launches[key] = sum(variants[key].values())
         dims[key] = {hd: launches[key]}
+    launches["flash_attention_offset"] = _step_offset_launches(steps)
     return dict(steps=steps, peak_gib=peak, prefill_s=prefill_s,
                 launches=launches, variants=variants, by_head_dim=dims)
 
 
-def _zero_flash_counts(*fns):
+def _zero_serve_modes(flash_attention, ssd_scan):
+    """Set the launch counts of the serving path's two kernel modes to 0:
+    flash's offset mode and ssd_scan's state mode."""
+    flash_attention.launches_by_mode["offset"] = {"tc": 0, "simt": 0}
+    ssd_scan.launches_by_mode = dict.fromkeys(ssd_scan.launches_by_mode, 0)
+
+
+def _serve_mode_counts(flash_attention, ssd_scan):
+    """The launches of those two modes since :func:`_zero_serve_modes`,
+    under the kernels line's names."""
+    return {"flash_attention_offset":
+            sum(flash_attention.launches_by_mode["offset"].values()),
+            "ssd_scan_state": ssd_scan.launches_by_mode["state"]}
+
+
+def _step_offset_launches(steps):
+    """The forward's offset-mode launches summed over training steps."""
+    return sum(n for st in steps
+               for n in st["launches"]["flash_attention"]["offset"].values())
+
+
+def _zero_counts(*fns):
+    """Set each wrapper's launch counts to 0: the total and those it keeps
+    by variant, head dim and mode (flash's modes by variant, ssd_scan's
+    plain counts)."""
     for f in fns:
         f.launches = 0
-        if hasattr(f, "launches_by_variant"):
-            f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
-        if hasattr(f, "launches_by_head_dim"):
-            f.launches_by_head_dim = dict.fromkeys(f.launches_by_head_dim, 0)
-            f.launches_by_mode = {m: dict.fromkeys(v, 0) for m, v in
-                                  f.launches_by_mode.items()}
+        for key in ("launches_by_variant", "launches_by_head_dim"):
+            if hasattr(f, key):
+                setattr(f, key, dict.fromkeys(getattr(f, key), 0))
+        if hasattr(f, "launches_by_mode"):
+            f.launches_by_mode = {
+                m: dict.fromkeys(v, 0) if isinstance(v, dict) else 0
+                for m, v in f.launches_by_mode.items()}
 
 
 class _DropCount:
@@ -3235,7 +3318,7 @@ def phase_lm_deepseek(torch):
           f"nodes: {nparams / 1e9:.3f} B parameters a node, set up in "
           f"{init_s:.1f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
           f"GiB held")
-    _zero_flash_counts(flash_attention, head_select)
+    _zero_counts(flash_attention, head_select)
     with _DropCount(torch) as drops:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3269,7 +3352,7 @@ def phase_lm_deepseek(torch):
     tokens = torch.as_tensor(lm.public[:B]).long().cuda()[None].expand(
         n, B, -1).contiguous()
     prefill = make_prefill_step(lm.model)
-    _zero_flash_counts(flash_attention)
+    _zero_counts(flash_attention)
     with _DropCount(torch) as pdrops:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3369,7 +3452,7 @@ def phase_lm_arctic(torch):
     tokens = torch.randint(0, cfg.vocab_size, (1, B, 2048), generator=gen,
                            device="cuda")
     prefill = make_prefill_step(model)
-    _zero_flash_counts(flash_attention)
+    _zero_counts(flash_attention)
     with _DropCount(torch) as drops:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3395,7 +3478,9 @@ def phase_lm_arctic(torch):
           f" of {drops.total}; peak memory {peak:.2f} GiB")
     del params, logits
     torch.cuda.empty_cache()
-    return dict(launches={"flash_attention": 1},
+    offset = sum(flash_attention.launches_by_mode["offset"].values())
+    return dict(launches={"flash_attention": 1,
+                          "flash_attention_offset": offset},
                 variants={"flash_attention": {"tc": 1, "simt": 0}},
                 by_head_dim={"flash_attention": {hd: 1}},
                 prefill_s=prefill_s, peak_gib=peak)
@@ -3424,13 +3509,15 @@ def phase_lm_baselines(torch):
     flash = {"flash_attention": flash_attention,
              "flash_attention_bwd": flash_attention_bwd}
     ssd = {"ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
-    launches = dict.fromkeys(list(flash) + list(ssd), 0)
+    launches = dict.fromkeys([*flash, *ssd, "flash_attention_offset",
+                              "ssd_scan_state"], 0)
     variants = {k: {"tc": 0, "simt": 0} for k in flash}
     rows = {}
     for algo in LM_BASELINES:
         tcfg = dataclasses.replace(lmpath.TRAIN, algorithm=algo, idkd=None)
         for f in ssd.values():
             f.launches = 0
+        _zero_serve_modes(flash_attention, ssd_scan)
         for f in flash.values():
             f.launches = 0
             f.launches_by_variant = {"tc": 0, "simt": 0}
@@ -3472,6 +3559,9 @@ def phase_lm_baselines(torch):
                                       f"{peak:.1f} GiB > {TRAIN_PEAK_GIB}")
         for name, f in {**flash, **ssd}.items():
             launches[name] += f.launches
+        for name, count in _serve_mode_counts(flash_attention,
+                                              ssd_scan).items():
+            launches[name] += count
         for name, f in flash.items():
             for v, c in f.launches_by_variant.items():
                 variants[name][v] += c
@@ -3966,9 +4056,8 @@ def phase_lm_gossip(torch):
     counters = {"flash_attention": flash_attention,
                 "flash_attention_bwd": flash_attention_bwd,
                 "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
-    _zero_flash_counts(flash_attention, flash_attention_bwd)
-    for f in (ssd_scan, ssd_scan_bwd):
-        f.launches = 0
+    _zero_counts(flash_attention, flash_attention_bwd, ssd_scan,
+                 ssd_scan_bwd)
     steps = []
     make_step = drv.make_step
 
@@ -4008,6 +4097,7 @@ def phase_lm_gossip(torch):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {k: f.launches for k, f in counters.items()}
+    launches.update(_serve_mode_counts(flash_attention, ssd_scan))
     variants = {k: dict(counters[k].launches_by_variant)
                 for k in ("flash_attention", "flash_attention_bwd")}
     by_dim = {k: dict(counters[k].launches_by_head_dim)
@@ -4066,6 +4156,510 @@ def phase_lm_gossip(torch):
           f"{sum(t for _, t in calls)} of {sum(r for r, _ in calls)}")
     return dict(launches=launches, variants=variants, by_head_dim=by_dim,
                 steps=steps, peak_gib=peak, hist=hist)
+
+
+# ------------------------------------------------------------ serving
+def _serve_params(torch, cfg, seed):
+    """One model's params on the card, drawn from ``seed``."""
+    from repro_torch.models.transformer import DecoderModel
+    model = DecoderModel(cfg)
+    return model, model.init(seed, "cuda")
+
+
+def _serve_server(torch):
+    """SERVE (a): ``launch.serve.BatchedServer`` on Qwen3-1.7B at full
+    width in its config dtype (bf16): SERVE_REQUESTS requests drawn as
+    the reference's ``main`` draws them (``np.random.default_rng(0)``),
+    SERVE_SLOTS slots, prompts of SERVE_PROMPT tokens, SERVE_NEW new
+    tokens, a cache of SERVE_CONTEXT; then request 0's prompt alone,
+    twice. Every kernel's launches are counted from just before the
+    first submission to just after the last: the serving path, plain
+    torch as in the reference, launches none. Returns the server (its
+    last wave's caches feed (c)), its figures and those counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.kernels.msp_select import msp_select
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.launch.serve import BatchedServer, Request
+    kernels = (flash_attention, flash_attention_bwd, head_select, msp_select,
+               ssd_scan, ssd_scan_bwd)
+    cfg = get_config("qwen3-1.7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(cfg, batch_slots=SERVE_SLOTS,
+                           context=SERVE_CONTEXT, seed=0)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, SERVE_PROMPT
+                                    ).astype(np.int32), SERVE_NEW)
+            for i in range(SERVE_REQUESTS)]
+    _zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.submit_all(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    waves = -(-SERVE_REQUESTS // SERVE_SLOTS)
+    steps = waves * (SERVE_PROMPT + SERVE_NEW)
+    ntok = sum(len(v) for v in out.values())
+    check(set(out) == set(range(SERVE_REQUESTS)) and all(
+        len(v) == SERVE_NEW and all(0 <= x < cfg.vocab_size for x in v)
+        for v in out.values()),
+        f"SERVE (a): {len(out)} answers, lengths "
+        f"{sorted(len(v) for v in out.values())}")
+    alone = [server.submit_all([Request(0, reqs[0].prompt.copy(),
+                                        SERVE_NEW)])[0] for _ in range(2)]
+    check(alone[0] == alone[1], "SERVE (a): greedy decode of request 0's "
+                                "prompt alone differs between two runs")
+    launches = {f.__name__: f.launches for f in kernels}
+    launches.update(_serve_mode_counts(flash_attention, ssd_scan))
+    check(not any(launches.values()), f"SERVE (a): the serving path "
+                                      f"launched kernels {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wbytes = sum(t.numel() * t.element_size() for t in server.params.values())
+    kv = server.state[0]["kv"]
+    cache_bytes = kv.k.numel() * kv.k.element_size() * 2
+    bound = (wbytes + cache_bytes) / H100_BYTES_PER_S * 1e3
+    ms = wall / steps * 1e3
+    print(f"SERVE (a): BatchedServer, {cfg.name} ({wbytes / 1e9:.3f} GB of "
+          f"bf16 weights), {SERVE_REQUESTS} requests on {SERVE_SLOTS} slots, "
+          f"prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens, context "
+          f"{SERVE_CONTEXT}: {wall:.2f} s for {waves} waves x "
+          f"{SERVE_PROMPT + SERVE_NEW} decode steps, {ms:.3f} ms a step, "
+          f"{ntok / wall:.1f} new tokens/s, peak {peak:.2f} GiB; a step's "
+          f"bytes bound {bound:.3f} ms (weights + a full cache at "
+          f"{H100_BYTES_PER_S / 1e12:.2f} TB/s): {ms / bound:.1f}x it; "
+          f"request 0 alone twice: the same {SERVE_NEW} tokens "
+          f"({alone[0][:6]} ...); kernel launches {launches}")
+    return server, dict(ms_per_step=ms, tok_per_s=ntok / wall,
+                        peak_gib=peak, bound_ms=bound), launches
+
+
+def _serve_state_err(got, want):
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def _serve_vs_forward(torch, label, cfg, B, S, tol, seed, ssd_states=False,
+                      graph=True):
+    """SERVE (b) for one model: ``decode_step`` token by token (through
+    ``launch.steps.make_decode_step``) against ``forward`` on the same
+    tokens, the max |logit difference| within ``tol`` (the reference's
+    test's); returns {kernel: launches} of the forward (its flash and
+    ssd_scan kernels), the flash variants and the error. With ``graph``
+    the first step runs as it is and steps 2 to S replay it from a CUDA
+    graph captured here, the tokens copied into its input (the same
+    kernels on the same state, which the step updates in place; host
+    dispatch, ~50 ms a step at full width, would otherwise take most of
+    SERVE's time). With ``ssd_states`` each SSM layer's decode state
+    after the S tokens is held to the final state that the forward's
+    ``ssd_chunked`` returns through the kernel's state mode
+    (SERVE_STATE_RTOL of max(1, max |h|)); ``ssm_forward`` asks for none,
+    so the forward's calls are made to ask for it here. A MoE model (B
+    1) runs without the graph, and the forward must drop no assignment
+    past capacity (decode, a token at a time, never drops)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import ssm as ssm_mod
+    t0 = time.perf_counter()
+    model, params = _serve_params(torch, cfg, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    K = cfg.num_codebooks
+    shape = (B, S, K) if K > 1 else (B, S)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[None]}
+    memory = None
+    if cfg.cross_attention:
+        memory = torch.randn((B, cfg.cross_attn_len, cfg.d_model),
+                             generator=gen, device="cuda")
+        batch["conditioning"] = memory[None]
+    finals = []
+    real = ssm_mod.ssd_chunked
+
+    def recorded(*a, **kw):
+        out = real(*a, **{**kw, "return_final_state": True})
+        finals.append(out[1])
+        return out
+    moe = cfg.moe.enabled
+    _zero_counts(flash_attention, ssd_scan)
+    torch.cuda.reset_peak_memory_stats()
+    patches = [(ssm_mod, "ssd_chunked", recorded)] if ssd_states else []
+    with torch.no_grad(), _Patch(*patches), _DropCount(torch) as drops:
+        full, _ = model.forward({k: v[None] for k, v in params.items()},
+                                batch)
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_scan": ssd_scan.launches_by_mode["y"],
+                "ssd_scan_state": ssd_scan.launches_by_mode["state"]}
+    variants = dict(flash_attention.launches_by_variant)
+    dims = {d: n for d, n in flash_attention.launches_by_head_dim.items()
+            if n}
+    full = full[0]
+    state = model.init_decode_state(B, S)
+    step = make_decode_step(model)
+    extras = () if memory is None else (memory,)
+    errs = torch.zeros((S,), device="cuda")
+
+    def run(tok):
+        return step(params, tok, state, *extras)[0]
+    graph = graph and not moe
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # the first step, and warm-up
+        errs[0] = (run(tokens[:, :1])[:, 0].float()
+                   - full[:, 0].float()).abs().max()
+    torch.cuda.current_stream().wait_stream(side)
+    if graph:
+        tok = tokens[:, 1:2].clone()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = run(tok)
+    for i in range(1, S):
+        if graph:
+            tok.copy_(tokens[:, i:i + 1])
+            g.replay()
+        else:
+            out = run(tokens[:, i:i + 1])
+        errs[i] = (out[:, 0].float() - full[:, i].float()).abs().max()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if moe:
+        print(f"SERVE (b) {label}: the forward's MoE assignments dropped "
+              f"past capacity {drops.share():.4f}")
+        check(drops.share() == 0, f"SERVE (b) {label}: the forward dropped "
+                                  f"{drops.share():.4f} of its assignments")
+    err = float(errs.max())
+    check(math.isfinite(err) and err < tol,
+          f"SERVE (b) {label}: decode against forward max |logit diff| "
+          f"{err:.3g} (tol {tol}); by position {errs.tolist()}")
+    serr = None
+    if ssd_states:
+        got = state[0]["ssm"].ssm
+        check(len(finals) == got.shape[0], f"SERVE (b) {label}: "
+              f"{len(finals)} ssd_chunked calls for {got.shape[0]} layers")
+        serr = max(_serve_state_err(got[li], f)
+                   for li, f in enumerate(finals))
+        check(serr <= SERVE_STATE_RTOL,
+              f"SERVE (b) {label}: decode SSM states against the forward's "
+              f"ssd_scan final states {serr:.3g} of max(1, max |h|) (tol "
+              f"{SERVE_STATE_RTOL})")
+    print(f"SERVE (b) {label}: B {B}, S {S}, f32: decode vs forward max "
+          f"|logit diff| {err:.3g} (tol {tol}); "
+          + (f"each layer's decode SSM state vs the forward's ssd_scan final "
+             f"state {serr:.3g} of max(1, max |h|) (tol "
+             f"{SERVE_STATE_RTOL}); " if serr is not None else "")
+          + f"decode {ms:.2f} ms a step "
+          f"({'a CUDA graph replayed' if graph else 'as it is'}); forward "
+          f"launches {launches} (flash {variants}); peak {peak:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del params, full, state, finals, model
+    torch.cuda.empty_cache()
+    return launches, variants, dims
+
+
+def _offset_visible(torch, B, Sq, Sk, window, q_offset, valid):
+    """(B, Sq, Sk) mask of the keys each row sees in the offset mode."""
+    pos = q_offset + torch.arange(Sq, device="cuda")
+    kp = torch.arange(Sk, device="cuda")
+    lim = torch.full((B,), Sk, device="cuda") if valid is None else valid
+    allow = (kp[None, None] <= pos[None, :, None]) \
+        & (kp[None, None] < lim[:, None, None])
+    if window:
+        allow &= pos[None, :, None] - kp[None, None] < window
+    return allow
+
+
+def _offset_row(torch, gen, label, B, Sq, Sk, H, KVH, D, window, q_offset,
+                valid, dtype, timing=True):
+    """SERVE (c): the flash offset mode (q_offset, kv_valid_len) against
+    its plain version by FLASH_ATOL (every row of these shapes sees a
+    key); timed beside its bound (the visible pairs of these inputs, and
+    of K and V only the keys some row sees), the plain version and SDPA
+    with the same boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    dname = str(dtype).split(".")[-1]
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KVH, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KVH, D), generator=gen, device="cuda").to(dtype)
+    kv = None if valid is None else torch.tensor(valid, device="cuda",
+                                                 dtype=torch.int32)
+    kw = dict(window=window, q_offset=q_offset, kv_valid_len=kv)
+    tag = (f"flash_attention offset {label}B={B} Sq={Sq} Sk={Sk} "
+           f"{H}/{KVH}x{D} window={window} q_offset={q_offset} "
+           f"kv_valid_len={valid} {dname}")
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    allow = _offset_visible(torch, B, Sq, Sk, window, q_offset, kv)
+    check(bool(allow.any(-1).all()), f"{tag}: a row sees no key")
+    err = float((out.float() - ref.float()).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= FLASH_ATOL[dname],
+          f"{tag}: max error {err:.3g} > {FLASH_ATOL[dname]}")
+    row = dict(window=window, dtype=dname, err=err,
+               shape=f"B {B} Sq {Sq} Sk {Sk} H {H}/{KVH} D {D} "
+                     f"q_offset {q_offset} valid {valid}")
+    if not timing:
+        print(f"{tag}: variant {flash_ops._variant(dtype, D)}, max_abs_err "
+              f"{err:.3g} (tol {FLASH_ATOL[dname]})")
+        return row
+    pairs = float(allow.sum())
+    keys = float(allow.any(1).sum())          # (b, key) read at all
+    nbytes = (2 * B * Sq * H * D + 2 * keys * KVH * D) * q.element_size()
+    flops = 4.0 * D * H * pairs
+    bnd, by = bound_ms(nbytes, flops, dname)
+    ms = timed(lambda: flash_attention(q, k, v, **kw), 10, torch)
+    pms = timed(lambda: flash_attention_plain(q, k, v, **kw), 2, torch)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = allow[:, None]
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - ref.float()
+                     ).abs().max())
+    lms = timed(lib, 10, torch)
+    row.update(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
+               library_ms=lms)
+    print(f"{tag}: variant {flash_ops._variant(dtype, D)}, max_abs_err "
+          f"{err:.3g} (tol {FLASH_ATOL[dname]}); {ms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}, {bnd / ms:.2%} of it), plain {pms:.3f} ms, "
+          f"sdpa with the boolean mask {lms:.4f} ms (its max diff from the "
+          f"plain version {lib_err:.3g})")
+    return row
+
+
+def _serve_decode_vs_kernel(torch, server):
+    """SERVE (c): for full-cache layers of (a)'s last wave, one more
+    ``attention_decode`` step (its output before ``wo``: ``wo`` set to
+    the identity, which rounds nothing) against the offset mode on the
+    cache it wrote: ``chunked_attention(q_t, k_cache, v_cache,
+    q_offset=t, kv_valid_len=t + 1)``, the kernel, by FLASH_ATOL."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_rope, sub
+    cfg = server.cfg
+    kv = server.state[0]["kv"]
+    L, B = kv.k.shape[0], kv.k.shape[1]
+    t = int(kv.length[0, 0])
+    check(bool((kv.length == t).all()), "SERVE (c): cache lengths differ")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dtype = kv.k.dtype
+    HD = cfg.num_heads * cfg.resolved_head_dim
+    eye = torch.eye(HD, device="cuda", dtype=dtype)
+    errs = []
+    for li in (0, L // 2, L - 1):
+        p = {k: v[li] for k, v in sub(server.params,
+                                      "layers_0/attn/").items()}
+        p["wo"] = eye
+        cache = attn.KVCache(*(x[li].clone() for x in kv))
+        x = torch.randn((B, 1, cfg.d_model), generator=gen,
+                        device="cuda").to(dtype)
+        with torch.no_grad():
+            o, cache = attn.attention_decode(p, x, cfg, cache)
+            q, _, _ = attn._project_qkv(p, x, cfg)
+            pos = torch.full((B, 1), t, device="cuda")
+            q = apply_rope(q, pos, cfg.rope_theta)
+            got = attn.chunked_attention(
+                q, cache.k, cache.v, q_offset=t,
+                kv_valid_len=torch.full((B,), t + 1, device="cuda",
+                                        dtype=torch.int32))
+        err = float((got.reshape(o.shape).float() - o.float()).abs().max())
+        check(err <= FLASH_ATOL["bfloat16"],
+              f"SERVE (c): layer {li}: attention_decode at step {t} against "
+              f"the offset kernel, max error {err:.3g} > "
+              f"{FLASH_ATOL['bfloat16']}")
+        errs.append(err)
+    print(f"SERVE (c): attention_decode at step {t} (cache capacity "
+          f"{kv.k.shape[2]}, {B} slots) against chunked_attention(q_t, "
+          f"k_cache, v_cache, q_offset={t}, kv_valid_len={t + 1}) through "
+          f"the tc kernel, layers 0, {L // 2}, {L - 1}: max errors "
+          f"{[f'{e:.3g}' for e in errs]} (tol {FLASH_ATOL['bfloat16']})")
+    return [dict(window=0, dtype="bfloat16", err=e) for e in errs]
+
+
+def _ssd_state_row(torch, gen, label, B, S, H, P, G, N, split,
+                   timing=True):
+    """SERVE (d): ssd_scan from a random initial state with its final
+    state, y and h_T, and the continuation (split at ``split``, the
+    second part from the first's h_T), each against the plain version in
+    float64 by the SSD_VS_F32 rule; timed beside its bound and the plain
+    version."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda") - 2)
+    a = -torch.exp(torch.linspace(0, 4, H, device="cuda"))
+    ins = ((x * dt[..., None]).contiguous(), (dt * a).contiguous(),
+           torch.randn((B, S, G, N), generator=gen, device="cuda"),
+           torch.randn((B, S, G, N), generator=gen, device="cuda"))
+    h0 = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    kw = dict(chunk=256, initial_state=h0, return_final_state=True)
+    y, h = ssd_scan(*ins, **kw)
+    y1, h1 = ssd_scan(*(t[:, :split].contiguous() for t in ins), chunk=256,
+                      initial_state=h0, return_final_state=True)
+    y2, h2 = ssd_scan(*(t[:, split:].contiguous() for t in ins), chunk=256,
+                      initial_state=h1, return_final_state=True)
+    py, ph = ssd_scan_plain(*ins, **kw)
+    ey, eh = ssd_scan_plain(*(t.double() for t in ins), chunk=256,
+                            initial_state=h0.double(),
+                            return_final_state=True)
+    tag = f"ssd_scan state {label}(B {B}, S {S}, H {H}, P {P}, N {N})"
+    errs = []
+    for what, got, plain, exact in (
+            ("y", y, py, ey), ("h_T", h, ph, eh),
+            ("continued y", torch.cat([y1, y2], 1), py, ey),
+            ("continued h_T", h2, ph, eh)):
+        e_k = float((got.double() - exact).abs().max())
+        e_p = float((plain.double() - exact).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and e_k <= SSD_VS_F32 * e_p + SSD_ATOL,
+              f"{tag} {what}: max error against float64 {e_k:.3g}, the "
+              f"plain f32 version's {e_p:.3g}")
+        errs.append((what, e_k, e_p))
+    del ey, eh
+    print(f"{tag}, split at {split}: max error against the float64 plain "
+          f"version (kernel, plain f32): " + "; ".join(
+              f"{w} {a:.3g}, {b:.3g}" for w, a, b in errs))
+    row = dict(err=max(float((y - py).abs().max()),
+                       float((h - ph).abs().max())),
+               shape=f"B {B} S {S} H {H} P {P} G {G} N {N}")
+    if not timing:
+        return row
+    nbytes, flops = _ssd_work(B, S, H, P, G, N)
+    nbytes += 2 * B * H * P * N * 4              # h0 read, h_T written
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    ms = timed(lambda: ssd_scan(*ins, **kw), 10, torch)
+    ms_plain_y = timed(lambda: ssd_scan(*ins, chunk=256), 10, torch)
+    pms = timed(lambda: ssd_scan_plain(*ins, **kw), 2, torch)
+    row.update(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
+               library_ms=None, ms_without_state=ms_plain_y)
+    print(f"{tag}: {ms:.4f} ms (y alone from zeros {ms_plain_y:.4f} ms), "
+          f"bound {bnd:.4f} ms ({by}, {bnd / ms:.2%} of it), plain "
+          f"{pms:.3f} ms")
+    return row
+
+
+def phase_serve(torch):
+    """SERVE: the serving path at full width (``launch.serve``,
+    ``DecoderModel.decode_step``), TF32 off. (a) ``BatchedServer`` on
+    Qwen3-1.7B in bf16 (``_serve_server``). (b) decode against forward in
+    f32, token by token, at the reference test's tolerances
+    (``tests/test_decode_consistency.py``: 2e-2 dense, 5e-2 MLA, SSM,
+    MusicGen), the forward through the f32 SIMT ``flash_attention`` and
+    the ``ssd_scan`` kernels: Qwen3-1.7B (B 2, S 64), Mamba-2-780M (B 2,
+    S 64; each layer's decode SSM state against the forward's
+    ``ssd_scan`` final state), MusicGen-medium (B 2, S 64, 4 codebooks,
+    a random (B, 64, d) memory), DeepSeek-V3 at
+    ``lmpath.DEEPSEEK_ROUND_CONFIG``'s depth cut (2 layers, all 256
+    experts) with capacity factor SERVE_DEEPSEEK_CF (B 1, S 32),
+    Mistral-Nemo-12B's
+    sw4096 variant cut to SERVE_MISTRAL_LAYERS layers (B 1, S
+    SERVE_MISTRAL_S: the ring of 4096 wraps), Hymba-1.5B with its meta
+    tokens cut to 0 (decode reads none) (B 1, S SERVE_HYMBA_S, past the
+    1024 window). Depth, the meta tokens and the time cuts named above
+    SERVE_PROMPT are the only cuts. (c)
+    ``flash_attention``'s offset mode against its plain version (Qwen3's
+    chunked prefill, a decode-shaped call, Hymba's windowed layer) and
+    against ``attention_decode`` on (a)'s caches. (d) ``ssd_scan``'s
+    initial / final state mode at Hymba's and Mamba-2's shapes with the
+    continuation identity. Returns the kernels' rows, (a)'s launches
+    (the ``serve`` path's), those of (b)'s forwards and (c)'s checks, and
+    the server's figures."""
+    from repro_torch import lmpath
+    from repro_torch.configs import get_config
+    from repro_torch.configs.mistral_nemo_12b import LONG_CONFIG
+    from repro_torch.kernels.flash_attention import flash_attention
+    t0 = time.perf_counter()
+    server, figures, serve_launches = _serve_server(torch)
+    print(f"SERVE (a) took {time.perf_counter() - t0:.1f} s")
+    rows = {"flash_attention_offset": [], "ssd_scan_state": []}
+    _zero_counts(flash_attention)
+    rows["flash_attention_offset"] += _serve_decode_vs_kernel(torch, server)
+    offset_launches = flash_attention.launches_by_mode["offset"]
+    check(flash_attention.launches == offset_launches["tc"] == len(
+        rows["flash_attention_offset"]), f"SERVE (c): flash launches "
+        f"{flash_attention.launches_by_mode}; want one tc offset launch a "
+        f"layer checked")
+    del server
+    torch.cuda.empty_cache()
+    f32 = dict(dtype="float32")
+    ds = lmpath.DEEPSEEK_ROUND_CONFIG
+    cases = (
+        ("Qwen3-1.7B", get_config("qwen3-1.7b").replace(**f32), 2, 64,
+         2e-2, False),
+        ("Mamba-2-780M", get_config("mamba2-780m").replace(**f32), 2, 64,
+         5e-2, True),
+        ("MusicGen-medium", get_config("musicgen-medium").replace(**f32), 2,
+         64, 5e-2, False),
+        (f"DeepSeek-V3 (2 layers, 256 experts, capacity factor "
+         f"{SERVE_DEEPSEEK_CF:g})", ds.replace(moe=dataclasses.replace(
+             ds.moe, capacity_factor=SERVE_DEEPSEEK_CF), **f32), 1, 32, 5e-2,
+         False),
+        (f"Mistral-Nemo-12B sw4096 ({SERVE_MISTRAL_LAYERS} layers)",
+         LONG_CONFIG.replace(num_layers=SERVE_MISTRAL_LAYERS, **f32), 1,
+         SERVE_MISTRAL_S, 2e-2, False),
+        ("Hymba-1.5B (no meta tokens)", get_config("hymba-1.5b").replace(
+            num_prefix_tokens=0, **f32), 1, SERVE_HYMBA_S, 5e-2, False))
+    launches = {"flash_attention": 0, "ssd_scan": 0, "ssd_scan_state": 0}
+    variants = {"tc": 0, "simt": 0}
+    by_dim = {}
+    t1 = time.perf_counter()
+    for i, (label, cfg, B, S, tol, states) in enumerate(cases):
+        n, var, dims = _serve_vs_forward(torch, label, cfg, B, S, tol,
+                                         40 + i, ssd_states=states)
+        for k in launches:
+            launches[k] += n[k]
+        for k in variants:
+            variants[k] += var[k]
+        for d, c in dims.items():
+            by_dim[d] = by_dim.get(d, 0) + c
+    print(f"SERVE (b) took {time.perf_counter() - t1:.1f} s")
+    check(launches["flash_attention"] > 0 and launches["ssd_scan"] > 0
+          and launches["ssd_scan_state"] > 0
+          and variants == {"tc": 0, "simt": launches["flash_attention"]},
+          f"SERVE (b): the f32 forwards' launches {launches}, flash "
+          f"{variants}")
+    t2 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    q3 = get_config("qwen3-1.7b")
+    H, KVH, D = q3.num_heads, q3.num_kv_heads, q3.resolved_head_dim
+    for dtype in (torch.bfloat16, torch.float32):
+        rows["flash_attention_offset"].append(_offset_row(
+            torch, gen, "Qwen3 chunked prefill ", 4, 512, 2048, H, KVH, D, 0,
+            1536, None, dtype))
+        rows["flash_attention_offset"].append(_offset_row(
+            torch, gen, "Qwen3 decode ", 4, 1, 2048, H, KVH, D, 0, 2047,
+            [1, 700, 1500, 2048], dtype, timing=dtype == torch.bfloat16))
+    hy = get_config("hymba-1.5b")
+    for dtype in (torch.bfloat16, torch.float32):
+        rows["flash_attention_offset"].append(_offset_row(
+            torch, gen, "Hymba windowed ", 2, 64, 1164, hy.num_heads,
+            hy.num_kv_heads, hy.resolved_head_dim, hy.sliding_window, 1100,
+            None, dtype, timing=False))
+    torch.cuda.empty_cache()
+    rows["ssd_scan_state"].append(_ssd_state_row(
+        torch, gen, "Hymba ", 2, 2176, 50, 64, 1, 16, 1000))
+    rows["ssd_scan_state"].append(_ssd_state_row(
+        torch, gen, "Mamba-2 ", 2, 2176, 48, 64, 1, 128, 1000,
+        timing=False))
+    torch.cuda.empty_cache()
+    print(f"SERVE (c), (d) took {time.perf_counter() - t2:.1f} s")
+    return dict(rows=rows, launches=serve_launches,
+                variants={"flash_attention": {"tc": 0, "simt": 0}},
+                by_head_dim={"flash_attention": {}},
+                check_launches=dict(
+                    launches,
+                    flash_attention_offset=sum(offset_launches.values())),
+                figures=figures)
 
 
 # ----------------------------------------------------- the sharded driver
@@ -4545,6 +5139,7 @@ def lm_shard_rank(rank, world):
     counters = (flash_attention, ssd_scan, head_select)
     for f in counters:
         f.launches = 0
+    _zero_serve_modes(flash_attention, ssd_scan)
     for f in (flash_attention, head_select):
         f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
     flash_attention.launches_by_head_dim = dict.fromkeys(
@@ -4561,7 +5156,8 @@ def lm_shard_rank(rank, world):
     labels, w, mask, thr = out
     return dict(wall_s=wall, setup_s=setup_s,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                launches={f.__name__: f.launches for f in counters},
+                launches={**{f.__name__: f.launches for f in counters},
+                          **_serve_mode_counts(flash_attention, ssd_scan)},
                 variants=dict(head_select.launches_by_variant),
                 flash_variants=dict(flash_attention.launches_by_variant),
                 flash_dims={d: c for d, c in
@@ -4684,13 +5280,15 @@ def phase_lm_shard(torch):
             dims[d] = dims.get(d, 0) + c
     return ({"head_select_raw_tc": launches["head_select"],
              "flash_attention": launches["flash_attention"],
-             "ssd_scan": launches["ssd_scan"]},
+             "ssd_scan": launches["ssd_scan"],
+             "flash_attention_offset": launches["flash_attention_offset"],
+             "ssd_scan_state": launches["ssd_scan_state"]},
             {"head_select": {"tc_raw": launches["head_select"]},
              "flash_attention": flash_by},
             {"flash_attention": dims})
 
 
-def kernel_line(kres, lm_rows, paths, variants, head_dims):
+def kernel_line(kres, lm_rows, paths, variants, head_dims, checks):
     """The ``kernels`` JSON line: one entry per kernel, timed at the
     shape of the path where it does the most work (Hymba's round, and its
     one-shot branch for msp_select; Hymba's training step for the two
@@ -4722,7 +5320,14 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
     prefill's), their times the bf16 tc
     kernels' at PaliGemma's training layer (B 2, S 512, prefix 256, 8/1
     x 256); the causal entries carry their times at that shape without
-    the prefix under ``at_head_dim_256``."""
+    the prefix under ``at_head_dim_256``. ``flash_attention_offset`` and
+    ``ssd_scan_state`` are the serving modes (q_offset / kv_valid_len;
+    an initial state in, the final state out); ``ssd_scan`` counts the
+    other launches of that kernel. No path calls either mode (the
+    serving path, ``serve``, launches no kernel, as the reference's);
+    ``check_launches`` gives, apart from ``launches``, those made by
+    SERVE's checks (``checks``: {kernel: launches}): (b)'s forwards and
+    (c)'s comparison with decode."""
     src = "src/repro_torch/csrc/{}.cu"
     ref = "src/repro/kernels/{}/kernel.py:{}"
     tc = {"head_select", "flash_attention", "flash_attention_bwd"}
@@ -4776,7 +5381,8 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
         base = name.removesuffix("_cross").removesuffix(
             "_prefix").removesuffix("_mla")
         by_path = {path: counts.get(name, 0)
-                   for path, counts in paths.items()}
+                   - (counts.get("ssd_scan_state", 0) if name == "ssd_scan"
+                      else 0) for path, counts in paths.items()}
         by_variant = {"tc": 0, "simt": 0} if base in tc else {
             ("simt" if name == "msp_select" else "tc"):
                 sum(by_path.values())}
@@ -4794,6 +5400,8 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
                  "max_abs_err": max(r["err"] for r in
                                     errs.get(name, lm_rows.get(name))),
                  **{k: row.get(k) for k in timing}}
+        if name in checks:
+            entry["check_launches"] = {"serve": checks[name]}
         if name.startswith("flash"):
             by_dim = {}
             for path in head_dims.values():
@@ -4823,6 +5431,32 @@ def kernel_line(kres, lm_rows, paths, variants, head_dims):
                                     for r in lm_rows["head_select_dense"]]
             ds = lm_rows["head_select_deepseek"][0]
             entry["deepseek_head"] = {k: ds.get(k) for k in timing}
+        line.append(entry)
+    # the serving path's two kernel modes: flash's offset mode (q_offset,
+    # kv_valid_len), timed at Qwen3's chunked prefill (bf16, tc) with the
+    # decode-shaped call and the f32 SIMT kernel beside it; ssd_scan's
+    # initial / final state, timed at Hymba's shape
+    for name, source, pallas, at in (
+            ("flash_attention_offset", "flash_attention_tc",
+             "flash_attention", 69),
+            ("ssd_scan_state", "ssd_scan", "ssd_scan", 60)):
+        rows = lm_rows[name]
+        timed_rows = [r for r in rows if "ms" in r]
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in paths.items()}
+        entry = {"name": name, "route": "cuda", "source": src.format(source),
+                 "replaces": ref.format(pallas, at),
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "check_launches": {"serve": checks[name]},
+                 "max_abs_err": max(r["err"] for r in rows),
+                 **{k: timed_rows[0].get(k) for k in timing}}
+        if len(timed_rows) > 1:
+            entry["other_shapes"] = [
+                {"shape": r["shape"], "dtype": r.get("dtype"),
+                 **{k: r.get(k) for k in timing}} for r in timed_rows[1:]]
+        if name == "ssd_scan_state":
+            entry["ms_without_state"] = timed_rows[0]["ms_without_state"]
         line.append(entry)
     # head_select's raw_stats mode (the vocab-sharded round's per-slice
     # carry): SIMT at SHARD (b)'s slice, tc at LM-13's
@@ -4917,6 +5551,8 @@ def main() -> int:
     lm_shard_launches, lm_shard_variants, lm_shard_dims = run(
         "LM-13", phase_lm_shard)
     lm_gossip = run("LM-14", phase_lm_gossip)
+    serve = run("SERVE", phase_serve)
+    lm_rows.update(serve["rows"])
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
@@ -4930,16 +5566,18 @@ def main() -> int:
          "paper": paper_launches, "resil": resil_launches,
          "gossip": gossip_launches,
          "shard": shard_launches, "lm_path": lm_launches,
-         "lm_shard": lm_shard_launches,
+         "lm_shard": lm_shard_launches, "serve": serve["launches"],
          **{k: v["launches"] for k, v in trains.items()}},
         {"resnet_path": variants, "grid": grid_variants,
          "paper": paper_variants, "resil": resil_variants,
          "gossip": gossip_variants,
          "shard": shard_variants, "lm_shard": lm_shard_variants,
-         "lm_path": lm_variants,
+         "lm_path": lm_variants, "serve": serve["variants"],
          **{k: v["variants"] for k, v in trains.items()}},
         {"lm_path": lm_dims, "lm_shard": lm_shard_dims,
-         **{k: v["by_head_dim"] for k, v in trains.items()}})}))
+         "serve": serve["by_head_dim"],
+         **{k: v["by_head_dim"] for k, v in trains.items()}},
+        serve["check_launches"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

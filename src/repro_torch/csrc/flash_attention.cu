@@ -34,7 +34,12 @@
 // accumulates weight-1 garbage that the first unmasked tile multiplies by
 // exp(-1e30 - m) = 0, exactly as in chunked_attention; every row reaches
 // its diagonal (the prefix only adds keys), or (not causal) sees key 0 in
-// its first tile, so every row ends with a real maximum.
+// its first tile, so every row ends with a real maximum. The offset
+// mode (a decode step, or a chunked prefill over a cache) moves each row
+// to position q_offset + qp and masks keys at or past kv_valid[b]; the
+// tile range moves with them, and a row that sees no key at all (its m
+// still -1e30 at the end) writes 0 where chunked_attention would write
+// the padded key set's mean of V.
 //
 // Variants. This SIMT kernel serves float32 and bf16 at head_dim 32;
 // bf16 at head_dim 64, 96, 128 and 256 runs flash_attention_tc.cu on the
@@ -91,7 +96,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int Sq, int Sk, int H,
                        int KVH, int window, bool causal, int prefix,
-                       float scale) {
+                       float scale, int q_off,
+                       const int* __restrict__ kv_valid) {
   constexpr int LD = D + 4;       // tile row stride in floats (16-byte rows,
                                   // conflict-free float4 reads)
   constexpr int LV = DV + 4;      // V's
@@ -110,7 +116,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 2;         // q row in the tile
   const int j = tid & 3;          // keys 4*i + j, output chunks j + 4*i
   const int qp = q0 + r;
-  const int q_seen = fa_last_key(qp, prefix);   // the row's last key
+  const int qa = qp + q_off;      // the row's position (offset mode)
+  const int q_seen = fa_last_key(qa, prefix);   // the row's last key
+  const int Skb = fa_valid_keys(kv_valid, b, Sk);
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KVH * D;
@@ -127,12 +135,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // key tiles [t_begin, t_end]: from the first key that the window lets
   // the tile's first row see, to the last key its last row sees (causal:
-  // the diagonal or the prefix's end) or the last key
-  const int q_last = min(q0 + FA_ROWS, Sq) - 1;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the diagonal or the prefix's end) or the last key, and none past the
+  // valid keys (empty when the window or kv_valid hides them all)
+  const int q_last = min(q0 + FA_ROWS, Sq) - 1 + q_off;
+  const int k_first = window > 0 ? max(0, q0 + q_off - window + 1) : 0;
+  const int k_last =
+      min(causal ? fa_last_key(q_last, prefix) : Sk - 1, Skb - 1);
   const int t_begin = k_first / FA_KEYS;
-  const int t_end = (causal ? fa_last_key(q_last, prefix) : Sk - 1) /
-                    FA_KEYS;
+  const int t_end = k_last >= k_first ? k_last / FA_KEYS : t_begin - 1;
 
   float m_run = NEG, l_run = 0.0f;
   float acc[4 * CH];
@@ -173,8 +183,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int kp = k0 + 4 * i + j;
-      const bool ok = kp < Sk && (!causal || kp <= q_seen) &&
-                      (window <= 0 || qp - kp < window);
+      const bool ok = kp < Skb && (!causal || kp <= q_seen) &&
+                      (window <= 0 || qa - kp < window);
       sc[i] = ok ? sc[i] : NEG;
       tmax = fmaxf(tmax, sc[i]);
     }
@@ -213,7 +223,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qp < Sq) {
-    const float inv = 1.0f / fmaxf(l_run, 1e-30f);
+    // a row that saw no key (offset mode only) writes 0; its m stays NEG
+    const float inv = m_run == NEG ? 0.0f : 1.0f / fmaxf(l_run, 1e-30f);
     T* ob = o + ((size_t)b * Sq + qp) * H * DV + (size_t)h * DV;
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -231,8 +242,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int DV = D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
-                      int window, bool causal, int prefix,
-                      cudaStream_t stream) {
+                      int window, bool causal, int prefix, int q_off,
+                      const int* kv_valid, cudaStream_t stream) {
   const size_t smem = fa_smem_bytes<D, DV>();
   auto kernel = lse != nullptr ? flash_attention_kernel<T, D, DV, true>
                                : flash_attention_kernel<T, D, DV, false>;
@@ -244,7 +255,7 @@ cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KVH,
-      window, causal, prefix, scale);
+      window, causal, prefix, scale, q_off, kv_valid);
   return cudaGetLastError();
 }
 
@@ -252,31 +263,32 @@ template <typename T>
 cudaError_t fa_dispatch(int D, int DV, const void* q, const void* k,
                         const void* v, void* o, float* lse, int B, int Sq,
                         int Sk, int H, int KVH, int window, bool causal,
-                        int prefix, cudaStream_t s) {
+                        int prefix, int q_off, const int* kv_valid,
+                        cudaStream_t s) {
   // MLA's mode: qk head dim D, v head dim DV
   if (D == 48 && DV == 32)
     return fa_launch<T, 48, 32>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                                causal, prefix, s);
+                                causal, prefix, q_off, kv_valid, s);
   if (D == 192 && DV == 128)
     return fa_launch<T, 192, 128>(q, k, v, o, lse, B, Sq, Sk, H, KVH,
-                                  window, causal, prefix, s);
+                                  window, causal, prefix, q_off, kv_valid, s);
   if (DV != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32:
       return fa_launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                              causal, prefix, s);
+                              causal, prefix, q_off, kv_valid, s);
     case 64:
       return fa_launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                              causal, prefix, s);
+                              causal, prefix, q_off, kv_valid, s);
     case 96:
       return fa_launch<T, 96>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                              causal, prefix, s);
+                              causal, prefix, q_off, kv_valid, s);
     case 128:
       return fa_launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                               causal, prefix, s);
+                               causal, prefix, q_off, kv_valid, s);
     case 256:
       return fa_launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, KVH, window,
-                               causal, prefix, s);
+                               causal, prefix, q_off, kv_valid, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -288,7 +300,11 @@ cudaError_t fa_dispatch(int D, int DV, const void* q, const void* k,
 // DV = D in {32, 64, 96, 128, 256}, or (D, DV) in {(48, 32), (192, 128)};
 // H % KVH == 0; causal 1: Sk == Sq, window 0 = full causal, prefix
 // 0 <= P <= Sk (0: none; P > 0 with window 0 only); causal 0: every key
-// visible (window 0, prefix 0). lse: null, or (B, H, Sq) f32 that receives each row's
+// visible (window 0, prefix 0). Offset mode (forward only, no prefix):
+// q_offset >= 0 puts row qp at position q_offset + qp, and kv_valid, null
+// or (B,) int32 on the device, masks batch b's keys at or past
+// kv_valid[b]; with either, causal takes any Sk; a row that sees no key
+// writes 0. lse: null, or (B, H, Sq) f32 that receives each row's
 // log-sum-exp of its scaled scores (the training forward's; the label
 // round passes null and writes nothing more). Returns cudaGetLastError()
 // after the launch.
@@ -297,19 +313,22 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
                                       void* lse, int B, int Sq, int Sk,
                                       int H, int KVH, int D, int DV,
                                       int window, int causal, int prefix,
+                                      int q_offset, const void* kv_valid,
                                       void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
-      !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
+      !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix, q_offset,
+                        kv_valid != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kv = static_cast<const int*>(kv_valid);
   if (dtype == 0)
     return (int)idkd::fa_dispatch<float>(D, DV, q, k, v, o,
                                          static_cast<float*>(lse), B, Sq, Sk,
                                          H, KVH, window, causal != 0, prefix,
-                                         s);
+                                         q_offset, kv, s);
   if (dtype == 1)
     return (int)idkd::fa_dispatch<__nv_bfloat16>(
         D, DV, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, window,
-        causal != 0, prefix, s);
+        causal != 0, prefix, q_offset, kv, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -94,6 +94,15 @@
 //    scales by exp2((-1e30 - m) * c) = 0; every row reaches its diagonal
 //    (causal; the prefix only adds keys before and past it) or sees key
 //    0 in its first tile (not causal).
+//  * Offset mode (a decode step, or a chunked prefill over a cache): the
+//    rows sit at positions q_offset + qp, so the tile range, the
+//    warpgroups' skipping and the mask move by q_offset; keys at or past
+//    kv_valid[b] are masked like keys past Sk, and the tiles wholly past
+//    it neither loaded nor computed. A row may then see no key: its m
+//    stays -1e30 and it writes 0 (chunked_attention writes the padded
+//    key set's mean of V there; nothing in the port makes such a row). A
+//    decode step (Sq = 1) fills 1 of the q tile's 128 rows: right, not
+//    fast.
 //
 // bf16 P adds ~2^-9 relative error per weight; the check against the
 // plain f32 version stays at one bf16 ulp of the output (2e-2).
@@ -134,10 +143,10 @@ struct FtSmem {
 
 // A consumer thread's rows and the mask's parameters.
 struct FtRows {
-  int a, b;        // the thread's two q rows (a and a + 8)
-  int c0, c1;      // its warpgroup's 64 rows
+  int a, b;        // the positions of the thread's two q rows (a, a + 8)
+  int c0, c1;      // its warpgroup's 64 rows' first and last positions
   int col;         // its column within each 8-key group
-  int Sk, window, prefix;
+  int Sk, window, prefix;   // Sk: the keys the batch may see (kv_valid)
   float scale_log2;
 };
 
@@ -276,7 +285,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int Sq, int Sk, int H,
                           int KVH, int window, float scale_log2,
-                          int prefix) {
+                          int prefix, int q_off,
+                          const int* __restrict__ kv_valid) {
   using L = FtSmem<D, DV>;
   constexpr int NB = L::NB;
   constexpr int NBV = L::NBV;
@@ -295,11 +305,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const int q_last = min(q0 + FT_ROWS, Sq) - 1;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the block's key tiles, none past the valid keys (positions: a row's
+  // index plus q_off); empty when the window or kv_valid hides them all
+  const int Skb = fa_valid_keys(kv_valid, b, Sk);
+  const int q_last = min(q0 + FT_ROWS, Sq) - 1 + q_off;
+  const int k_first = window > 0 ? max(0, q0 + q_off - window + 1) : 0;
+  const int k_last = min(
+      MODE == FA_CROSS ? Sk - 1 : ft_last<MODE>(q_last, prefix), Skb - 1);
   const int t_begin = k_first / KEYS;
-  const int t_end =
-      (MODE == FA_CROSS ? Sk - 1 : ft_last<MODE>(q_last, prefix)) / KEYS;
+  const int t_end = k_last >= k_first ? k_last / KEYS : t_begin - 1;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -343,12 +357,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp / 4;             // 0 or 1: rows 64*wg .. 64*wg + 63
   const int wrow = 16 * (warp % 4) + lane / 4;
   FtRows r;
-  r.a = q0 + 64 * wg + wrow;           // this thread's two rows
+  const int row_a = q0 + 64 * wg + wrow;   // this thread's two rows
+  r.a = row_a + q_off;                 // and their positions
   r.b = r.a + 8;
-  r.c0 = q0 + 64 * wg;                 // the warpgroup's row range
+  r.c0 = q0 + 64 * wg + q_off;         // the warpgroup's position range
   r.c1 = r.c0 + 63;
   r.col = 2 * (lane % 4);              // this thread's column in an n8
-  r.Sk = Sk;
+  r.Sk = Skb;
   r.window = window;
   r.prefix = prefix;
   r.scale_log2 = scale_log2;
@@ -361,7 +376,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int tb = MODE == FA_CROSS
                      ? t_end
                      : min(t_end, ft_last<MODE>(r.c1, prefix) / KEYS);
-  if (r.c0 >= Sq) ta = t_end + 1;
+  if (q0 + 64 * wg >= Sq) ta = t_end + 1;
   while (ta <= tb && window > 0 && ta * KEYS + KEYS - 1 <= r.c0 - window)
     ++ta;
   auto stage = [&](int t) { return (t - t_begin) % STAGES; };
@@ -417,20 +432,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  // a row that saw no key (offset mode only) writes 0; its m stays NEG
+  const float inv_a = m_a == NEG ? 0.0f : 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = m_b == NEG ? 0.0f : 1.0f / fmaxf(l_b, 1e-30f);
   if constexpr (LSE) {
     // the rows' log-sum-exp of the scaled scores, for the backward pass:
     // m is in raw score units, l sums exp((s - m) * scale)
     if (r.col == 0) {
       const float scale = scale_log2 * 0.6931471805599453f;
       float* lr = lse + ((size_t)b * H + h) * Sq;
-      if (r.a < Sq) lr[r.a] = m_a * scale + logf(l_a);
-      if (r.b < Sq) lr[r.b] = m_b * scale + logf(l_b);
+      if (row_a < Sq) lr[row_a] = m_a * scale + logf(l_a);
+      if (row_a + 8 < Sq) lr[row_a + 8] = m_b * scale + logf(l_b);
     }
   }
   const size_t row_stride = (size_t)H * DV;
-  __nv_bfloat16* oa = o + ((size_t)b * Sq + r.a) * row_stride + (size_t)h * DV;
+  __nv_bfloat16* oa =
+      o + ((size_t)b * Sq + row_a) * row_stride + (size_t)h * DV;
   __nv_bfloat16* ob = oa + 8 * row_stride;
 #pragma unroll
   for (int nb = 0; nb < NBV; ++nb)
@@ -438,10 +455,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < 8; ++j) {
       const int d = nb * 64 + 8 * j + r.col;
       if (d >= DV) continue;           // D = 96: the zero-filled columns
-      if (r.a < Sq)
+      if (row_a < Sq)
         *reinterpret_cast<uint32_t*>(oa + d) = pack_bf16x2(
             oacc[nb][4 * j] * inv_a, oacc[nb][4 * j + 1] * inv_a);
-      if (r.b < Sq)
+      if (row_a + 8 < Sq)
         *reinterpret_cast<uint32_t*>(ob + d) = pack_bf16x2(
             oacc[nb][4 * j + 2] * inv_b, oacc[nb][4 * j + 3] * inv_b);
     }
@@ -459,8 +476,8 @@ auto ft_kernel(int mode) {
 template <int D, int DV = D>
 cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int H, int KVH,
-                      int window, int mode, int prefix,
-                      cudaStream_t stream) {
+                      int window, int mode, int prefix, int q_off,
+                      const int* kv_valid, cudaStream_t stream) {
   // q (B, Sq, H, D), k (B, Sk, KVH, D) and v (B, Sk, KVH, DV) as 4-D maps,
   // innermost first
   CUtensorMap mq, mk, mv;
@@ -492,7 +509,7 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   kernel<<<grid, FtSmem<D, DV>::THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KVH,
-      window, scale_log2, prefix);
+      window, scale_log2, prefix, q_off, kv_valid);
   return cudaGetLastError();
 }
 
@@ -502,40 +519,48 @@ cudaError_t ft_launch(const void* q, const void* k, const void* v, void* o,
 // H, DV), contiguous, 16-byte aligned; DV = D in {64, 96, 128, 256}, or
 // (D, DV) = (192, 128) (MLA); H % KVH == 0; causal 1: Sk == Sq,
 // window 0 = full causal, prefix 0 <= P <= Sk (0: none; P > 0 with window
-// 0 only); causal 0: every key visible (window 0, prefix 0); lse null, or
-// (B, H, Sq) f32 for the rows' log-sum-exp (training only). Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
-// the kernel does not take or a tensor map the driver refuses).
+// 0 only); causal 0: every key visible (window 0, prefix 0); offset mode
+// (forward only, no prefix): q_offset >= 0 puts row qp at position
+// q_offset + qp and kv_valid, null or (B,) int32 on the device, masks
+// batch b's keys at or past kv_valid[b]; with either, causal takes any
+// Sk, and a row that sees no key writes 0; lse null, or (B, H, Sq) f32
+// for the rows' log-sum-exp (training only). Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a shape the kernel does not
+// take or a tensor map the driver refuses).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int B, int Sq, int Sk, int H,
                                          int KVH, int D, int DV,
                                          int window, int causal, int prefix,
+                                         int q_offset, const void* kv_valid,
                                          void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 ||
-      !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix))
+      !idkd::fa_mode_ok(Sq, Sk, window, causal, prefix, q_offset,
+                        kv_valid != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const int* kv = static_cast<const int*>(kv_valid);
   const int m = !causal ? idkd::FA_CROSS
                         : prefix > 0 ? idkd::FA_PREFIX : idkd::FA_CAUSAL;
   if (D == 192 && DV == 128)
     return (int)idkd::ft_launch<192, 128>(q, k, v, o, l, B, Sq, Sk, H, KVH,
-                                          window, m, prefix, s);
+                                          window, m, prefix, q_offset, kv,
+                                          s);
   if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64:
       return (int)idkd::ft_launch<64>(q, k, v, o, l, B, Sq, Sk, H, KVH,
-                                      window, m, prefix, s);
+                                      window, m, prefix, q_offset, kv, s);
     case 96:
       return (int)idkd::ft_launch<96>(q, k, v, o, l, B, Sq, Sk, H, KVH,
-                                      window, m, prefix, s);
+                                      window, m, prefix, q_offset, kv, s);
     case 128:
       return (int)idkd::ft_launch<128>(q, k, v, o, l, B, Sq, Sk, H, KVH,
-                                       window, m, prefix, s);
+                                       window, m, prefix, q_offset, kv, s);
     case 256:
       return (int)idkd::ft_launch<256>(q, k, v, o, l, B, Sq, Sk, H, KVH,
-                                       window, m, prefix, s);
+                                       window, m, prefix, q_offset, kv, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -175,8 +175,10 @@ __device__ __forceinline__ void load_x(float* Xs,
 }
 
 // ------------------------------------------------------------ pass 1
-// Tile states S (P x N) of tiles 0..nt-1 (all full: nt = S/Q tiles - 1)
-// into states (B, nt, H, P, N), and each tile's cum_end into (B, nt, H).
+// Tile states S (P x N) of tiles 0..nt-1 into states (B, nt, H, P, N), and
+// each tile's cum_end into (B, nt, H): every tile but the last (nt = tiles
+// - 1, all full), or with the final state wanted every tile (nt = tiles,
+// the last one ragged: its positions past S read as zeros).
 // BWD (the backward's kernel, ssd_scan_bwd.cu) doubles the grid's y:
 // blocks nt..2nt-1 write the reverse states of tiles 1..nt (the last may
 // be ragged), R = sum_t exp(cum_t) dy_t (x) c_t, into rstates (B, nt, H,
@@ -204,7 +206,7 @@ __device__ __forceinline__ void chunk_states(
   const int ci = rev ? blockIdx.y - nt + 1 : blockIdx.y;
   const int nh = min(SSD_HT, H - h0);
   const int s0 = ci * SSD_Q;
-  const int len = rev ? min(SSD_Q, S - s0) : SSD_Q;
+  const int len = min(SSD_Q, S - s0);
   const int rep = H / G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
@@ -298,14 +300,16 @@ ssd_chunk_states(const float* __restrict__ xdt, const float* __restrict__ dta,
 
 // ------------------------------------------------------------ pass 2
 // In place: states[b, c] <- the state after tiles 0..c, i.e. the state
-// entering tile c + 1.
+// entering tile c + 1 (after the last tile: the final state), starting
+// from h0 (B, H, P, N), or from zeros where h0 is null.
 __global__ void __launch_bounds__(SSD_PASS_THREADS)
 ssd_state_passing(float* __restrict__ states,
-                  const float* __restrict__ cum_end, int H, int PN, int nt) {
+                  const float* __restrict__ cum_end,
+                  const float* __restrict__ h0, int H, int PN, int nt) {
   const int e = blockIdx.x * SSD_PASS_THREADS + threadIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   if (e >= PN) return;
-  float run = 0.0f;
+  float run = h0 != nullptr ? h0[((size_t)b * H + h) * PN + e] : 0.0f;
 #pragma unroll 4
   for (int c = 0; c < nt; ++c) {
     const size_t at = ((size_t)b * nt + c) * H + h;

@@ -13,17 +13,23 @@
 //   S = sum_u exp(cum_end - cum_u) xdt_u (x) b_u.
 // In exact arithmetic y does not depend on the tile length, so the kernel
 // tiles by its own Q = 64 whatever `chunk` the caller's model uses; the
-// ragged tail reads as zeros. No initial state in, no final state out.
+// ragged tail reads as zeros. An initial state h0 (decode's prefill, a
+// chunked prefill) enters tile 0 as pass 2's starting value and as tile
+// 0's inter term exp(cum_t) c_t . h0, and the final state h_T is pass 2's
+// value after the last tile, when the caller asks for it.
 //
 // Design. The TPU kernel walks a (b, h)'s chunks as a sequential grid
 // axis, state in VMEM. Only the (P x N) state recurrence is sequential,
 // so here the scan is three kernels, two of them parallel over tiles:
 //  1. ssd_chunk_states, grid (head tile, tile, b): a warp scan gives cum
 //     for the block's 4 heads; per head S = (w o xdt)^T . b, a (P x Q) .
-//     (Q x N) product, and the tile's cum_end. The last tile needs none.
+//     (Q x N) product, and the tile's cum_end. The last tile needs none
+//     unless the final state is wanted (then its positions past S read as
+//     zeros).
 //  2. ssd_state_passing, grid (P*N / 256, h, b): one thread per state
-//     entry walks the tiles, state <- exp(cum_end) state + S, in place:
-//     the buffer then holds each tile's state_in.
+//     entry walks the tiles from h0 (or zeros), state <- exp(cum_end)
+//     state + S, in place: the buffer then holds each tile's state_out,
+//     the next tile's state_in (after the last tile: h_T).
 //  3. ssd_chunk_scan, grid (head tile, tile, b): CB = C . B^T (Q x Q,
 //     depth N) once per group for the block's heads, kept in shared
 //     memory; per head, M = CB o L_h (L_h[t, u] = exp(cum_t - cum_u) for
@@ -86,7 +92,8 @@ template <int P, int NS>
 __global__ void __launch_bounds__(SSD_THREADS)
 ssd_chunk_scan(const float* __restrict__ xdt, const float* __restrict__ dta,
                const float* __restrict__ bm, const float* __restrict__ cm,
-               const float* __restrict__ states, float* __restrict__ y,
+               const float* __restrict__ states,
+               const float* __restrict__ hin, float* __restrict__ y,
                int S, int H, int G, int N, int nt) {
   using L = ScanSmem<P, NS>;
   constexpr int XS = L::XS, CS = L::CS, MS = L::MS;
@@ -114,8 +121,11 @@ ssd_chunk_scan(const float* __restrict__ xdt, const float* __restrict__ dta,
   const float* c_tile = cm + ((size_t)b * S + s0) * bc_rows;
   tile_cumsum(dta, b, S, H, s0, len, h0, nh, cum);
   const float* x_tile = xdt + ((size_t)b * S + s0) * H * P;
+  // the state entering this tile: pass 2's, or the initial state hin
+  // (null: zeros) at tile 0
   const float* st_tile =
-      ci > 0 ? states + ((size_t)b * nt + ci - 1) * H * P * N : nullptr;
+      ci > 0 ? states + ((size_t)b * nt + ci - 1) * H * P * N
+             : hin != nullptr ? hin + (size_t)b * H * P * N : nullptr;
 
   int cb_group = -1, c_group = -1, c_slice = -1;
   for (int hh = 0; hh < nh; ++hh) {
@@ -202,8 +212,9 @@ ssd_chunk_scan(const float* __restrict__ xdt, const float* __restrict__ dta,
       }
     }
 
-    // inter: (exp(cum_t) o C) . state_in^T; tile 0 enters with no state
-    if (ci > 0) {
+    // inter: (exp(cum_t) o C) . state_in^T; tile 0 enters with h0, or
+    // with no state
+    if (st_tile != nullptr) {
       const float* st = st_tile + (size_t)h * P * N;
       for (int sl = 0; sl < n_slices; ++sl) {
         __syncthreads();  // earlier readers of Cs and Bs are done
@@ -260,9 +271,11 @@ ssd_chunk_scan(const float* __restrict__ xdt, const float* __restrict__ dta,
 template <int P, int NS>
 cudaError_t ssd_launch(const float* xdt, const float* dta, const float* b,
                        const float* c, float* y, float* states,
-                       float* cum_end, int B, int S, int H, int G, int N,
-                       cudaStream_t stream) {
-  const int tiles = (S + SSD_Q - 1) / SSD_Q, nt = tiles - 1;
+                       float* cum_end, const float* h0, int B, int S, int H,
+                       int G, int N, bool final_state, cudaStream_t stream) {
+  // states kept: each tile's but the last, which only the final state needs
+  const int tiles = (S + SSD_Q - 1) / SSD_Q;
+  const int nt = final_state ? tiles : tiles - 1;
   const int htiles = (H + SSD_HT - 1) / SSD_HT;
   cudaError_t err;
   if (nt > 0) {
@@ -272,8 +285,8 @@ cudaError_t ssd_launch(const float* xdt, const float* dta, const float* b,
     const int PN = P * N;
     ssd_state_passing<<<dim3((PN + SSD_PASS_THREADS - 1) / SSD_PASS_THREADS,
                              H, B),
-                        SSD_PASS_THREADS, 0, stream>>>(states, cum_end, H,
-                                                       PN, nt);
+                        SSD_PASS_THREADS, 0, stream>>>(states, cum_end, h0,
+                                                       H, PN, nt);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const size_t smem = sizeof(float) * ScanSmem<P, NS>::FLOATS;
@@ -282,8 +295,8 @@ cudaError_t ssd_launch(const float* xdt, const float* dta, const float* b,
                              (int)smem);
   if (err != cudaSuccess) return err;
   ssd_chunk_scan<P, NS><<<dim3(htiles, tiles, B), SSD_THREADS, smem,
-                           stream>>>(xdt, dta, b, c, states, y, S, H, G, N,
-                                     nt);
+                           stream>>>(xdt, dta, b, c, states, h0, y, S, H, G,
+                                     N, nt);
   return cudaGetLastError();
 }
 
@@ -293,26 +306,30 @@ cudaError_t ssd_launch(const float* xdt, const float* dta, const float* b,
 template <int P>
 cudaError_t ssd_dispatch(const float* xdt, const float* dta, const float* b,
                          const float* c, float* y, float* states,
-                         float* cum_end, int B, int S, int H, int G, int N,
-                         cudaStream_t stream) {
+                         float* cum_end, const float* h0, int B, int S, int H,
+                         int G, int N, bool fin, cudaStream_t stream) {
   if (N <= 16)
-    return ssd_launch<P, 16>(xdt, dta, b, c, y, states, cum_end, B, S, H, G,
-                             N, stream);
-  return ssd_launch<P, 32>(xdt, dta, b, c, y, states, cum_end, B, S, H, G, N,
-                           stream);
+    return ssd_launch<P, 16>(xdt, dta, b, c, y, states, cum_end, h0, B, S, H,
+                             G, N, fin, stream);
+  return ssd_launch<P, 32>(xdt, dta, b, c, y, states, cum_end, h0, B, S, H, G,
+                           N, fin, stream);
 }
 
 }  // namespace idkd
 
 // xdt/y (B, S, H, P), dta (B, S, H), b/c (B, S, G, N): float32,
 // contiguous, 16-byte aligned. P in {16, 32, 64}; N a multiple of 4 with
-// P*N <= 8192; H % G == 0. Scratch: states (B, ceil(S/64) - 1, H, P, N)
-// and cum_end (B, ceil(S/64) - 1, H) f32 (unused when S <= 64). Issues
-// the three passes on `stream`; returns the first launch error.
+// P*N <= 8192; H % G == 0. h0: null (a zero initial state) or (B, H, P,
+// N) f32, the state entering position 0. final_state 0: scratch states
+// (B, ceil(S/64) - 1, H, P, N) and cum_end (B, ceil(S/64) - 1, H) f32
+// (unused when S <= 64); final_state 1: both with ceil(S/64) tiles, and
+// states[:, -1] then holds the final state h_T. Issues the passes on
+// `stream`; returns the first launch error.
 extern "C" int ssd_scan_launch(const void* xdt, const void* dta,
                                const void* b, const void* c, void* y,
-                               void* states, void* cum_end, int B, int S,
-                               int H, int P, int G, int N, void* stream) {
+                               void* states, void* cum_end, const void* h0,
+                               int B, int S, int H, int P, int G, int N,
+                               int final_state, void* stream) {
   if (B < 1 || S < 1 || G < 1 || H % G != 0 || N < 4 || N % 4 != 0 ||
       P * N > 8192 || B > 65535 || (S + idkd::SSD_Q - 1) / idkd::SSD_Q > 65535)
     return (int)cudaErrorInvalidValue;
@@ -321,13 +338,15 @@ extern "C" int ssd_scan_launch(const void* xdt, const void* dta,
   const float* d = static_cast<const float*>(dta);
   const float* bp = static_cast<const float*>(b);
   const float* cp = static_cast<const float*>(c);
+  const float* hp = static_cast<const float*>(h0);
   float* yp = static_cast<float*>(y);
   float* st = static_cast<float*>(states);
   float* ce = static_cast<float*>(cum_end);
+  const bool f = final_state != 0;
   switch (P) {
-    case 16: return (int)idkd::ssd_dispatch<16>(x, d, bp, cp, yp, st, ce, B, S, H, G, N, s);
-    case 32: return (int)idkd::ssd_dispatch<32>(x, d, bp, cp, yp, st, ce, B, S, H, G, N, s);
-    case 64: return (int)idkd::ssd_dispatch<64>(x, d, bp, cp, yp, st, ce, B, S, H, G, N, s);
+    case 16: return (int)idkd::ssd_dispatch<16>(x, d, bp, cp, yp, st, ce, hp, B, S, H, G, N, f, s);
+    case 32: return (int)idkd::ssd_dispatch<32>(x, d, bp, cp, yp, st, ce, hp, B, S, H, G, N, f, s);
+    case 64: return (int)idkd::ssd_dispatch<64>(x, d, bp, cp, yp, st, ce, hp, B, S, H, G, N, f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

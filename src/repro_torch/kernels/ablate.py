@@ -210,7 +210,7 @@ def ablate_ssd(gen):
     fns = _build("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in fns.values():
-        fn.argtypes = [p] * 7 + [i] * 6 + [p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i
     stream = torch.cuda.current_stream().cuda_stream
     for label, (B, S, H, P, G, N) in (("hymba", (8, 2176, 50, 64, 1, 16)),
@@ -226,8 +226,8 @@ def ablate_ssd(gen):
         ce = torch.empty((B, nt, H), device="cuda")
         calls = {name: (lambda fn=fn: fn(
             xdt.data_ptr(), dta.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), st.data_ptr(), ce.data_ptr(), B, S, H, P, G, N,
-            stream)) for name, fn in fns.items()}
+            y.data_ptr(), st.data_ptr(), ce.data_ptr(), None, B, S, H, P,
+            G, N, 0, stream)) for name, fn in fns.items()}
         res = _in_turns(calls, 10)
         print(f"ssd_scan {label} (B {B}, S {S}, H {H}, P {P}, G {G}, N {N}): "
               + "; ".join(f"{n} {ms:.4f} ms" for n, ms in res.items()),

@@ -19,6 +19,19 @@ makes every key visible to every row. ``causal=False``
 row. The reference would still apply a window one-sided there, and
 ignores a prefix; a prefix with a window, and either with
 ``causal=False``, are combinations nothing calls, so they raise.
+The offset mode (``chunked_attention``'s ``q_offset`` and
+``kv_valid_len``: a decode step, or a chunked prefill over a cache; not
+the Pallas kernel's): q's rows sit at positions ``q_offset`` + their
+index, the causal mask and the window measure from there, k may be of
+any length Sk, and batch b's keys at or past ``kv_valid_len[b]`` are
+masked; never with a prefix, forward only. A row that then sees no key
+(``kv_valid_len[b]`` 0, or a window that hides every valid key) is the
+reference's edge case: its -1e30 mask gives every key of the padded key
+set (n_chunks · chunk keys, the padding's v zeros) the weight exp(0), so
+the plain version, which pads as the reference does there, returns V's
+sum over the keys divided by n_chunks · chunk; the kernels write 0
+(ROADMAP.md §3, a deliberate difference; nothing in the port makes such
+a row).
 f32 math, q scaled by 1/sqrt(D) first, output in q's dtype.
 
 Two CUDA kernels compute it, neither forming the (S, S) scores; their
@@ -31,10 +44,10 @@ head_dim 32 and MLA's (48, 32)). :func:`_variant` picks one from dtype
 and the head dims alone; :func:`flash_attention` runs it on CUDA tensors
 and counts the launch in ``launches``, ``launches_by_variant``,
 ``launches_by_head_dim`` (keyed by D, or by the pair (D, DV) in MLA's
-mode) and ``launches_by_mode`` ({"causal", "cross", "prefix"} ×
-variant: "cross"
-counts every non-causal launch, "prefix" every causal one with
-``prefix_len`` > 0), and :func:`flash_attention_plain` — the reference's
+mode) and ``launches_by_mode`` ({"causal", "cross", "prefix",
+"offset"} × variant: "cross" counts every non-causal launch, "prefix"
+every causal one with ``prefix_len`` > 0, "offset" every one with a
+``q_offset`` or a ``kv_valid_len``), and :func:`flash_attention_plain` — the reference's
 chunked online softmax in plain PyTorch — runs on CPU tensors only; a
 CUDA call that no kernel takes raises.
 
@@ -68,27 +81,36 @@ HEAD_DIMS = (32, 64, 96, 128, 256)
 TC_HEAD_DIMS = (64, 96, 128, 256)
 MLA_HEAD_DIMS = ((48, 32), (192, 128))      # MLA's (qk, v) head dims
 TC_MLA_HEAD_DIMS = ((192, 128),)
-MODES = ("causal", "cross", "prefix")
+MODES = ("causal", "cross", "prefix", "offset")
 TC_BWD_TILE = 64       # the tc backward's key and query tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_mode(Sq: int, Sk: int, causal: bool, window: int,
-                prefix_len: int = 0):
-    """Raise on a (causal, window, prefix_len, Sk) combination no kernel
-    takes."""
+                prefix_len: int = 0, q_offset: int = 0,
+                kv_valid: bool = False):
+    """Raise on a (causal, window, prefix_len, Sk, offset mode)
+    combination no kernel takes."""
     if prefix_len < 0:
         raise ValueError(f"flash_attention: prefix_len must be >= 0, got "
                          f"{prefix_len}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
+    offset = bool(q_offset) or kv_valid
+    if offset and prefix_len:
+        raise ValueError("flash_attention: q_offset / kv_valid_len with the "
+                         "prefix-LM mask is not ported (nothing calls it)")
     if prefix_len and (window > 0 or not causal):
         raise ValueError("flash_attention: the prefix-LM mask is ported "
                          "for causal attention without a window only (the "
                          "reference applies a window beside it and ignores "
                          "it when causal=False; nothing calls either)")
-    if causal and Sk != Sq:
+    if causal and Sk != Sq and not offset:
         raise ValueError(f"flash_attention: causal attention takes k, v of "
                          f"q's length ({Sq}), got {Sk}; cross-attention "
-                         f"is causal=False")
+                         f"is causal=False, a cache takes q_offset / "
+                         f"kv_valid_len")
     if not causal and window > 0:
         raise ValueError("flash_attention: causal=False with a window is "
                          "not ported (the reference would apply the window "
@@ -110,18 +132,26 @@ def _allow(q_pos, k_pos, causal: bool, window: int, prefix_len: int = 0):
 
 
 def flash_attention_plain(q, k, v, *, window: int = 0, causal: bool = True,
-                          prefix_len: int = 0, chunk: int = 512):
+                          prefix_len: int = 0, chunk: int = 512,
+                          q_offset: int = 0, kv_valid_len=None):
     """The plain PyTorch version: ``chunked_attention``'s online softmax
     over ``chunk``-long key blocks, masked with -1e30 as the reference
-    masks."""
+    masks; in the offset mode (``q_offset``, ``kv_valid_len`` (B,)) the
+    key set is zero-padded to whole chunks, as the reference pads it,
+    so a row that sees no key gets the reference's value."""
     B, S, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    _check_mode(S, Sk, causal, window, prefix_len)
+    _check_mode(S, Sk, causal, window, prefix_len, int(q_offset),
+                kv_valid_len is not None)
     G = H // KVH
     scale = 1.0 / torch.sqrt(torch.tensor(float(D)))   # q's D, not v's
     qf = q.reshape(B, S, KVH, G, D).float() * scale
-    q_pos = torch.arange(S, device=q.device)
+    q_pos = int(q_offset) + torch.arange(S, device=q.device)
     n_chunks = -(-Sk // chunk)
+    if q_offset or kv_valid_len is not None:
+        pad = n_chunks * chunk - Sk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     m = torch.full((B, S, KVH, G), NEG_INF, device=q.device)
     l = torch.zeros((B, S, KVH, G), device=q.device)
     acc = torch.zeros((B, S, KVH, G, v.shape[-1]), device=q.device)
@@ -129,10 +159,14 @@ def flash_attention_plain(q, k, v, *, window: int = 0, causal: bool = True,
         kc = k[:, c * chunk:(c + 1) * chunk].float()
         vc = v[:, c * chunk:(c + 1) * chunk].float()
         k_pos = c * chunk + torch.arange(kc.shape[1], device=q.device)
-        allow = _allow(q_pos, k_pos, causal, window, prefix_len)
+        allow = _allow(q_pos, k_pos, causal, window, prefix_len) \
+            & (k_pos < Sk)[None, :]
+        allow = allow[None, :, None, None, :]
+        if kv_valid_len is not None:
+            allow = allow & (k_pos[None, :] < kv_valid_len.to(
+                q.device)[:, None])[:, None, None, None, :]
         s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kc)
-        s = torch.where(allow[None, :, None, None, :], s,
-                        torch.tensor(NEG_INF, device=q.device))
+        s = torch.where(allow, s, torch.tensor(NEG_INF, device=q.device))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -236,7 +270,7 @@ def _fn(variant: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if variant == "tc":
         fn = build.load("flash_attention_tc").flash_attention_tc_launch
-        args = [p] * 5 + [i] * 10 + [p]
+        args = [p] * 5 + [i] * 11 + [p, p]
     elif variant == "bwd_simt":
         fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
         args = [i] + [p] * 10 + [i] * 10 + [p]
@@ -245,7 +279,7 @@ def _fn(variant: str):
         args = [p] * 13 + [i] * 10 + [p]
     else:
         fn = build.load("flash_attention").flash_attention_launch
-        args = [i] + [p] * 5 + [i] * 10 + [p]
+        args = [i] + [p] * 5 + [i] * 11 + [p, p]
     if fn.argtypes is None:
         fn.argtypes = args
         fn.restype = i
@@ -263,28 +297,33 @@ def _shape(q, k, window: int, causal: bool, prefix_len: int, stream,
             int(causal), min(int(prefix_len), k.shape[1]), stream)
 
 
-def _mode(causal: bool, prefix_len: int) -> str:
-    return "prefix" if causal and prefix_len else \
+def _mode(causal: bool, prefix_len: int, offset: bool = False) -> str:
+    return "offset" if offset else "prefix" if causal and prefix_len else \
         "causal" if causal else "cross"
 
 
-def _count(fn, variant: str, dims, causal: bool, prefix_len: int):
+def _count(fn, variant: str, dims, causal: bool, prefix_len: int,
+           offset: bool = False):
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
     fn.launches_by_head_dim[dims] += 1
-    fn.launches_by_mode[_mode(causal, prefix_len)][variant] += 1
+    fn.launches_by_mode[_mode(causal, prefix_len, offset)][variant] += 1
 
 
 def _launch(variant: str, q, k, v, window: int, causal: bool = True,
-            lse=None, prefix_len: int = 0):
+            lse=None, prefix_len: int = 0, q_offset: int = 0,
+            kv_valid=None):
     """Run one forward kernel on checked CUDA tensors and count the
     launch; ``lse`` (B, H, Sq) f32, when given, receives the rows'
-    log-sum-exp (training only)."""
+    log-sum-exp (training only); ``q_offset`` and ``kv_valid`` (B,)
+    int32 on the card, the offset mode."""
     out = q.new_empty(q.shape[:-1] + v.shape[-1:])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
     shape = _shape(q, k, window, causal, prefix_len, stream, v)
+    shape = shape[:-1] + (int(q_offset), None if kv_valid is None
+                          else kv_valid.data_ptr(), stream)
     with torch.cuda.device(q.device):
         if variant == "tc":
             rc = _fn("tc")(*ptrs, *shape)
@@ -294,13 +333,15 @@ def _launch(variant: str, q, k, v, window: int, causal: bool = True,
         raise RuntimeError(f"flash_attention {variant} kernel launch "
                            f"failed: CUDA error {rc}")
     _count(flash_attention, variant, _dims(q.shape[-1], v.shape[-1]), causal,
-           prefix_len)
+           prefix_len, bool(q_offset) or kv_valid is not None)
     return out
 
 
 def _check(q, k, v, *, causal: bool = True, window: int = 0,
-           prefix_len: int = 0):
-    """Raise on what the CUDA kernels do not take; returns the variant."""
+           prefix_len: int = 0, q_offset: int = 0, kv_valid=None):
+    """Raise on what the CUDA kernels do not take; returns the variant.
+    ``kv_valid``, when given, must be (B,) int32, contiguous, on q's
+    device."""
     B, S, H, D = q.shape
     Sk, KVH, DV = k.shape[1], k.shape[2], v.shape[-1]
     if k.shape != (B, Sk, KVH, D) or v.shape != (B, Sk, KVH, DV) or Sk < 1:
@@ -308,7 +349,15 @@ def _check(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: the kernel "
                          f"takes k (B, Sk, KVH, D), v (B, Sk, KVH, DV) with "
                          f"Sk >= 1")
-    _check_mode(S, Sk, causal, window, prefix_len)
+    _check_mode(S, Sk, causal, window, prefix_len, q_offset,
+                kv_valid is not None)
+    if kv_valid is not None and (
+            tuple(kv_valid.shape) != (B,) or kv_valid.dtype != torch.int32
+            or kv_valid.device != q.device or not kv_valid.is_contiguous()):
+        raise ValueError(f"flash_attention: kv_valid_len must be a "
+                         f"contiguous int32 ({B},) tensor on {q.device}, got "
+                         f"{kv_valid.dtype} {tuple(kv_valid.shape)} on "
+                         f"{kv_valid.device}")
     if KVH < 1 or H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} kv heads")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -449,29 +498,45 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, window: int = 0, causal: bool = True,
-                    prefix_len: int = 0, chunk: int = 512):
+                    prefix_len: int = 0, chunk: int = 512, q_offset: int = 0,
+                    kv_valid_len=None):
     """GQA attention: causal with a per-layer ``window`` (0 = full) or a
     bidirectional prefix of ``prefix_len`` positions (the prefix-LM
     mask), or with ``causal=False`` every key of k (B, Sk, KVH, D), v (B,
     Sk, KVH, DV) visible to every row (cross-attention); the output is
-    (B, Sq, H, DV). ``chunk`` is the plain
-    version's key block; the kernels tile keys by 64 (``simt``, and
-    ``tc`` at head_dim 256) or 128 (``tc``). With grad enabled and an
+    (B, Sq, H, DV). In the offset mode q's rows sit at positions
+    ``q_offset`` + their index and batch b sees only its first
+    ``kv_valid_len[b]`` keys (see the module note). ``chunk`` is the
+    plain version's key block; the kernels tile keys by 64 (``simt``,
+    and ``tc`` at head_dim 256) or 128 (``tc``). With grad enabled and an
     input that requires grad the call goes through
-    :class:`FlashAttentionFn`; under ``torch.no_grad`` no log-sum-exp is
-    written."""
+    :class:`FlashAttentionFn` (the offset mode then raises: its backward
+    is not ported); under ``torch.no_grad`` no log-sum-exp is written."""
+    q_offset = int(q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window, causal=causal,
-                                     prefix_len=prefix_len, chunk=chunk)
+                                     prefix_len=prefix_len, chunk=chunk,
+                                     q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if kv_valid_len is not None:
+        kv_valid_len = torch.as_tensor(kv_valid_len).to(
+            device=q.device, dtype=torch.int32).contiguous()
     variant = _check(q, k, v, causal=causal, window=window,
-                     prefix_len=prefix_len)
+                     prefix_len=prefix_len, q_offset=q_offset,
+                     kv_valid=kv_valid_len)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
+        if q_offset or kv_valid_len is not None:
+            raise NotImplementedError(
+                "flash_attention: the backward of the offset mode "
+                "(q_offset, kv_valid_len) is not ported (ROADMAP.md item "
+                "10b.1: nothing trains through decode)")
         return FlashAttentionFn.apply(q, k, v, int(window), bool(causal),
                                       int(prefix_len))
-    return _launch(variant, q, k, v, window, causal, prefix_len=prefix_len)
+    return _launch(variant, q, k, v, window, causal, prefix_len=prefix_len,
+                   q_offset=q_offset, kv_valid=kv_valid_len)
 
 
 _zero_counts(flash_attention)

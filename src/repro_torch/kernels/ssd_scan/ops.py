@@ -1,4 +1,5 @@
-"""ssd_scan: the Mamba-2 SSD chunked scan (state-space duality), y only.
+"""ssd_scan: the Mamba-2 SSD chunked scan (state-space duality): y, and,
+when asked, the final state, from an initial state or from zeros.
 
 Replaces the Pallas TPU kernel ``ssd_scan_pallas`` (body ``_ssd_kernel``)
 of ``src/repro/kernels/ssd_scan/kernel.py``, and computes the y of the
@@ -14,12 +15,22 @@ exact arithmetic), and run three passes: the tiles' states, parallel over
 (b, tile, head tile); the state passing, sequential over tiles; and each
 tile's output, parallel again, with C·Bᵀ formed once per group and the
 products on the tensor cores in 3xTF32. :func:`ssd_scan` issues them on
-CUDA tensors (one launch counted per call) and :func:`ssd_scan_plain` —
+CUDA tensors (one launch counted per call in ``launches``, and in
+``launches_by_mode`` under "state" when it takes h0 or returns h_T, else
+"y") and :func:`ssd_scan_plain` —
 the reference's chunked dual form in plain PyTorch — runs on CPU tensors
 only; a CUDA call that the kernels cannot take raises.
 :func:`ssd_scan_passes_plain` states the kernels' three passes in plain
-PyTorch. None takes an initial state or returns the final one (decode is
-not ported).
+PyTorch. Each takes an ``initial_state`` h0 (B, H, P, N) f32, the state
+entering position 0 (``None``: zeros), and with ``return_final_state``
+returns ``(y, h_T)``, h_T (B, H, P, N) f32 the state after position S −
+1, as the reference's ``ssd_scan_ref(..., initial_state)`` and
+``ssd_chunked`` do: decode's state after a prompt, and a chunked prefill
+that goes on from where the last chunk stopped. On the card h0 enters
+the kernels' state passing and tile 0's inter-tile term, and h_T is the
+state passing's value after the last tile (pass 1 then covers the ragged
+last tile too). The reference's Pallas kernel takes no initial state:
+this is a mode of the port's kernel.
 
 The backward pass. With grad enabled and an input that requires grad,
 :func:`ssd_scan` on CUDA tensors goes through :class:`SSDScanFn`, whose
@@ -30,7 +41,10 @@ tensors and from :func:`ssd_scan_bwd_plain` (the recurrence walked one
 position at a time) on CPU tensors; :func:`ssd_scan_bwd_passes_plain`
 states the kernels' passes in plain PyTorch. The JAX package has no
 backward kernel (its training differentiates ``ssd_chunked``); the
-forward's own kernels run under ``torch.no_grad`` as before.
+forward's own kernels run under ``torch.no_grad`` as before. Nothing
+trains through an initial state or a final state: with grad on, an
+initial state raises (ROADMAP.md item 10b.1 leaves its backward out), and
+the final state is returned without a gradient.
 """
 from __future__ import annotations
 
@@ -48,11 +62,13 @@ TILE = 64              # the kernels' own tile of positions
 BWD_STATES = (4, 8, 12, 16, 32, 64, 128)   # N the backward kernel takes
 
 
-def ssd_scan_plain(xdt, dta, b, c, *, chunk: int):
+def ssd_scan_plain(xdt, dta, b, c, *, chunk: int, initial_state=None,
+                   return_final_state: bool = False):
     """The plain PyTorch version: ``ssd_chunked``'s intra-chunk quadratic
-    term, chunk states and inter-chunk recurrence, in the inputs' dtype
-    (float64 inputs give the exact-arithmetic yardstick the card's
-    checks measure both f32 versions against)."""
+    term, chunk states and inter-chunk recurrence from ``initial_state``
+    (zeros by default), in the inputs' dtype (float64 inputs give the
+    exact-arithmetic yardstick the card's checks measure both f32
+    versions against); with ``return_final_state``, ``(y, h_T)``."""
     B, S, H, P = xdt.shape
     G = b.shape[2]
     nc = -(-S // chunk)
@@ -82,7 +98,8 @@ def ssd_scan_plain(xdt, dta, b, c, *, chunk: int):
     chunk_state = torch.einsum("bnuH,bnuHN,bnuHp->bnHpN", end_decay, bc, xc)
     chunk_decay = torch.exp(cum[:, :, -1, :])                # (B,nc,H)
     state = torch.zeros((B, H, P, b.shape[-1]), dtype=xdt.dtype,
-                        device=xdt.device)
+                        device=xdt.device) if initial_state is None \
+        else initial_state.to(xdt.dtype)
     prev = []
     for n in range(nc):                          # state before each chunk
         prev.append(state)
@@ -90,7 +107,8 @@ def ssd_scan_plain(xdt, dta, b, c, *, chunk: int):
     prev = torch.stack(prev, dim=1)                          # (B,nc,H,P,N)
     y_inter = torch.einsum("bntH,bntHN,bnHpN->bntHp", torch.exp(cum), cc,
                            prev)
-    return (y_intra + y_inter).reshape(B, nc * chunk, H, P)[:, :S]
+    y = (y_intra + y_inter).reshape(B, nc * chunk, H, P)[:, :S]
+    return (y, state) if return_final_state else y
 
 
 def _tiles(t, tile: int):
@@ -120,12 +138,13 @@ def ssd_chunk_states_plain(xdt, dta, b, *, tile: int):
     return states.reshape(B, -1, H, P, b.shape[-1]), cum_end
 
 
-def ssd_state_passing_plain(states, cum_end):
+def ssd_state_passing_plain(states, cum_end, initial_state=None):
     """Pass 2: the state entering each tile, sequential over tiles:
-    state_in[0] = 0, state_in[c] = exp(cum_end[c−1]) state_in[c−1] +
-    S[c−1]."""
+    state_in[0] = h0 (``initial_state``, zeros by default), state_in[c] =
+    exp(cum_end[c−1]) state_in[c−1] + S[c−1]."""
     state_in = torch.empty_like(states)
-    run = torch.zeros_like(states[:, 0])
+    run = torch.zeros_like(states[:, 0]) if initial_state is None \
+        else initial_state.to(states.dtype)
     for n in range(states.shape[1]):
         state_in[:, n] = run
         run = run * torch.exp(cum_end[:, n])[..., None, None] + states[:, n]
@@ -157,14 +176,21 @@ def ssd_chunk_scan_plain(xdt, dta, b, c, state_in, *, tile: int):
     return y.reshape(B, -1, H, P)[:, :S]
 
 
-def ssd_scan_passes_plain(xdt, dta, b, c, *, tile: int = TILE):
+def ssd_scan_passes_plain(xdt, dta, b, c, *, tile: int = TILE,
+                          initial_state=None,
+                          return_final_state: bool = False):
     """The CUDA kernel's three passes in plain PyTorch, at its internal
     tile length: equal to :func:`ssd_scan_plain` at any ``chunk`` in exact
-    arithmetic."""
+    arithmetic, from ``initial_state``; the final state is the state
+    passing's value after the last (ragged) tile."""
     states, cum_end = ssd_chunk_states_plain(xdt, dta, b, tile=tile)
-    return ssd_chunk_scan_plain(xdt, dta, b, c,
-                                ssd_state_passing_plain(states, cum_end),
-                                tile=tile)
+    state_in = ssd_state_passing_plain(states, cum_end, initial_state)
+    y = ssd_chunk_scan_plain(xdt, dta, b, c, state_in, tile=tile)
+    if not return_final_state:
+        return y
+    final = state_in[:, -1] * torch.exp(cum_end[:, -1])[..., None, None] \
+        + states[:, -1]
+    return y, final
 
 
 def ssd_scan_bwd_plain(xdt, dta, b, c, dy):
@@ -295,7 +321,7 @@ def _fn():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i
     return fn
 
@@ -330,12 +356,22 @@ def _check(xdt, dta, b, c, chunk: int):
                              f"{name}")
 
 
-def _launch(xdt, dta, b, c):
-    """The three forward passes on checked CUDA tensors; counts the
-    launch."""
+def _check_state(h0, xdt, b):
+    """Raise on an initial state the kernels do not take."""
+    want = (xdt.shape[0], xdt.shape[2], xdt.shape[3], b.shape[3])
+    if tuple(h0.shape) != want or h0.dtype != torch.float32 \
+            or h0.device != xdt.device or not h0.is_contiguous():
+        raise ValueError(f"ssd_scan: initial_state must be a contiguous "
+                         f"float32 {want} tensor on {xdt.device}, got "
+                         f"{h0.dtype} {tuple(h0.shape)} on {h0.device}")
+
+
+def _launch(xdt, dta, b, c, h0=None, final: bool = False):
+    """The forward passes on checked CUDA tensors from ``h0`` (None:
+    zeros): y, or with ``final`` (y, h_T); counts the launch."""
     B, S, H, P = xdt.shape
     G, N = b.shape[2], b.shape[3]
-    nt = -(-S // TILE) - 1
+    nt = -(-S // TILE) - (0 if final else 1)
     dev = xdt.device
     y = torch.empty_like(xdt)
     states = torch.empty((B, nt, H, P, N), device=dev)
@@ -343,12 +379,15 @@ def _launch(xdt, dta, b, c):
     with torch.cuda.device(dev):
         rc = _fn()(xdt.data_ptr(), dta.data_ptr(), b.data_ptr(),
                    c.data_ptr(), y.data_ptr(), states.data_ptr(),
-                   cum_end.data_ptr(), B, S, H, P, G, N,
+                   cum_end.data_ptr(), None if h0 is None else h0.data_ptr(),
+                   B, S, H, P, G, N, int(final),
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1
-    return y
+    ssd_scan.launches_by_mode["y" if h0 is None and not final
+                              else "state"] += 1
+    return (y, states[:, -1].clone()) if final else y
 
 
 def ssd_scan_bwd(xdt, dta, b, c, dy):
@@ -418,38 +457,53 @@ ssd_scan_bwd.launches = 0
 class SSDScanFn(torch.autograd.Function):
     """``ssd_scan`` on CUDA tensors with a kernel backward: the forward
     launches ``csrc/ssd_scan.cu``, the backward ``csrc/ssd_scan_bwd.cu``
-    through :func:`ssd_scan_bwd`. Saves the inputs, not y."""
+    through :func:`ssd_scan_bwd`. Saves the inputs, not y. With ``final``
+    the forward also returns h_T, marked as having no gradient."""
 
     @staticmethod
-    def forward(ctx, xdt, dta, b, c):
+    def forward(ctx, xdt, dta, b, c, final: bool = False):
         ctx.save_for_backward(xdt, dta, b, c)
-        return _launch(xdt, dta, b, c)
+        out = _launch(xdt, dta, b, c, final=final)
+        if final:
+            ctx.mark_non_differentiable(out[1])
+        return out
 
     @staticmethod
-    def backward(ctx, dy):
-        return ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+    def backward(ctx, dy, *_):
+        return (*ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous()), None)
 
 
-def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None):
-    """y (B, S, H, P) f32 of the chunked SSD scan; see the module note.
-    On CUDA tensors ``chunk`` is checked but the kernels tile by their
-    own :data:`TILE`; one call issues the three passes (one kernel when
-    S <= TILE) and counts one launch. With grad enabled and an input
-    that requires grad the call goes through :class:`SSDScanFn`, whose
-    backward is a kernel too; under ``torch.no_grad`` nothing else runs."""
-    if initial_state is not None:
-        raise NotImplementedError(
-            "ssd_scan: an initial state (decode, chunked prefill) is not "
-            "ported (ROADMAP.md item 10b)")
+def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None,
+             return_final_state: bool = False):
+    """y (B, S, H, P) f32 of the chunked SSD scan from ``initial_state``
+    (B, H, P, N) f32 (None: zeros), or with ``return_final_state`` (y,
+    h_T); see the module note. On CUDA tensors ``chunk`` is checked but
+    the kernels tile by their own :data:`TILE`; one call issues the three
+    passes (one kernel when S <= TILE and no final state is wanted) and
+    counts one launch. With grad enabled and an input that requires grad
+    the call goes through :class:`SSDScanFn`, whose backward is a kernel
+    too (an initial state then raises); under ``torch.no_grad`` nothing
+    else runs."""
     if xdt.device.type == "cpu":
-        return ssd_scan_plain(xdt, dta, b, c, chunk=chunk)
+        return ssd_scan_plain(xdt, dta, b, c, chunk=chunk,
+                              initial_state=initial_state,
+                              return_final_state=return_final_state)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {xdt.device}")
     _check(xdt, dta, b, c, chunk)
+    if initial_state is not None:
+        _check_state(initial_state, xdt, b)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xdt, dta, b, c)):
-        return SSDScanFn.apply(xdt, dta, b, c)
-    return _launch(xdt, dta, b, c)
+            t is not None and t.requires_grad
+            for t in (xdt, dta, b, c, initial_state)):
+        if initial_state is not None:
+            raise NotImplementedError(
+                "ssd_scan: the backward through an initial state is not "
+                "ported (ROADMAP.md item 10b.1: nothing trains through "
+                "decode)")
+        return SSDScanFn.apply(xdt, dta, b, c, bool(return_final_state))
+    return _launch(xdt, dta, b, c, initial_state, return_final_state)
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_mode = {"y": 0, "state": 0}

@@ -15,8 +15,7 @@ The device pool is the world of the run. The reference leaves the
 devices its divisor rule does not use idle; an SPMD rank has no such
 state, so a world larger than the mesh raises and names the world to
 spawn. ``make_production_mesh``, ``make_host_mesh`` and
-``node_axes_for`` come with the dry run (ROADMAP.md queue 1, with item
-10b).
+``node_axes_for`` come with the dry run (ROADMAP.md item 10b.2).
 """
 from __future__ import annotations
 

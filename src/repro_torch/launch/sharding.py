@@ -27,7 +27,7 @@ the round's payload); :func:`gather_model_tree` and
 :func:`slice_model_tree` move between a rank's shards and full-width
 leaves inside one replica. ``leaf_spec``'s pod scope,
 ``param_shardings``, ``batch_shardings`` and the serving rules wait for
-the dry run and item 10b.
+the dry run (ROADMAP.md item 10b.2).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Node-stacked params, the decentralized train step and the serving step
-of the consensus model (``src/repro/launch/steps.py``). The decode step
-is not ported (ROADMAP.md item 10b)."""
+"""Node-stacked params, the decentralized train step and the serving
+steps of the consensus model, prefill and decode
+(``src/repro/launch/steps.py``)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -64,3 +64,16 @@ def make_prefill_step(model) -> Callable:
         return logits
 
     return prefill_step
+
+
+def make_decode_step(model) -> Callable:
+    """``decode_step(params, tokens, state, *extras) -> (logits, state)``:
+    one model's params (``consensus_params``' or ``model.init``'s), tokens
+    (B, 1[, K]), the decode state (updated in place), and ``extras[0]``,
+    when given, the ``memory`` a cross-attention model reads; no grad."""
+    @torch.no_grad()
+    def decode_step(params, tokens, state, *extras):
+        memory = extras[0] if extras else None
+        return model.decode_step(params, tokens, state, memory=memory)
+
+    return decode_step

@@ -1,22 +1,36 @@
 """Decoder attention: GQA with RoPE, qk-norm, qkv-bias, a per-layer
 sliding window and the prefix-LM mask (PaliGemma's), cross-attention to
-a conditioning sequence (MusicGen's), and DeepSeek-V3's multi-head
-latent attention (MLA) in its expanded training / prefill form
+a conditioning sequence (MusicGen's), KV-cache decode with a ring buffer
+for windowed layers, and DeepSeek-V3's multi-head latent attention (MLA)
+in its expanded training / prefill form and its absorbed decode form
 (``src/repro/models/attention.py``).
 
-:func:`chunked_attention` is the reference's entry point; on the ported
-path (causal self-attention from position 0, optionally windowed or with
-a bidirectional prefix, non-causal attention over a key set of any
-length, and MLA's v head dim apart from q's) it is the
-``flash_attention`` kernel on the card — through ``FlashAttentionFn``
-when gradients are wanted, whose backward is the hand-written backward
-kernel — and the kernel's plain version — the reference's chunked online
-softmax, differentiated by autograd — on the CPU. ``q_offset``,
-``kv_valid_len``, KV-cache decode and MLA's absorbed decode
-(``mla_decode``, ``make_mla_cache``) are not ported (ROADMAP.md item
-10b) and raise.
+:func:`chunked_attention` is the reference's entry point: causal
+self-attention from position 0, optionally windowed or with a
+bidirectional prefix, non-causal attention over a key set of any
+length, MLA's v head dim apart from q's, and, with ``q_offset`` and
+``kv_valid_len``, queries at an offset over a cache. On the card it is
+the ``flash_attention`` kernel — through ``FlashAttentionFn`` when
+gradients are wanted, whose backward is the hand-written backward
+kernel (not in the offset mode, which nothing trains through) — and on
+the CPU the kernel's plain version — the reference's chunked online
+softmax, differentiated by autograd.
+
+Decode (:func:`attention_decode`, :func:`mla_decode`) is the reference's
+plain arithmetic: one token's scores against the whole cache, softmax
+and P·V in f32. The reference runs it as plain ``jnp`` (no Pallas
+kernel), so here it is plain torch. The caches are written in place
+(``index_put_`` at each row's slot) and their ``length`` advanced in
+place; the functions still return the cache, as the reference's return
+the new one (ROADMAP.md §3, a deliberate difference). Two faults of the
+reference are kept, as it has them (ROADMAP.md §3): a full-attention
+cache of capacity ``context`` wraps at ``pos % cap`` past its end (a
+silent sliding window), and ``mla_decode`` drops a write past its cache's
+end (JAX's out-of-bounds scatter rule).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,20 +40,24 @@ from repro_torch.models.layers import (apply_rope, dense_init, rms_head_norm,
                                        rms_norm_f32)
 
 
+NEG_INF = -1e30
+
+
 def chunked_attention(q, k, v, *, q_offset=0, causal=True, window=0,
                       prefix_len: int = 0, kv_valid_len=None,
                       chunk: int = 512):
     """q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, Dv) -> (B, Sq, H,
     Dv) in q's dtype (Dv = D but in MLA): causal self-attention (Sk =
     Sq), bidirectional over the first ``prefix_len`` positions, or, with
-    ``causal=False``, every key visible (cross-attention)."""
-    if q_offset or kv_valid_len is not None:
-        raise NotImplementedError(
-            "chunked_attention: q_offset and kv_valid_len (decode) are not "
-            "ported (ROADMAP.md item 10b)")
+    ``causal=False``, every key visible (cross-attention). ``q_offset``:
+    the position of q[0] (a cache's length), the causal mask and the
+    window measured from there over any Sk; ``kv_valid_len`` (B,): the
+    valid keys of each row's cache, the rest masked. Without grad only:
+    their backward raises (ROADMAP.md item 10b.1)."""
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            window=int(window), causal=causal,
-                           prefix_len=int(prefix_len), chunk=chunk)
+                           prefix_len=int(prefix_len), chunk=chunk,
+                           q_offset=int(q_offset), kv_valid_len=kv_valid_len)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -93,6 +111,72 @@ def attention_forward(params, x, cfg: ModelConfig, *, positions=None,
                             prefix_len=cfg.prefix_lm_prefix,
                             chunk=min(cfg.attn_chunk, S))
     return out.reshape(B, S, -1) @ params["wo"]
+
+
+class KVCache(NamedTuple):
+    """Decode cache. Full attention: capacity = context length. Sliding
+    window: capacity = window (ring buffer, positions tracked). In a
+    decode state each field carries a leading layer axis."""
+    k: torch.Tensor          # (B, cap, KVH, D)
+    v: torch.Tensor          # (B, cap, KVH, D)
+    pos: torch.Tensor        # (B, cap) absolute positions, -1 = empty
+    length: torch.Tensor     # (B,) tokens seen so far
+
+
+def make_kv_cache(cfg: ModelConfig, batch: int, context: int, dtype,
+                  window_override: Optional[int] = None,
+                  device="cuda") -> KVCache:
+    """An empty cache of capacity ``min(context, window)`` when a window
+    is given (the config's, or ``window_override``), else ``context``;
+    ``pos`` and ``length`` int64 (the reference's are int32)."""
+    hd = cfg.resolved_head_dim
+    window = cfg.sliding_window if window_override is None \
+        else window_override
+    cap = min(context, window) if window else context
+    shape = (batch, cap, cfg.num_kv_heads, hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, cap), -1, dtype=torch.long, device=device),
+        length=torch.zeros((batch,), dtype=torch.long, device=device))
+
+
+def attention_decode(params, x, cfg: ModelConfig, cache: KVCache, *,
+                     layer_window=None):
+    """One token x (B, 1, d) against the cache -> (out (B, 1, d), cache):
+    RoPE at each row's position ``length``, k and v written in place at
+    slot ``length % cap`` (a ring buffer for a windowed cache; a full
+    cache wraps there too, as the reference's), the scores masked by the
+    stored positions and the window; scores, softmax and P·V in f32, the
+    output cast to x's dtype."""
+    B = x.shape[0]
+    window = int(cfg.sliding_window if layer_window is None
+                 else layer_window)
+    pos = cache.length.clone()                             # (B,)
+    q, k, v = _project_qkv(params, x, cfg)                 # S = 1
+    # one RoPE call for q and k (the same positions; elementwise per head)
+    q, k = apply_rope(torch.cat([q, k], dim=2), pos[:, None],
+                      cfg.rope_theta).split([q.shape[2], k.shape[2]], dim=2)
+    cap = cache.k.shape[1]
+    slot = pos % cap
+    bidx = torch.arange(B, device=x.device)
+    cache.k.index_put_((bidx, slot), k[:, 0])
+    cache.v.index_put_((bidx, slot), v[:, 0])
+    cache.pos.index_put_((bidx, slot), pos)
+    cache.length.add_(1)
+    kp = cache.pos                                         # (B, cap)
+    allow = (kp >= 0) & (kp <= pos[:, None])
+    if window > 0:
+        allow = allow & (pos[:, None] - kp < window)
+    KVH, D = cfg.num_kv_heads, q.shape[-1]
+    qf = q.reshape(B, 1, KVH, -1, D).float()               # (B,1,KVH,G,D)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(D)))
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf * scale, cache.k.float())
+    s = s.masked_fill(~allow[:, None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p, cache.v.float())
+    o = o.reshape(B, 1, cfg.num_heads * v.shape[-1]).to(x.dtype)
+    return o @ params["wo"], cache
 
 
 def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -186,3 +270,67 @@ def mla_forward(params, x, cfg: ModelConfig, *, positions=None):
     out = chunked_attention(q, k, v, causal=True,
                             chunk=min(cfg.attn_chunk, S))
     return out.reshape(B, S, -1) @ params["wo"]
+
+
+class MLACache(NamedTuple):
+    """MLA's decode cache: the compressed latents and the rope keys, the
+    expanded k and v never stored."""
+    c_kv: torch.Tensor       # (B, cap, kv_lora)
+    k_rope: torch.Tensor     # (B, cap, rope_dim)
+    length: torch.Tensor     # (B,)
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, context: int, dtype,
+                   device="cuda") -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, context, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, context, m.qk_rope_head_dim),
+                           dtype=dtype, device=device),
+        length=torch.zeros((batch,), dtype=torch.long, device=device))
+
+
+def mla_decode(params, x, cfg: ModelConfig, cache: MLACache):
+    """Absorbed-form decode of one token x (B, 1, d) -> (out, cache):
+    the latent query q_nope · W_UK, scores = latent + rope part, the
+    output o_lat · W_UV, all in f32, so the cache holds only (kv_lora +
+    rope_dim) a token. The latent and rope key are written in place at
+    each row's position; a row at or past the cache's capacity writes
+    nothing (the reference's scatter drops it), and attends to the cache
+    as it is."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.num_heads
+    pos = cache.length.clone()
+    q_nope, q_rope = _mla_q(params, x, cfg)              # (B, 1, H, .)
+    c_kv, k_rope = _mla_latent(params, x, cfg)           # (B, 1, .)
+    q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos[:, None],
+                        cfg.rope_theta)[:, :, 0]
+    cap = cache.c_kv.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    slot = torch.clamp(pos, max=cap - 1)
+    keep = (pos < cap)[:, None]         # no host sync: a dropped row
+    cache.c_kv.index_put_((bidx, slot), torch.where(      # rewrites its
+        keep, c_kv[:, 0], cache.c_kv[bidx, slot]))        # slot's value
+    cache.k_rope.index_put_((bidx, slot), torch.where(
+        keep, k_rope[:, 0], cache.k_rope[bidx, slot]))
+    cache.length.add_(1)
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,chd->bqhc", q_nope.float(), w_uk.float())
+    ckv = cache.c_kv.float()
+    s_lat = torch.einsum("bqhc,bkc->bhqk", q_lat, ckv)
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                          cache.k_rope.float())
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(m.qk_nope_head_dim + m.qk_rope_head_dim)))
+    s = (s_lat + s_rope) * scale
+    allow = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
+    s = s.masked_fill(~allow[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqk,bkc->bqhc", p, ckv)
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bqhc,chd->bqhd", o_lat, w_uv.float())
+    o = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+    return o @ params["wo"], cache

@@ -19,9 +19,16 @@ QG-DSGDm-N trains params in place.
   MLA and ``mtp_*`` leaves cross as they are.
   bf16 crosses as f32 and is cast back, which is exact: numpy's
   bfloat16 (``ml_dtypes``) is not a type ``torch.from_numpy`` takes.
+* Decode state (:func:`from_jax_decode_state`,
+  :func:`to_jax_decode_state`): the list of per-segment dicts that
+  ``DecoderModel.init_decode_state`` makes in either package, each cache
+  (``KVCache``, ``MLACache``, ``SSMState``) a named tuple of arrays with a
+  leading layer axis; dtypes kept, but for the positions and lengths,
+  int32 in the reference and int64 in the port.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict
 
 import numpy as np
@@ -115,3 +122,56 @@ def to_jax_lm_params(params: Dict[str, torch.Tensor]):
             node = node.setdefault(p, {})
         node[leaf] = a
     return tree
+
+
+def _decode_types():
+    from repro_torch.models.attention import KVCache, MLACache
+    from repro_torch.models.ssm import SSMState
+    return {t.__name__: t for t in (KVCache, MLACache, SSMState)}
+
+
+def _to_torch(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    if a.dtype.kind in "iu":
+        return torch.from_numpy(a.astype(np.int64)).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_jax_decode_state(states, device="cuda"):
+    """The reference's decode state (per segment {name: cache}, each cache
+    a named tuple of arrays) -> the port's, on ``device``: the caches'
+    own types (``attention.KVCache``, ``attention.MLACache``,
+    ``ssm.SSMState``), matched by name."""
+    device = resolve_device(device)
+    types = _decode_types()
+    return [{name: types[type(c).__name__](
+        *(_to_torch(a, device) for a in c)) for name, c in seg.items()}
+        for seg in states]
+
+
+def to_jax_decode_state(states):
+    """The port's decode state -> numpy, each cache a named tuple of the
+    reference's name and fields (which JAX takes as a pytree node): bf16
+    as ``ml_dtypes.bfloat16``, positions and lengths int32."""
+    out = []
+    for seg in states:
+        d = {}
+        for name, c in seg.items():
+            fields = []
+            for t in c:
+                t = t.detach().cpu()
+                if t.dtype == torch.bfloat16:
+                    import ml_dtypes
+                    a = t.float().numpy().astype(ml_dtypes.bfloat16)
+                elif t.dtype == torch.long:
+                    a = t.numpy().astype(np.int32)
+                else:
+                    a = t.numpy()
+                fields.append(a)
+            d[name] = collections.namedtuple(type(c).__name__,
+                                             c._fields)(*fields)
+        out.append(d)
+    return out

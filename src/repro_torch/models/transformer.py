@@ -31,8 +31,18 @@ layers into :meth:`forward_features`' aux and weighted by
 ``router_aux_coef`` in :meth:`loss`), DeepSeek-V3's multi-head latent
 attention and its multi-token prediction (``mtp_proj``, ``mtp_layer``,
 ``mtp_ln``; one extra layer predicting the token after next, 0.1 of
-its loss added). Decode (ROADMAP.md item 10b) raises
-``NotImplementedError``.
+its loss added).
+
+Decode (:meth:`DecoderModel.init_decode_state`,
+:meth:`DecoderModel.decode_step`) takes one model's params, what
+:meth:`init` and ``launch.steps.consensus_params`` return, not the
+node-stacked tree: per segment a dict of per-layer caches stacked on a
+leading layer axis (``"kv"``: ``attention.KVCache``, or
+``attention.MLACache`` for MLA; ``"ssm"``: ``ssm.SSMState``), a ring of
+capacity ``window`` only when every layer is windowed. A step embeds the
+tokens alone, as the reference's does: Hymba's meta tokens and a VLM's
+patches, which the forward pass puts first, are not read (a fault of the
+reference, kept; ROADMAP.md §3). The caches are written in place.
 """
 from __future__ import annotations
 
@@ -126,6 +136,50 @@ def _layer_forward(p: Params, x, cfg: ModelConfig, kind: str, window: int,
             y = apply_mlp(sub(p, "mlp/"), h, cfg)
         x = x + y
     return x, aux
+
+
+def _mix_decode(p: Params, h, cfg: ModelConfig, window: int, state):
+    """One token's token-mixing sub-block against the layer's ``state``
+    (updated in place)."""
+    if cfg.hybrid_parallel:
+        a, _ = attn.attention_decode(sub(p, "attn/"), h, cfg, state["kv"],
+                                     layer_window=window)
+        s, _ = ssm_mod.ssm_decode(sub(p, "ssm/"), h, cfg, state["ssm"])
+        return 0.5 * (rms_norm_f32(a, p["attn_branch_norm"], cfg.norm_eps)
+                      + rms_norm_f32(s, p["ssm_branch_norm"], cfg.norm_eps))
+    if cfg.ssm.enabled:
+        return ssm_mod.ssm_decode(sub(p, "ssm/"), h, cfg, state["ssm"])[0]
+    if cfg.mla.enabled:
+        return attn.mla_decode(sub(p, "attn/"), h, cfg, state["kv"])[0]
+    return attn.attention_decode(sub(p, "attn/"), h, cfg, state["kv"],
+                                 layer_window=window)[0]
+
+
+def _layer_decode(p: Params, x, cfg: ModelConfig, kind: str, window: int,
+                  state, memory=None):
+    """One layer of a decode step: the mixer against the layer's state,
+    the cross-attention block over ``memory`` (recomputed every step, no
+    cross K/V cache, as the reference's), the FFN (MoE over the B
+    tokens; its aux dropped)."""
+    h = apply_norm(sub(p, "ln1/"), x, cfg)
+    x = x + _mix_decode(p, h, cfg, window, state)
+    if cfg.cross_attention and memory is not None:
+        h = apply_norm(sub(p, "ln_cross/"), x, cfg)
+        x = x + attn.cross_attention_forward(sub(p, "cross/"), h, memory,
+                                             cfg)
+    if "ln2/scale" in p:
+        h = apply_norm(sub(p, "ln2/"), x, cfg)
+        if kind == "moe":
+            y, _ = moe_mod.moe_forward(sub(p, "moe/"), h, cfg)
+        else:
+            y = apply_mlp(sub(p, "mlp/"), h, cfg)
+        x = x + y
+    return x
+
+
+def _layer_state(state, li: int):
+    """Layer ``li``'s caches: views into the segment's stacked ones."""
+    return {name: type(c)(*(t[li] for t in c)) for name, c in state.items()}
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -419,10 +473,65 @@ class DecoderModel:
         return 0.1 * ((lse - gold) * mask).sum((1, 2)) / torch.clamp(
             mask.sum((1, 2)), min=1.0)
 
-    def init_decode_state(self, batch: int, context: int):
-        raise NotImplementedError("decode (KV cache, SSM state) is not "
-                                  "ported (ROADMAP.md item 10b)")
+    # -- decode (one model) --------------------------------------------
+    def init_decode_state(self, batch: int, context: int, device="cuda"):
+        """Empty decode state on ``device``: per segment {"kv": a
+        ``KVCache`` (capacity ``context``, or the window when every layer
+        is windowed) or an ``MLACache``; "ssm": an ``SSMState``}, each
+        field stacked on a leading layer axis."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        dev = resolve_device(device)
+        states = []
+        for seg in self.segments:
+            st = {}
+            if cfg.ssm.enabled:
+                st["ssm"] = ssm_mod.make_ssm_state(cfg, batch, dtype, dev)
+            if cfg.mla.enabled:
+                st["kv"] = attn.make_mla_cache(cfg, batch, context, dtype,
+                                               dev)
+            elif not cfg.is_attention_free:
+                # one cache shape for every layer of the segment: a ring
+                # of capacity window only when every layer is windowed
+                uniform = cfg.sliding_window and not cfg.global_attn_every
+                st["kv"] = attn.make_kv_cache(
+                    cfg, batch, context, dtype,
+                    window_override=cfg.sliding_window if uniform else 0,
+                    device=dev)
+            L = seg.num_layers
+            states.append({name: type(c)(*(
+                t[None].expand((L,) + t.shape).clone() for t in c))
+                for name, c in st.items()})
+        return states
+
+    def _logits_one(self, p: Params, h):
+        """One model's logits (..., V), or (..., K, V) through K
+        codebook heads."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            return h @ p["embed"].transpose(0, 1)
+        if cfg.num_codebooks > 1:
+            return torch.einsum("...d,kdv->...kv", h, p["head"])
+        return h @ p["head"]
 
     def decode_step(self, params: Params, tokens, states, memory=None):
-        raise NotImplementedError("decode (KV cache, SSM state) is not "
-                                  "ported (ROADMAP.md item 10b)")
+        """One decode step of one model: tokens (B, 1[, K]) against
+        ``states`` (from :meth:`init_decode_state`, updated in place),
+        ``memory`` (B, Sk, d) the conditioning a cross-attention model
+        reads -> (logits (B, 1[, K], V), states)."""
+        cfg = self.cfg
+        dev, dtype = params["embed"].device, params["embed"].dtype
+        tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
+        if memory is not None:
+            memory = torch.as_tensor(memory).to(device=dev, dtype=dtype)
+        h = self._embed(params, tokens)
+        for si, (seg, windows) in enumerate(zip(self.segments,
+                                                self._segment_windows())):
+            layers = {k: torch.unbind(v)
+                      for k, v in sub(params, f"layers_{si}/").items()}
+            for li, window in enumerate(windows):
+                h = _layer_decode({k: v[li] for k, v in layers.items()}, h,
+                                  cfg, seg.kind, window,
+                                  _layer_state(states[si], li), memory)
+        h = apply_norm(sub(params, "ln_f/"), h, cfg)
+        return self._logits_one(params, h), states

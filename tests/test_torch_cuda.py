@@ -789,3 +789,117 @@ def test_cuda_compressed_mixer_step_matches_cpu(kind, gossip):
         torch.testing.assert_close(out["cuda", "y"][k].float(),
                                    out["cpu", "y"][k].float(),
                                    atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,G,N,split", [
+    (2, 2176, 50, 64, 1, 16, 1000),         # Hymba-1.5B's layout
+    (2, 2176, 48, 64, 1, 128, 1000),        # Mamba-2-780M's state size
+    (2, 100, 4, 16, 2, 8, 37),
+    (1, 40, 4, 32, 4, 12, 21),              # one tile: the final state
+    (1, 128, 3, 16, 3, 8, 64)])             # the split on a tile edge
+def test_cuda_ssd_scan_state_matches_plain(B, S, H, P, G, N, split):
+    """On the card: ssd_scan from a random initial state with its final
+    state, y and h_T by the float64 rule of
+    test_cuda_ssd_scan_matches_plain; the continuation identity (split at
+    ``split``: the second part from the first's h_T) within the same
+    rule; with grad on, an initial state raises and the final state has
+    no gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, S, H, P), generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    a = -torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+    xdt, dta = (x * dt[..., None]).contiguous(), (dt * a).contiguous()
+    b = torch.randn((B, S, G, N), generator=g, device="cuda")
+    c = torch.randn((B, S, G, N), generator=g, device="cuda")
+    h0 = torch.randn((B, H, P, N), generator=g, device="cuda")
+    n0, m0 = ssd_scan.launches, dict(ssd_scan.launches_by_mode)
+    y, h = ssd_scan(xdt, dta, b, c, chunk=64, initial_state=h0,
+                    return_final_state=True)
+    assert ssd_scan.launches == n0 + 1
+    assert ssd_scan.launches_by_mode == {"y": m0["y"],
+                                         "state": m0["state"] + 1}
+    ins = (xdt, dta, b, c)
+    ey, eh = ssd_scan_plain(*(t.double() for t in ins), chunk=64,
+                            initial_state=h0.double(),
+                            return_final_state=True)
+    py, ph = ssd_scan_plain(*ins, chunk=64, initial_state=h0,
+                            return_final_state=True)
+    for got, plain, exact in ((y, py, ey), (h, ph, eh)):
+        e_plain = (plain.double() - exact).abs().max()
+        assert (got.double() - exact).abs().max() <= 4 * e_plain + 1e-5
+    y1, h1 = ssd_scan(*(t[:, :split].contiguous() for t in ins), chunk=64,
+                      initial_state=h0, return_final_state=True)
+    y2, h2 = ssd_scan(*(t[:, split:].contiguous() for t in ins), chunk=64,
+                      initial_state=h1, return_final_state=True)
+    e_plain = (py.double() - ey).abs().max()
+    assert (torch.cat([y1, y2], 1).double() - ey).abs().max() \
+        <= 4 * e_plain + 1e-5
+    e_plain = (ph.double() - eh).abs().max()
+    assert (h2.double() - eh).abs().max() <= 4 * e_plain + 1e-5
+    xg = xdt.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_scan(xg, dta, b, c, chunk=64, initial_state=h0)
+    yg, hg = ssd_scan(xg, dta, b, c, chunk=64, return_final_state=True)
+    assert yg.requires_grad and not hg.requires_grad
+    m1 = dict(ssd_scan.launches_by_mode)
+    ssd_scan(xdt, dta, b, c, chunk=64)
+    assert ssd_scan.launches_by_mode == {"y": m1["y"] + 1,
+                                         "state": m1["state"]}
+
+
+# (B, Sq, Sk, H, KVH, D, window, q_offset, kv_valid)
+OFFSET = [(4, 512, 2048, 16, 8, 128, 0, 1536, None),   # Qwen3 prefill
+          (4, 1, 2048, 16, 8, 128, 0, 2047, [1, 700, 2048, 1500]),
+          (2, 64, 1164, 25, 5, 64, 1024, 1100, None),   # Hymba windowed
+          (2, 5, 300, 4, 2, 64, 0, 17, [22, 300]),
+          (2, 1, 40, 4, 2, 32, 3, 30, [31, 5]),         # row 1 sees none
+          (1, 70, 200, 4, 4, 96, 20, 100, [0]),          # no key at all
+          (2, 3, 256, 8, 1, 256, 0, 250, [253, 100])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,window,off,valid", OFFSET)
+def test_cuda_flash_attention_offset_matches_plain(dtype, B, Sq, Sk, H, KVH,
+                                                   D, window, off, valid):
+    """On the card: flash_attention's offset mode (q_offset,
+    kv_valid_len) against its plain version, both variants (f32 SIMT,
+    bf16 tc where the head_dim has it), by the other flash rows' rule
+    (2e-5 f32, 2e-2 bf16) on the rows that see a key; a row that sees
+    none is 0 (the kernels' deliberate difference); the launch counted
+    as "offset"; with grad on it raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see README.md)")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(dt)
+    kv = None if valid is None else torch.tensor(valid, device="cuda")
+    kw = dict(window=window, q_offset=off, kv_valid_len=kv)
+    variant = ops._variant(dt, D)
+    n0 = flash_attention.launches_by_mode["offset"][variant]
+    out = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches_by_mode["offset"][variant] == n0 + 1
+    ref = flash_attention_plain(q, k, v, **kw)
+    pos = off + torch.arange(Sq, device="cuda")
+    kp = torch.arange(Sk, device="cuda")
+    lim = torch.full((B,), Sk, device="cuda") if kv is None else kv
+    sees = ((kp[None, None] <= pos[None, :, None])
+            & (kp[None, None] < lim[:, None, None])
+            & ((window <= 0) | (pos[None, :, None] - kp[None, None] < window))
+            ).any(-1)                                           # (B, Sq)
+    atol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float()[sees], ref.float()[sees],
+                               atol=atol, rtol=0)
+    assert bool((out[~sees] == 0).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q.clone().requires_grad_(True), k, v, **kw)

@@ -104,7 +104,7 @@ def _ssd_truth(x, dt, a_log, b, c, dy, chunk):
     torch autograd): the yardstick of the f32 parity rule."""
     ins = [torch.tensor(a, dtype=torch.float64).requires_grad_(True)
            for a in (x, dt, a_log, b, c)]
-    tssm.ssd_chunked(*ins, chunk=chunk).backward(
+    tssm.ssd_chunked(*ins, chunk=chunk)[0].backward(
         torch.tensor(dy, dtype=torch.float64))
     return [g.grad.numpy() for g in ins]
 
@@ -140,7 +140,7 @@ def test_ssd_backward_matches_jax_vjp():
     exact = _ssd_truth(x, dt, a_log, b, c, dy, 16)
 
     ins = [t(a).requires_grad_(True) for a in (x, dt, a_log, b, c)]
-    tssm.ssd_chunked(*ins, chunk=16).backward(t(dy))
+    tssm.ssd_chunked(*ins, chunk=16)[0].backward(t(dy))
     tx, tdt, ta, tb, tc = (t(a) for a in (x, dt, a_log, b, c))
     A = -torch.exp(ta)
     dxdt, ddta, db, dc = ssd_scan_bwd((tx * tdt[..., None]).contiguous(),
@@ -196,7 +196,7 @@ def test_ssd_backward_steep_decays_and_chunk_one():
         ref = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
         exact = _ssd_truth(x, dt, a_log, b, c, dy, chunk)
         ins = [t(a).requires_grad_(True) for a in (x, dt, a_log, b, c)]
-        tssm.ssd_chunked(*ins, chunk=chunk).backward(t(dy))
+        tssm.ssd_chunked(*ins, chunk=chunk)[0].backward(t(dy))
         for name, g, r, e in zip(SSD_NAMES, ins, ref, exact):
             _no_less_exact(g.grad.numpy(), r, e, f"chunk {chunk} d{name}")
 

@@ -68,8 +68,11 @@ def test_flash_plain_matches_chunked_attention(window, S, chunk):
 
 
 def test_flash_plain_keeps_bf16_and_unported_masks_raise():
-    """bf16 stays bf16; q_offset and kv_valid_len raise, naming
-    ROADMAP.md. causal=False, ported with MusicGen's cross-attention, is
+    """bf16 stays bf16; q_offset and kv_valid_len, ported with the
+    serving path (tests/test_torch_serve.py holds them to the reference
+    at more shapes), match the reference's, and beside the prefix-LM
+    mask, which nothing calls so, they raise. causal=False, ported with
+    MusicGen's cross-attention, is
     bidirectional attention against the reference's
     (tests/test_torch_musicgen.py holds it at Sk != Sq), and so is the
     prefix-LM mask over a prefix as long as the sequence (ported with
@@ -77,10 +80,16 @@ def test_flash_plain_keeps_bf16_and_unported_masks_raise():
     rng = np.random.default_rng(2)
     q = t(_normal(rng, (1, 20, 2, 32))).bfloat16()
     assert flash_attention(q, q, q, window=4).dtype == torch.bfloat16
-    for kw in ({"q_offset": 3}, {"kv_valid_len": torch.ones(1)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            chunked_attention(q, q, q, **kw)
     qf = q.float()
+    for kw in ({"q_offset": 3}, {"kv_valid_len": [13]}):
+        ref = np.asarray(j_chunked_attention(
+            *(jnp.asarray(qf.numpy()),) * 3, chunk=8,
+            **{k: jnp.asarray(v) for k, v in kw.items()}))
+        out = chunked_attention(qf, qf, qf, chunk=8, **{
+            k: torch.tensor(v) for k, v in kw.items()})
+        np.testing.assert_allclose(out.numpy(), ref, atol=FLASH_F32)
+        with pytest.raises(ValueError, match="prefix"):
+            chunked_attention(q, q, q, prefix_len=4, **kw)
     ref = np.asarray(j_chunked_attention(*(jnp.asarray(qf.numpy()),) * 3,
                                          causal=False, chunk=8))
     out = chunked_attention(qf, qf, qf, causal=False, chunk=8)
@@ -121,13 +130,22 @@ def test_ssd_chunked_matches_reference_grouped(S, chunk):
     x, dt, a_log, b, c = _ssd_inputs(rng, 2, S, 4, 16, 2, 8)
     ref, _ = j_ssd_chunked(*map(jnp.asarray, (x, dt, a_log, b, c)),
                            chunk=chunk)
-    out = ssd_chunked(t(x), t(dt), t(a_log), t(b), t(c), chunk=chunk)
+    out, _ = ssd_chunked(t(x), t(dt), t(a_log), t(b), t(c), chunk=chunk)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                atol=SSD_VS_CHUNKED, rtol=SSD_VS_CHUNKED)
 
 
 def test_ssd_scan_takes_no_initial_state():
-    z = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_scan(z, z[..., 0], z[..., :4], z[..., :4], chunk=4,
-                 initial_state=torch.zeros((1, 2, 16, 4)))
+    """An initial state of zeros is the scan from no state, and the final
+    state comes back only when asked for (the initial / final state mode
+    is held to the reference in tests/test_torch_serve.py)."""
+    rng = np.random.default_rng(5)
+    x = t(_normal(rng, (1, 8, 2, 16)))
+    dta = -t(np.abs(_normal(rng, (1, 8, 2))))
+    bc = t(_normal(rng, (1, 8, 1, 4)))
+    y = ssd_scan(x, dta, bc, bc, chunk=4)
+    y0, h = ssd_scan(x, dta, bc, bc, chunk=4,
+                     initial_state=torch.zeros((1, 2, 16, 4)),
+                     return_final_state=True)
+    torch.testing.assert_close(y0, y, atol=0, rtol=0)
+    assert h.shape == (1, 2, 16, 4) and bool(torch.isfinite(h).all())

@@ -278,7 +278,9 @@ def consensus_and_stack(model):
 
 
 def test_unported_decoder_features_raise():
-    """Decode raises, naming ROADMAP.md; MoE, MLA and multi-token
+    """Decode, ported with the serving path, steps a reduced Hymba
+    (tests/test_torch_decode.py holds it to the reference); MoE, MLA and
+    multi-token
     prediction, ported with DeepSeek-V3 and Arctic, codebooks and
     cross-attention, ported with MusicGen, and VLM patches, ported with
     PaliGemma, build (tests/test_torch_moe_mla.py,
@@ -295,7 +297,12 @@ def test_unported_decoder_features_raise():
                {"arch_type": "vlm"}):
         assert DecoderModel(base.replace(**kw)).cfg == base.replace(**kw)
     model = DecoderModel(base)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_decode_state(1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.decode_step({}, None, None)
+    state = model.init_decode_state(1, 16, device="cpu")
+    assert set(state[0]) == {"kv", "ssm"}
+    assert state[0]["kv"].k.shape[:3] == (base.num_layers, 1, 16)
+    logits, state = model.decode_step(model.init(0, "cpu"),
+                                      torch.zeros((1, 1), dtype=torch.long),
+                                      state)
+    assert logits.shape == (1, 1, base.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert state[0]["kv"].length.tolist() == [[1]] * base.num_layers
