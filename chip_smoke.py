@@ -217,7 +217,11 @@ SHARD (after GOSSIP). the sharded driver (``driver_mode="shard"``) on 4
    the top-k cases also one mixer step and TRAJ_STEPS steps from the
    round's state against the node-stacked ones; RelaySGD,
    churn and wire faults refused first; wall time a step, each rank's
-   peak;
+   peak; then (a) with durable snapshots: snapshotted at every boundary
+   (rank 0 writes the whole federation), crashed 5 steps past the round
+   and resumed, equal to the uninterrupted sharded run within SHARD's
+   bound on every rank, and its snapshot resuming the node-stacked run,
+   which ends within that bound of the node-stacked run;
 LM-13. the LM round at Hymba-1.5B's width with ``model_parallel`` 2 on 2
    ranks (every ``head_select`` launch the tensor-core raw_stats mode)
    against the unsharded round on the same params; phase 2 and LM-1
@@ -252,6 +256,26 @@ SERVE (after LM-14). the serving path at full width: (a)
    ``attention_decode`` on (a)'s caches; (d) ``ssd_scan``'s initial /
    final state mode at Hymba's and Mamba-2's shapes, y, h_T and the
    continuation over a split, by the float64 rule, timed.
+LM-4 dots (after LM-4). Hymba-1.5B under remat_policy "dots" (each
+   layer's projections saved, the rest recomputed): one node's loss and
+   gradients at full width against per-layer recompute's, leaf by leaf,
+   within twice the distance between two per-layer recompute runs (or
+   one bf16 ulp of the leaf's largest gradient where those agree
+   bitwise); then 2 plain steps at the first of 4, 3, 2 ring nodes that
+   fits under 72 GiB, and under per-layer recompute at the same count:
+   step times and peaks, the losses equal to bf16 rounding, every flash
+   and SSD kernel launched (flash on the tensor cores).
+DRYRUN (last). the dry run (``launch.dryrun``) on the meta device over
+   the single-pod production mesh (data 16 x model 16): one arch of each
+   family at decode_32k (Qwen3-1.7B, Mamba-2-780M, Hymba-1.5B,
+   DeepSeek-V3; the rest and train_4k left out for time), argument and
+   temp GiB a device and the dominant roofline term each; then the
+   estimate held to the card: a Qwen3-1.7B bf16 train step of one node
+   (1 x 2048 tokens) on ``make_host_mesh(1, 1)``, argument bytes equal
+   to its inputs' bytes and within 1% of the allocator's rise, its peak
+   within 0.5-2x of argument plus temp bytes (the ratio printed). Its
+   traces on the meta device run in a thread while ``nvcc`` builds the
+   kernels (phase 1); the phase prints them and runs the card's step.
 
 Each phase prints its seconds. It then prints one ``{"kernels": [...]}``
 line and, last, one line ``{"ok": true, "device": {...}}``. It imports
@@ -270,6 +294,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -354,7 +379,8 @@ GRID_METHODS = ("sgd-centralized", "dsgd", "relay-sgd", "qg-dsgdm-n+kd",
                 "d2", "gradient-tracking")
 GRID_STEPS, GRID_ROUND, GRID_EVAL = 120, 60, 30
 PAPER_STEPS = 200            # PAPER: each cell's depth (the harness's
-                             # own is 300)
+                             # own is 300; at 120 the noise cell's KD
+                             # phase has not recovered its NLL spike)
 PAPER_ALPHA = 0.05           # PAPER: Table 2's most skewed column
 PAPER_NLL_MARGIN = 0.05      # PAPER: a final eval NLL within this of ln 10
                              # (10 classes) is a constant predictor
@@ -409,6 +435,9 @@ LM14_STEPS = 3               # LM-14: plain steps (PERF.md's reckoning)
 SHARD_RANKS = 4              # SHARD: ranks sharing the card (gloo)
 SHARD_STEPS, SHARD_ROUND = 60, 30   # SHARD: 30 plain steps, the round,
                              # 30 KD steps (ring, 1-D and 2 x 2)
+SHARD_SNAP_CRASH = 5         # SHARD (a)'s snapshot run: a crash this many
+#                              steps past the round, after a snapshot at
+#                              every eval boundary and the crash's own
 SHARD_SHORT_STEPS, SHARD_SHORT_ROUND = 20, 10   # SHARD's complete-graph
                              # and top-k cases
 TOPK = ("topk", 0.01)        # the compressed wire of SHARD and GOSSIP
@@ -452,6 +481,30 @@ RAW_Z_RTOL = 1e-4            # head_select raw_stats: z, the sum of exp
                              # relative: the tc kernel takes ex2.approx
                              # and sums in its own order (at the finalized
                              # conf = 1/z that is far inside ATOL)
+LM_DOTS_NODES = (4, 3, 2)    # LM-4 under remat "dots": the first node
+#                              count whose "dots" run fits under
+#                              TRAIN_PEAK_GIB (Hymba saves ~49 KB a token
+#                              and a layer more than per-layer recompute)
+LM_DOTS_STEPS = 2            # ... plain steps of each policy
+BF16_LOSS_RTOL = 2 ** -8     # ... the two policies' losses: bf16 rounding
+DOTS_NOISE_MULT = 2          # LM-4 dots' gradients, one node, per leaf:
+#                              "dots" within this many times the distance
+#                              between two per-layer recompute runs (the
+#                              card's run-to-run noise), or within one
+#                              bf16 ulp of the leaf's largest gradient
+#                              where those two runs agree bitwise
+DRYRUN_SHAPE = "decode_32k"  # DRYRUN's shape (1-4 s an arch; a
+#                              train_4k trace takes ~11 s, past the
+#                              script's budget: the card check's train
+#                              step stands for it) ...
+DRYRUN_ARCHS = ("qwen3-1.7b", "mamba2-780m", "hymba-1.5b",
+                "deepseek-v3-671b")   # ... for one arch of each family
+#                              (dense, SSM, hybrid, MoE + MLA): the budget's
+#                              subset; `--all` runs every one
+DRYRUN_HOST_TOKENS = 2048    # DRYRUN: the card's Qwen3-1.7B step, one
+#                              sequence of this length on one card
+DRYRUN_ARG_RTOL = 0.01       # ... argument bytes against the allocator
+DRYRUN_PEAK_BAND = (0.5, 2.0)   # ... peak over argument + temp bytes
 SERVE_REQUESTS, SERVE_SLOTS = 8, 4   # SERVE (a): the reference CLI's
                              # default requests and slots
 # The serving phase's time cuts, in the order the budget (SERVE at most
@@ -4662,6 +4715,308 @@ def phase_serve(torch):
                 figures=figures)
 
 
+# ---------------------------------------------- remat "dots", the dry run
+def _policy_steps(torch, policy, nodes):
+    """LM_DOTS_STEPS plain steps of Hymba-1.5B at full width
+    (``lmpath.train_steps``) under ``policy``, the kernel counts set to 0
+    before and read after: (the run's steps and peak, launches,
+    variants, launches by head_dim)."""
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    fns = (flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd)
+    _zero_counts(*fns)
+    tcfg = dataclasses.replace(lmpath.TRAIN, num_nodes=nodes, idkd=None)
+    out = lmpath.train_steps(lmpath.CONFIG.replace(remat_policy=policy),
+                             tcfg, seq_len=lmpath.SEQ_LEN,
+                             steps=LM_DOTS_STEPS)
+    del out["params"]
+    launches = {f.__name__: f.launches for f in fns}
+    variants = {f.__name__: dict(f.launches_by_variant)
+                for f in fns[:2]}
+    by_dim = {f.__name__: dict(f.launches_by_head_dim) for f in fns[:2]}
+    return out, launches, variants, by_dim
+
+
+def _ulp(x, mantissa):
+    """One unit in the last place at |x| for a float with ``mantissa``
+    fraction bits (7 for bf16, 23 for f32); 0 at 0."""
+    x = abs(x)
+    return 2.0 ** (math.floor(math.log2(x)) - mantissa) if x > 0 else 0.0
+
+
+def _dots_grads(torch):
+    """One Hymba-1.5B node's loss and gradient on every leaf at full width
+    (bf16, one batch of 2 x 2048 tokens from ``lmpath.train_batch``):
+    under per-layer recompute twice, then under "dots" with the kernel
+    counts set to 0 before and read after. Returns the losses and the
+    gradients by run, and the "dots" run's launches."""
+    from repro_torch import lmpath
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.models.transformer import DecoderModel
+    fns = (flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd)
+    params = lmpath.node_params(DecoderModel(lmpath.CONFIG), [0], "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(lmpath.DATA_SEED)
+    batch = lmpath.train_batch(lmpath.CONFIG, 1, lmpath.TRAIN.batch_size,
+                               lmpath.SEQ_LEN, gen)
+    keys = list(params)
+    losses, grads, launches = {}, {}, None
+    for run in ("nothing", "repeat", "dots"):
+        model = DecoderModel(lmpath.CONFIG.replace(
+            remat_policy="dots" if run == "dots" else "nothing"))
+        ps = [params[k].detach().requires_grad_(True) for k in keys]
+        if run == "dots":
+            _zero_counts(*fns)
+        loss, _ = model.loss(dict(zip(keys, ps)), batch)
+        g = torch.autograd.grad(loss.sum(), ps, materialize_grads=True)
+        torch.cuda.synchronize()
+        if run == "dots":
+            launches = {f.__name__: f.launches for f in fns}
+        losses[run] = float(loss.detach().sum())
+        grads[run] = dict(zip(keys, g))
+        del loss, g, ps
+    return losses, grads, launches
+
+
+def _dots_grads_check(torch):
+    """LM-4 dots' gradient check (:func:`_dots_grads`): on every leaf,
+    "dots"' largest distance from per-layer recompute's gradient within
+    DOTS_NOISE_MULT x the two per-layer recompute runs' distance, or
+    within one bf16 ulp of the leaf's largest gradient where those two
+    agree bitwise; every gradient finite; the loss by the same rule (one
+    f32 ulp); every flash and SSD kernel, forward and backward, launched
+    under "dots"."""
+    from repro_torch import lmpath
+    t0 = time.perf_counter()
+    losses, grads, launches = _dots_grads(torch)
+    ref, rep, dots = grads["nothing"], grads["repeat"], grads["dots"]
+    bad, worst, exact, noisy = [], (0.0, None), 0, 0
+    for k, r in ref.items():
+        r = r.float()
+        check(bool(r.isfinite().all()) and bool(dots[k].isfinite().all()),
+              f"LM-4 dots: a non-finite gradient of {k}")
+        noise = float((rep[k].float() - r).abs().max())
+        d = float((dots[k].float() - r).abs().max())
+        tol = max(DOTS_NOISE_MULT * noise, _ulp(float(r.abs().max()), 7))
+        exact += d == 0
+        noisy += noise > 0
+        if d > tol:
+            bad.append((k, d, noise, tol))
+        if tol > 0 and d / tol >= worst[0]:
+            worst = (d / tol, k)
+    n_leaves = len(ref)
+    del grads, ref, rep, dots
+    torch.cuda.empty_cache()
+    lr, lp, ld = losses["nothing"], losses["repeat"], losses["dots"]
+    ltol = max(DOTS_NOISE_MULT * abs(lp - lr), _ulp(lr, 23))
+    check(not bad, f"LM-4 dots: gradients past the run-to-run bound "
+                   f"(leaf, distance, noise, tol): {bad[:8]}")
+    check(abs(ld - lr) <= ltol, f"LM-4 dots: one node's loss {ld} against "
+                                f"per-layer recompute's {lr} (repeat {lp})")
+    for name, n in launches.items():
+        check(n > 0, f"LM-4 dots: {name} was not launched in the gradient "
+                     f"check")
+    print(f"LM-4 dots gradients (one Hymba-1.5B node, bf16, 2 x "
+          f"{lmpath.SEQ_LEN} tokens; {time.perf_counter() - t0:.1f} s): "
+          f"loss {ld} against per-layer recompute's {lr} (repeat {lp}); "
+          f"{n_leaves} leaves: {exact} bitwise equal to per-layer "
+          f"recompute's, {noisy} differ between the two per-layer "
+          f"recompute runs; every leaf within max({DOTS_NOISE_MULT} x that "
+          f"noise, one bf16 ulp of its largest gradient), the closest to "
+          f"its bound {worst[1]} at {worst[0]:.3g} of it; launches "
+          f"{launches}")
+
+
+def phase_lm_dots(torch):
+    """LM-4 under remat_policy "dots" (each layer's projections saved,
+    the rest recomputed): first one node's gradients against per-layer
+    recompute's, leaf by leaf, within the card's run-to-run noise
+    (:func:`_dots_grads_check`); then Hymba-1.5B at full width,
+    LM_DOTS_STEPS plain QG-DSGDm-N steps (``lmpath.train_steps``, 2 x
+    2048 tokens a node) at the first node count of LM_DOTS_NODES whose
+    "dots" run fits under TRAIN_PEAK_GIB, then per-layer recompute
+    ("nothing") at the same count: each step's time and the peak of
+    both; the losses equal to bf16 rounding (BF16_LOSS_RTOL); every
+    flash and SSD kernel, forward and backward, launched in the "dots"
+    run, every flash launch tc."""
+    from repro_torch import lmpath
+    _dots_grads_check(torch)
+    dots = None
+    for nodes in LM_DOTS_NODES:
+        torch.cuda.empty_cache()
+        try:
+            dots = _policy_steps(torch, "dots", nodes)
+        except torch.cuda.OutOfMemoryError:
+            print(f"LM-4 dots: {nodes} nodes run out of memory")
+            dots = None
+        if dots is not None and dots[0]["peak_gib"] <= TRAIN_PEAK_GIB:
+            break
+        if dots is not None:
+            print(f"LM-4 dots: {nodes} nodes peak at "
+                  f"{dots[0]['peak_gib']:.2f} GiB > {TRAIN_PEAK_GIB}")
+            dots = None
+    check(dots is not None, f"LM-4 dots: no node count of {LM_DOTS_NODES} "
+                            f"fits under {TRAIN_PEAK_GIB} GiB")
+    torch.cuda.empty_cache()
+    full = _policy_steps(torch, "nothing", nodes)
+    torch.cuda.empty_cache()
+    run, launches, variants, by_dim = dots
+    d_loss = [st["loss"] for st in run["steps"]]
+    f_loss = [st["loss"] for st in full[0]["steps"]]
+    check(all(math.isfinite(x) for x in d_loss)
+          and all(abs(a - b) <= BF16_LOSS_RTOL * abs(b)
+                  for a, b in zip(d_loss, f_loss)),
+          f"LM-4 dots: losses {d_loss} against per-layer recompute's "
+          f"{f_loss}")
+    for name, n in launches.items():
+        check(n > 0, f"LM-4 dots: {name} was not launched")
+    for name, by in variants.items():
+        check(by.get("tc") == launches[name],
+              f"LM-4 dots: {name} launches {by} of {launches[name]}; all "
+              f"must be tc")
+    print(f"LM-4 dots (Hymba-1.5B, {nodes} ring nodes, {LM_DOTS_STEPS} "
+          f"plain steps of 2 x {lmpath.SEQ_LEN} tokens a node): step "
+          f"{[round(st['s'], 3) for st in run['steps']]} s, peak "
+          f"{run['peak_gib']:.2f} GiB; per-layer recompute at {nodes} "
+          f"nodes: step {[round(st['s'], 3) for st in full[0]['steps']]} s,"
+          f" peak {full[0]['peak_gib']:.2f} GiB; losses {d_loss} vs "
+          f"{f_loss}; launches {launches} (recompute: {full[1]})")
+    return dict(launches=launches, variants=variants, by_head_dim=by_dim,
+                nodes=nodes, peak_gib=run["peak_gib"],
+                full_peak_gib=full[0]["peak_gib"])
+
+
+def _card_shape():
+    """DRYRUN's card check: Qwen3-1.7B (bf16) and one node's train shape
+    of DRYRUN_HOST_TOKENS tokens on a one-rank ``make_host_mesh(1, 1)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    return (get_config("qwen3-1.7b"),
+            ShapeConfig("card", DRYRUN_HOST_TOKENS, 1, "train"),
+            make_host_mesh(1, 1))
+
+
+def dryrun_traces():
+    """DRYRUN's work on the meta device, which needs no card and no
+    kernel (``main`` runs it while ``nvcc`` builds the kernels): the dry
+    run (``launch.dryrun.run_one``) on the single-pod production mesh for
+    DRYRUN_ARCHS at DRYRUN_SHAPE, and the card check's trace
+    (``dryrun.analyze`` of :func:`_card_shape`). Returns each record
+    with its seconds; prints nothing."""
+    from repro_torch.launch import dryrun
+    rows = []
+    for arch in DRYRUN_ARCHS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, DRYRUN_SHAPE, False, verbose=False)
+        rows.append((arch, rec, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    card = dryrun.analyze(*_card_shape())
+    return dict(rows=rows, card=(card, time.perf_counter() - t0))
+
+
+def _dryrun_vs_card(torch, traced):
+    """The dry run's estimate held to the card: one Qwen3-1.7B (bf16)
+    train step of one node, DRYRUN_HOST_TOKENS tokens, on a one-rank
+    ``make_host_mesh(1, 1)`` (``traced``: its record from
+    :func:`dryrun_traces`, and the trace's seconds): its argument_bytes
+    equal the summed bytes of the step's inputs (the lr as one f32) and
+    lie within DRYRUN_ARG_RTOL of the allocator's rise when they are
+    made; the step's peak over them within DRYRUN_PEAK_BAND of argument
+    plus temp bytes."""
+    from repro_torch import lmpath
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import DecoderModel
+    rec, secs = traced
+    cfg, shape, mesh = _card_shape()
+    arg = rec["memory_analysis"]["argument_bytes"]
+    temp = rec["memory_analysis"]["temp_bytes"]
+    model = DecoderModel(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = lmpath.node_params(model, [0], "cuda")
+    step = dryrun._train_step(model, dryrun.setup(cfg, shape, mesh).tcfg)
+    opt = step.init_opt(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: v.contiguous() for k, v in
+             lmpath.train_batch(cfg, 1, 1, DRYRUN_HOST_TOKENS, gen).items()}
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    nbytes = sum(t.nbytes for tree in (params, opt["m"], batch)
+                 for t in tree.values()) + dryrun.LR_BYTES
+    check(nbytes == arg, f"DRYRUN: argument_bytes {arg} != the step's "
+                         f"inputs' {nbytes} B")
+    check(abs(rise - arg) <= DRYRUN_ARG_RTOL * arg,
+          f"DRYRUN: argument_bytes {arg} against the allocator's rise "
+          f"{rise}")
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, batch, 0.1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ratio = peak / (arg + temp)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+          f"DRYRUN: the step's peak {peak / 2 ** 30:.2f} GiB is {ratio:.3f}"
+          f" x argument + temp ({(arg + temp) / 2 ** 30:.2f} GiB)")
+    print(f"DRYRUN on the card (Qwen3-1.7B bf16, one node, 1 x "
+          f"{DRYRUN_HOST_TOKENS} tokens, make_host_mesh(1, 1); traced in "
+          f"{secs:.1f} s during the kernel build): argument "
+          f"{arg / 2 ** 30:.3f} GiB = the inputs' bytes, the allocator rose "
+          f"{rise / 2 ** 30:.3f} GiB; temp estimate {temp / 2 ** 30:.3f} "
+          f"GiB; the step's peak {peak / 2 ** 30:.3f} GiB = {ratio:.3f} x "
+          f"(argument + temp)")
+    return ratio
+
+
+def phase_dryrun(torch, traced):
+    """DRYRUN: the dry run's records from :func:`dryrun_traces` (traced
+    on the meta device during the kernel build), one line each: argument
+    and temp GiB a device and the dominant term; then the estimate held
+    to the card with a train step (:func:`_dryrun_vs_card`). Launches no
+    kernel."""
+    rows = []
+    for arch, rec, secs in traced["rows"]:
+        check(rec["status"] == "ok", f"DRYRUN {arch} {DRYRUN_SHAPE}: {rec}")
+        ma = rec["memory_analysis"]
+        rows.append(rec)
+        print(f"DRYRUN {arch} {DRYRUN_SHAPE} single (256 devices): argument "
+              f"{ma['argument_bytes'] / 2 ** 30:.3f} GiB, temp "
+              f"{ma['temp_bytes'] / 2 ** 30:.3f} GiB a device; compute "
+              f"{rec['compute_s'] * 1e3:.2f} ms, memory "
+              f"{rec['memory_s'] * 1e3:.2f} ms, collective "
+              f"{rec['collective_s'] * 1e3:.2f} ms: {rec['dominant']} "
+              f"({secs:.1f} s, during the kernel build)")
+    return dict(rows=rows, card_ratio=_dryrun_vs_card(torch, traced["card"]))
+
+
+class _Background:
+    """``fn(*args, **kwargs)`` on a thread of its own; :meth:`join` waits
+    and returns its result, or raises what it raised."""
+
+    def __init__(self, fn, *args, **kwargs):
+        import threading
+        self._out = {}
+
+        def target():
+            try:
+                self._out["value"] = fn(*args, **kwargs)
+            except BaseException as e:      # re-raised by join
+                self._out["error"] = e
+        self._thread = threading.Thread(target=target, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
 # ----------------------------------------------------- the sharded driver
 def _shard_sim(case, driver_mode="shard"):
     """SHARD's simulator for ``case`` (a row of SHARD_CASES): the main
@@ -4822,11 +5177,63 @@ def _shard_steps_vs_stacked(torch, ranks, name, sim, got, rnd):
     return dp, dh, _steps_scale(cap), sum(t for _, t in calls), sum(flips)
 
 
-def shard_rank(rank, world, cases):
+def _shard_schedule(sim, crash=None):
+    """A SHARD simulator's own schedule, with a crash at ``crash``."""
+    from repro_torch import sched
+    base = sim.default_schedule()
+    events = (sched.FaultEvent(crash, "crash"),) if crash else ()
+    return sched.compile_schedule(sim.tcfg.steps, sim.eval_every,
+                                  round_steps=base.round_steps,
+                                  events=events, gossip=sim.gossip)
+
+
+def _shard_snapshot(torch, sim, case, params, snap_dir):
+    """SHARD (a)'s durable snapshots on this rank: the run snapshotted at
+    every boundary (rank 0 writes the whole federation), crashed
+    SHARD_SNAP_CRASH steps past the round and resumed from the newest
+    snapshot; the resumed run's global params against ``params`` (the
+    uninterrupted run's). The directory as the crash left it is copied
+    to ``<snap_dir>-mid`` for the parent's node-stacked resume. The
+    head_select counts are set to 0 before and read after."""
+    import shutil
+
+    from repro_torch.kernels.head_select import head_select
+    from repro_torch.launch import dist
+    from repro_torch.resil import Resilience, SimulatedCrash
+    schedule = _shard_schedule(sim, case[4] + SHARD_SNAP_CRASH)
+    res = Resilience(snapshot_dir=snap_dir, snapshot_every=0)
+    _zero_counts(head_select)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    crashed = False
+    try:
+        sim.run(schedule, resil=res)
+    except SimulatedCrash:
+        crashed = True
+    dist.barrier()
+    t1 = time.perf_counter()
+    if dist.world()[0] == 0:
+        shutil.copytree(snap_dir, snap_dir + "-mid")
+    dist.barrier()
+    t2 = time.perf_counter()
+    resumed = sim.run(schedule, resil=res)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    got = {k: v.cpu() for k, v in sim.global_params(resumed.params).items()}
+    return dict(crashed=crashed, crash_s=t1 - t0, resume_s=t3 - t2,
+                evals=len(resumed.acc_history),
+                diff=_max_diff(torch, got, params), mid=snap_dir + "-mid",
+                launches=head_select.launches,
+                variants=dict(head_select.launches_by_variant))
+
+
+def shard_rank(rank, world, cases, snap_dir=None):
     """One rank of SHARD: every case's sharded run, in deterministic
     mode (the parent's node-stacked runs too), TF32 off; for a top-k
     case also one mixer step and TRAJ_STEPS steps (``_shard_steps``)
-    from the state captured at the round."""
+    from the state captured at the round; for the first case also the
+    snapshot, crash and resume run (``_shard_snapshot``) when given a
+    ``snap_dir``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4840,6 +5247,9 @@ def shard_rank(rank, world, cases):
         if case[5] is not None:
             got["mix"] = _shard_mix_step(torch, sim, cap, case)
             got["traj"] = _shard_steps(torch, sim, cap, case)
+        if case is cases[0] and snap_dir is not None:
+            got["snap"] = _shard_snapshot(torch, sim, case, got["params"],
+                                          snap_dir)
         if rank != 0:                      # rank 0 returns the tensors
             for k in ("params", "captured", "id_masks", "thresholds", "mix"):
                 got.pop(k, None)
@@ -4936,8 +5346,9 @@ def phase_shard(torch):
                   f"ms a step, acc {r['acc']}")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        snap_dir = tempfile.mkdtemp(prefix="shard_snapshots_")
         ranks = dist.spawn(shard_rank, SHARD_RANKS, SHARD_CASES,
-                           device="cuda")
+                           os.path.join(snap_dir, "run"), device="cuda")
         print(f"SHARD: {SHARD_RANKS} ranks spawned and joined in "
               f"{time.perf_counter() - t0:.1f} s")
     launches, variants = {}, {}
@@ -5043,6 +5454,65 @@ def phase_shard(torch):
               f"thresholds within {dthr:.3g}, masks equal outside the band "
               f"({int(band.sum())} entries within {MASK_BAND}); head_select "
               f"launches {by}{mixed}")
+    snap = _shard_snapshot_vs_stacked(torch, ranks, refs, sims, snap_dir)
+    return launches, variants, snap
+
+
+def _shard_snapshot_vs_stacked(torch, ranks, refs, sims, snap_dir):
+    """SHARD (a)'s durable snapshots: the sharded run snapshotted,
+    crashed and resumed equals the uninterrupted sharded run within
+    SHARD_PARAM_ATOL (every rank), and the node-stacked run resumed from
+    the sharded run's snapshot (the directory as the crash left it)
+    equals the node-stacked run within SHARD_PARAM_ATOL. Returns the
+    head_select launches and variants of the snapshot runs (the round
+    runs before the crash)."""
+    import shutil
+
+    from repro_torch.resil import Resilience
+    case = SHARD_CASES[0]
+    name, key = case[0], _shard_ref_key(case)
+    snaps = [r[name]["snap"] for r in ranks]
+    snap = snaps[0]
+    check(all(s["crashed"] for s in snaps),
+          f"SHARD {name} snapshots: the crash at "
+          f"{case[4] + SHARD_SNAP_CRASH} did not fire on every rank")
+    worst = max(s["diff"] for s in snaps)
+    check(worst <= SHARD_PARAM_ATOL,
+          f"SHARD {name} snapshots: resumed params differ from the "
+          f"uninterrupted sharded run by {worst:.3g} > {SHARD_PARAM_ATOL}")
+    sim, ref = sims[key], refs[key]
+    with _deterministic(torch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.run(_shard_schedule(sim, case[4] + SHARD_SNAP_CRASH),
+                      resil=Resilience(snapshot_dir=snap["mid"],
+                                       snapshot_every=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dp = _max_diff(torch, {k: v.cpu() for k, v in out.params.items()},
+                   ref["params"])
+    check(len(out.acc_history) < len(ref["acc"]),
+          f"SHARD {name} snapshots: the node-stacked run did not resume "
+          f"({len(out.acc_history)} evals, the whole run {len(ref['acc'])})")
+    check(dp <= SHARD_PARAM_ATOL,
+          f"SHARD {name} snapshots: the node-stacked run resumed from the "
+          f"sharded run's snapshot ends {dp:.3g} from the node-stacked run "
+          f"> {SHARD_PARAM_ATOL}")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    print(f"SHARD {name} snapshots ({SHARD_RANKS} ranks, a snapshot at "
+          f"every boundary, rank 0 writing): crashed at step "
+          f"{case[4] + SHARD_SNAP_CRASH} after {snap['crash_s']:.2f} s, "
+          f"resumed in {snap['resume_s']:.2f} s ({snap['evals']} evals); "
+          f"resumed params within {worst:.3g} of the uninterrupted sharded "
+          f"run (tol {SHARD_PARAM_ATOL}); the node-stacked run resumed from "
+          f"that snapshot in {wall:.2f} s ends within {dp:.3g} of the "
+          f"node-stacked run (tol {SHARD_PARAM_ATOL}); head_select launches "
+          f"{snap['launches']} on rank 0")
+    launches = {"head_select": sum(s["launches"] for s in snaps)}
+    variants = {"head_select": {}}
+    for s in snaps:
+        for v, c in s["variants"].items():
+            variants["head_select"][v] = variants["head_select"].get(v, 0) + c
     return launches, variants
 
 
@@ -5514,10 +5984,15 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s")
         return out
 
+    # DRYRUN's meta traces need no card and no kernel: they run while
+    # nvcc builds (the module imported here, before the thread starts)
+    from repro_torch.launch import dryrun  # noqa: F401
+    traces = None if args else _Background(dryrun_traces)
     run("device", phase_device, build)
     if args:
         run("SHARD norm fault", phase_shard_fault)
         return 0
+    traced = traces.join()
     kres = run("kernels", phase_kernels, ops)
     sim, result, launches, variants = run("main path", phase_main_path, ops)
     launches["msp_select"] = run("fused round", phase_fused_round, sim,
@@ -5529,7 +6004,8 @@ def main() -> int:
     paper_launches, paper_variants = run("PAPER", phase_paper, ops)
     resil_launches, resil_variants = run("RESIL", phase_resil, ops)
     gossip_launches, gossip_variants = run("GOSSIP", phase_gossip)
-    shard_launches, shard_variants = run("SHARD", phase_shard)
+    shard_launches, shard_variants, (snap_launches, snap_variants) = run(
+        "SHARD", phase_shard)
 
     lm_rows = run("LM-1", phase_lm_kernels)
     run("LM-1 dense", phase_lm_dense_kernels, lm_rows)
@@ -5541,6 +6017,7 @@ def main() -> int:
     lm_rows["msp_select"] = [msp_row]
     del lm
     train = run("LM-4", phase_lm_train)
+    lm_dots = run("LM-4 dots", phase_lm_dots)
     qwen3, phi3 = run("LM-5, LM-6", phase_lm_dense)
     musicgen = run("LM-7", phase_lm_musicgen)
     paligemma = run("LM-8", phase_lm_paligemma)
@@ -5553,25 +6030,28 @@ def main() -> int:
     lm_gossip = run("LM-14", phase_lm_gossip)
     serve = run("SERVE", phase_serve)
     lm_rows.update(serve["rows"])
+    run("DRYRUN", phase_dryrun, traced)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     trains = {"lm_train_path": train, "lm_qwen3": qwen3, "lm_phi3": phi3,
               "musicgen-train": musicgen, "paligemma-train": paligemma,
               "lm_baselines": baselines, "deepseek-round": deepseek,
               "deepseek-train": deepseek_train, "arctic-prefill": arctic,
-              "lm_gossip": lm_gossip}
+              "lm_gossip": lm_gossip, "lm_dots": lm_dots}
     print(json.dumps({"kernels": kernel_line(
         kres, lm_rows,
         {"resnet_path": launches, "grid": grid_launches,
          "paper": paper_launches, "resil": resil_launches,
          "gossip": gossip_launches,
-         "shard": shard_launches, "lm_path": lm_launches,
+         "shard": shard_launches, "shard_snapshot": snap_launches,
+         "lm_path": lm_launches,
          "lm_shard": lm_shard_launches, "serve": serve["launches"],
          **{k: v["launches"] for k, v in trains.items()}},
         {"resnet_path": variants, "grid": grid_variants,
          "paper": paper_variants, "resil": resil_variants,
          "gossip": gossip_variants,
-         "shard": shard_variants, "lm_shard": lm_shard_variants,
+         "shard": shard_variants, "shard_snapshot": snap_variants,
+         "lm_shard": lm_shard_variants,
          "lm_path": lm_variants, "serve": serve["variants"],
          **{k: v["variants"] for k, v in trains.items()}},
         {"lm_path": lm_dims, "lm_shard": lm_shard_dims,

@@ -48,7 +48,9 @@ The sharded driver's backends (:func:`make_shard_mixer`) run on one
 rank's contiguous block of a ring's or complete graph's nodes
 (:mod:`repro_torch.launch.dist`): :func:`make_ppermute_mixer` takes the
 two boundary rows from the neighbouring ranks (:func:`block_ring_shift`)
-and mixes 1/3 each (1/2 at two nodes), :func:`make_psum_mixer` averages
+and mixes 1/3 each (1/2 at two nodes) — or, over the (pod, data) groups
+of a grid, the reference's hierarchical ring-of-rings —,
+:func:`make_psum_mixer` averages
 exactly over the node group, and :func:`make_compressed_ppermute_mixer`
 moves the compressed payloads' (value, index) boundary rows — one
 exchange for every leaf of a step — into replicas of the neighbours'
@@ -283,20 +285,41 @@ def _tree_sum_hook(mix, group: Group, reduce=None):
     return mix
 
 
-def make_ppermute_mixer(group: Group, local_nodes: int = 1,
-                        reduce=None) -> Mixer:
-    """Metropolis ring gossip over a node axis of ``local_nodes ·
-    group.size`` nodes cut into contiguous blocks, one per rank of
-    ``group``: 1/3 each to self and the two ring neighbours (1/2 each at
-    two nodes, the identity at one), which is the ring's Metropolis
-    matrix, so the mix equals the dense mixer's to float tolerance.
-    Only the boundary rows cross ranks. Mixes in f32 and stores in the
-    leaf's dtype (the wire moves shards in their storage dtype).
-    ``mix.mix_leaves`` mixes many leaves with one collective; the
-    algorithms take it where the mixer has it."""
+def make_ppermute_mixer(group, local_nodes: int = 1, reduce=None,
+                        self_weight: float | None = None) -> Mixer:
+    """Ring gossip over the node axes of a grid of ranks.
+
+    With one axis (``group`` a :class:`Group`, or a sequence of one):
+    the Metropolis ring over a node axis of ``local_nodes · group.size``
+    nodes cut into contiguous blocks, one per rank of ``group``: 1/3
+    each to self and the two ring neighbours (1/2 each at two nodes, the
+    identity at one), which is the ring's Metropolis matrix, so the mix
+    equals the dense mixer's to float tolerance. Only the boundary rows
+    cross ranks.
+
+    With two axes (``group`` a sequence of the (pod, data) groups of a
+    grid, ``launch.mesh.make_grid``): the reference's hierarchical
+    ring-of-rings, one node a rank. Every node mixes with itself, its two
+    ring neighbours along each axis (one when the axis has 2 ranks; none
+    along an axis of 1), each part weighing 1/(number of parts); a
+    ``self_weight`` replaces its own weight and the row is renormalized
+    to sum to 1. ``self_weight`` applies to the two-axis form only and
+    ``local_nodes > 1`` to the one-axis form only, as in the reference.
+
+    Mixes in f32 and stores in the leaf's dtype (the wire moves shards in
+    their storage dtype). ``mix.mix_leaves`` mixes many leaves with one
+    collective an axis; the algorithms take it where the mixer has
+    it."""
     if local_nodes < 1:
         raise ValueError(f"local_nodes must be >= 1, got {local_nodes}")
     from repro_torch.launch import dist
+    groups = list(group) if isinstance(group, (list, tuple)) else [group]
+    if len(groups) > 1:
+        return _hierarchical_mixer(groups, local_nodes, reduce, self_weight)
+    group = groups[0]
+    if self_weight is not None:
+        raise ValueError("self_weight applies to the hierarchical "
+                         "multi-axis mixer only")
     n = local_nodes * group.size
 
     def combine(x, nb):
@@ -323,6 +346,59 @@ def make_ppermute_mixer(group: Group, local_nodes: int = 1,
     mix.mix_leaf = mix_leaf
     mix.mix_leaves = mix_leaves
     return _tree_sum_hook(mix, group, reduce)
+
+
+def _hierarchical_mixer(groups, local_nodes: int, reduce,
+                        self_weight) -> Mixer:
+    """The two-axis form of :func:`make_ppermute_mixer`."""
+    from repro_torch.launch import dist
+    if local_nodes != 1:
+        raise ValueError("local_nodes > 1 is single-axis only; the "
+                         "hierarchical mixer holds one node per mesh index")
+
+    def mix_leaves(xs):
+        parts = [[x] for x in xs]
+        for g in groups:
+            if g.size < 2:
+                continue
+            # fwd: the row of the rank before along the axis; bwd: after
+            for ps, (fwd, bwd) in zip(parts,
+                                      dist.ring_neighbors_many(xs, g)):
+                ps.append(fwd)
+                if g.size > 2:      # at 2 ranks both are the one peer
+                    ps.append(bwd)
+        out = []
+        for x, ps in zip(xs, parts):
+            if len(ps) == 1:
+                out.append(x)
+                continue
+            neigh_w = 1.0 / len(ps)
+            w_self = self_weight if self_weight is not None else neigh_w
+            acc = ps[0].float() * w_self
+            for p in ps[1:]:
+                acc = acc + p.float() * neigh_w
+            total = w_self + neigh_w * (len(ps) - 1)
+            out.append((acc / total).to(x.dtype))
+        return out
+
+    def mix_leaf(x):
+        return mix_leaves([x])[0]
+
+    def mix(local: Params) -> Params:
+        return dict(zip(local, mix_leaves(list(local.values()))))
+
+    def reduce_tree_sum(sq):
+        if reduce is not None:
+            return reduce(sq)
+        total = torch.stack([sq[k] for k in sorted(sq)]).sum()
+        for g in groups:
+            total = dist.all_reduce(total, g)
+        return total
+
+    mix.mix_leaf = mix_leaf
+    mix.mix_leaves = mix_leaves
+    mix.reduce_tree_sum = reduce_tree_sum
+    return mix
 
 
 def make_psum_mixer(group: Group, num_nodes: int,

@@ -513,7 +513,8 @@ def flash_attention(q, k, v, *, window: int = 0, causal: bool = True,
     :class:`FlashAttentionFn` (the offset mode then raises: its backward
     is not ported); under ``torch.no_grad`` no log-sum-exp is written."""
     q_offset = int(q_offset)
-    if q.device.type == "cpu":
+    # meta tensors (the dry run's shapes) take the plain version too
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, window=window, causal=causal,
                                      prefix_len=prefix_len, chunk=chunk,
                                      q_offset=q_offset,

@@ -484,7 +484,8 @@ def ssd_scan(xdt, dta, b, c, *, chunk: int, initial_state=None,
     the call goes through :class:`SSDScanFn`, whose backward is a kernel
     too (an initial state then raises); under ``torch.no_grad`` nothing
     else runs."""
-    if xdt.device.type == "cpu":
+    # meta tensors (the dry run's shapes) take the plain version too
+    if xdt.device.type in ("cpu", "meta"):
         return ssd_scan_plain(xdt, dta, b, c, chunk=chunk,
                               initial_state=initial_state,
                               return_final_state=return_final_state)

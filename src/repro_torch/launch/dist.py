@@ -19,7 +19,17 @@ in for ``shard_map``:
   ``all_gather``: blocking send/recv pairs deadlock when every rank
   sends first). The ``_many`` forms move many tensors of any dtypes as
   one byte buffer: a train step's gossip is one collective, not one a
-  leaf (each staged collective waits for the card).
+  leaf (each staged collective waits for the card);
+* :func:`barrier` and :func:`broadcast_object` over the whole world
+  (durable snapshots: rank 0 chooses, every rank follows);
+* a byte counter per collective kind (:data:`SENT`,
+  :func:`zero_sent`, :func:`sent`): the payload this rank hands to each
+  ``all_reduce`` (its tensor, kind ``"all-reduce"``), each
+  ``all_gather*`` call (its piece, ``"all-gather"``) and each
+  :func:`ring_neighbors_many` (the boundary rows it sends its two ring
+  neighbours, ``"collective-permute"``), counted once whatever algorithm
+  the backend runs underneath, and nothing on a group of one rank. The
+  dry run (``launch.dryrun``) counts a step's collectives the same way.
 
 **Host staging.** Gloo takes some collectives on CUDA tensors and not
 others, by op and by version. On a gloo group every collective on a
@@ -100,6 +110,36 @@ def new_group(ranks: Sequence[int]) -> Group:
 
 
 # ------------------------------------------------------------ collectives
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+SENT = {k: 0 for k in KINDS}          # bytes this rank handed to each kind
+CALLS = {k: 0 for k in KINDS}         # and the calls
+
+
+def zero_sent() -> None:
+    """Set the collective byte counters to 0."""
+    for k in KINDS:
+        SENT[k] = CALLS[k] = 0
+
+
+def sent() -> dict:
+    """The counters: ``{kind: bytes, ..., "count": calls, "total":
+    bytes}``, the dry run's ``collectives`` record."""
+    out = dict(SENT)
+    out["count"] = sum(CALLS.values())
+    out["total"] = sum(SENT.values())
+    return out
+
+
+def _count(kind: str, nbytes: int) -> None:
+    SENT[kind] += int(nbytes)
+    CALLS[kind] += 1
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
     """The tensor the wire takes: on a gloo group a CUDA tensor is staged
     through the host (see the module docstring); bools travel as uint8."""
@@ -115,6 +155,7 @@ def all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
     device (``x`` itself unchanged)."""
     if group.size == 1:
         return x.clone()
+    _count("all-reduce", _nbytes(x))
     w = _host(x)
     if w.data_ptr() == x.data_ptr():
         w = w.clone()
@@ -127,6 +168,11 @@ def all_gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     on ``x``'s device."""
     if group.size == 1:
         return [x]
+    _count("all-gather", _nbytes(x))
+    return _gather(x, group)
+
+
+def _gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     w = _host(x)
     outs = [torch.empty_like(w) for _ in range(group.size)]
     dist.all_gather(outs, w, group=group.pg)
@@ -149,12 +195,18 @@ def all_gather_many(xs: List[torch.Tensor], group: Group
     ``out[i][r]``, rank r's ``xs[i]``."""
     if group.size == 1:
         return [[x] for x in xs]
+    _count("all-gather", sum(_nbytes(x) for x in xs))
+    return _gather_many(xs, group)
+
+
+def _gather_many(xs: List[torch.Tensor], group: Group
+                 ) -> List[List[torch.Tensor]]:
     flat = []
     for x in xs:                  # each piece 16-byte aligned in the buffer
         f = x.contiguous().reshape(-1).view(torch.uint8)
         flat += [f, f.new_zeros(-f.numel() % 16)]
     sizes = [f.numel() for f in flat]
-    parts = all_gather(torch.cat(flat), group)
+    parts = _gather(torch.cat(flat), group)
     out = [[] for _ in xs]
     for part in parts:
         pieces = torch.split(part, sizes)[::2]
@@ -171,11 +223,28 @@ def ring_neighbors_many(xs: List[torch.Tensor], group: Group
     j+1), each (1, ...). One ``all_gather`` of the boundary rows."""
     if group.size == 1:
         return [(x[-1:], x[:1]) for x in xs]
-    gathered = all_gather_many([torch.cat([x[:1], x[-1:]]) for x in xs],
-                               group)
+    rows = [torch.cat([x[:1], x[-1:]]) for x in xs]
+    _count("collective-permute", sum(_nbytes(r) for r in rows))
+    gathered = _gather_many(rows, group)
     j, s = group.index, group.size
     return [(parts[(j - 1) % s][1:], parts[(j + 1) % s][:1])
             for parts in gathered]
+
+
+def barrier() -> None:
+    """Wait for every rank of the world (nothing with one rank)."""
+    if world()[1] > 1:
+        dist.barrier()
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank of the world (the
+    object itself with one rank)."""
+    if world()[1] == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 # ------------------------------------------------------------------ spawn

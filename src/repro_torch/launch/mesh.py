@@ -14,16 +14,35 @@ node block: the axis of the all-gathers inside one replica).
 The device pool is the world of the run. The reference leaves the
 devices its divisor rule does not use idle; an SPMD rank has no such
 state, so a world larger than the mesh raises and names the world to
-spawn. ``make_production_mesh``, ``make_host_mesh`` and
-``node_axes_for`` come with the dry run (ROADMAP.md item 10b.2).
+spawn.
+
+The dry run's meshes are :class:`AxisMesh` es: named axes and their
+sizes. :func:`make_production_mesh` is abstract (no ranks, no devices:
+the dry run runs on the meta device), (data 16, model 16) or (pod 2,
+data 16, model 16) as in the reference; :func:`make_host_mesh` is a
+(data, model) grid over the ranks of a run, with a process group per
+axis. :func:`node_axes_for` and :func:`num_nodes` read either kind.
+
+The roofline constants are the card's, not the reference's TPU v5e
+figures: datasheet numbers of an "NVIDIA H100 80GB HBM3" SXM card at its
+700 W limit, not measurements. A mesh axis wider than one 8-card NVLink
+domain would run at the network's rate between domains, which the dry
+run does not model: every collective is charged at the NVLink rate.
 """
 from __future__ import annotations
 
 import warnings
+import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.launch import dist
+
+# NVIDIA H100 80GB HBM3 (SXM, 700 W) datasheet figures, per card, for
+# the dry run's roofline terms
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores
+HBM_BANDWIDTH = 3.35e12           # B/s, HBM3
+LINK_BANDWIDTH = 450e9            # B/s a direction, NVLink 4
 
 
 @dataclass(frozen=True)
@@ -37,9 +56,6 @@ class Mesh:
         return {"node": self.node.size, "model": self.model.size}
 
 
-_MESHES: Dict[Tuple[int, int, int], Mesh] = {}
-
-
 def _largest_divisor(num_nodes: int, limit: int) -> int:
     """Largest divisor of ``num_nodes`` that is ≤ ``limit`` (≥ 1)."""
     return max(d for d in range(1, max(min(limit, num_nodes), 1) + 1)
@@ -47,28 +63,10 @@ def _largest_divisor(num_nodes: int, limit: int) -> int:
 
 
 def _grid(node_size: int, model_size: int) -> Mesh:
-    """The groups of a (node_size, model_size) grid over ranks 0 ..
-    node_size·model_size − 1, built once per process (creating a group
-    is collective: every rank builds every group, in one order)."""
-    rank, world = dist.world()
-    key = (node_size, model_size, world)
-    if key not in _MESHES:
-        used = node_size * model_size
-        if world != used:
-            raise ValueError(
-                f"the mesh ({node_size} node x {model_size} model) uses "
-                f"{used} rank(s) but the run has {world}; spawn {used} "
-                "ranks (launch.dist.spawn) — an SPMD rank outside the mesh "
-                "would have no nodes to hold")
-        node_groups = [dist.new_group([i * model_size + m
-                                       for i in range(node_size)])
-                       for m in range(model_size)]
-        model_groups = [dist.new_group([i * model_size + m
-                                        for m in range(model_size)])
-                        for i in range(node_size)]
-        _MESHES[key] = Mesh(node_groups[rank % model_size],
-                            model_groups[rank // model_size])
-    return _MESHES[key]
+    """The (node, model) grid over ranks 0 .. node_size·model_size − 1
+    (:func:`make_grid`) as the sharded driver's :class:`Mesh`."""
+    grid = make_grid(("node", "model"), (node_size, model_size))
+    return Mesh(grid.group("node"), grid.group("model"))
 
 
 def make_node_mesh(num_nodes: int) -> Mesh:
@@ -122,3 +120,106 @@ def make_federation_mesh(num_nodes: int, model_parallel: int = 1) -> Mesh:
             "(launch.dist.spawn)")
     node_size = _largest_divisor(num_nodes, world // model_parallel)
     return _grid(node_size, model_parallel)
+
+
+# ------------------------------------------------------------ the dry run
+@dataclass(frozen=True)
+class AxisMesh:
+    """A named grid: ``axis_names`` and ``axis_sizes`` (the reference's
+    ``Mesh.axis_names`` and ``Mesh.shape``); over the ranks of a run,
+    also this rank's process group along each axis (``groups``, None
+    for an abstract mesh)."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    groups: Optional[Tuple[dist.Group, ...]] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    def group(self, name: str) -> dist.Group:
+        """This rank's group along axis ``name``."""
+        if self.groups is None:
+            raise ValueError("an abstract mesh has no ranks")
+        return self.groups[self.axis_names.index(name)]
+
+    def federation(self) -> Mesh:
+        """A (data, model) grid over ranks as the sharded driver's
+        federation mesh: the data axis is the node axis (replica
+        scope)."""
+        return Mesh(self.group("data"), self.group("model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AxisMesh:
+    """The reference's production mesh, abstract: (data 16, model 16),
+    256 devices, or (pod 2, data 16, model 16), 512."""
+    if multi_pod:
+        return AxisMesh(("pod", "data", "model"), (2, 16, 16))
+    return AxisMesh(("data", "model"), (16, 16))
+
+
+_GRIDS: Dict[Tuple, AxisMesh] = {}
+
+
+def make_grid(names: Tuple[str, ...], sizes: Tuple[int, ...]) -> AxisMesh:
+    """A grid of ``sizes`` over every rank of the run, in row-major order
+    (rank r at the coordinates of r in the grid, the last axis fastest,
+    as the reference reshapes its device list), with a process group per
+    axis: the ranks that differ from this one in that coordinate only.
+    Collective: every rank builds every group, in one order, once a
+    process."""
+    rank, world = dist.world()
+    key = (tuple(names), tuple(sizes), world)
+    if key not in _GRIDS:
+        used = math.prod(sizes)
+        if world != used:
+            raise ValueError(
+                f"the grid {dict(zip(names, sizes))} uses {used} rank(s) "
+                f"but the run has {world}; spawn {used} ranks "
+                "(launch.dist.spawn) — an SPMD rank outside the mesh "
+                "would have no nodes to hold")
+        strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+        mine = []
+        for a, (n, st) in enumerate(zip(sizes, strides)):
+            for base in range(used):
+                if (base // st) % n:          # one group per line of axis a
+                    continue
+                g = dist.new_group([base + i * st for i in range(n)])
+                if rank in g.ranks:
+                    mine.append(g)
+        _GRIDS[key] = AxisMesh(tuple(names), tuple(sizes), tuple(mine))
+    return _GRIDS[key]
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> AxisMesh:
+    """A (data, model) grid over the ranks of the run, sizes cut to the
+    world as the reference cuts them to its devices; the world must be
+    the grid's size (:func:`make_grid`)."""
+    _, n = dist.world()
+    data = min(data, n)
+    model = max(1, min(model, n // max(data, 1)))
+    return make_grid(("data", "model"), (data, model))
+
+
+def node_axes_for(mesh, scope: str) -> Tuple[str, ...]:
+    """Which mesh axes form the decentralized gossip graph. scope
+    "replica": every data-parallel index is a node; "pod": one node per
+    pod, FSDP over "data" inside it (the architectures too large to
+    hold per replica)."""
+    names = mesh.axis_names
+    if scope == "replica":
+        return tuple(a for a in ("pod", "data") if a in names)
+    if scope == "pod":
+        return ("pod",) if "pod" in names else ()
+    raise ValueError(scope)
+
+
+def num_nodes(mesh, scope: str) -> int:
+    n = 1
+    for a in node_axes_for(mesh, scope):
+        n *= mesh.shape[a]
+    return n

@@ -25,13 +25,28 @@ snapshot like the params, sums and generator states replicated). :func:`local_bl
 rank's block and :func:`global_stack` gathers one back (evals, tests,
 the round's payload); :func:`gather_model_tree` and
 :func:`slice_model_tree` move between a rank's shards and full-width
-leaves inside one replica. ``leaf_spec``'s pod scope,
-``param_shardings``, ``batch_shardings`` and the serving rules wait for
-the dry run (ROADMAP.md item 10b.2).
+leaves inside one replica.
+
+The dry run's rules (``launch.dryrun``) are the reference's, whole: a
+:class:`PSpec` per leaf (the port's ``PartitionSpec``: per dim None, an
+axis name or a tuple of names) from :func:`leaf_spec` in both scopes
+with its experts rule (``REPRO_SHARD_EXPERTS=both`` read as the
+reference reads it), :func:`param_shardings`, :func:`batch_shardings`,
+:func:`serve_param_shardings`, :func:`serve_batch_shardings` and
+:func:`serve_state_shardings`, over an abstract
+:class:`launch.mesh.AxisMesh`; :func:`shard_shape` is one device's
+shard of a leaf. They take the port's trees (flat param dicts, whose
+keys are the reference's paths joined with ``/``; a decode state's
+caches, whose named-tuple fields and shapes are the reference's) and
+return a tree of specs of the same structure. The sharded driver's
+:class:`Spec` is the runtime view of the replica-scope rule on the 2-D
+federation mesh: the node axis, and the one dim cut over "model".
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+import math
+import os
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,11 +78,15 @@ def node_leaf_spec(leaf, num_nodes: int) -> Spec:
 
 
 def _map(tree, fn, path: str = ""):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``: dict keys,
+    list positions and named-tuple field names joined with "/", as the
+    reference's ``_path_str`` joins a pytree path."""
     if isinstance(tree, dict):
         return {k: _map(v, fn, f"{path}{k}/") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", range(len(tree)))
         return _rebuild(tree, [_map(v, fn, f"{path}{i}/")
-                               for i, v in enumerate(tree)])
+                               for i, v in zip(names, tree)])
     return fn(path[:-1], tree)
 
 
@@ -249,6 +268,49 @@ def comm_block(comm, param_specs: Dict[str, Spec], mesh: Mesh):
     return out
 
 
+SHARD_COMM = ("hfwd", "hbwd", "hsum")    # the sharded mixer's own replicas
+
+
+def comm_global(comm, param_specs: Dict[str, Spec], mesh: Mesh):
+    """The whole federation's comm state in the node-stacked mixers'
+    structure, from every rank's block (collective): ``prev`` gathered
+    like the params, the estimates ``hat`` node by node, the generator
+    state as it is; the sharded mixer's replicas of its neighbours'
+    estimates and the complete graph's sum (:data:`SHARD_COMM`) are left
+    out, since both are functions of ``hat`` (:func:`comm_from_global`).
+    This is what a durable snapshot stores, whichever driver wrote it."""
+    out = {}
+    for name, sub in comm.items():
+        if name == "prev":
+            out[name] = global_stack(sub, param_specs, mesh)
+        elif name == "hat":
+            out[name] = gather_nodes(sub, mesh)
+        elif name not in SHARD_COMM:
+            out[name] = sub
+    return out
+
+
+def comm_from_global(comm, names, param_specs: Dict[str, Spec],
+                     mesh: Mesh):
+    """This rank's block (:func:`comm_block`) of a whole-federation comm
+    state in the node-stacked structure (a snapshot's), with the sharded
+    mixer's entries among ``names`` rebuilt from the estimates: ``hfwd``
+    (row i holds x̂_{i−1}) the roll of ``hat`` by one, ``hbwd`` the roll
+    back, ``hsum`` its sum over the nodes. The replicas are kept equal
+    to the rolls bit for bit in a run, so a ring resumes exactly; the
+    complete graph's running sum is recomputed, equal to f32 rounding."""
+    full = dict(comm)
+    hat = comm.get("hat", {})
+    if "hfwd" in names:
+        full["hfwd"] = {k: torch.roll(h, 1, 0) for k, h in hat.items()}
+    if "hbwd" in names:
+        full["hbwd"] = {k: torch.roll(h, -1, 0) for k, h in hat.items()}
+    if "hsum" in names:
+        full["hsum"] = {k: h.sum(dim=0, keepdim=True)
+                        for k, h in hat.items()}
+    return comm_block(full, param_specs, mesh)
+
+
 def gather_nodes(tree, mesh: Mesh):
     """Node blocks of a tree whose every tensor leaf has the node axis
     first and no model cut (a round's payload, a carry) gathered to the
@@ -319,3 +381,190 @@ class ShardReduce:
         parts = torch.split(flat, [t.numel() for t in sums.values()])
         return {k: (p.reshape(sums[k].shape) / self.num_nodes)
                 .to(tree[k].dtype) for k, p in zip(sums, parts)}
+
+
+# ------------------------------------------------ the dry run's rules
+class PSpec(tuple):
+    """One leaf's layout over an :class:`launch.mesh.AxisMesh`: per dim
+    None (whole), an axis name, or a tuple of names (cut over their
+    product, the first outermost) — the reference's ``PartitionSpec``."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self):
+        return f"PSpec{tuple(self)!r}"
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def shard_shape(shape, spec: PSpec, mesh) -> Tuple[int, ...]:
+    """One device's shard of a leaf of ``shape`` laid out by ``spec``
+    (``NamedSharding.shard_shape``): each dim over the product of its
+    axes' sizes, which must divide it."""
+    sizes = mesh.shape
+    out = []
+    for d, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        k = math.prod(sizes[a] for a in _axes(entry))
+        if d % k:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"over {entry!r} ({k})")
+        out.append(d // k)
+    return tuple(out)
+
+
+def shard_bytes(leaf, spec: PSpec, mesh) -> int:
+    """Bytes of one device's shard of ``leaf`` (a tensor, any device)."""
+    return math.prod(shard_shape(tuple(leaf.shape), spec, mesh)) \
+        * leaf.element_size()
+
+
+def spec_axes(spec: PSpec) -> Tuple[str, ...]:
+    """Every axis a spec cuts over."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def leaf_spec(path: str, shape, mesh, node_axes, scope: str,
+              skip_dims: int = 1) -> PSpec:
+    """The reference's spec for one node-stacked param leaf: dim 0 over
+    the node axes; an expert bank's expert dim over "model" (and in pod
+    scope its d_model dim over "data"; with ``REPRO_SHARD_EXPERTS=both``
+    in pod scope the expert dim over ("data", "model") when it divides);
+    any other leaf of two or more weight dims "model" on its largest
+    divisible weight dim and, in pod scope, "data" on the next
+    divisible one. ``skip_dims``: the leading dims that are not weight
+    dims (the node axis, and the layer axis of ``layers_*``)."""
+    model_size = mesh.shape["model"]
+    data_size = mesh.shape.get("data", 1)
+    spec: list = [None] * len(shape)
+    if node_axes:
+        spec[0] = tuple(node_axes) if len(node_axes) > 1 else node_axes[0]
+    trailing = list(range(skip_dims, len(shape)))
+    if len(trailing) >= 2:
+        if "experts" in path and len(trailing) >= 3:
+            e_dim = trailing[0]
+            both = (os.environ.get("REPRO_SHARD_EXPERTS") == "both"
+                    and scope == "pod")   # "data" is the node axis else
+            if both and _divisible(shape[e_dim], model_size * data_size):
+                spec[e_dim] = ("data", "model")
+            elif _divisible(shape[e_dim], model_size):
+                spec[e_dim] = "model"
+                if scope == "pod" and _divisible(shape[trailing[1]],
+                                                 data_size):
+                    spec[trailing[1]] = "data"
+        else:
+            cand = sorted(trailing, key=lambda i: -shape[i])
+            m_dim = next((i for i in cand
+                          if _divisible(shape[i], model_size)), None)
+            if m_dim is not None:
+                spec[m_dim] = "model"
+            if scope == "pod":
+                d_dim = next((i for i in cand if i != m_dim
+                              and _divisible(shape[i], data_size)), None)
+                if d_dim is not None:
+                    spec[d_dim] = "data"
+    return PSpec(*spec)
+
+
+def param_shardings(params, mesh, scope: str):
+    """A spec tree for node-stacked params (or an optimizer state that
+    mirrors them): :func:`leaf_spec` with the node axes of ``scope``."""
+    from repro_torch.launch.mesh import node_axes_for
+    node_axes = node_axes_for(mesh, scope)
+    return _map(params, lambda ps, leaf: leaf_spec(
+        ps, tuple(leaf.shape), mesh, node_axes, scope,
+        skip_dims=_param_skip_dims(ps, leaf.dim())))
+
+
+def batch_shardings(batch, mesh, scope: str):
+    """A node-stacked batch (N, B, ...): the node dim over the node axes;
+    in pod scope the per-node batch over "data" when it divides."""
+    from repro_torch.launch.mesh import node_axes_for
+    node_axes = node_axes_for(mesh, scope)
+    data = mesh.shape.get("data", 1)
+
+    def one(_, leaf):
+        spec: list = [None] * leaf.dim()
+        if node_axes:
+            spec[0] = tuple(node_axes) if len(node_axes) > 1 \
+                else node_axes[0]
+        if scope == "pod" and leaf.dim() > 1 and leaf.shape[1] % data == 0 \
+                and data > 1:
+            spec[1] = "data"
+        return PSpec(*spec)
+    return _map(batch, one)
+
+
+def serve_param_shardings(params, mesh):
+    """The served (consensus) model's params: no node axis; "model" on
+    the largest divisible weight dim and "data" on the next (FSDP), the
+    layer axis of ``layers_*`` left whole."""
+    def one(ps, leaf):
+        skip = min(1 if "layers_" in ps else 0, max(leaf.dim() - 1, 0))
+        spec = leaf_spec(ps, (1,) + tuple(leaf.shape), mesh, (), "pod",
+                         skip_dims=skip + 1)
+        return PSpec(*tuple(spec)[1:])
+    return _map(params, one)
+
+
+def _batch_axes(mesh):
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    total = math.prod(mesh.shape[a] for a in axes) if axes else 1
+    return (axes if len(axes) > 1 else axes[0]) if axes else None, total
+
+
+def serve_batch_shardings(batch, mesh):
+    """A request batch: the batch dim over ("pod", "data") when it
+    divides."""
+    entry, total = _batch_axes(mesh)
+
+    def one(_, leaf):
+        spec: list = [None] * leaf.dim()
+        if leaf.dim() and leaf.shape[0] % total == 0 and total > 1:
+            spec[0] = entry
+        return PSpec(*spec)
+    return _map(batch, one)
+
+
+def serve_state_shardings(state, mesh):
+    """A decode state's caches, each leaf (L, B, ...): B over the data
+    axes when it divides, and the largest later dim that divides over
+    "model". The port's caches have the reference's fields and shapes
+    (``convert.to_jax_decode_state`` pairs them); their positions and
+    lengths are int64 where the reference's are int32."""
+    entry, total = _batch_axes(mesh)
+    model_size = mesh.shape["model"]
+
+    def one(_, leaf):
+        shape = tuple(leaf.shape)
+        spec: list = [None] * len(shape)
+        if len(shape) >= 2 and shape[1] % total == 0 and total > 1:
+            spec[1] = entry
+        if len(shape) >= 3:
+            cand = sorted(range(2, len(shape)), key=lambda i: -shape[i])
+            m = next((i for i in cand if shape[i] % model_size == 0
+                      and shape[i] >= model_size), None)
+            if m is not None:
+                spec[m] = "model"
+        return PSpec(*spec)
+    return _map(state, one)
+
+
+def spec_leaves(tree, specs, path: str = ""):
+    """(path, leaf, spec) of every tensor leaf of ``tree`` beside its
+    spec tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from spec_leaves(v, specs[k], f"{path}{k}/")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f, v, s in zip(tree._fields, tree, specs):
+            yield from spec_leaves(v, s, f"{path}{f}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, (v, s) in enumerate(zip(tree, specs)):
+            yield from spec_leaves(v, s, f"{path}{i}/")
+    elif isinstance(tree, torch.Tensor):
+        yield path[:-1], tree, specs

@@ -32,9 +32,10 @@ rounds; the CLI spawns the ranks itself (``--driver shard --ranks R
 --model-parallel M``). ``tcfg.compression`` / ``compression_frac`` and
 ``tcfg.gossip`` select compressed (top-k / random-k with error
 feedback) and delayed gossip on either driver, and ``--churn-mode
-stale`` makes stragglers (node-stacked only, as in the reference). Not
-ported (raises ``NotImplementedError``): durable snapshots under the
-sharded driver.
+stale`` makes stragglers (node-stacked only, as in the reference).
+Durable snapshots (``--snapshot-dir``) work under either driver: a
+sharded run's file holds the whole federation and resumes a node-stacked
+run, and the other way round.
 
 Usage (CPU, reduced config; ``--arch`` defaults to the reference's
 ``qwen3-1.7b``):
@@ -338,7 +339,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *, seq_len: int = 64,
     of each weight leaf too) and the returned ``params`` are the
     consensus of all nodes on every rank. It refuses an f32 wire, a
     graph other than a ring or a complete graph, churn and wire faults
-    (``sched.validate_shard_schedule``) and durable snapshots.
+    (``sched.validate_shard_schedule``).
 
     ``events`` (churn, rewire, faults) feed the compiled schedule;
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`) and ``resil``

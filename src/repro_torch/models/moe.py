@@ -45,7 +45,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
     """The layer's leaves as ``(key, shape, index, piece)``: each expert
     bank leaf is drawn one expert at a time (``index`` (e,) into its (E,
     ...) shape), so a full-width bank (256 x 7168 x 2048) is never drawn
-    whole in f32; other leaves whole (``index`` ())."""
+    whole in f32; other leaves whole (``index`` ()). On the meta device,
+    where nothing is drawn, a bank comes whole too."""
     m = cfg.moe
     d, E = cfg.d_model, m.num_experts
     dev = gen.device
@@ -58,6 +59,10 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
     if cfg.mlp_type in ("swiglu", "geglu"):
         names.append(("wg", d, m.moe_d_ff))
     for name, din, dout in names:
+        if dev.type == "meta":
+            yield whole(f"experts/{name}",
+                        torch.empty((E, din, dout), dtype=dtype, device=dev))
+            continue
         for e in range(E):
             yield (f"experts/{name}", (E, din, dout), (e,),
                    dense_init(gen, din, dout, dtype))

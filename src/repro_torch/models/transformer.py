@@ -17,7 +17,10 @@ ctypes, which ``torch.func.vmap`` cannot batch. Node and layer slices are taken 
 stacks a leaf's gradient once instead of adding one zero-filled copy
 of the whole stacked leaf per slice. With grad enabled, ``cfg.remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
-the reference's ``jax.checkpoint`` per layer). :meth:`loss` is the
+the reference's ``jax.checkpoint`` per layer): all of it under
+``remat_policy`` "nothing", all but the projections' outputs under
+"dots" (a selective checkpoint, :func:`dots_policy`), none of it under
+"everything". :meth:`loss` is the
 next-token loss of every node.
 
 Ported: dense and hybrid stacks — attention, SSM and Hymba's parallel
@@ -59,7 +62,7 @@ from repro_torch.models.convert import _flatten
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm,
                                        normal_init, rms_norm_f32, sub)
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import MetaGenerator, resolve_or_meta
 
 Params = Dict[str, torch.Tensor]
 
@@ -182,24 +185,105 @@ def _layer_state(state, li: int):
     return {name: type(c)(*(t[li] for t in c)) for name, c in state.items()}
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether each layer is recomputed in the backward pass: the
-    reference's ``cfg.remat`` with policy "nothing" (or its alias
-    "full"); "everything" saves every residual, as no checkpoint does.
-    The "dots" policy (``dots_with_no_batch_dims_saveable``: keep the
-    matmul outputs) is not ported (ROADMAP.md item 10d)."""
+def _remat(cfg: ModelConfig) -> str:
+    """How each layer is recomputed in the backward pass, from the
+    reference's ``cfg.remat`` and ``cfg.remat_policy``: "" (no
+    checkpoint: without remat, or with "everything", which saves every
+    residual as no checkpoint does), "full" (policy "nothing", or its
+    alias "full": the whole layer recomputed) or "dots"
+    (:func:`dots_policy`)."""
     if not cfg.remat:
-        return False
+        return ""
     if cfg.remat_policy in ("nothing", "full"):
-        return True
+        return "full"
     if cfg.remat_policy == "everything":
-        return False
+        return ""
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (dots_with_no_batch_dims_saveable) is not "
-            "ported (ROADMAP.md item 10d)")
+        return "dots"
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: expected "
                      "'nothing', 'dots', or 'everything'")
+
+
+# what a sub-block's last product writes into the residual stream
+_OUT_PROJ = {"attn": ("attn/wo",), "cross": ("cross/wo",),
+             "ssm": ("ssm/w_out",),
+             "ffn": ("mlp/wo", "moe/shared/wo", "moe/dense_residual/wo")}
+
+
+def dots_saved_keys(p: Params, cfg: ModelConfig, memory=None) -> List[str]:
+    """The weights whose products' outputs the "dots" policy saves in one
+    layer with params ``p``: the reference's
+    ``dots_with_no_batch_dims_saveable`` keeps the output of every
+    ``dot_general`` without batch dimensions that the backward pass reads.
+    Those are the layer's projections by a 2-D weight: attention's q, k,
+    v and o (and MLA's ``wq_a``, ``wq_b`` or ``wq``, ``wkv_a``, ``w_uk``,
+    ``w_uv``, ``wo``), the SSM's in projections (``w_in``, or ``w_z``,
+    ``w_x``, ``w_b``, ``w_c``, ``w_dt``) and ``w_out``, the
+    cross-attention's, the MLP's ``wg`` and ``wi``, the MoE router and
+    its shared and dense-residual MLPs — less the last sub-block's
+    output projection, which only adds into the residual stream at the
+    layer's end, so that nothing in the backward reads it (the FFN's
+    ``wo``; the mixer's own when the layer has no FFN and no
+    cross-attention, unless Hymba's branch norms read both branches).
+    Attention's per-head products, the expert bank's products over its
+    expert dim (``torch.bmm``), norms, elementwise ops and the kernels
+    are recomputed."""
+    if "ln2/scale" in p:
+        last = "ffn"
+    elif memory is not None and cfg.cross_attention:
+        last = "cross"
+    elif cfg.hybrid_parallel:
+        last = None
+    elif cfg.ssm.enabled:
+        last = "ssm"
+    else:
+        last = "attn"
+    drop = set(_OUT_PROJ.get(last, ()))
+    return [k for k, v in p.items()
+            if v.dim() == 2 and k not in drop
+            and k.split("/")[0] in ("attn", "ssm", "cross", "mlp", "moe")
+            and not k.startswith("moe/experts/")]
+
+
+def dots_policy(p: Params, cfg: ModelConfig, memory=None):
+    """The selective-checkpoint policy of remat_policy "dots" for one
+    layer (``torch.utils.checkpoint.create_selective_checkpoint_contexts``):
+    an ``aten.mm`` / ``aten.addmm`` whose right operand is one of
+    :func:`dots_saved_keys`' weights is saved, every other op
+    recomputed. The policy goes by the weight, not by the op's name: a
+    2-D product inside a kernel's plain version, which the reference
+    computes with batch dimensions, is recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    keep = {(p[k].data_ptr(), tuple(p[k].shape))
+            for k in dots_saved_keys(p, cfg, memory)}
+    aten = torch.ops.aten
+    ops = {aten.mm.default: 1, aten.addmm.default: 2}
+
+    def policy(ctx, op, *args, **kwargs):
+        i = ops.get(op)
+        if i is not None:
+            w = args[i]
+            if (w.data_ptr(), tuple(w.shape)) in keep:
+                return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _checkpointed(mode: str, lp: Params, h, cfg: ModelConfig, kind: str,
+                  window: int, memory):
+    """One layer under per-layer recompute ("full") or the "dots"
+    policy."""
+    if mode == "dots":
+        import functools
+
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                dots_policy(lp, cfg, memory))
+        return checkpoint(_layer_forward, lp, h, cfg, kind, window, memory,
+                          use_reentrant=False, context_fn=ctx)
+    return checkpoint(_layer_forward, lp, h, cfg, kind, window, memory,
+                      use_reentrant=False)
 
 
 class DecoderModel:
@@ -240,7 +324,8 @@ class DecoderModel:
     # -- init -----------------------------------------------------------
     @torch.no_grad()
     def pieces(self, seed: int, device="cuda"):
-        """One node's params drawn on ``device`` from ``seed``, yielded as
+        """One node's params drawn on ``device`` from ``seed`` (on "meta"
+        drawn as shapes only, for the dry run), yielded as
         ``(path, shape, index, piece)``: leaf ``path`` of ``shape`` gets
         ``piece`` at ``index`` (a layer, or a layer and an expert, or ()
         for a whole leaf). :meth:`init` assembles them; ``lmpath.
@@ -248,7 +333,9 @@ class DecoderModel:
         full-width model is never held twice."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        dev = resolve_or_meta(device)
+        gen = (MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
 
         def whole(path, t):
@@ -326,7 +413,7 @@ class DecoderModel:
         if patches is not None:
             h = torch.cat([patches, h], dim=1)
             n_prefix = patches.shape[1]
-        remat = _remat(cfg) and torch.is_grad_enabled()
+        remat = _remat(cfg) if torch.is_grad_enabled() else ""
         aux = torch.zeros((), device=h.device)
         for si, (seg, windows) in enumerate(zip(self.segments,
                                                 self._segment_windows())):
@@ -335,8 +422,8 @@ class DecoderModel:
             for li, window in enumerate(windows):
                 lp = {k: v[li] for k, v in layers.items()}
                 if remat:
-                    h, a = checkpoint(_layer_forward, lp, h, cfg, seg.kind,
-                                      window, memory, use_reentrant=False)
+                    h, a = _checkpointed(remat, lp, h, cfg, seg.kind,
+                                         window, memory)
                 else:
                     h, a = _layer_forward(lp, h, cfg, seg.kind, window,
                                           memory)
@@ -481,7 +568,7 @@ class DecoderModel:
         field stacked on a leading layer axis."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        dev = resolve_device(device)
+        dev = resolve_or_meta(device)
         states = []
         for seg in self.segments:
             st = {}

@@ -23,6 +23,13 @@ truncated or half-written file, a structure mismatch): a file cut short
 by a crash costs one snapshot interval of recompute, never the resume.
 A truncated npz is caught whatever numpy raises for it (the reference
 catches the errors of a file of garbage but not a cut-short zip's).
+
+Under the sharded driver every rank holds a manager on the same
+directory, and only rank 0's is the ``writer``: it writes and prunes,
+while the others only keep the interval's bookkeeping, so that every
+rank takes a snapshot at the same boundaries. On resume rank 0 picks the
+newest valid step (:meth:`load_latest`) and the others :meth:`load`
+that one (``sched.run_schedule``).
 """
 from __future__ import annotations
 
@@ -69,9 +76,11 @@ class Resilience:
 class SnapshotManager:
     """Writes, prunes and loads ``snap-<step>`` snapshots in a dir."""
 
-    def __init__(self, directory, every: int = 0, keep: int = 3):
+    def __init__(self, directory, every: int = 0, keep: int = 3,
+                 writer: bool = True):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
         self.every = int(every)
         self.keep = max(int(keep), 1)
         self._last: Optional[int] = None
@@ -107,7 +116,11 @@ class SnapshotManager:
         """Persist one snapshot: ``state`` the checkpointable tree
         (params / opt_state / key, and comm on a stateful-gossip run),
         ``ctx`` the flat str→array
-        homogenization payload (None before the first round)."""
+        homogenization payload (None before the first round). A manager
+        that is not the ``writer`` records the step and writes nothing."""
+        if not self.writer:
+            self._last = step
+            return
         extra = {"phase": phase, "fired": int(fired), "has_ctx": False}
         if ctx is not None:
             flat = {k: to_numpy(v) for k, v in ctx.items()}
@@ -127,30 +140,34 @@ class SnapshotManager:
                 except FileNotFoundError:
                     pass
 
+    def load(self, step: int, like) -> dict:
+        """The snapshot of ``step`` restored into ``like``'s structure:
+        ``{"state", "step", "phase", "fired", "ctx"}``; raises what an
+        invalid one raises."""
+        base = self._base(step)
+        state, saved_step = load_checkpoint(base, like)
+        with open(base + ".meta.json") as f:
+            extra = json.load(f).get("extra", {})
+        ctx = None
+        if extra.get("has_ctx"):
+            npz = np.load(base + ".ctx.npz")
+            ctx = {k: npz[k] for k in npz.files}
+            crc = checkpoint_checksum(ctx)
+            if extra.get("ctx_checksum") != crc:
+                raise ValueError(
+                    f"snapshot ctx checksum mismatch at step {step}: meta "
+                    f"{extra.get('ctx_checksum')!r} != arrays {crc}")
+        self._last = saved_step
+        return {"state": state, "step": saved_step,
+                "phase": extra.get("phase", "plain"),
+                "fired": int(extra.get("fired", 0)), "ctx": ctx}
+
     def load_latest(self, like) -> Optional[dict]:
         """The newest snapshot that validates, restored into ``like``'s
-        structure, or None: ``{"state", "step", "phase", "fired",
-        "ctx"}``."""
+        structure (:meth:`load`), or None."""
         for step in reversed(self.steps()):
-            base = self._base(step)
             try:
-                state, saved_step = load_checkpoint(base, like)
-                with open(base + ".meta.json") as f:
-                    extra = json.load(f).get("extra", {})
-                ctx = None
-                if extra.get("has_ctx"):
-                    npz = np.load(base + ".ctx.npz")
-                    ctx = {k: npz[k] for k in npz.files}
-                    crc = checkpoint_checksum(ctx)
-                    if extra.get("ctx_checksum") != crc:
-                        raise ValueError(
-                            f"snapshot ctx checksum mismatch at step "
-                            f"{step}: meta {extra.get('ctx_checksum')!r}"
-                            f" != arrays {crc}")
-                self._last = saved_step
-                return {"state": state, "step": saved_step,
-                        "phase": extra.get("phase", "plain"),
-                        "fired": int(extra.get("fired", 0)), "ctx": ctx}
+                return self.load(step, like)
             except _UNREADABLE as e:
                 log.warning("snapshot_invalid", step=step, error=str(e))
         return None

@@ -27,6 +27,14 @@ and generator state, and the comm state, restored on a retry), and at
 the ``capture_at`` boundary. Resume replays the topology and fault events before the
 resume step but skips their training and rounds; the quarantine mask is
 not part of a snapshot, as in the reference.
+
+Under the sharded driver a durable snapshot still holds the whole
+federation, in the node-stacked run's structure (the hooks'
+``snapshot_view``), so one file resumes either driver: rank 0 writes it
+and prunes, every rank waits at a barrier after the write, and on resume
+rank 0 picks the newest valid step, broadcasts it, and every rank loads
+that file and keeps its block (``snapshot_block``). Rank 0 also decides
+whether a crash's tombstone is there, so every rank raises or none.
 """
 from __future__ import annotations
 
@@ -112,6 +120,31 @@ class FederationHooks:
         node-stacked carry is already whole)."""
         return carry
 
+    # durable snapshots: the sharded driver's hooks override these so
+    # that one file holds the whole federation, whichever driver wrote it
+    def agree(self, value):
+        """Rank 0's ``value`` on every rank (the value itself in one
+        process)."""
+        return value
+
+    def snapshot_writer(self) -> bool:
+        """Whether this process writes the snapshots (rank 0)."""
+        return True
+
+    def snapshot_view(self, state):
+        """The whole federation's ``{"params", "opt_state", "key"[,
+        "comm"]}`` from this process's (collective under the sharded
+        driver; the node-stacked state is already whole)."""
+        return state
+
+    def snapshot_block(self, state, like):
+        """This process's block of a whole-federation state, in the
+        structure of its own ``like``."""
+        return state
+
+    def snapshot_barrier(self) -> None:
+        """Wait until the snapshot is on disk for every process."""
+
 
 class CompiledFederationHooks(FederationHooks):
     """:class:`FederationHooks` with the mixers, steps and host runners
@@ -187,6 +220,64 @@ class CompiledFederationHooks(FederationHooks):
                                  if k != "steps"}, self._node_mesh))
         out["steps"] = carry["steps"]
         return out
+
+    def agree(self, value):
+        if self.driver_mode != "shard":
+            return value
+        from repro_torch.launch import dist
+        return dist.broadcast_object(value, src=0)
+
+    def snapshot_writer(self) -> bool:
+        if self.driver_mode != "shard":
+            return True
+        from repro_torch.launch import dist
+        return dist.world()[0] == 0
+
+    def _local_rows(self, state) -> int:
+        return next(iter(state["params"].values())).shape[0]
+
+    def snapshot_view(self, state):
+        """Under the sharded driver: the params and optimizer state
+        gathered (``launch.sharding.global_stack``), the comm state in
+        the node-stacked structure (``comm_global``), the samplers'
+        generator state as it is (every rank draws the same)."""
+        if self.driver_mode != "shard":
+            return state
+        from repro_torch.launch.sharding import (comm_global, global_stack,
+                                                 like_params)
+        mesh, L = self._node_mesh, self._local_rows(state)
+        out = {"params": global_stack(state["params"], self.specs, mesh),
+               "opt_state": global_stack(
+                   state["opt_state"],
+                   like_params(state["opt_state"], self.specs, L), mesh),
+               "key": state["key"]}
+        if "comm" in state:
+            out["comm"] = comm_global(state["comm"], self.specs, mesh)
+        return out
+
+    def snapshot_block(self, state, like):
+        """Under the sharded driver: this rank's block of each part
+        (``local_block``; the comm state through ``comm_from_global``,
+        which rebuilds the sharded mixer's replicas)."""
+        if self.driver_mode != "shard":
+            return state
+        from repro_torch.launch.sharding import (comm_from_global,
+                                                 like_params, local_block)
+        mesh, n = self._node_mesh, self._local_rows(state)
+        out = {"params": local_block(state["params"], self.specs, mesh),
+               "opt_state": local_block(
+                   state["opt_state"],
+                   like_params(state["opt_state"], self.specs, n), mesh),
+               "key": state["key"]}
+        if "comm" in state:
+            out["comm"] = comm_from_global(state["comm"], like["comm"],
+                                           self.specs, mesh)
+        return out
+
+    def snapshot_barrier(self) -> None:
+        if self.driver_mode == "shard":
+            from repro_torch.launch import dist
+            dist.barrier()
 
     def _metrics_on(self) -> bool:
         return self.telemetry is not None
@@ -549,27 +640,37 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
     metrics = hooks.init_metrics(params, topology)
     guard_state = hooks.init_guard(params, topology)
 
+    # the snapshot protocol (FederationHooks); hooks without it are
+    # node-stacked, one process
+    agree = getattr(hooks, "agree", lambda v: v)
+    snapshot_view = getattr(hooks, "snapshot_view", lambda st: st)
+    snapshot_barrier = getattr(hooks, "snapshot_barrier", lambda: None)
     mgr = None
     resumed_with_ctx = False
     if res is not None and getattr(res, "snapshots_on", False):
-        if getattr(hooks, "driver_mode", None) == "shard":
-            raise NotImplementedError(
-                "durable snapshots under driver_mode='shard' are not "
-                "ported: each rank holds a block of the state (ROADMAP.md "
-                "§1, item 13's row); snapshot node-stacked runs")
         from repro_torch.resil.snapshot import SnapshotManager
+        # one file holds the whole federation: under the sharded driver
+        # rank 0 writes it, and on resume picks the step every rank loads
         mgr = SnapshotManager(res.snapshot_dir, every=res.snapshot_every,
-                              keep=res.keep)
-        if resume_step == 0 and mgr.steps():
-            like = {"params": params, "opt_state": opt_state,
+                              keep=res.keep,
+                              writer=getattr(hooks, "snapshot_writer",
+                                             lambda: True)())
+        if resume_step == 0 and agree(bool(mgr.steps())):
+            mine = {"params": params, "opt_state": opt_state,
                     "key": _key_state(key)}
             if comm is not None:
-                like["comm"] = comm
-            loaded = mgr.load_latest(like)
+                mine["comm"] = comm
+            like = snapshot_view(mine)
+            loaded = mgr.load_latest(like) if mgr.writer else None
+            step = agree(-1 if loaded is None else loaded["step"])
+            if not mgr.writer and step >= 0:
+                loaded = mgr.load(step, like)
+            snapshot_barrier()
             if loaded is not None and loaded["step"] > 0:
                 schedule.validate_resume(
                     loaded["step"], with_ctx=loaded["ctx"] is not None)
-                state = loaded["state"]
+                state = getattr(hooks, "snapshot_block",
+                                lambda st, _: st)(loaded["state"], mine)
                 params, opt_state = state["params"], state["opt_state"]
                 if isinstance(key, torch.Generator):
                     key.set_state(state["key"])
@@ -665,11 +766,12 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
                             f"{i} outside [0, {n})")
                 if ev.kind == "crash":
                     if ev.step > resume_step and (
-                            mgr is None or not mgr.crash_seen(ev.step)):
+                            mgr is None
+                            or not agree(mgr.crash_seen(ev.step))):
                         # no snapshot here: recovery rides the one of the
                         # last boundary; the tombstone makes the crash
                         # fire once across incarnations
-                        if mgr is not None:
+                        if mgr is not None and mgr.writer:
                             mgr.mark_crash(ev.step)
                         _ev("fault", step=ev.step, kind="crash")
                         log.warning("fault_crash", step=ev.step)
@@ -854,9 +956,11 @@ def run_schedule(schedule: Schedule, hooks: FederationHooks, params,
             if comm is not None:
                 state["comm"] = comm
             with _span("snapshot", cat="resil", step=seg.stop):
-                mgr.save(seg.stop, state, ctx=getattr(hooks, "ctx", None),
+                mgr.save(seg.stop, snapshot_view(state),
+                         ctx=getattr(hooks, "ctx", None),
                          phase=getattr(hooks, "phase", "plain"),
                          fired=fired)
+                snapshot_barrier()
             _ev("snapshot", step=seg.stop, fired=fired)
         if seg.eval_after:
             with _span("eval", cat="eval", step=seg.stop - 1):

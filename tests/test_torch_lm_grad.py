@@ -271,9 +271,20 @@ def test_remat_on_and_off_give_the_same_gradients(loss_case):
 
 
 def test_remat_dots_policy_is_not_ported(loss_case):
+    """The "dots" policy, which once raised here, now runs: on the
+    reduced Hymba its loss and gradients are per-layer recompute's, and
+    an unknown policy still raises with the valid choices
+    (``tests/test_torch_remat.py`` holds "dots" to the reference)."""
     tcfg, one, batch, _, _ = loss_case
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_loss_and_grads(tcfg.replace(remat=True, remat_policy="dots"),
+    loss, dots = _port_loss_and_grads(
+        tcfg.replace(remat=True, remat_policy="dots"), one, batch)
+    ref, full = _port_loss_and_grads(
+        tcfg.replace(remat=True, remat_policy="nothing"), one, batch)
+    assert loss == ref
+    for k in full:
+        torch.testing.assert_close(dots[k], full[k], atol=1e-7, rtol=1e-6)
+    with pytest.raises(ValueError, match="remat_policy"):
+        _port_loss_and_grads(tcfg.replace(remat=True, remat_policy="bogus"),
                              one, batch)
 
 

@@ -246,19 +246,25 @@ def test_run_training_matches_reference(reference_run, monkeypatch):
 
 
 def test_unported_training_modes_raise(tmp_path):
-    """Durable snapshots under the sharded driver raise, naming the
-    ROADMAP item. Stale stragglers and compressed or delayed gossip are
-    ported: they train (stale stragglers refused under the sharded
-    driver, as in the reference), and a prebuilt schedule whose gossip
-    mode is not the config's raises."""
+    """Durable snapshots under the sharded driver, which once raised
+    here, now run: one rank writes them (``test_torch_shard.py`` holds
+    them on two ranks and against the node-stacked run). Stale
+    stragglers and compressed or delayed gossip are ported: they train
+    (stale stragglers refused under the sharded driver, as in the
+    reference), and a prebuilt schedule whose gossip mode is not the
+    config's raises."""
     from repro_torch import sched
     from repro_torch.resil import Resilience
+    from repro_torch.resil.snapshot import SnapshotManager
     from repro_torch.sched import ChurnEvent
     cfg = _cfg("torch")
     tcfg = TTrain(**TRAIN_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.run_training(cfg, tcfg, device="cpu", driver_mode="shard",
-                            resil=Resilience(snapshot_dir=str(tmp_path)))
+    out = ttrain.run_training(cfg, tcfg, device="cpu", driver_mode="shard",
+                              resil=Resilience(snapshot_dir=str(tmp_path)),
+                              seq_len=SEQ_LEN, n_seqs=N_SEQS,
+                              n_public=N_PUBLIC, log_every=2, verbose=False)
+    assert all(np.isfinite(out["loss_history"]))
+    assert SnapshotManager(tmp_path).steps()
     stale = [ChurnEvent(1, down=(0,), mode="stale")]
     with pytest.raises(ValueError, match="churn"):
         ttrain.run_training(cfg, tcfg, device="cpu", driver_mode="shard",

@@ -10,6 +10,8 @@ the sharded mix and the global sums add in another order than the
 node-stacked ones, so f32 values agree to 1e-5 (the rounds' exchanges
 only concatenate and scale: 1e-6), indices, masks, thresholds and
 payload widths exactly."""
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -174,7 +176,11 @@ def test_shard_refusals_before_the_run():
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     store = tmp_path_factory.mktemp("shard_store")
-    out = dist.spawn(R.rank_main, 2, device="cpu", store_dir=str(store))
+    snaps = tmp_path_factory.mktemp("shard_snapshots")
+    out = dist.spawn(R.rank_main, 2, str(snaps), device="cpu",
+                     store_dir=str(store))
+    out[0]["snapshot_steps"] = [{name: o["snapshots"][name]["steps"]
+                                 for name, _ in R.SNAP_CASES} for o in out]
     return out[0]
 
 
@@ -383,3 +389,49 @@ def test_shard_compressed_mixer_matches_stacked_and_reference(ranks, case):
             np.testing.assert_allclose(got["state"][k].numpy(),
                                        np.asarray(state[k]), atol=1e-5,
                                        err_msg=k)
+
+
+def _same(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _close(a, b, atol=1e-5):
+    for k, v in b.items():
+        np.testing.assert_allclose(a[k].numpy(), v.numpy(), atol=atol,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in R.SNAP_CASES])
+def test_shard_snapshot_resume_matches_uninterrupted(ranks, name, tmp_path):
+    """Durable snapshots under the sharded driver (2 gloo ranks, the
+    ResNet simulator, a crash after the snapshot at step 7): resumed, the
+    run is the uninterrupted sharded run bit for bit (with top-k gossip
+    too: x̂ rides the snapshot, the ring replicas are rebuilt from it);
+    rank 0 picks the step past a cut-short newer file and every rank
+    resumes from it; one file serves both drivers — the sharded run's
+    snapshot resumes a node-stacked run, a node-stacked run's snapshot
+    resumes the sharded run, within the drivers' 1e-5 (uncompressed;
+    top-k runs that differ by rounding may part at a near-tie, so that
+    case checks the resume step and finite params)."""
+    got = ranks["snapshots"][name]
+    comp = dict(R.SNAP_CASES)[name]
+    assert got["crashed"]
+    last = R.SNAP_CRASH - 1
+    for steps in ranks["snapshot_steps"]:
+        assert steps[name] == (last, last, last)
+    assert _same(got["resumed"], got["base"])
+    assert _same(got["from_cut"], got["base"])
+    # the sharded run's snapshot resumes a node-stacked run
+    stacked = R.snapshot_sim("scan", comp)
+    shutil.copytree(got["dir"], tmp_path / "mid")
+    res, step = R._resumed_from(stacked, tmp_path / "mid")
+    assert step == last
+    if comp is None:
+        _close(res.params, got["base"])
+        _close(got["from_stacked"], got["base"])
+        ref = stacked.run(R.snapshot_schedule(False))
+        _close(res.params, ref.params)
+    else:
+        assert all(torch.isfinite(v).all() for v in res.params.values())
+        assert all(torch.isfinite(v).all()
+                   for v in got["from_stacked"].values())

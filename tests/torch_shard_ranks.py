@@ -5,11 +5,19 @@ reference, so that a spawned rank starts in the time torch takes."""
 import numpy as np
 import torch
 
+import shutil
+from pathlib import Path
+
+from repro_torch import sched
 from repro_torch.configs.base import IDKDConfig, TrainConfig
 from repro_torch.configs.resnet20_cifar import SMALL_CONFIG
 from repro_torch.core import driver, labeling
 from repro_torch.core.algorithms import make_algorithm
+from repro_torch.core.simulator import DecentralizedSimulator
 from repro_torch.core.topology import Topology
+from repro_torch.data.synthetic import (make_classification_data,
+                                        make_public_data)
+from repro_torch.launch import dist
 from repro_torch.launch.mesh import make_federation_mesh
 from repro_torch.core.mixing import make_shard_mixer
 from repro_torch.launch.sharding import (comm_block, federation_specs,
@@ -17,7 +25,9 @@ from repro_torch.launch.sharding import (comm_block, federation_specs,
                                          local_block)
 from repro_torch.models.resnet import build_model, stack_params
 from repro_torch.obs.metrics import init_node_metrics
+from repro_torch.resil import Resilience, SimulatedCrash
 from repro_torch.resil.guards import GuardSpec, init_node_guard
+from repro_torch.resil.snapshot import SnapshotManager
 
 # C = 9: at model size 2 the vocab slices are 5 wide, the last with one
 # padded column
@@ -145,6 +155,111 @@ def train_args():
                            use_idkd=True, verbose=False, device="cpu")
 
 
+# durable snapshots under the sharded driver: a 12-step run, the round at
+# 6, an eval every 3 steps, a snapshot at boundaries 3 or more steps
+# apart (1, 4 and 7), a crash at 8
+SNAP_STEPS, SNAP_ROUND, SNAP_CRASH, SNAP_EVERY = 12, 6, 8, 3
+# (name, compression): uncompressed sync gossip, and top-k, whose comm
+# state (x̂ and the ring replicas) rides the snapshot
+SNAP_CASES = (("plain", None), ("topk", ("topk", 0.2)))
+
+
+def snapshot_sim(driver_mode, compression=None):
+    """The ResNet simulator of the snapshot checks, on 4 ring nodes."""
+    data = make_classification_data(num_classes=CFG.num_classes,
+                                    image_size=8, n_train=96, n_val=8,
+                                    n_test=16, seed=0)
+    pub = make_public_data(data, n_public=12, kind="aligned", seed=1)
+    kind, frac = compression or ("none", 0.0)
+    tcfg = TrainConfig(num_nodes=N, steps=SNAP_STEPS, batch_size=3, lr=0.1,
+                       compression=kind, compression_frac=frac,
+                       idkd=IDKDConfig(start_step=SNAP_ROUND,
+                                       label_backend="sparse",
+                                       label_topk=4, stream_microbatch=4))
+    return DecentralizedSimulator(CFG, tcfg, data, pub, kd_mode="idkd",
+                                  eval_every=SNAP_EVERY,
+                                  driver_mode=driver_mode,
+                                  wire_dtype="native", device="cpu")
+
+
+def snapshot_schedule(crash: bool):
+    events = (sched.FaultEvent(SNAP_CRASH, "crash"),) if crash else ()
+    return sched.compile_schedule(SNAP_STEPS, SNAP_EVERY,
+                                  round_steps=(SNAP_ROUND,), events=events)
+
+
+def _resumed_from(sim, directory):
+    """Run the crash schedule on ``directory``'s snapshots; returns the
+    result and the step this process resumed from."""
+    loaded = []
+    load = SnapshotManager.load
+
+    def record(self, step, like):
+        out = load(self, step, like)
+        loaded.append(out["step"])
+        return out
+    SnapshotManager.load = record
+    try:
+        res = sim.run(snapshot_schedule(True), resil=Resilience(
+            snapshot_dir=str(directory), snapshot_every=SNAP_EVERY))
+    finally:
+        SnapshotManager.load = load
+    return res, loaded[-1] if loaded else None
+
+
+def _snapshots(snap_dir):
+    """Each case: the sharded run uninterrupted; snapshotted, crashed at
+    SNAP_CRASH and resumed; its directory as the crash left it (copied
+    for the parent's node-stacked resume); a node-stacked run's snapshot
+    resuming the sharded run; and a snapshot beside a cut-short newer
+    file resuming every rank from the same step."""
+    rank = dist.world()[0]
+    root = Path(snap_dir)
+    out = {}
+    for name, comp in SNAP_CASES:
+        sim = snapshot_sim("shard", comp)
+        base = sim.run(snapshot_schedule(False))
+        d = root / name
+        crashed = False
+        try:
+            sim.run(snapshot_schedule(True), resil=Resilience(
+                snapshot_dir=str(d / "shard"), snapshot_every=SNAP_EVERY))
+        except SimulatedCrash:
+            crashed = True
+        dist.barrier()
+        if rank == 0:
+            shutil.copytree(d / "shard", d / "mid")
+            stacked = snapshot_sim("scan", comp)
+            try:
+                stacked.run(snapshot_schedule(True), resil=Resilience(
+                    snapshot_dir=str(d / "stacked"),
+                    snapshot_every=SNAP_EVERY))
+            except SimulatedCrash:
+                pass
+            # a newer snapshot cut short by a crash beside the newest
+            shutil.copytree(d / "shard", d / "cut")
+            last = SnapshotManager(d / "cut").steps()[-1]
+            for suffix in (".npz", ".meta.json"):
+                shutil.copy(d / "cut" / f"snap-{last:08d}{suffix}",
+                            d / "cut" / f"snap-{last + 1:08d}{suffix}")
+            npz = d / "cut" / f"snap-{last + 1:08d}.npz"
+            raw = npz.read_bytes()
+            npz.write_bytes(raw[:len(raw) // 2])
+        dist.barrier()
+        resumed, step = _resumed_from(sim, d / "shard")
+        from_stacked, step_stacked = _resumed_from(sim, d / "stacked")
+        from_cut, step_cut = _resumed_from(sim, d / "cut")
+        glob = sim.global_params
+        out[name] = {"crashed": crashed,
+                     "steps": (step, step_stacked, step_cut),
+                     "base": glob(base.params),
+                     "resumed": glob(resumed.params),
+                     "from_stacked": glob(from_stacked.params),
+                     "from_cut": glob(from_cut.params),
+                     "dir": str(d / "mid")}
+    return out
+
+
 def _steps():
     model = build_model(CFG)
     out = {}
@@ -235,7 +350,7 @@ def _train():
     return {k: res[k] for k in ("params", "loss_history", "last_round")}
 
 
-def rank_main(rank, world):
+def rank_main(rank, world, snap_dir):
     torch.set_num_threads(1)
     return {"steps": _steps(), "rounds": _rounds(), "train": _train(),
-            "mixers": _mixers()}
+            "mixers": _mixers(), "snapshots": _snapshots(snap_dir)}
