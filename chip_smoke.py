@@ -408,10 +408,16 @@ GOSSIP_ACC_BAND = 0.1        # GOSSIP (and SHARD's top-k cases): each
                              # uncompressed (node-stacked) run's; at this
                              # depth every run sits near chance (0.096 to
                              # 0.156 on one H100, deltas 0.030-0.061):
-                             # the band catches a run that breaks only;
-                             # the exact gates are TRAJ_STEPS steps and a
-                             # mixer step from the round's state (see
-                             # phase_gossip)
+                             # the band catches a run that breaks only, so
+                             # in GOSSIP it is one-sided: a run fails if
+                             # it ends more than the band below the plain
+                             # run (random-k 1% has ended 0.086-0.110
+                             # above it, learning more than the plain run
+                             # at chance, which breaks nothing); SHARD's
+                             # sharded-vs-node-stacked pairs, one wire
+                             # each, stay two-sided; the exact gates are
+                             # TRAJ_STEPS steps and a mixer step from the
+                             # round's state (see phase_gossip)
 TRAJ_STEPS = 3               # GOSSIP and SHARD: full train steps from the
                              # params, optimizer and comm state captured
                              # at the round, through the host runner
@@ -3918,8 +3924,8 @@ def phase_gossip(torch):
     GOSSIP_STALE on sync gossip, one run each; each run's accuracy, NLL,
     wall time a step, peak, ledger bytes and EF residual at the round.
     Gates: the ledger's bytes to the byte against the payload formula
-    (stale senders at 0), every run's final accuracy within
-    GOSSIP_ACC_BAND of the plain run's, the straggler's x̂ (prev) rows
+    (stale senders at 0), no run's final accuracy more than
+    GOSSIP_ACC_BAND below the plain run's, the straggler's x̂ (prev) rows
     unchanged over its window, every head_select launch simt; then, on
     the plain run's params at the round, (f) the gather mixer on the
     15-node Florentine graph, and roll and auto on the ring, against
@@ -4001,16 +4007,16 @@ def phase_gossip(torch):
     plain = runs[GOSSIP_CASES[0][0]]
     base_acc = plain["res"].final_acc
     for name, r in runs.items():
-        d = abs(r["res"].final_acc - base_acc)
+        d = base_acc - r["res"].final_acc       # one-sided: a run below
         check(d <= GOSSIP_ACC_BAND,
               f"GOSSIP {name}: final accuracy {r['res'].final_acc} is "
-              f"{d:.4f} from the plain run's {base_acc} > "
+              f"{d:.4f} below the plain run's {base_acc} > "
               f"{GOSSIP_ACC_BAND}")
     ratio = {name: plain["res"].ledger["gossip_bytes"]
              / r["res"].ledger["gossip_bytes"] for name, r in runs.items()}
     print(f"GOSSIP: uncompressed over each run's ledger bytes "
           f"{ {k: round(v, 3) for k, v in ratio.items()} }; final "
-          f"accuracy within {GOSSIP_ACC_BAND} of the plain run's "
+          f"accuracy at most {GOSSIP_ACC_BAND} below the plain run's "
           f"{base_acc}")
 
     # (f) and the oracles, on the plain run's params at the round

@@ -4,9 +4,9 @@ one part cut out, timed against the source as it is.
 Each variant is ``csrc/<kernel>.cu`` with one edit, built with the same
 flags under ``build/ablate/`` and launched through the same C entry point
 on the same inputs, all variants in turns (two rounds; the faster round
-is kept). A variant's outputs are wrong by design: it measures, it does
-not compute the kernel's function. ``ssd_scan`` also gets its three
-passes' device times from the profiler.
+is kept). A variant with a part cut out computes a wrong result by
+design: it measures, it does not compute the kernel's function.
+``ssd_scan`` also gets its three passes' device times from the profiler.
 
     python -m repro_torch.kernels.ablate          # on a machine with an H100
 
@@ -21,19 +21,36 @@ within one machine:
 
 ``--flash`` times the tensor-core ``flash_attention`` kernels, forward
 as the round calls them (B 8, no log-sum-exp) and backward at the
-training batch (B 2), at the shapes the LM paths run (Hymba-1.5B global
-and windowed, Qwen3-1.7B, Phi-3-mini, MusicGen-medium's cross-attention,
-PaliGemma-3B's layer at head_dim 256 causal and with its prefix-LM
-mask), through the same calls for whichever checkout is first on
-``PYTHONPATH``, as ``--forward``.
+training batch ``chip_smoke.py``'s rows take (B 2; B 8 at DeepSeek-V3's
+MLA layer), at the shapes the LM paths run (Hymba-1.5B global and
+windowed, Qwen3-1.7B, Phi-3-mini, MusicGen-medium's self- and
+cross-attention, PaliGemma-3B's layer at head_dim 256 causal and with its
+prefix-LM mask, DeepSeek-V3's MLA layer), through the same calls for
+whichever checkout is first on ``PYTHONPATH``, as ``--forward``.
 
-``--backward`` splits the two backward calls at Hymba-1.5B's training
-shape into their kernels' device times (the profiler): the tensor-core
-attention backward's three and the SSD backward's four; and times
+``--backward`` splits the two backward calls into their kernels' device
+times (the profiler): the tensor-core attention backward's three at
+Hymba-1.5B's training shape (window 0 and 1024), Phi-3-mini's (head_dim
+96), Qwen3-1.7B's, MusicGen-medium's self- and cross-attention and
+DeepSeek-V3's MLA layer, each beside copies of
+``flash_attention_bwd_tc.cu`` in turns: with its dQ reductions into the
+f32 accumulator cut out, and four that still compute the function
+(a Q / dO ring of depth 3 at head_dim 96 and 128; the blocks in the
+head-fastest order; chunks of heads with a short last one; chunks sized
+by the dQ rows alone); and the SSD backward's four, timing
 ``ssd_scan_bwd.cu`` with groups of its tile kernel's products cut out,
 and with its products accumulated inside the ``mma`` as the forward's
 are, that variant's and the committed kernel's max errors against the
 plain version in float64 printed beside the plain f32 version's.
+
+``--rounding`` holds the tensor-core attention backward's gradients at
+``ROUNDING_CASES`` against the float64 statement of its function and
+against the plain f32 version, beside SDPA's backward and the plain
+version itself (``bwd_rounding``). ``--dots-noise`` repeats the
+statistic of ``chip_smoke.py``'s LM-4 dots check (one Hymba-1.5B node's
+gradients under per-layer recompute twice and "dots"), six rounds, and
+compares runs back to back with runs of other rounds (``dots_noise``):
+how far that check's one noise sample spreads.
 
 It prints the card's name and power limit first. It imports nothing the
 kernels' wrappers do not; the variants are never used by the port.
@@ -41,6 +58,7 @@ kernels' wrappers do not; the variants are never used by the port.
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 
@@ -98,6 +116,29 @@ ABLATIONS = {
            "acc, NJ, 16 * tt, 0, 0, nc0, 2,")]),
     ],
 }
+
+
+_FBT_CHUNK = "const int chunk = (int)((bh + n_chunks - 1) / n_chunks);"
+ABLATIONS["flash_attention_bwd_tc"] = [
+    ("as committed", []),
+    ("no dQ reductions",        # the row-wise bulk ones and the tensor ones
+     [('#include "hopper.cuh"\n',
+       '#include "hopper.cuh"\n#define bulk_reduce_add_f32(...) ((void)0)\n'),
+      ("tma_reduce_add_2d(tdq, ", "if (false) tma_reduce_add_2d(tdq, ")]),
+    # the next four compute the whole function: a design choice each
+    ("Q / dO ring depth 3 at head_dim 96 and 128",
+     [("static constexpr int NST = D == 64 ? 4 : 2;",
+       "static constexpr int NST = D == 64 ? 4 : 3;")]),
+    ("head-fastest grid (every head one chunk: key block 0 of each head "
+     "first)", [(_FBT_CHUNK, "const int chunk = (int)bh;")]),
+    ("chunks of as many heads as FBT_L2_BUDGET holds, the last one short",
+     [(_FBT_CHUNK, "const int chunk = (int)std::max(\n"
+       "        1LL, std::min(bh, FBT_L2_BUDGET / per_head));")]),
+    ("chunks of equal size by the dQ rows alone, 40 MiB",
+     [("(bh * per_head + FBT_L2_BUDGET - 1) /\n"
+       "                               FBT_L2_BUDGET;",
+       "(bh * Sp * D * 4 + (40ll << 20) - 1) / (40ll << 20);")]),
+]
 
 
 # the ssd_scan_bwd variants that still compute the whole function, whose
@@ -271,25 +312,63 @@ def _device_ms_by_kernel(fn, reps: int):
     return out
 
 
-def backward_passes(gen):
-    """Device ms of each kernel of the two backward calls at Hymba-1.5B's
-    training shape (B 2, S 2048 + 128 meta tokens): ``flash_attention``'s
-    tensor-core backward (bf16, window 0 and 1024) and ``ssd_scan``'s
-    four passes (N 16; and Mamba-2-780M's N 128, S 2048)."""
+def flash_bwd_ablations(gen):
+    """Device ms of each kernel of ``flash_attention``'s tensor-core
+    backward (bf16) at Hymba-1.5B's training shape (B 2, S 2048 + 128 meta
+    tokens, window 0 and 1024), Phi-3-mini's (B 2, S 2048, 32/32 x 96),
+    Qwen3-1.7B's (16/8 x 128), MusicGen-medium's self- and
+    cross-attention (B 2, Sq 1500, Sk 1500 or 64, 24/24 x 64) and
+    DeepSeek-V3's MLA layer (B 8, 128/128 x (192, 128)), and the same
+    calls through the ablation copies of its source, in turns."""
+    import repro_torch
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops, ssd_scan_bwd
-    B, S = 2, 2176
-    q, do, o = (torch.randn((B, S, 25, 64), generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(3))
-    k, v = (torch.randn((B, S, 5, 64), generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(2))
-    lse = 4 + torch.rand((B, 25, S), generator=gen, device="cuda")
-    for window in (0, 1024):
+    print(f"package: {repro_torch.__file__}")
+    flash_fns = _build("flash_attention_bwd_tc")
+    for fn in flash_fns.values():
+        fn.argtypes = flash_ops._fn("bwd_tc").argtypes
+        fn.restype = ctypes.c_int
+    for label, B, S, Sk, H, KVH, D, Dv, window in (
+            ("hymba-1.5b", 2, 2176, None, 25, 5, 64, 64, 0),
+            ("hymba-1.5b", 2, 2176, None, 25, 5, 64, 64, 1024),
+            ("phi3-mini-3.8b", 2, 2048, None, 32, 32, 96, 96, 0),
+            ("qwen3-1.7b", 2, 2048, None, 16, 8, 128, 128, 0),
+            ("musicgen-medium self", 2, 1500, None, 24, 24, 64, 64, 0),
+            ("musicgen-medium cross", 2, 1500, 64, 24, 24, 64, 64, 0),
+            ("deepseek-v3 mla", 8, 2048, None, 128, 128, 192, 128, 0)):
+        causal, Sk = Sk is None, Sk or S
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        do, o = (torch.randn((B, S, H, Dv), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        k = torch.randn((B, Sk, KVH, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn((B, Sk, KVH, Dv), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        lse = 4 + torch.rand((B, H, S), generator=gen, device="cuda")
+        tag = (f"flash_attention backward tc {label} (B {B}, S {S}"
+               f"{'' if causal else f', Sk {Sk}'}, {H}/{KVH} x {D}/{Dv}, "
+               f"window {window})")
         res = _device_ms_by_kernel(lambda: flash_ops._bwd_launch(
-            "tc", q, k, v, o, lse, do, window), 10)
-        print(f"flash_attention backward tc, window {window} (ms per call): "
-              + ", ".join(f"{n} {ms:.4f}" for n, ms in res.items()),
-              flush=True)
+            "tc", q, k, v, o, lse, do, window, causal), 10)
+        print(f"{tag} (ms per call): " + ", ".join(
+            f"{n} {ms:.4f}" for n, ms in res.items()), flush=True)
+        res = _in_turns({n: (lambda fn=fn: flash_ops._bwd_tc_run(
+            fn, q, k, v, o, lse, do, window, causal)[0])
+            for n, fn in flash_fns.items()}, 10)
+        print(f"{tag} ablations: " + "; ".join(
+            f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
+        del q, do, o, k, v, lse
+    torch.cuda.empty_cache()
+
+
+def backward_passes(gen):
+    """Device ms of each kernel of the two backward calls:
+    :func:`flash_bwd_ablations`, then ``ssd_scan``'s four passes (N 16;
+    and Mamba-2-780M's N 128, S 2048) and its ablations."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops, ssd_scan_bwd
+    flash_bwd_ablations(gen)
+    torch.cuda.empty_cache()
+    B, S = 2, 2176
     fns = _build("ssd_scan_bwd")
     for label, (S_, H, N) in (("hymba", (S, 50, 16)),
                               ("mamba2-780m", (2048, 48, 128))):
@@ -355,12 +434,13 @@ def forward_times(gen):
 
 
 def flash_times(gen):
-    """Device ms of the tc flash forward (B 8, no lse) and backward (B 2)
-    at the LM paths' shapes, in turns, through ``_launch`` and
-    ``_bwd_launch`` of the package on the path: the causal layers of
-    Hymba, Qwen3 and Phi-3, MusicGen's cross-attention, and PaliGemma's
-    layer at head_dim 256 causal and with its prefix-LM mask (skipped for
-    a package whose kernels do not take head_dim 256)."""
+    """Device ms of the tc flash forward (B 8, no lse) and backward (B 2;
+    B 8 at the MLA layer) at the LM paths' shapes, in turns, through
+    ``_launch`` and ``_bwd_launch`` of the package on the path: the causal
+    layers of Hymba, Qwen3, Phi-3 and MusicGen, MusicGen's
+    cross-attention, PaliGemma's layer at head_dim 256 causal and with its
+    prefix-LM mask, and DeepSeek-V3's MLA layer (each skipped for a
+    package whose kernels do not take its head dims)."""
     import repro_torch
     from repro_torch.kernels.flash_attention import ops
     print(f"package: {repro_torch.__file__}")
@@ -368,31 +448,190 @@ def flash_times(gen):
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
-    for label, S, Sk, H, KVH, D, window, prefix in (
-            ("hymba-1.5b global", 2176, None, 25, 5, 64, 0, 0),
-            ("hymba-1.5b window 1024", 2176, None, 25, 5, 64, 1024, 0),
-            ("qwen3-1.7b", 2048, None, 16, 8, 128, 0, 0),
-            ("phi3-mini-3.8b", 2048, None, 32, 32, 96, 0, 0),
-            ("musicgen-medium cross", 1500, 64, 24, 24, 64, 0, 0),
-            ("paligemma-3b causal", 512, None, 8, 1, 256, 0, 0),
-            ("paligemma-3b prefix 256", 512, None, 8, 1, 256, 0, 256)):
-        if D not in ops.HEAD_DIMS:
+    for label, S, Sk, H, KVH, D, Dv, window, prefix, Bb in (
+            ("hymba-1.5b global", 2176, None, 25, 5, 64, 64, 0, 0, 2),
+            ("hymba-1.5b window 1024", 2176, None, 25, 5, 64, 64, 1024, 0,
+             2),
+            ("qwen3-1.7b", 2048, None, 16, 8, 128, 128, 0, 0, 2),
+            ("phi3-mini-3.8b", 2048, None, 32, 32, 96, 96, 0, 0, 2),
+            ("musicgen-medium self", 1500, None, 24, 24, 64, 64, 0, 0, 2),
+            ("musicgen-medium cross", 1500, 64, 24, 24, 64, 64, 0, 0, 2),
+            ("paligemma-3b causal", 512, None, 8, 1, 256, 256, 0, 0, 2),
+            ("paligemma-3b prefix 256", 512, None, 8, 1, 256, 256, 0, 256,
+             2),
+            ("deepseek-v3 mla", 2048, None, 128, 128, 192, 128, 0, 0, 8)):
+        if ops._dims(D, Dv) not in ops.HEAD_DIMS + ops.TC_MLA_HEAD_DIMS:
             print(f"flash_attention tc {label}: head_dim {D} not taken by "
                   f"this package", flush=True)
             continue
         causal, Sk = Sk is None, Sk or S
         kw = {"prefix_len": prefix} if prefix else {}
-        q8, k8, v8 = bf16(8, S, H, D), bf16(8, Sk, KVH, D), bf16(8, Sk, KVH, D)
-        q, o, do = bf16(2, S, H, D), bf16(2, S, H, D), bf16(2, S, H, D)
-        k, v = bf16(2, Sk, KVH, D), bf16(2, Sk, KVH, D)
-        lse = 4 + torch.rand((2, H, S), generator=gen, device="cuda")
+        q8, k8, v8 = bf16(8, S, H, D), bf16(8, Sk, KVH, D), bf16(8, Sk, KVH,
+                                                                 Dv)
+        q, o, do = bf16(Bb, S, H, D), bf16(Bb, S, H, Dv), bf16(Bb, S, H, Dv)
+        k, v = bf16(Bb, Sk, KVH, D), bf16(Bb, Sk, KVH, Dv)
+        lse = 4 + torch.rand((Bb, H, S), generator=gen, device="cuda")
         res = _in_turns({
             "forward B 8": lambda: (ops._launch(
                 "tc", q8, k8, v8, window, causal, **kw), 0)[1],
-            "backward B 2": lambda: (ops._bwd_launch(
+            f"backward B {Bb}": lambda: (ops._bwd_launch(
                 "tc", q, k, v, o, lse, do, window, causal, **kw), 0)[1]}, 20)
         print(f"flash_attention tc {label}: " + "; ".join(
             f"{n} {ms:.4f} ms" for n, ms in res.items()), flush=True)
+        del q8, k8, v8, q, o, do, k, v, lse
+    torch.cuda.empty_cache()
+
+
+# (B, Sq, Sk, H, KVH, D, DV, window, causal) of --rounding: the card
+# tests' two cases whose dQ broke the tc backward's rule (a) against the
+# plain version, and cases beside them that kept it
+ROUNDING_CASES = (
+    (1, 150, 200, 8, 2, 128, 128, 0, False),
+    (1, 200, 200, 4, 2, 192, 128, 64, True),
+    (2, 200, 200, 4, 2, 192, 128, 64, True),
+    (1, 150, 200, 8, 8, 128, 128, 0, False),
+    (1, 333, 333, 4, 4, 192, 128, 100, True),
+    (2, 517, 517, 6, 3, 128, 128, 0, True),
+)
+
+
+def bwd_rounding():
+    """The tc backward's rounding at ROUNDING_CASES, on the card tests'
+    inputs (the same generator and seed). Per gradient, the worst
+    element-wise excess (|a - r| over 1e-4 max |r| + two bf16 ulps of r):
+    of the kernel against the plain version with bf16 operands in f32,
+    and of that plain version with lse moved by one ulp (a yardstick that
+    misses flips the kernel's own f32 errors make); then of the kernel,
+    that plain version and SDPA's backward against the float64
+    statement, as they are and less ``flash_attention_bwd_flip_bound`` at
+    n = 1, 4, 16 and the head_dim D (the card tests' rule (a))."""
+    import math
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import ops
+
+    def excess(a, r, off=None):
+        r = r.double()
+        d = (a.double() - r).abs()
+        if off is not None:
+            d = (d - off).clamp_min(0.0)
+        return d / (1e-4 * r.abs().max() + 2.0 * ops._bf16_ulp(r))
+    bf = torch.bfloat16
+    for B, Sq, Sk, H, KVH, D, DV, window, causal in ROUNDING_CASES:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(bf)
+        k = torch.randn((B, Sk, KVH, D), generator=g, device="cuda").to(bf)
+        v = torch.randn((B, Sk, KVH, DV), generator=g, device="cuda").to(bf)
+        do = torch.randn((B, Sq, H, DV), generator=g, device="cuda").to(bf)
+        kw = dict(window=window, causal=causal)
+        allow = ops._allow(torch.arange(Sq, device="cuda"),
+                           torch.arange(Sk, device="cuda"), causal, window)
+        qr = q.clone().requires_grad_(True)
+        out = FlashAttentionFn.apply(qr, k, v, window, causal, 0)
+        o, lse = (t.detach() for t in out.grad_fn.saved_tensors[3:])
+        ins = (q, k, v, o, lse, do)
+        got = flash_attention_bwd(*ins, **kw)
+        ref_b = flash_attention_bwd_plain(*ins, **kw, operands="bf16")
+        moved = [flash_attention_bwd_plain(
+            q, k, v, o, torch.nextafter(lse, torch.full_like(lse, to)), do,
+            **kw, operands="bf16") for to in (math.inf, -math.inf)]
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        sd = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allow if window else None,
+            is_causal=causal and not window, enable_gqa=True)
+        lib = [t.transpose(1, 2) for t in torch.autograd.grad(
+            sd, (qt, kt, vt), do.transpose(1, 2))]
+        exact = flash_attention_bwd_plain(*(t.double() for t in ins), **kw,
+                                          operands="bf16")
+        bounds = {n: ops.flash_attention_bwd_flip_bound(*ins, **kw, n=n)
+                  for n in (1, 4, 16, D)}
+        tag = (f"B {B} Sq {Sq} Sk {Sk} {H}/{KVH} x {D}/{DV} window "
+               f"{window} {'causal' if causal else 'cross'}")
+        for i, name in enumerate(("dq", "dk", "dv")):
+            e_rule = excess(got[i], ref_b[i])
+            worst = int(e_rule.argmax())
+            line = {"case": tag, "grad": name,
+                    "vs_plain_f32": float(e_rule.max()),
+                    "lse_moved_vs_plain_f32": max(
+                        float(excess(m[i], ref_b[i]).max()) for m in moved)}
+            for who, a in (("kernel", got[i]), ("plain_f32", ref_b[i]),
+                           ("sdpa", lib[i])):
+                line[f"{who}_vs_f64"] = float(excess(a, exact[i]).max())
+                for n, bnd in bounds.items():
+                    line[f"{who}_vs_f64_less_bound_n{n}"] = float(
+                        excess(a, exact[i], bnd[i]).max())
+            line["worst_vs_plain_f32"] = {
+                "kernel": float(got[i].flatten()[worst]),
+                "plain_f32": float(ref_b[i].flatten()[worst]),
+                "f64": float(exact[i].flatten()[worst]),
+                "tol": float((1e-4 * exact[i].abs().max() + 2.0
+                              * ops._bf16_ulp(exact[i])).flatten()[worst]),
+                **{f"bound_n{n}": float(b[i].flatten()[worst])
+                   for n, b in bounds.items()}}
+            print("rounding " + json.dumps(line), flush=True)
+        del ins, got, ref_b, moved, lib, exact, bounds
+
+
+def dots_noise(rounds: int = 6, small: int = 4096):
+    """The run-to-run spread behind ``chip_smoke.py``'s LM-4 dots check:
+    one Hymba-1.5B node's gradient (bf16, one batch of 2 x 2048 tokens,
+    as the check takes it) ``rounds`` times under per-layer recompute
+    twice and "dots" once, in that order, as the check runs them. For
+    every leaf of at most ``small`` elements, the largest |difference|
+    between each pair of runs: the check's own ratio (dots against the
+    first recompute run, over the two recompute runs' distance) by round,
+    and the median distance between two recompute runs that ran back to
+    back, between recompute runs of different rounds, and between a dots
+    run and a recompute run of another round."""
+    import statistics
+    from repro_torch import lmpath
+    from repro_torch.models.transformer import DecoderModel
+    params = lmpath.node_params(DecoderModel(lmpath.CONFIG), [0], "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(lmpath.DATA_SEED)
+    batch = lmpath.train_batch(lmpath.CONFIG, 1, lmpath.TRAIN.batch_size,
+                               lmpath.SEQ_LEN, gen)
+    keys = [k for k in params if params[k].numel() <= small]
+    runs = []                       # (round, policy, {leaf: grad})
+    for r in range(rounds):
+        for run in ("nothing", "repeat", "dots"):
+            model = DecoderModel(lmpath.CONFIG.replace(
+                remat_policy="dots" if run == "dots" else "nothing"))
+            ps = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+            loss, _ = model.loss(ps, batch)
+            g = torch.autograd.grad(loss.sum(), [ps[k] for k in keys],
+                                    materialize_grads=True)
+            runs.append((r, run, {k: x.float() for k, x in zip(keys, g)}))
+            del loss, g, ps
+    def dist(a, b, k):
+        return float((a[k] - b[k]).abs().max())
+    print(f"dots_noise: {len(keys)} leaves of at most {small} elements, "
+          f"{rounds} rounds", flush=True)
+    for k in keys:
+        ratio, adjacent, across, dots = [], [], [], []
+        for i, (ri, pi, gi) in enumerate(runs):
+            for rj, pj, gj in runs[i + 1:]:
+                d = dist(gi, gj, k)
+                if pi != "dots" and pj != "dots":
+                    (adjacent if ri == rj else across).append(d)
+                elif (pi == "dots") != (pj == "dots") and ri != rj:
+                    dots.append(d)
+        for r in range(rounds):
+            n, rep, dt = (runs[3 * r + i][2] for i in range(3))
+            noise = dist(n, rep, k)
+            ratio.append(dist(dt, n, k) / noise if noise else float("inf"))
+        med = lambda x: statistics.median(x) if x else 0.0
+        if max(across + dots + [0.0]) == 0.0:
+            continue
+        print("dots_noise " + json.dumps({
+            "leaf": k, "numel": params[k].numel(),
+            "check_ratio_by_round": [round(x, 3) for x in ratio],
+            "median_recompute_back_to_back": med(adjacent),
+            "median_recompute_across_rounds": med(across),
+            "median_dots_vs_recompute_across_rounds": med(dots)}),
+            flush=True)
 
 
 def main() -> int:
@@ -412,6 +651,12 @@ def main() -> int:
         return 0
     if "--flash" in sys.argv[1:]:
         flash_times(gen)
+        return 0
+    if "--rounding" in sys.argv[1:]:
+        bwd_rounding()
+        return 0
+    if "--dots-noise" in sys.argv[1:]:
+        dots_noise()
         return 0
     ablate_msp(gen)
     ablate_ssd(gen)

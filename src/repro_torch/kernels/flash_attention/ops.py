@@ -82,7 +82,9 @@ TC_HEAD_DIMS = (64, 96, 128, 256)
 MLA_HEAD_DIMS = ((48, 32), (192, 128))      # MLA's (qk, v) head dims
 TC_MLA_HEAD_DIMS = ((192, 128),)
 MODES = ("causal", "cross", "prefix", "offset")
-TC_BWD_TILE = 64       # the tc backward's key and query tile
+TC_BWD_TILE = 64       # the tc backward's query tile and a warpgroup's keys
+TC_BWD_KEYS = 128      # its keys a block at head_dim 64, 96 and 128 (64
+                       # in MLA's mode and at 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -266,6 +268,203 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, window: int = 0,
     return (dq.reshape(B, S, H, D).to(out), dk.to(out), dv.to(out))
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at each element's |x| (0 where x is 0)."""
+    _, e = torch.frexp(x.abs())             # |x| = m · 2^e, m in [0.5, 1)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _to_bf16_midpoint(x):
+    """|x|'s distance to the nearest midpoint between two bf16 values:
+    how far x may move before its bf16 rounding flips (inf at 0)."""
+    u = _bf16_ulp(x)
+    t = x.abs() / torch.where(u == 0, 1.0, u)
+    return torch.where(x == 0, torch.inf, (t - t.floor() - 0.5).abs() * u)
+
+
+def flash_attention_bwd_flip_bound(q, k, v, o, lse, do, *, window: int = 0,
+                                   causal: bool = True, prefix_len: int = 0,
+                                   chunk: int = 512, n: int | None = None):
+    """How far an f32 evaluation of the tc backward's function
+    (``flash_attention_bwd_plain(..., operands="bf16")``) may lie from
+    its exact value (the same on float64 inputs) through the bf16
+    roundings of P and dS alone: per gradient element, the sum of
+    |a bf16 ulp of the term x the other operand| over every P and dS that
+    lies within such an evaluation's error of a midpoint between two bf16
+    values, where its rounding can go either way. (A P or dS rounded one
+    ulp the other way moves dV, dK, dQ by that term; the f32 error itself
+    is far below the elementwise rule's.) The evaluation's error, after
+    Higham's bound on an f32 dot product of length n (|error| <= n 2^-24
+    sum |terms|; n = the head_dim D by default): the exp argument
+    s scale - lse within n 2^-24 (sum |q k| scale + |lse| + 1), so P
+    within P times that (plus n 2^-24 P for the exp), and dS = P (dP - D)
+    within n 2^-24 (|dS| + P (sum |dO V| + sum |dO O|)) plus |dS| times
+    P's relative error. Float64 (B, S, H, D), (B, Sk, KVH, D), (B, Sk,
+    KVH, DV) bounds; query rows in ``chunk``-long blocks."""
+    B, S, H, D = q.shape
+    Sk, KVH, DV = k.shape[1], k.shape[2], v.shape[-1]
+    _check_mode(S, Sk, causal, window, prefix_len)
+    G, f = H // KVH, torch.float64
+    eps = (D if n is None else n) * 2.0 ** -24
+    scale = 1.0 / float(D) ** 0.5
+    qf, dof, of = q.to(f), do.to(f), o.to(f)
+    kf, vf = (t.to(f).repeat_interleave(G, 2) for t in (k, v))
+    lsef = lse.to(f).permute(0, 2, 1)[..., None]             # b q h 1
+    pos, k_pos = (torch.arange(n_, device=q.device) for n_ in (S, Sk))
+    bq = torch.empty_like(qf)
+    bk = torch.zeros((B, Sk, H, D), dtype=f, device=q.device)
+    bv = torch.zeros((B, Sk, H, DV), dtype=f, device=q.device)
+    for c0 in range(0, S, chunk):
+        rows = slice(c0, c0 + chunk)
+        allow = _allow(pos[rows], k_pos, causal, window, prefix_len)
+        s = torch.einsum("bqhd,bkhd->bqhk", qf[:, rows], kf)
+        arg = s * scale - lsef[:, rows]
+        p = torch.where(allow[None, :, None], torch.exp(arg), 0.0)
+        d_arg = eps * (torch.einsum("bqhd,bkhd->bqhk", qf[:, rows].abs(),
+                                    kf.abs()) * scale
+                       + lsef[:, rows].abs() + 1.0)
+        del s, arg
+        dp = torch.einsum("bqhd,bkhd->bqhk", dof[:, rows], vf)
+        prod = dof[:, rows] * of[:, rows]
+        ds = p * (dp - prod.sum(-1)[..., None])
+        mag = (torch.einsum("bqhd,bkhd->bqhk", dof[:, rows].abs(), vf.abs())
+               + prod.abs().sum(-1)[..., None])
+        del dp, prod
+        fp = torch.where(_to_bf16_midpoint(p) < p * (d_arg + eps),
+                         _bf16_ulp(p), 0.0)
+        fds = torch.where(_to_bf16_midpoint(ds)
+                          < ds.abs() * (d_arg + eps) + eps * p * mag,
+                          _bf16_ulp(ds), 0.0)
+        del p, ds, mag, d_arg
+        bq[:, rows] = torch.einsum("bqhk,bkhd->bqhd", fds, kf.abs()) * scale
+        bk += torch.einsum("bqhk,bqhd->bkhd", fds, qf[:, rows].abs()) * scale
+        bv += torch.einsum("bqhk,bqhd->bkhd", fp, dof[:, rows].abs())
+    return (bq, bk.reshape(B, Sk, KVH, G, D).sum(3),
+            bv.reshape(B, Sk, KVH, G, DV).sum(3))
+
+
+def _bwd_tc_tile_masked(q0, kw0, Sk, causal, window, prefix):
+    """Whether the tc backward masks the 64 keys from ``kw0`` against the
+    64 rows from ``q0`` (``fbt_tile_masked``, ``FBT_NEED_MASK``): the
+    tile holds a masked pair, or keys past Sk."""
+    T = TC_BWD_TILE
+    if not causal:
+        return kw0 + T > Sk
+    if prefix:
+        return kw0 + T - 1 > (prefix - 1 if q0 < prefix else q0)
+    return kw0 + T - 1 > q0 or (window > 0 and q0 + T - 1 - kw0 >= window)
+
+
+def bwd_tc_schedule(Sq: int, Sk: int, *, keys: int = TC_BWD_KEYS,
+                    causal: bool = True, window: int = 0,
+                    prefix_len: int = 0):
+    """The tc backward's walk, as ``fbt_main128`` (``keys`` 128) and
+    ``fbt_mla`` / ``fbt_main256`` (64) run it: for each key block (its
+    first key k0) the 64-row query tiles t from the first that sees one
+    of its keys (its diagonal, causal; row 0 for a block that starts in
+    the prefix, or cross) to the window's far edge or the last row, and
+    for each 64-key part of the block (a warpgroup's keys, from kw0) on
+    that tile, whether it is masked. Every part is computed, one whose
+    pairs are all masked too (it gives zeros). Yields (k0, t, [(kw0,
+    masked), ...])."""
+    T = TC_BWD_TILE
+    prefix = min(int(prefix_len), Sk)
+    for k0 in range(0, Sk, keys):
+        k_last = min(k0 + keys, Sk) - 1
+        q_last = min(Sq - 1, k_last + window - 1) if window > 0 else Sq - 1
+        if not causal:
+            t_begin = 0
+        else:
+            t_begin = (0 if k0 < prefix else k0) // T
+        for t in range(t_begin, q_last // T + 1):
+            yield k0, t, [(kw0, _bwd_tc_tile_masked(t * T, kw0, Sk, causal,
+                                                    window, prefix))
+                          for kw0 in range(k0, k0 + keys, T)]
+
+
+def flash_attention_bwd_blocks_plain(q, k, v, o, lse, do, *, window: int = 0,
+                                     causal: bool = True,
+                                     prefix_len: int = 0):
+    """The tc backward's blocking in plain PyTorch: its function
+    (``flash_attention_bwd_plain(..., operands="bf16")``) computed as the
+    kernels compute it. Key blocks of :data:`TC_BWD_KEYS` keys at head_dim
+    64, 96 and 128 (``fbt_main128``), a 64-key half a warpgroup (each
+    forms S^T and dP^T of its own keys; dQ's columns split at 32 at
+    head_dim 64, else at 64); of 64 keys in MLA's mode and at 256
+    (``fbt_mla``, ``fbt_main256``), whose two warpgroups split the query
+    rows of S^T and dP^T 32 / 32 and deal out the 64-column blocks of dK,
+    dV and dQ. Each block walks :func:`bwd_tc_schedule`'s query tiles and
+    masks only the parts it flags; P and dS rounded to bf16 as the
+    products' operands; dQ summed over the key blocks in an f32
+    accumulator; dK and dV a block's own sums, written (dK scaled) by
+    ``fbt_main128`` and ``fbt_mla`` where the group is one head, else
+    per-query-head partials summed over the group in order. Math in f32
+    (float64 inputs' float64); rows past S take lse = 1e30 (P = 0) and
+    keys past Sk are zero rows, as the kernels' padding."""
+    B, S, H, D = q.shape
+    Sk, KVH, DV = k.shape[1], k.shape[2], v.shape[-1]
+    _check_mode(S, Sk, causal, window, prefix_len)
+    T, G = TC_BWD_TILE, H // KVH
+    shared = D != DV or D == 256       # two warpgroups share 64 keys
+    keys = T if shared else TC_BWD_KEYS
+    wd = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / float(D) ** 0.5
+    prefix = min(int(prefix_len), Sk)
+    sp, kp = -(-S // T) * T, -(-Sk // keys) * keys
+    pad = lambda x, n: torch.nn.functional.pad(
+        x.to(wd), (0, 0, 0, 0, 0, n - x.shape[1]))
+    qf, dof = pad(q, sp), pad(do, sp)
+    kf = pad(k, kp).repeat_interleave(G, 2)      # head h reads h // G
+    vf = pad(v, kp).repeat_interleave(G, 2)
+    delta = pad((do.to(wd) * o.to(wd)).sum(-1, keepdim=True), sp)[..., 0]
+    lsef = torch.full((B, sp, H), 1e30, dtype=wd)
+    lsef[:, :S] = lse.to(wd).permute(0, 2, 1)
+    bf = lambda x: x.to(torch.bfloat16).to(wd)
+    dq_acc = torch.zeros((B, sp, H, D), dtype=wd)
+    dk_part = torch.zeros((B, kp, H, D), dtype=wd)
+    dv_part = torch.zeros((B, kp, H, DV), dtype=wd)
+    q_pos, k_pos = torch.arange(sp), torch.arange(kp)
+    for k0, t, parts in bwd_tc_schedule(S, Sk, keys=keys, causal=causal,
+                                        window=window, prefix_len=prefix):
+        rows = slice(t * T, t * T + T)
+        ds_block = torch.zeros((B, T, H, keys), dtype=wd)
+        for kw0, masked in parts:
+            cols = slice(kw0, kw0 + T)
+            s = torch.einsum("bqhd,bkhd->bqhk", qf[:, rows], kf[:, cols])
+            p = torch.exp(s * scale - lsef[:, rows, :, None])
+            if masked:
+                allow = _allow(q_pos[rows], k_pos[cols], causal, window,
+                               prefix) & (k_pos[cols] < Sk)[None, :]
+                p = torch.where(allow[None, :, None, :], p, 0.0)
+            dp = torch.einsum("bqhd,bkhd->bqhk", dof[:, rows], vf[:, cols])
+            ds = bf(p * (dp - delta[:, rows, :, None]))
+            dv_part[:, cols] += torch.einsum("bqhk,bqhd->bkhd", bf(p),
+                                             dof[:, rows])
+            dk_part[:, cols] += torch.einsum("bqhk,bqhd->bkhd", ds,
+                                             qf[:, rows])
+            ds_block[..., kw0 - k0:kw0 - k0 + T] = ds
+        # dQ = dS K over the block's keys, its columns split over the two
+        # warpgroups (128 + 64 in MLA's mode, 128 + 128 at 256), added
+        # into the accumulator
+        kb = kf[:, k0:k0 + keys]
+        dq0 = 128 if shared else 32 if D == 64 else 64
+        for c0, c1 in ((0, dq0), (dq0, D)):
+            dq_acc[:, rows, :, c0:c1] += torch.einsum(
+                "bqhk,bkhd->bqhd", ds_block, kb[..., c0:c1])
+    dk_part, dv_part = dk_part[:, :Sk], dv_part[:, :Sk]
+    if G == 1 and D != 256:       # written by the block itself
+        dk, dv = dk_part * scale, dv_part
+    else:                         # fbt_finish: the group's partials, in order
+        dk = dk_part.reshape(B, Sk, KVH, G, D)[..., 0, :].clone()
+        dv = dv_part.reshape(B, Sk, KVH, G, DV)[..., 0, :].clone()
+        for g in range(1, G):
+            dk += dk_part.reshape(B, Sk, KVH, G, D)[..., g, :]
+            dv += dv_part.reshape(B, Sk, KVH, G, DV)[..., g, :]
+        dk = dk * scale
+    out = q.dtype
+    return (dq_acc[:, :S] * scale).to(out), dk.to(out), dv.to(out)
+
+
 def _fn(variant: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if variant == "tc":
@@ -374,37 +573,63 @@ def _check(q, k, v, *, causal: bool = True, window: int = 0,
     return variant
 
 
+def _bwd_tc_run(fn, q, k, v, o, lse, do, window: int, causal: bool = True,
+                prefix_len: int = 0):
+    """One call of the tc backward's C entry ``fn`` (the committed one, or
+    an ablation's copy) on checked CUDA tensors, with the scratch it
+    takes: the rows' (lse, D) pairs (B, H, Sp, 2) and the dQ accumulator
+    (B, H, Sp, D), f32 with Sp = S rounded up to 64 (the key blocks add
+    their dQ rows into it, so dQ's summation order varies between runs);
+    the f32 per-query-head partials of dK (B, Sk, H, D) and dV (B, Sk, H,
+    DV), which ``fbt_finish`` sums over each group in a fixed order, only
+    where the main kernel does not write dK and dV itself (a group of
+    H / KVH > 1 heads, or head_dim 256). dK and dV are the same from run
+    to run. Returns (rc, dq, dk, dv)."""
+    B, S, H, D = q.shape
+    Sk, KVH, DV = k.shape[1], k.shape[2], v.shape[-1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sp = -(-S // TC_BWD_TILE) * TC_BWD_TILE
+    dev = q.device
+    ld = torch.empty((B, H, sp, 2), device=dev)
+    dq_acc = torch.empty((B, H, sp, D), device=dev)
+    dk_part = dv_part = None
+    if H != KVH or D == 256:
+        dk_part = torch.empty((B, Sk, H, D), device=dev)
+        dv_part = torch.empty((B, Sk, H, DV), device=dev)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), ld.data_ptr(),
+                dq_acc.data_ptr(),
+                None if dk_part is None else dk_part.data_ptr(),
+                None if dv_part is None else dv_part.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *_shape(q, k, window, causal, prefix_len, stream, v))
+    return rc, dq, dk, dv
+
+
 def _bwd_launch(variant: str, q, k, v, o, lse, do, window: int,
                 causal: bool = True, prefix_len: int = 0):
     """Run one backward call of the given variant on checked CUDA
-    tensors and count it (each variant issues three kernels a call).
-    ``tc`` sums dK and dV over the group's heads from f32 per-query-head
-    partials and dQ in an f32 accumulator that the key tiles add into
-    (so dQ's summation order varies between runs; dK and dV do not)."""
+    tensors and count it (each variant issues three kernels a call;
+    ``tc``'s scratch: :func:`_bwd_tc_run`)."""
     B, S, H, D = q.shape
-    Sk, DV = k.shape[1], v.shape[-1]
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape = _shape(q, k, window, causal, prefix_len, stream, v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr())
-    with torch.cuda.device(q.device):
-        if variant == "tc":
-            sp = -(-S // TC_BWD_TILE) * TC_BWD_TILE
-            dev = q.device
-            ld = torch.empty((B, H, sp, 2), device=dev)
-            dq_acc = torch.empty((B, H, sp, D), device=dev)
-            dk_part = torch.empty((B, Sk, H, D), device=dev)
-            dv_part = torch.empty((B, Sk, H, DV), device=dev)
-            rc = _fn("bwd_tc")(*ptrs, ld.data_ptr(), dq_acc.data_ptr(),
-                               dk_part.data_ptr(), dv_part.data_ptr(),
-                               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                               *shape)
-        else:
-            delta = torch.empty((B, H, S), device=q.device)
-            rc = _fn("bwd_simt")(_DTYPES[q.dtype], *ptrs, delta.data_ptr(),
-                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                 *shape)
+    DV = v.shape[-1]
+    if variant == "tc":
+        rc, dq, dk, dv = _bwd_tc_run(_fn("bwd_tc"), q, k, v, o, lse, do,
+                                     window, causal, prefix_len)
+    else:
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        delta = torch.empty((B, H, S), device=q.device)
+        with torch.cuda.device(q.device):
+            rc = _fn("bwd_simt")(_DTYPES[q.dtype], q.data_ptr(),
+                                 k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                 do.data_ptr(), lse.data_ptr(),
+                                 delta.data_ptr(), dq.data_ptr(),
+                                 dk.data_ptr(), dv.data_ptr(),
+                                 *_shape(q, k, window, causal, prefix_len,
+                                         stream, v))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward {variant} kernel "
                            f"launch failed: CUDA error {rc}")

@@ -50,7 +50,8 @@ LM_TRAIN_FAMILIES = (
     ("flash_attention forward", ("flash_attention_kernel",
                                  "flash_attention_tc_kernel")),
     ("flash_attention backward", ("fab_delta", "fab_dkdv", "fab_dq",
-                                  "fbt_prep", "fbt_main", "fbt_finish")),
+                                  "fbt_prep", "fbt_main", "fbt_mla",
+                                  "fbt_finish")),
     ("ssd_scan backward", ("ssd_bwd_chunk_states", "ssd_bwd_state_passing",
                            "ssd_bwd_tile", "ssd_bwd_finish")),
     ("ssd_scan forward", ("ssd_chunk_states", "ssd_state_passing",

@@ -16,7 +16,17 @@ steep enough that exp underflows to 0.
 products that take them. With ``operands="f32"`` it is bitwise the
 unrounded formulas; with ``"bf16"`` on bf16 inputs it lies within
 ``BF16_GRAD_TOL`` of ``jax.vjp`` of the reference's ``chunked_attention``
-in f32. Inputs come from numpy seeds."""
+in f32. ``flash_attention_bwd_blocks_plain`` states that kernel's
+blocking (key blocks split over two warpgroups, each block's walk over
+query tiles, the tiles it masks, dQ summed over key blocks,
+dK and dV written by the block or summed over the group); it is held to
+that function and to ``jax.vjp``, and ``bwd_tc_schedule`` visits every
+visible (row, key) pair once and leaves no masked pair on a tile it does
+not mask. ``flash_attention_bwd_flip_bound``, the card tests' allowance
+for P and dS that an f32 evaluation may round to the other bf16
+neighbour, holds f32 evaluations of the function (two orders, lse off by
+8 ulps) to its float64 statement and catches a dS or P rounded toward
+zero and a P rounded before dS is formed. Inputs come from numpy seeds."""
 import math
 
 import jax
@@ -29,6 +39,9 @@ from repro.models import attention as jattn
 from repro.models import ssm as jssm
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import \
+    flash_attention_bwd_blocks_plain
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 from test_torch_common import t
@@ -289,3 +302,203 @@ def test_flash_bwd_plain_bf16_operands_match_jax_vjp(B, S, H, KVH, D,
         assert g.dtype == torch.bfloat16, name
         err = float(np.abs(g.float().numpy() - r).max())
         assert err <= BF16_GRAD_TOL * float(np.abs(r).max()), (name, err)
+
+
+# the tc backward's blocking: (B, S, Sk, H, KVH, D, DV, causal, window,
+# prefix) — head_dim 96 and MLA's (192, 128) at G = 1 and G > 1, a window
+# crossing the 128-key blocks' edges, S and Sk ragged against the block,
+# cross at Sk 64 and a ragged Sk, prefixes ending mid-block, head_dim 64,
+# 128 and 256
+BLOCK_CASES = [
+    (1, 200, 200, 2, 2, 96, 96, True, 0, 0),
+    (1, 300, 300, 4, 2, 96, 96, True, 100, 0),
+    (1, 200, 200, 2, 2, 192, 128, True, 0, 0),
+    (1, 150, 150, 4, 1, 192, 128, True, 70, 0),
+    (2, 150, 64, 2, 2, 64, 64, False, 0, 0),
+    (1, 100, 200, 4, 2, 128, 128, False, 0, 0),
+    (1, 200, 200, 2, 1, 64, 64, True, 0, 77),
+    (1, 300, 300, 2, 2, 128, 128, True, 0, 150),
+    (1, 290, 290, 2, 2, 64, 64, True, 130, 0),
+    (1, 130, 130, 2, 1, 256, 256, True, 0, 70),
+]
+BLOCKS_EXACT64 = 1e-10   # blocked against whole in float64, of each
+                         # gradient's max |value|: the same bf16 roundings
+                         # of the same float64 P and dS, sums reordered
+
+
+def _block_inputs(seed, B, S, Sk, H, KVH, D, DV, dtype):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    do = rng.normal(size=(B, S, H, DV)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, KVH, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, KVH, DV)).astype(np.float32)
+    return [t(a).to(dtype) for a in (q, k, v, do)]
+
+
+def _masked_lse(q, k, causal, window, prefix):
+    """The forward's row log-sum-exp (B, H, S) under any of the masks."""
+    B, S, H, D = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                     k.double().repeat_interleave(G, 2)) / math.sqrt(D)
+    allow = flash_ops._allow(torch.arange(S), torch.arange(Sk), causal,
+                             window, prefix)
+    return torch.logsumexp(s.masked_fill(~allow, -1e30), -1)
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KVH,D,DV,causal,window,prefix",
+                         BLOCK_CASES)
+def test_flash_bwd_blocks_match_plain(B, S, Sk, H, KVH, D, DV, causal,
+                                      window, prefix):
+    """The blocked statement equals flash_attention_bwd_plain(operands=
+    "bf16") in float64 (BLOCKS_EXACT64): the walk, the masks, the skipped
+    parts, the dQ sums over key blocks and the dK / dV paths lose and add
+    nothing."""
+    q, k, v, do = _block_inputs(71 + S + Sk, B, S, Sk, H, KVH, D, DV,
+                                torch.float64)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o = flash_attention_plain(q, k, v, **kw).double()
+    lse = _masked_lse(q, k, causal, window, prefix)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, operands="bf16",
+                                     **kw)
+    got = flash_attention_bwd_blocks_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == torch.float64, name
+        err = float((g - w).abs().max())
+        assert err <= BLOCKS_EXACT64 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KVH,D,DV,causal,window,prefix",
+                         [BLOCK_CASES[i] for i in (0, 3, 4, 6)])
+def test_flash_bwd_blocks_bf16_match_jax_vjp(B, S, Sk, H, KVH, D, DV,
+                                             causal, window, prefix):
+    """On bf16 inputs the blocked statement lies within BF16_GRAD_TOL of
+    each gradient's max |value| of jax.vjp of the reference's
+    chunked_attention in f32 on the same values."""
+    q, k, v, do = _block_inputs(81 + S, B, S, Sk, H, KVH, D, DV,
+                                torch.bfloat16)
+    f32 = [x.float().numpy() for x in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda a, b, c: jattn.chunked_attention(
+        a, b, c, causal=causal, window=window, prefix_len=prefix,
+        chunk=64), *f32[:3])
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(f32[3]))]
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o = flash_attention_plain(q, k, v, **kw)
+    lse = _masked_lse(q, k, causal, window, prefix).float()
+    got = flash_attention_bwd_blocks_plain(q, k, v, o, lse, do, **kw)
+    for name, g, r in zip("qkv", got, ref):
+        assert g.dtype == torch.bfloat16, name
+        err = float(np.abs(g.float().numpy() - r).max())
+        assert err <= BF16_GRAD_TOL * float(np.abs(r).max()), (name, err)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,prefix", [
+    (2176, 2176, True, 0, 0), (2176, 2176, True, 1024, 0),
+    (300, 300, True, 100, 0), (290, 290, True, 130, 0), (75, 75, True, 20, 0),
+    (200, 200, True, 0, 77), (512, 512, True, 0, 256),
+    (200, 200, True, 0, 300), (1500, 64, False, 0, 0),
+    (333, 700, False, 0, 0), (64, 3, False, 0, 0)])
+@pytest.mark.parametrize("keys", [flash_ops.TC_BWD_KEYS,
+                                  flash_ops.TC_BWD_TILE])
+def test_flash_bwd_tc_schedule_visits_each_pair_once(Sq, Sk, causal, window,
+                                                     prefix, keys):
+    """bwd_tc_schedule at 128-key and 64-key blocks: every visible (row,
+    key) pair lies on exactly one part of one block's walk, and a part the
+    schedule leaves unmasked holds no pair the mask hides (rows past Sq
+    aside: their P is 0 by their lse; keys past Sk count as hidden)."""
+    T = flash_ops.TC_BWD_TILE
+    allow = flash_ops._allow(torch.arange(Sq), torch.arange(Sk), causal,
+                             window, min(prefix, Sk)).numpy()
+    seen = np.zeros((Sq, Sk), dtype=np.int64)
+    for k0, t, parts in flash_ops.bwd_tc_schedule(
+            Sq, Sk, keys=keys, causal=causal, window=window,
+            prefix_len=prefix):
+        assert len(parts) == keys // T and parts[0][0] == k0
+        rows = slice(t * T, min(t * T + T, Sq))
+        for kw0, masked in parts:
+            tile = np.zeros((rows.stop - rows.start, T), dtype=bool)
+            n = max(0, min(kw0 + T, Sk) - kw0)
+            tile[:, :n] = allow[rows, kw0:kw0 + n]
+            if not masked:
+                assert tile.all(), (k0, t, kw0)
+            seen[rows, kw0:kw0 + n] += tile[:, :n]
+    assert np.array_equal(seen, allow.astype(np.int64))
+
+
+def _flip_excess(got, exact, bound):
+    """Worst |got - exact| less ``bound`` (at least 0) over the element-wise
+    rule of the card tests (1e-4 of max |exact| plus two bf16 ulps of the
+    element), over the three gradients."""
+    worst = 0.0
+    for g, x, b in zip(got, exact, bound):
+        tol = 1e-4 * x.abs().max() + 2.0 * flash_ops._bf16_ulp(x)
+        d = ((g.double() - x).abs() - b).clamp_min(0.0)
+        worst = max(worst, float((d / tol).max()))
+    return worst
+
+
+def _planted(q, k, v, o, lse, do, fault, causal, window, prefix_len):
+    """The tc backward's function in f32 with one planted fault: dS or P
+    rounded toward zero to bf16, or P rounded to bf16 before dS is
+    formed."""
+    B, S, H, D = q.shape
+    Sk, G, f = k.shape[1], H // k.shape[2], torch.float32
+    qf, dof = q.to(f), do.to(f)
+    kf, vf = (x.to(f).repeat_interleave(G, 2) for x in (k, v))
+    allow = flash_ops._allow(torch.arange(S), torch.arange(Sk), causal,
+                             window, prefix_len)
+    s = torch.einsum("bqhd,bkhd->bqhk", qf, kf) / math.sqrt(D)
+    p = torch.where(allow[None, :, None],
+                    torch.exp(s - lse.to(f).permute(0, 2, 1)[..., None]),
+                    0.0)
+    dp = torch.einsum("bqhd,bkhd->bqhk", dof, vf)
+    delta = (dof * o.to(f)).sum(-1)[..., None]
+
+    def rz(x):                      # bf16 by truncation
+        return (x.view(torch.int32) & ~0xFFFF).view(torch.float32)
+
+    def rn(x):
+        return x.to(torch.bfloat16).to(f)
+    ds = (rn(p) if fault == "P rounded before dS" else p) * (dp - delta)
+    ds = rz(ds) if fault == "dS toward zero" else rn(ds)
+    pb = rz(p) if fault == "P toward zero" else rn(p)
+    kv = lambda x, n: x.reshape(B, Sk, k.shape[2], G, n).sum(3)
+    dv = kv(torch.einsum("bqhk,bqhd->bkhd", pb, dof), v.shape[-1])
+    dk = kv(torch.einsum("bqhk,bqhd->bkhd", ds, qf), D) / math.sqrt(D)
+    dq = torch.einsum("bqhk,bkhd->bqhd", ds, kf) / math.sqrt(D)
+    return [x.to(torch.bfloat16) for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KVH,D,DV,causal,window,prefix",
+                         [BLOCK_CASES[i] for i in (1, 3, 5, 7)]
+                         + [(1, 150, 200, 8, 2, 128, 128, False, 0, 0)])
+def test_flash_bwd_flip_bound_holds_f32_and_catches_faults(
+        B, S, Sk, H, KVH, D, DV, causal, window, prefix):
+    """flash_attention_bwd_flip_bound, on which the card tests' rule (a)
+    for the tc backward rests: on bf16 inputs, two f32 evaluations of the
+    function in different orders (flash_attention_bwd_plain(operands=
+    "bf16") and the kernel's blocking) and one whose lse is 8 ulps off lie
+    within the element-wise rule plus that bound of the float64
+    statement; the same function with dS or P rounded toward zero, or P
+    rounded before dS is formed, does not."""
+    q, k, v, do = _block_inputs(91 + S + Sk, B, S, Sk, H, KVH, D, DV,
+                                torch.bfloat16)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o = flash_attention_plain(q, k, v, **kw)
+    lse = _masked_lse(q, k, causal, window, prefix).float()
+    ins = (q, k, v, o, lse, do)
+    exact = flash_attention_bwd_plain(*(x.double() for x in ins),
+                                      operands="bf16", **kw)
+    bound = flash_ops.flash_attention_bwd_flip_bound(*ins, **kw)
+    lse8 = lse
+    for _ in range(8):
+        lse8 = torch.nextafter(lse8, torch.full_like(lse8, math.inf))
+    for what, got in (
+            ("plain", flash_attention_bwd_plain(*ins, operands="bf16", **kw)),
+            ("blocks", flash_attention_bwd_blocks_plain(*ins, **kw)),
+            ("lse 8 ulps", flash_attention_bwd_plain(
+                q, k, v, o, lse8, do, operands="bf16", **kw))):
+        assert _flip_excess(got, exact, bound) <= 1.0, what
+    for fault in ("dS toward zero", "P toward zero", "P rounded before dS"):
+        got = _planted(*ins, fault, **kw)
+        assert _flip_excess(got, exact, bound) > 2.0, fault
